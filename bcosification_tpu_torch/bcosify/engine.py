@@ -4,8 +4,9 @@
 The architecture: BcosifyConv2d convs (raw weights, fixed b), uncentered BN
 (bias-free unless ``use_bias``), ReLU (or Identity), an avg-pool stem, the
 classifier as a 1x1 conv before the global average pool, and the
-BcosifyNetwork wrapper (6-channel Normalize + LogitLayer). Only random
-init is ported; importing a torchvision checkpoint comes later.
+BcosifyNetwork wrapper (6-channel Normalize + LogitLayer). The weights
+come from a torchvision ResNet state dict (``bcosify/torch_import.py``) or
+from a random init.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from bcosification_tpu_torch.bcosify.torch_import import resnet_state_dict
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.models import resnet as resnet_lib
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
@@ -64,15 +66,18 @@ def build_bcosified_resnet(
     device=None,
     seed: Optional[int] = None,
 ) -> BcosifyNetwork:
-    """BcosifyNetwork(BcosResNet) in eval mode, randomly initialised from
-    ``seed`` (default: model_config's "seed", else 0), on ``device``
-    (default the GPU; raises without one unless device="cpu").
+    """BcosifyNetwork(BcosResNet) in eval mode on ``device`` (default the
+    GPU; raises without one unless device="cpu").
+
+    With ``state_dict`` (a torchvision ResNet checkpoint) the weights are
+    converted by ``resnet_state_dict``: the stem's channel doubling, the
+    BnUncV2 bias fold when norm_layer is "BnUncV2", biases kept only with
+    bcosify_args.use_bias. Without it the net is randomly initialised from
+    ``seed`` (default: model_config's "seed", else 0).
 
     ``layers`` overrides RESNET_LAYERS[name] with a (block, counts) pair,
     e.g. ("bottleneck", (1, 1)) for a small test net.
     """
-    if state_dict is not None:
-        raise NotImplementedError("importing a torchvision checkpoint is not ported yet")
     dev = resolve_device(device)
     block, counts = layers if layers is not None else RESNET_LAYERS[model_config["name"]]
     conv_layer, norm_layer, act_layer, use_bias, bargs = _bcosify_factories(model_config)
@@ -86,4 +91,8 @@ def build_bcosified_resnet(
         gap_reorder=bool(bargs.get("gap", True)), with_logit_layer=False, generator=gen,
     )
     net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True)
+    if state_dict is not None:
+        net.load_state_dict(resnet_state_dict(
+            state_dict, net,
+            fold_bn_bias=bargs.get("norm_layer", "BnUncV2") == "BnUncV2", use_bias=use_bias))
     return net.to(dev).eval().requires_grad_(False)

@@ -16,12 +16,16 @@ with the dynamic scale |u|/n detached and u recomputed:
 
     dx = ((ct * mult * [a > 0]) * |x @ w| / n) @ w^T
 
-Each kernel has a wrapper that checks its operands and counts its launches
-(``conv1x1_fwd.launches``, ``conv1x1_bwd_explain.launches``) and a plain
-PyTorch version with the same signature. The wrapper takes the plain
-version only for tensors on the CPU; a CUDA tensor reaches the kernel or an
-exception. Operands are [M, Cin] activations (NHWC flattened), the weight
-as wt [Cout, Cin] (a 1x1 OIHW weight viewed as a matrix), and f32 mult/add.
+Each kernel has a wrapper that checks its operands and a plain PyTorch
+version with the same signature. The wrapper calls a ``torch.library``
+custom op (``torch.ops.bcos_torch.conv1x1_fwd`` and ``.conv1x1_bwd_explain``)
+whose CPU implementation is the plain version and whose CUDA
+implementation launches the kernel and counts the launch
+(``conv1x1_fwd.launches``, ``conv1x1_bwd_explain.launches``); a CUDA
+tensor reaches the kernel or an exception. Each op has a shape function
+(``register_fake``), so ``torch.export`` traces through it. Operands are
+[M, Cin] activations (NHWC flattened), the weight as wt [Cout, Cin] (a 1x1
+OIHW weight viewed as a matrix), and f32 mult/add.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch import Tensor
 
 from bcosification_tpu_torch.ops.cuda import _build
 
@@ -53,6 +58,13 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def check_int32(name: str, *sizes) -> None:
+    """Raise if a size the kernel indexes with 32-bit ints is beyond them
+    (checked at launch, where the sizes are concrete)."""
+    if max(sizes) > _INT32_MAX:
+        raise ValueError(f"{name}: operands beyond 32-bit sizes")
+
+
 def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
                    mn=(), vec=()) -> None:
     """Raise unless x2 [M, K] and wt [N, K] share a supported dtype and
@@ -64,8 +76,6 @@ def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
         raise ValueError(f"{name}: need x [M, K] and wt [N, K], got "
                          f"{tuple(x2.shape)} and {tuple(wt.shape)}")
     m, n = x2.shape[0], wt.shape[0]
-    if max(x2.numel(), wt.numel(), m * n) > _INT32_MAX:
-        raise ValueError(f"{name}: operands beyond 32-bit sizes")
     tensors = [("x", x2, x2.dtype, x2.shape), ("wt", wt, x2.dtype, wt.shape)]
     tensors += [(k, t, x2.dtype, (m, n)) for k, t in mn]
     tensors += [(k, t, torch.float32, (n,)) for k, t in vec]
@@ -81,13 +91,11 @@ def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def on_cpu(name: str, x: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version); False for CUDA (kernel)."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
-        return False
-    raise ValueError(f"{name}: tensors on {x.device} are not supported")
+def check_device(name: str, x: torch.Tensor) -> None:
+    """Raise unless x lies on the CPU (the op runs the plain version) or on a
+    CUDA device (the op launches the kernel)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {x.device} are not supported")
 
 
 def _row_norm(xf: torch.Tensor, eps: float, eps_outside: bool) -> torch.Tensor:
@@ -116,10 +124,16 @@ def conv1x1_fwd(x2, wt, mult, add, *, relu: bool, eps: float = CONV_NORM_EPS):
     check_operands("conv1x1_fwd", x2, wt, vec=(("mult", mult), ("add", add)))
     if mult is None:
         raise ValueError("conv1x1_fwd: mult is required")
-    if on_cpu("conv1x1_fwd", x2):
-        return conv1x1_fwd_plain(x2, wt, mult, add, relu=relu, eps=eps)
+    check_device("conv1x1_fwd", x2)
+    return torch.ops.bcos_torch.conv1x1_fwd(x2, wt, mult, add, relu, eps)
+
+
+@torch.library.custom_op("bcos_torch::conv1x1_fwd", mutates_args=(), device_types="cuda")
+def _conv1x1_fwd_op(x2: Tensor, wt: Tensor, mult: Tensor, add: Optional[Tensor], relu: bool,
+                    eps: float) -> Tensor:
     m, k = x2.shape
     n = wt.shape[0]
+    check_int32("conv1x1_fwd", x2.numel(), wt.numel(), m * n)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     fn = _build.function("bcos_conv1x1_fwd", _FWD_ARGS)
     with torch.cuda.device(x2.device):
@@ -129,6 +143,16 @@ def conv1x1_fwd(x2, wt, mult, add, *, relu: bool, eps: float = CONV_NORM_EPS):
     _build.check("bcos_conv1x1_fwd", code)
     conv1x1_fwd.launches += 1
     return out
+
+
+@_conv1x1_fwd_op.register_kernel("cpu")
+def _conv1x1_fwd_cpu(x2, wt, mult, add, relu, eps):
+    return conv1x1_fwd_plain(x2, wt, mult, add, relu=relu, eps=eps)
+
+
+@_conv1x1_fwd_op.register_fake
+def _conv1x1_fwd_fake(x2, wt, mult, add, relu, eps):
+    return x2.new_empty((x2.shape[0], wt.shape[0]))
 
 
 conv1x1_fwd.launches = 0
@@ -160,20 +184,39 @@ def conv1x1_bwd_explain(x2, wt, ct, a, mult, *, relu: bool,
                    mn=(("ct", ct), ("a", a)), vec=(("mult", mult),))
     if ct is None or (relu and a is None):
         raise ValueError("conv1x1_bwd_explain: ct, and a when relu, are required")
-    if on_cpu("conv1x1_bwd_explain", x2):
-        return conv1x1_bwd_explain_plain(x2, wt, ct, a, mult, relu=relu, eps=eps,
-                                         eps_outside=eps_outside)
+    check_device("conv1x1_bwd_explain", x2)
+    return torch.ops.bcos_torch.conv1x1_bwd_explain(x2, wt, ct, a if relu else None, mult,
+                                                    relu, eps, eps_outside)
+
+
+@torch.library.custom_op("bcos_torch::conv1x1_bwd_explain", mutates_args=(),
+                         device_types="cuda")
+def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
+                    mult: Optional[Tensor], relu: bool, eps: float,
+                    eps_outside: bool) -> Tensor:
     m, k = x2.shape
     n = wt.shape[0]
+    check_int32("conv1x1_bwd_explain", x2.numel(), wt.numel(), m * n)
     dx = torch.empty((m, k), dtype=x2.dtype, device=x2.device)
     fn = _build.function("bcos_conv1x1_bwd_explain", _BWD_ARGS)
     with torch.cuda.device(x2.device):
-        code = fn(_DTYPE_CODE[x2.dtype], _ptr(x2), _ptr(wt), _ptr(ct),
-                  _ptr(a) if relu else None, _ptr(mult), _ptr(dx), m, k, n, eps,
-                  int(eps_outside), int(relu), torch.cuda.current_stream().cuda_stream)
+        code = fn(_DTYPE_CODE[x2.dtype], _ptr(x2), _ptr(wt), _ptr(ct), _ptr(a), _ptr(mult),
+                  _ptr(dx), m, k, n, eps, int(eps_outside), int(relu),
+                  torch.cuda.current_stream().cuda_stream)
     _build.check("bcos_conv1x1_bwd_explain", code)
     conv1x1_bwd_explain.launches += 1
     return dx
+
+
+@_conv1x1_bwd_op.register_kernel("cpu")
+def _conv1x1_bwd_cpu(x2, wt, ct, a, mult, relu, eps, eps_outside):
+    return conv1x1_bwd_explain_plain(x2, wt, ct, a, mult, relu=relu, eps=eps,
+                                     eps_outside=eps_outside)
+
+
+@_conv1x1_bwd_op.register_fake
+def _conv1x1_bwd_fake(x2, wt, ct, a, mult, relu, eps, eps_outside):
+    return torch.empty_like(x2)
 
 
 conv1x1_bwd_explain.launches = 0

@@ -20,13 +20,15 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from bcosification_tpu_torch.ops.cuda import _build
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import (
     _DTYPE_CODE,
+    check_device,
+    check_int32,
     check_operands,
     conv1x1_bwd_explain,
-    on_cpu,
 )
 
 __all__ = ["bcos_matmul", "bcos_matmul_fwd", "bcos_matmul_fwd_plain"]
@@ -45,12 +47,19 @@ def bcos_matmul_fwd_plain(x, wt, *, eps: float, eps_outside: bool):
 
 
 def bcos_matmul_fwd(x, wt, *, eps: float, eps_outside: bool):
-    """K3 on x [M, K], wt [N, K] (same dtype) -> f32 [M, N]."""
+    """K3 on x [M, K], wt [N, K] (same dtype) -> f32 [M, N], through the
+    custom op ``torch.ops.bcos_torch.bcos_matmul_fwd`` (CPU: the plain
+    version; CUDA: the kernel, counted in ``bcos_matmul_fwd.launches``)."""
     check_operands("bcos_matmul_fwd", x, wt)
-    if on_cpu("bcos_matmul_fwd", x):
-        return bcos_matmul_fwd_plain(x, wt, eps=eps, eps_outside=eps_outside)
+    check_device("bcos_matmul_fwd", x)
+    return torch.ops.bcos_torch.bcos_matmul_fwd(x, wt, eps, eps_outside)
+
+
+@torch.library.custom_op("bcos_torch::bcos_matmul_fwd", mutates_args=(), device_types="cuda")
+def _bcos_matmul_fwd_op(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) -> Tensor:
     m, k = x.shape
     n = wt.shape[0]
+    check_int32("bcos_matmul_fwd", x.numel(), wt.numel(), m * n)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("bcos_matmul_fwd", _ARGS)
     with torch.cuda.device(x.device):
@@ -59,6 +68,16 @@ def bcos_matmul_fwd(x, wt, *, eps: float, eps_outside: bool):
     _build.check("bcos_matmul_fwd", code)
     bcos_matmul_fwd.launches += 1
     return y
+
+
+@_bcos_matmul_fwd_op.register_kernel("cpu")
+def _bcos_matmul_fwd_cpu(x, wt, eps, eps_outside):
+    return bcos_matmul_fwd_plain(x, wt, eps=eps, eps_outside=eps_outside)
+
+
+@_bcos_matmul_fwd_op.register_fake
+def _bcos_matmul_fwd_fake(x, wt, eps, eps_outside):
+    return x.new_empty((x.shape[0], wt.shape[0]), dtype=torch.float32)
 
 
 bcos_matmul_fwd.launches = 0

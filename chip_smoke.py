@@ -10,20 +10,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each kernel against its plain PyTorch version at four
    main-path shapes, in fp32 (TF32 off; max |diff| <= 1e-5 max |ref|) and
    bf16 (against the plain version in fp32 on the same rounded inputs;
-   ||diff|| <= 1e-2 ||ref||); then each kernel's time at every shape one
-   main-path call gives it, beside its bound, its plain version and
-   torch.matmul on the same GEMM;
+   ||diff|| <= 1e-2 ||ref||); then (after phase 6, whose streaming rate it
+   uses) each kernel's time at every shape one main-path call gives it,
+   beside its bound (at the data-sheet and at the measured memory rate),
+   its plain version and torch.matmul on the same GEMM;
 4. parity: the full-width B-cosified ResNet-50 (224x224, gamma-calibrated),
    fp32, 2 images: the fast forward + explanation on the GPU (kernels)
    against the same call on the CPU (plain versions; W within 1e-3, the
    pre-logit features within 1e-4, identical argmax), and the module path
    (autograd through the kernels) against the fast path (1e-4);
 5. throughput: batch 128, 224x224, bf16: forward + explanation and
-   forward-only images/s, with the kernel launch counts of one call each.
+   forward-only images/s, each over one window of calls in a row, with the
+   kernel launch counts of one call each (and, for comparison with the
+   older records, the median of 10 single calls);
+6. probe: K4, the streaming add, against its plain version bit for bit at
+   [401408, 256] bf16, then the probe's entry point
+   (probes/stream_bandwidth.measure): K4's and PyTorch's a + b + c time and
+   rate beside the 3.35 TB/s data-sheet rate;
+7. serving: the calibrated net exported (serving.export_forward and
+   .export_explain), saved to bytes and loaded back; at batch 128, bf16 the
+   loaded programs against the eager calls (argmax identical, logits and W
+   within 1e-6 relative: the same ops and kernels on the same inputs), their
+   launch counts, forward-only, forward + explanation and a mixed loop in
+   which 1 batch in 10 is explained, beside the harmonic model of the two
+   and the eager calls timed the same way; then explain() on one image
+   (RGBA finite, in [0, 1]).
 
-The last three lines are the card, one JSON object with the kernels'
-numbers, and {"ok": true, "device": {...}}. Without a GPU, or without the
-repository next to it, the script exits non-zero and prints no result.
+Every time is taken over runs of calls in a row between two CUDA events, so
+the host's launch of one call overlaps the card's work on the one before:
+a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
+is the images of one window of about 1.7 s over its time. The last three
+lines are the card, one JSON object with the kernels' numbers, and
+{"ok": true, "device": {...}}.
+Without a GPU, or without the repository next to it, the script exits
+non-zero and prints no result.
 """
 import copy
 import json
@@ -35,13 +55,16 @@ import time
 
 import torch
 
+from bcosification_tpu_torch import serving
 from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
-from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
 from bcosification_tpu_torch.models.resnet import Bottleneck
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
 from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
+from bcosification_tpu_torch.ops.cuda import stream as k4
+from bcosification_tpu_torch.probes import stream_bandwidth
 
 FLAGSHIP = {
     "name": "resnet50",
@@ -59,7 +82,15 @@ SOURCES = {
                                  "bcosification_tpu/ops/pallas/bcos_conv1x1.py:124"),
     "bcos_matmul_fwd": ("bcosification_tpu_torch/ops/cuda/csrc/bcos_matmul_fwd.cu",
                         "bcosification_tpu/ops/pallas/bcos_matmul.py:45"),
+    "stream_add": ("bcosification_tpu_torch/ops/cuda/csrc/stream_add.cu",
+                   "scripts/perf_probe9.py:22"),
 }
+MODEL_KERNELS = ("bcos_conv1x1_fwd", "bcos_conv1x1_bwd_explain", "bcos_matmul_fwd")
+PROBE_M, PROBE_C, PROBE_NIN = 401408, 256, 3  # the layer1 activation at batch 128
+SERVE_EVERY = 10  # the mixed loop explains 1 batch in SERVE_EVERY
+# calls per timing window: each window holds about 1.7 s of the card's work
+# on an H100 at batch 128 (29 ms forward, 88 ms fwd+explain, 344 ms period)
+WINDOW_FWD, WINDOW_EXPLAIN, WINDOW_PERIODS = 60, 20, 5
 CHECK_SHAPES = [  # (label, M, Cin, Cout, relu) at batch 128, 224x224
     ("layer1.conv1", 401408, 256, 64, True),
     ("layer3.conv3", 25088, 256, 1024, False),
@@ -94,21 +125,6 @@ def phase_build():
 # --------------------------------------------------------------------------
 # 3: kernels
 # --------------------------------------------------------------------------
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median time of one call, from CUDA events around each of ``iters``."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def operands(m, k, n, dtype, gen):
     x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
     wt = (torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)).to(dtype)
@@ -138,7 +154,7 @@ def check_kernels():
     """Each kernel against its plain version at the four check shapes, both
     dtypes. Returns {kernel: max abs error over all checks}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {name: 0.0 for name in SOURCES}
+    worst = {name: 0.0 for name in MODEL_KERNELS}
     for label, m, k, n, relu in CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
@@ -210,31 +226,36 @@ def bound_terms(name, m, k, n, relu):
     return flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
 
 
-def time_kernels(model, worst, counts):
+def time_kernels(model, worst, counts, stream_rate):
     """Per kernel: time, bound, plain and torch.matmul time of ONE main-path
     call's launches (bf16, batch 128), each distinct shape timed as the
-    median of 20 launches and weighted by how often the call launches it."""
+    median of 10 samples of 10 launches in a row and weighted by how often
+    the call launches it. Each bound is also stated at ``stream_rate``
+    (bytes/s), the streaming rate K4 measured on this card."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     launches = main_path_launches(model, BATCH, SIZE)
     per_shape = {}
     for key in launches:
         per_shape[key] = per_shape.get(key, 0) + 1
-    for name in SOURCES:
+    for name in MODEL_KERNELS:
         expected = sum(c for key, c in per_shape.items() if key[0] == name)
         if counts.get(name) != expected:
             raise AssertionError(f"{name}: {counts.get(name)} launches, shapes list {expected}")
     rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_s=0.0, byte_s=0.0,
-                       bound_s=0.0) for name in SOURCES}
+                       bound_s=0.0, measured_bound_s=0.0) for name in MODEL_KERNELS}
     for (name, m, k, n, relu), count in sorted(per_shape.items()):
         x, wt, mult, add, ct = operands(m, k, n, torch.bfloat16, gen)
         kern, plain, lib = kernel_calls(name, x, wt, mult, add, ct, relu)
-        t_k, t_p, t_l = cuda_ms(kern), cuda_ms(plain, iters=5, warmup=1), cuda_ms(lib)
+        t_k = stream_bandwidth.event_ms(kern, 10)
+        t_p = stream_bandwidth.event_ms(plain, 3, warmup=1, burst=3)
+        t_l = stream_bandwidth.event_ms(lib, 10)
         f_s, b_s = bound_terms(name, m, k, n, relu)
         r = rows[name]
         r["ms"] += count * t_k
         r["plain_ms"] += count * t_p
         r["library_ms"] += count * t_l
         r["bound_s"] += count * max(f_s, b_s)
+        r["measured_bound_s"] += count * max(f_s, b_s * PEAK_BYTES / stream_rate)
         r["flop_s" if f_s >= b_s else "byte_s"] += count * max(f_s, b_s)
         say(f"time {name:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms "
             f"(bound {1e3 * max(f_s, b_s):.4f}, plain {t_p:.4f}, torch.matmul {t_l:.4f}) "
@@ -242,6 +263,9 @@ def time_kernels(model, worst, counts):
         del x, wt, ct
     kernels = []
     for name, r in rows.items():
+        say(f"bound of {name} per call: {1e3 * r['bound_s']:.4f} ms at the 3350 GB/s data "
+            f"sheet rate, {1e3 * r['measured_bound_s']:.4f} ms at the measured "
+            f"{stream_rate / 1e9:.1f} GB/s [{CARD}]")
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -345,18 +369,49 @@ def phase_parity(net, x2):
 # --------------------------------------------------------------------------
 # 5: throughput
 # --------------------------------------------------------------------------
+EXPLAIN_COUNTS = {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 37,
+                  "bcos_matmul_fwd": 1, "stream_add": 0}
+FORWARD_COUNTS = {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 0,
+                  "bcos_matmul_fwd": 1, "stream_add": 0}
+
+
+def check_counts(what, counts, expected):
+    if counts != expected:
+        raise AssertionError(f"{what} launches {counts}, expected {expected}")
+
+
+def window_ms(fn, calls, warmup=1):
+    """Milliseconds per call of ``calls`` calls of ``fn`` in a row between
+    two CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def timed_iters(fn, iters):
+    """(median, all) CUDA-event ms of ``iters`` single calls, and the median
+    host ms to issue one call (the Python call's return, before the card
+    finishes): while it stays below the card's time, the launches' host
+    cost, custom-op dispatch included, is hidden."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    times, host = [], []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host.append(1e3 * (time.perf_counter() - t0))
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times), times
+    return statistics.median(times), times, statistics.median(host)
 
 
 def phase_throughput(net, x2):
@@ -385,12 +440,8 @@ def phase_throughput(net, x2):
     torch.cuda.synchronize()
     counts_forward = launch_counts()
     say(f"launches per fwd+explain call: {counts_explain}; per forward: {counts_forward}")
-    if counts_explain != {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 37,
-                          "bcos_matmul_fwd": 1}:
-        raise AssertionError(f"fwd+explain launches {counts_explain}, expected 36/37/1")
-    if counts_forward != {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 0,
-                          "bcos_matmul_fwd": 1}:
-        raise AssertionError(f"forward launches {counts_forward}, expected 36/0/1")
+    check_counts("fwd+explain", counts_explain, EXPLAIN_COUNTS)
+    check_counts("forward", counts_forward, FORWARD_COUNTS)
     if not (torch.isfinite(logits).all() and torch.isfinite(w).all()) or w.shape != x.shape:
         raise AssertionError("bf16 outputs are not finite or mis-shaped")
     # bf16 against fp32 on the same (rounded) two images, for the record: at
@@ -401,17 +452,152 @@ def phase_throughput(net, x2):
     say(f"bf16 vs fp32 on the first two images: W rel {rel(w[:2].float(), w_ref):.3e}, "
         f"pre-logit max rel {float((pre[0] - pre[1]).abs().max() / pre[1].abs().max()):.3e}")
     torch.cuda.reset_peak_memory_stats()
-    ms_explain, all_explain = timed_iters(explain_call, 10)
+    ms_explain = window_ms(explain_call, WINDOW_EXPLAIN)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    ms_forward, all_forward = timed_iters(forward_call, 10)
+    ms_forward = window_ms(forward_call, WINDOW_FWD)
+    single_explain, all_explain, host_explain = timed_iters(explain_call, 10)
+    single_forward, all_forward, host_forward = timed_iters(forward_call, 10)
     say(f"throughput fwd+explain: {BATCH / ms_explain * 1e3:.1f} img/s "
-        f"({ms_explain:.2f} ms per batch of {BATCH}, median of 10; "
-        f"spread {min(all_explain):.2f}-{max(all_explain):.2f} ms; peak memory "
-        f"{peak_gb:.1f} GB) [{CARD}]")
+        f"({ms_explain:.2f} ms per batch of {BATCH}, one window of {WINDOW_EXPLAIN} calls; "
+        f"peak memory {peak_gb:.1f} GB; the host issues one call in {host_explain:.2f} ms; "
+        f"median of 10 single calls {BATCH / single_explain * 1e3:.1f} img/s, spread "
+        f"{min(all_explain):.2f}-{max(all_explain):.2f} ms) [{CARD}]")
     say(f"throughput forward-only: {BATCH / ms_forward * 1e3:.1f} img/s "
-        f"({ms_forward:.2f} ms per batch, spread {min(all_forward):.2f}-"
+        f"({ms_forward:.2f} ms per batch, one window of {WINDOW_FWD} calls; host "
+        f"{host_forward:.2f} ms; median of 10 single calls "
+        f"{BATCH / single_forward * 1e3:.1f} img/s, spread {min(all_forward):.2f}-"
         f"{max(all_forward):.2f} ms) [{CARD}]")
     return counts_explain, ms_explain
+
+
+# --------------------------------------------------------------------------
+# 6: the streaming-bandwidth probe (K4)
+# --------------------------------------------------------------------------
+def phase_probe():
+    """K4 against its plain version, bit for bit, at the probe's shape and a
+    ragged one; then the probe's own entry point, with K4's launches counted
+    over that run. Returns K4's row of the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = 0.0
+    for shape in ((PROBE_M, PROBE_C), (1001, 7)):
+        xs = [torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+              for _ in range(PROBE_NIN)]
+        got, want = k4.stream_add(*xs), k4.stream_add_plain(*xs)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        say(f"check stream_add {shape} bf16 bit-for-bit against the plain version: "
+            f"{'ok' if same else 'FAILED'}")
+        if not same:
+            raise AssertionError("stream_add disagrees with its plain version")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        del xs, got, want
+    reset_launch_counts()
+    r = stream_bandwidth.measure(PROBE_M, PROBE_C, 20, nin=PROBE_NIN, seed=SEED)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["stream_add"] < 1 or any(counts[k] for k in MODEL_KERNELS):
+        raise AssertionError(f"probe launches {counts}: K4 alone expected")
+    bound_ms = r["k4_bytes"] / PEAK_BYTES * 1e3
+    say(f"probe [{PROBE_M}, {PROBE_C}] bf16, {PROBE_NIN} inputs: K4 {r['k4_ms']:.4f} ms = "
+        f"{r['k4_gbs']:.1f} GB/s over its {r['k4_bytes'] / 1e6:.1f} MB "
+        f"({r['k4_gbs'] / (PEAK_BYTES / 1e9):.1%} of the 3350 GB/s data-sheet rate; "
+        f"bound {bound_ms:.4f} ms); torch a + b + c {r['torch_ms']:.4f} ms = "
+        f"{r['torch_gbs']:.1f} GB/s over its {r['torch_bytes'] / 1e6:.1f} MB [{CARD}]")
+    source, replaces = SOURCES["stream_add"]
+    return {"name": "stream_add", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts["stream_add"], "max_abs_err": worst, "ms": r["k4_ms"],
+            "plain_ms": r["torch_ms"], "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}, r
+
+
+# --------------------------------------------------------------------------
+# 7: serving export
+# --------------------------------------------------------------------------
+def blend_rate(p, r_fwd, r_explain):
+    """Images/s of a stream in which a fraction p is explained: the
+    weighted harmonic mean of the two rates."""
+    return 1.0 / ((1.0 - p) / r_fwd + p / r_explain)
+
+
+def phase_serving(net, x2):
+    """Exported forward and forward + explanation programs of the calibrated
+    net, loaded from bytes, against the eager calls at batch 128, bf16."""
+    t0 = time.perf_counter()
+    blob_fwd = serving.export_forward(net, input_size=SIZE, dtype=torch.bfloat16)
+    blob_explain = serving.export_explain(net, input_size=SIZE, dtype=torch.bfloat16)
+    fwd, expl = serving.load_serialized(blob_fwd), serving.load_serialized(blob_explain)
+    say(f"serving: exported and loaded both programs in {time.perf_counter() - t0:.1f} s "
+        f"({len(blob_fwd) / 1e6:.1f} MB and {len(blob_explain) / 1e6:.1f} MB)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.rand((BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    x[:2] = x2
+    x = x.to(torch.bfloat16)
+
+    reset_launch_counts()
+    logits, sel, w = expl.call(x)
+    torch.cuda.synchronize()
+    check_counts("loaded fwd+explain", launch_counts(), EXPLAIN_COUNTS)
+    reset_launch_counts()
+    logits_f = fwd.call(x)
+    torch.cuda.synchronize()
+    check_counts("loaded forward", launch_counts(), FORWARD_COUNTS)
+    le, se, we = fast_dynamic_linear_weights(net, x)
+    with torch.no_grad():
+        lf = net(x)
+    bias = net.logit_bias
+    checks = {  # (value, bound): the same ops and kernels on the same inputs
+        "W loaded vs eager (rel)": (rel(w.float(), we.float()), 1e-6),
+        "pre-logit loaded vs eager fwd+explain (rel)": (rel(logits.double() - bias,
+                                                            le.double() - bias), 1e-6),
+        "pre-logit loaded vs eager forward (rel)": (rel(logits_f.double() - bias,
+                                                        lf.double() - bias), 1e-6),
+    }
+    for key, (val, bound) in checks.items():
+        say(f"serving {key}: {val:.3e} (bound {bound:.0e})")
+    if not torch.equal(sel, se) or any(val > bound for val, bound in checks.values()):
+        raise AssertionError("the loaded programs disagree with the eager calls")
+
+    # every rate from one window of calls in a row, so that one call's host
+    # work overlaps the card's work on the one before, as in a serving loop
+    ms_fwd = window_ms(lambda: fwd.call(x), WINDOW_FWD)
+    ms_explain = window_ms(lambda: expl.call(x), WINDOW_EXPLAIN)
+
+    def mixed_period():  # one explained batch, then SERVE_EVERY - 1 forward-only
+        expl.call(x)
+        for _ in range(SERVE_EVERY - 1):
+            fwd.call(x)
+
+    # the window spans whole periods, so it holds exactly 1 explain in SERVE_EVERY
+    ms_period = window_ms(mixed_period, WINDOW_PERIODS)
+    host_fwd, host_explain = (timed_iters(lambda: fwd.call(x), 3)[2],
+                              timed_iters(lambda: expl.call(x), 3)[2])
+    r_fwd, r_explain = BATCH / ms_fwd * 1e3, BATCH / ms_explain * 1e3
+    r_mixed = BATCH * SERVE_EVERY / ms_period * 1e3
+    modeled = blend_rate(1.0 / SERVE_EVERY, r_fwd, r_explain)
+    say(f"serving loaded forward-only: {r_fwd:.1f} img/s ({ms_fwd:.2f} ms per batch of "
+        f"{BATCH}; one window of {WINDOW_FWD} calls; the host issues one call in "
+        f"{host_fwd:.2f} ms) [{CARD}]")
+    say(f"serving loaded fwd+explain: {r_explain:.1f} img/s ({ms_explain:.2f} ms; one "
+        f"window of {WINDOW_EXPLAIN} calls; host {host_explain:.2f} ms) [{CARD}]")
+    say(f"serving mixed loop, 1 batch in {SERVE_EVERY} explained: {r_mixed:.1f} img/s "
+        f"(one window of {WINDOW_PERIODS} periods, {ms_period:.2f} ms per period); harmonic "
+        f"model {modeled:.1f} img/s; measured / model - 1 = {r_mixed / modeled - 1:+.4f} "
+        f"[{CARD}]")
+    with torch.no_grad():
+        ms_fwd_eager = window_ms(lambda: net(x), WINDOW_FWD)
+    ms_explain_eager = window_ms(lambda: fast_dynamic_linear_weights(net, x), WINDOW_EXPLAIN)
+    say(f"serving eager, timed the same way: forward-only {BATCH / ms_fwd_eager * 1e3:.1f} "
+        f"img/s ({ms_fwd_eager:.2f} ms), fwd+explain {BATCH / ms_explain_eager * 1e3:.1f} "
+        f"img/s ({ms_explain_eager:.2f} ms) [{CARD}]")
+
+    one = explain(net, x[:1])
+    rgba = one["explanation"]
+    if (tuple(rgba.shape) != (SIZE, SIZE, 4) or not torch.isfinite(rgba).all()
+            or float(rgba.min()) < 0 or float(rgba.max()) > 1):
+        raise AssertionError("explain(): the RGBA explanation is not finite in [0, 1]")
+    say(f"explain() on one image: prediction {one['prediction']}, RGBA {tuple(rgba.shape)} "
+        f"in [{float(rgba.min()):.3g}, {float(rgba.max()):.3g}], finite")
 
 
 def main() -> int:
@@ -422,12 +608,18 @@ def main() -> int:
     CARD = card_line()
     say(f"device: {CARD} ({torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda})")
+    seconds = {}
+    t0 = time.perf_counter()
     phase_build()
+    seconds["2 build"] = time.perf_counter() - t0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     worst = check_kernels()
+    seconds["3 kernel checks"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     net = build_bcosified_resnet(FLAGSHIP, seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x2 = torch.rand((2, SIZE, SIZE, 3), device="cuda", generator=gen)
@@ -435,15 +627,30 @@ def main() -> int:
     mag = calibrate(net, x2[:1])
     say(f"calibrated BN gammas: pre-logit magnitude {mag:.3g} on the probe")
     phase_parity(net, x2)
+    seconds["4 parity"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     counts, ms_explain = phase_throughput(net, x2)
-    kernels = time_kernels(net.model, worst, counts)
+    seconds["5 throughput"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k4_row, probe = phase_probe()
+    seconds["6 probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = time_kernels(net.model, worst, counts, probe["k4_gbs"] * 1e9)
+    seconds["3 kernel times"] = time.perf_counter() - t0
     kernel_ms = sum(k["ms"] for k in kernels)
     say(f"kernels' share of one fwd+explain call: {kernel_ms:.2f} of {ms_explain:.2f} ms "
         f"[{CARD}]")
+    kernels.append(k4_row)
+
+    t0 = time.perf_counter()
+    phase_serving(net, x2)
+    seconds["7 serving"] = time.perf_counter() - t0
+
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             say(f"ptxas: {line.strip()}")
+    say("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     say(CARD)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,7 +27,7 @@ template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 alignas(128) inline unsigned char g_dyn_smem[256 * 1024];
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 struct Idx { unsigned x, y, z; };
-inline thread_local Idx threadIdx, blockIdx;
+inline thread_local Idx threadIdx, blockIdx, gridDim;
 inline std::barrier<>* g_bar = nullptr;
 inline float g_xchg[1024];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
@@ -47,7 +47,12 @@ void emu_launch(dim3 grid, unsigned nthreads, int, cudaStream_t, K kernel, A... 
       g_bar = &bar;
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < nthreads; ++t)
-        ts.emplace_back([=] { threadIdx = {t, 0, 0}; blockIdx = {bx, by, 0}; kernel(args...); });
+        ts.emplace_back([=] {
+          threadIdx = {t, 0, 0};
+          blockIdx = {bx, by, 0};
+          gridDim = {grid.x, grid.y, grid.z};
+          kernel(args...);
+        });
       for (auto& th : ts) th.join();
     }
 }

@@ -26,16 +26,16 @@ SHAPES = [(37, 24, 10), (130, 200, 70), (5, 300, 129)]  # (M, Cin, Cout), ragged
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5}  # max |diff| / max |ref|
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def compile_emulated(sources, work: Path, defines=()) -> ctypes.CDLL:
+    """The CUDA ``sources`` rewritten for the stand-in, compiled with g++ into
+    one library under ``work`` (skips without g++)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA stand-in")
-    work = tmp_path_factory.mktemp("cuda_emu")
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copy(header, work / header.name)
-    sources = []
-    for src in sorted(_build.CSRC.glob("*.cu")):
+    outs = []
+    for src in sources:
         text = re.sub(r"(\w+<[\w:]+>)<<<(.*?)>>>\(",
                       lambda m: f"emu_launch({m.group(2)}, {m.group(1)}, ",
                       src.read_text(), flags=re.S)
@@ -43,13 +43,20 @@ def emulated(tmp_path_factory):
                             "unsigned char* smem = g_dyn_smem;")
         out = work / (src.stem + ".cpp")
         out.write_text(text)
-        sources.append(str(out))
+        outs.append(str(out))
     lib = work / "libbcos_kernels_emu.so"
     cmd = [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}",
-           "-include", "cuda_runtime.h", "-include", "cuda_bf16.h", "-o", str(lib), *sources]
+           "-include", "cuda_runtime.h", "-include", "cuda_bf16.h",
+           *(f"-D{d}" for d in defines), "-o", str(lib), *outs]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
-    cdll = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    cdll = compile_emulated(sorted(_build.CSRC.glob("bcos_*.cu")),
+                            tmp_path_factory.mktemp("cuda_emu"))
     cdll.bcos_conv1x1_fwd.argtypes = k12._FWD_ARGS
     cdll.bcos_conv1x1_bwd_explain.argtypes = k12._BWD_ARGS
     cdll.bcos_matmul_fwd.argtypes = k3._ARGS

@@ -1,6 +1,7 @@
 """The PyTorch port on a GPU: each hand-written kernel against its plain
-version, the launch counters, and the small flagship on the GPU against the
-same net on the CPU. Every test here needs a GPU and skips without one.
+version, the launch counters, the small flagship on the GPU against the
+same net on the CPU, and an exported explanation program against the eager
+call. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -16,6 +17,7 @@ from bcosification_tpu_torch.ops import pooling
 from bcosification_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
 from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
+from bcosification_tpu_torch.ops.cuda import stream as k4
 
 pytestmark = pytest.mark.cuda
 SHAPES = [(37, 24, 10), (300, 200, 130), (1000, 64, 256), (96, 2048, 1000)]
@@ -70,7 +72,7 @@ def test_each_launch_is_counted(gpu):
     k12.conv1x1_fwd(x, torch.randn(16, 32, device=gpu), torch.ones(16, device=gpu), None,
                     relu=False)
     assert launch_counts() == {"bcos_conv1x1_fwd": 1, "bcos_conv1x1_bwd_explain": 0,
-                               "bcos_matmul_fwd": 0}
+                               "bcos_matmul_fwd": 0, "stream_add": 0}
 
 
 def test_wrapper_rejects_a_cpu_operand(gpu):
@@ -121,3 +123,40 @@ def test_small_flagship_gpu_matches_cpu(gpu, layers):
     assert _rel(wm, w) <= 1e-5
     bias = net.logit_bias
     assert _rel(logits.double() - bias, lc.double() - bias) <= 1e-5
+
+
+@pytest.mark.parametrize("nin", [2, 3, 4])
+@pytest.mark.parametrize("shape", [(4096, 256), (1001, 7), (3,)], ids=["main", "ragged", "tiny"])
+def test_stream_add_matches_plain_bit_for_bit(gpu, nin, shape):
+    g = torch.Generator(device=gpu).manual_seed(nin)
+    xs = [torch.randn(shape, device=gpu, generator=g).to(torch.bfloat16) for _ in range(nin)]
+    reset_launch_counts()
+    assert torch.equal(k4.stream_add(*xs), k4.stream_add_plain(*xs))
+    # operands off the 16-byte grid take the scalar loop
+    flat = [torch.randn(1 + 4096, device=gpu, generator=g).to(torch.bfloat16)[1:]
+            for _ in range(nin)]
+    assert torch.equal(k4.stream_add(*flat), k4.stream_add_plain(*flat))
+    assert launch_counts()["stream_add"] == 2
+
+
+def test_exported_explain_matches_eager(gpu):
+    from chip_smoke import FLAGSHIP, calibrate
+    from bcosification_tpu_torch import serving
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
+    from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
+
+    net = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10, inplanes=8,
+                                 layers=("bottleneck", (1, 1)))
+    g = torch.Generator(device=gpu).manual_seed(1)
+    x = torch.rand(3, 64, 64, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    calibrate(net, x[:1])
+    program = serving.load_serialized(serving.export_explain(net, input_size=64))
+    reset_launch_counts()
+    logits, sel, w = program.call(x)
+    counts = launch_counts()
+    lw, sw, ww = fast_dynamic_linear_weights(net, x)
+    # the same ATen ops and kernels on the same inputs
+    assert torch.equal(sel, sw)
+    assert _rel(w, ww) <= 1e-6 and _rel(logits, lw) <= 1e-6
+    assert counts["bcos_conv1x1_bwd_explain"] >= 1 and counts["bcos_matmul_fwd"] == 1
