@@ -16,6 +16,12 @@ with the dynamic scale |u|/n detached and u recomputed:
 
     dx = ((ct * mult * [a > 0]) * |x @ w| / n) @ w^T
 
+In bf16 both run on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``,
+whose tile loads need rows of whole 16-byte units: bf16 Cin must be a
+multiple of 8, or the wrapper raises. K2 in bf16 with Cout above
+``FUSED_MAX_COUT`` writes g to a scratch that the wrapper allocates and
+runs dx = g @ w as a second launch (one op call, one count).
+
 Each kernel has a wrapper that checks its operands and a plain PyTorch
 version with the same signature. The wrapper calls a ``torch.library``
 custom op (``torch.ops.bcos_torch.conv1x1_fwd`` and ``.conv1x1_bwd_explain``)
@@ -50,8 +56,11 @@ CONV_NORM_EPS = 1e-6
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
-_BWD_ARGS = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)
+_BWD_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)
 _INT32_MAX = 2**31 - 1
+# bf16 K2 keeps g [rows, Cout] in shared memory up to this Cout; beyond it,
+# g goes through a scratch [M, round_up(Cout, 8)] (csrc/bcos_conv1x1_bwd.cu)
+FUSED_MAX_COUT = 1024
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -89,6 +98,18 @@ def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
                              f"got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def check_tma(name: str, *tensors) -> None:
+    """Raise unless the bf16 operands suit the kernels' TMA loads: rows of
+    a multiple of 8 elements (16 bytes) and 16-byte aligned data."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    if tensors[0].shape[-1] % 8:
+        raise ValueError(f"{name}: bf16 Cin must be a multiple of 8 (TMA reads 16-byte "
+                         f"rows), got {tensors[0].shape[-1]}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
 
 
 def check_device(name: str, x: torch.Tensor) -> None:
@@ -134,6 +155,7 @@ def _conv1x1_fwd_op(x2: Tensor, wt: Tensor, mult: Tensor, add: Optional[Tensor],
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_fwd", x2.numel(), wt.numel(), m * n)
+    check_tma("conv1x1_fwd", x2, wt)
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     fn = _build.function("bcos_conv1x1_fwd", _FWD_ARGS)
     with torch.cuda.device(x2.device):
@@ -197,11 +219,15 @@ def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_bwd_explain", x2.numel(), wt.numel(), m * n)
+    check_tma("conv1x1_bwd_explain", x2, wt)
     dx = torch.empty((m, k), dtype=x2.dtype, device=x2.device)
+    g = None
+    if x2.dtype == torch.bfloat16 and n > FUSED_MAX_COUT:
+        g = torch.empty((m, (n + 7) // 8 * 8), dtype=x2.dtype, device=x2.device)
     fn = _build.function("bcos_conv1x1_bwd_explain", _BWD_ARGS)
     with torch.cuda.device(x2.device):
         code = fn(_DTYPE_CODE[x2.dtype], _ptr(x2), _ptr(wt), _ptr(ct), _ptr(a), _ptr(mult),
-                  _ptr(dx), m, k, n, eps, int(eps_outside), int(relu),
+                  _ptr(dx), _ptr(g), m, k, n, eps, int(eps_outside), int(relu),
                   torch.cuda.current_stream().cuda_stream)
     _build.check("bcos_conv1x1_bwd_explain", code)
     conv1x1_bwd_explain.launches += 1

@@ -1,4 +1,6 @@
-// Shared block machinery of the B-cos GEMM kernels (K1, K2, K3).
+// Shared block machinery of the plain B-cos GEMM tile loop: K3 in both
+// dtypes and the fp32 paths of K1 and K2. (The bf16 K1 and K2 run on the
+// TMA + wgmma engine of bcos_engine.cuh.)
 //
 // Every kernel here is a GEMM whose operands are both contiguous along the
 // contraction axis: x [M, K] row-major and wt [N, K] row-major (a 1x1 conv's
@@ -8,8 +10,10 @@
 // product with, so the patch norm costs no extra read of x.
 //
 // The tile product is the only part that differs by type:
-// - bf16: WMMA 16x16x16 bf16 -> f32 on the tensor cores (mma.sync underneath);
-//   each of the 8 warps owns two 16x16 accumulator fragments.
+// - bf16 (K3): WMMA 16x16x16 bf16 -> f32 on the tensor cores (mma.sync
+//   underneath); each of the 8 warps owns two 16x16 accumulator fragments.
+//   Loads go element by element through registers, with no pipelining: K3
+//   is one launch per call and waits for the engine (ROADMAP).
 // - fp32: plain FMA on the CUDA cores, a 4x4 micro-tile per thread. It exists
 //   so the kernels can be held tightly against their plain versions; the
 //   model runs in bf16.
@@ -29,7 +33,7 @@ constexpr int BN = 64;        // output channels per block / per u chunk
 constexpr int BK = 32;        // contraction step
 constexpr int LDK = BK + 8;   // smem leading dim of the K-major tiles (16-byte rows for WMMA)
 constexpr int LDC = BN + 4;   // smem leading dim of the float accumulator tile
-constexpr int LDG = BN + 8;   // smem leading dim of the [64 x 64] operand tiles of K2
+constexpr int LDG = BN + 8;   // smem leading dim of the [64 x 64] operand tiles of fp32 K2
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }

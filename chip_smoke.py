@@ -7,13 +7,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the hand-written kernels from ops/cuda/csrc with nvcc;
-3. kernels: each kernel against its plain PyTorch version at four
+3. kernels: each kernel against its plain PyTorch version at six
    main-path shapes, in fp32 (TF32 off; max |diff| <= 1e-5 max |ref|) and
    bf16 (against the plain version in fp32 on the same rounded inputs;
    ||diff|| <= 1e-2 ||ref||); then (after phase 6, whose streaming rate it
    uses) each kernel's time at every shape one main-path call gives it,
-   beside its bound (at the data-sheet and at the measured memory rate),
-   its plain version and torch.matmul on the same GEMM;
+   with its achieved TFLOP/s and GB/s, beside its bound (at the data-sheet
+   and at the measured memory rate), its plain version and torch.matmul on
+   the same GEMM, and each kernel's time per call beside PR 2's;
 4. parity: the full-width B-cosified ResNet-50 (224x224, gamma-calibrated),
    fp32, 2 images: the fast forward + explanation on the GPU (kernels)
    against the same call on the CPU (plain versions; W within 1e-3, the
@@ -89,14 +90,20 @@ MODEL_KERNELS = ("bcos_conv1x1_fwd", "bcos_conv1x1_bwd_explain", "bcos_matmul_fw
 PROBE_M, PROBE_C, PROBE_NIN = 401408, 256, 3  # the layer1 activation at batch 128
 SERVE_EVERY = 10  # the mixed loop explains 1 batch in SERVE_EVERY
 # calls per timing window: each window holds about 1.7 s of the card's work
-# on an H100 at batch 128 (29 ms forward, 88 ms fwd+explain, 344 ms period)
-WINDOW_FWD, WINDOW_EXPLAIN, WINDOW_PERIODS = 60, 20, 5
+# on an H100 at batch 128 (23 ms forward, 42 ms fwd+explain, 237 ms period)
+WINDOW_FWD, WINDOW_EXPLAIN, WINDOW_PERIODS = 72, 40, 7
 CHECK_SHAPES = [  # (label, M, Cin, Cout, relu) at batch 128, 224x224
     ("layer1.conv1", 401408, 256, 64, True),
+    ("layer1.conv3", 401408, 64, 256, False),
     ("layer3.conv3", 25088, 256, 1024, False),
+    ("layer4.conv3", 6272, 512, 2048, False),
     ("layer4.downsample(s2)", 6272, 1024, 2048, False),
     ("classifier", 6272, 2048, 1000, False),
 ]
+# ms per fwd+explain call in PR 2 (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W),
+# before the K2 and K1 redesign, timed by the same method as time_kernels
+PR2_MS = {"bcos_conv1x1_fwd": 13.65, "bcos_conv1x1_bwd_explain": 45.59,
+          "bcos_matmul_fwd": 0.498}
 CARD = ""
 
 
@@ -212,8 +219,8 @@ def main_path_launches(model, batch, size):
 
 
 def bound_terms(name, m, k, n, relu):
-    """(flop seconds, byte seconds) of the least work one launch must do in
-    bf16: each input read once, each output written once."""
+    """(FLOPs, bytes) of the least work one launch must do in bf16: each
+    input read once, each output written once."""
     e = 2  # bytes per bf16 element
     if name == "bcos_conv1x1_fwd":
         flops, nbytes = 2 * m * k * n, e * (m * k + n * k + m * n) + 8 * n
@@ -223,7 +230,7 @@ def bound_terms(name, m, k, n, relu):
         nbytes = e * (2 * m * k + n * k + m * n * (2 if relu else 1)) + 4 * n
     else:
         flops, nbytes = 2 * m * k * n, e * (m * k + n * k) + 4 * m * n
-    return flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return flops, nbytes
 
 
 def time_kernels(model, worst, counts, stream_rate):
@@ -249,7 +256,8 @@ def time_kernels(model, worst, counts, stream_rate):
         t_k = stream_bandwidth.event_ms(kern, 10)
         t_p = stream_bandwidth.event_ms(plain, 3, warmup=1, burst=3)
         t_l = stream_bandwidth.event_ms(lib, 10)
-        f_s, b_s = bound_terms(name, m, k, n, relu)
+        flops, nbytes = bound_terms(name, m, k, n, relu)
+        f_s, b_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         r = rows[name]
         r["ms"] += count * t_k
         r["plain_ms"] += count * t_p
@@ -257,15 +265,18 @@ def time_kernels(model, worst, counts, stream_rate):
         r["bound_s"] += count * max(f_s, b_s)
         r["measured_bound_s"] += count * max(f_s, b_s * PEAK_BYTES / stream_rate)
         r["flop_s" if f_s >= b_s else "byte_s"] += count * max(f_s, b_s)
-        say(f"time {name:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms "
-            f"(bound {1e3 * max(f_s, b_s):.4f}, plain {t_p:.4f}, torch.matmul {t_l:.4f}) "
-            f"[{CARD}]")
+        say(f"time {name:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms, "
+            f"{flops / t_k / 1e9:.1f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s "
+            f"(bound {1e3 * max(f_s, b_s):.4f} ms by {'FLOPs' if f_s >= b_s else 'bytes'}; "
+            f"plain {t_p:.4f}, torch.matmul {t_l:.4f}) [{CARD}]")
         del x, wt, ct
     kernels = []
     for name, r in rows.items():
-        say(f"bound of {name} per call: {1e3 * r['bound_s']:.4f} ms at the 3350 GB/s data "
-            f"sheet rate, {1e3 * r['measured_bound_s']:.4f} ms at the measured "
-            f"{stream_rate / 1e9:.1f} GB/s [{CARD}]")
+        say(f"{name} per call: {r['ms']:.4f} ms (PR 2: {PR2_MS[name]:.2f} ms); bound "
+            f"{1e3 * r['bound_s']:.4f} ms at the 3350 GB/s data sheet rate, "
+            f"{1e3 * r['measured_bound_s']:.4f} ms at the measured "
+            f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
+            f"{r['library_ms']:.4f} ms [{CARD}]")
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

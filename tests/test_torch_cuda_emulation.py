@@ -4,8 +4,11 @@ shapes, both dtypes. This checks the kernels' tiling, index and masking
 logic without a GPU; the real compiler and hardware are checked by
 chip_smoke.py and the `cuda` tests on a GPU machine.
 
-The launches are rewritten into calls of the stand-in's launcher, and the
-sources are compiled with the host's g++ (C++20, for std::barrier).
+The launches are rewritten into calls of the stand-in's launcher, the
+headers of tests/cuda_emu/ take the place of the real ones of the same name
+(hopper.cuh: TMA, mbarriers and wgmma as C++, so the bf16 engine of K1 and
+K2 runs with its real descriptors and swizzle), and the sources are
+compiled with the host's g++ (C++20, for std::barrier).
 """
 import ctypes
 import re
@@ -22,7 +25,9 @@ from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
 
 torch.set_num_threads(1)
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-SHAPES = [(37, 24, 10), (130, 200, 70), (5, 300, 129)]  # (M, Cin, Cout), ragged
+# (M, Cin, Cout), ragged; bf16 Cin is a multiple of 8 (TMA's 16-byte rows)
+SHAPES = {torch.float32: [(37, 24, 10), (130, 200, 70), (5, 300, 129)],
+          torch.bfloat16: [(37, 24, 10), (130, 200, 70), (5, 296, 129)]}
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5}  # max |diff| / max |ref|
 
 
@@ -32,15 +37,15 @@ def compile_emulated(sources, work: Path, defines=()) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA stand-in")
-    for header in _build.CSRC.glob("*.cuh"):
+    for header in [*_build.CSRC.glob("*.cuh"), *EMU.glob("*.cuh")]:  # the stand-ins last
         shutil.copy(header, work / header.name)
     outs = []
     for src in sources:
-        text = re.sub(r"(\w+<[\w:]+>)<<<(.*?)>>>\(",
+        text = re.sub(r"(\w+(?:<[\w:]+>)?)<<<(.*?)>>>\(",
                       lambda m: f"emu_launch({m.group(2)}, {m.group(1)}, ",
                       src.read_text(), flags=re.S)
-        text = text.replace("extern __shared__ __align__(128) unsigned char smem[];",
-                            "unsigned char* smem = g_dyn_smem;")
+        text = re.sub(r"extern __shared__ __align__\(\d+\) unsigned char smem\[\];",
+                      "unsigned char* smem = g_dyn_smem;", text)
         out = work / (src.stem + ".cpp")
         out.write_text(text)
         outs.append(str(out))
@@ -77,14 +82,34 @@ def _operands(m, k, n, dtype, seed):
     return x, wt, mult, add, ct
 
 
-def _assert_close(got, want, dtype):
+def _assert_close(got, want, dtype, tol=None):
     got, want = got.float(), want.float()
     err = float((got - want).abs().max() / want.abs().max())
-    assert err <= TOL[dtype], err
+    assert err <= (TOL[dtype] if tol is None else tol), err
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("m,k,n", SHAPES)
+CASES = [pytest.param(m, k, n, dtype, id=f"{m}-{k}-{n}-{name}")
+         for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))
+         for m, k, n in SHAPES[dtype]]
+
+
+def _k2(emulated, x, wt, ct, a, mult, relu, eps_outside):
+    """dx from the emulated K2, with the scratch g that the wrapper gives
+    the bf16 split path (Cout > k12.FUSED_MAX_COUT)."""
+    m, k = x.shape
+    n = wt.shape[0]
+    dx = torch.empty(m, k, dtype=x.dtype)
+    g = None
+    if x.dtype == torch.bfloat16 and n > k12.FUSED_MAX_COUT:
+        g = torch.full((m, (n + 7) // 8 * 8), float("nan"), dtype=x.dtype)
+    code = emulated.bcos_conv1x1_bwd_explain(
+        k12._DTYPE_CODE[x.dtype], _ptr(x), _ptr(wt), _ptr(ct), _ptr(a) if relu else None,
+        _ptr(mult), _ptr(dx), _ptr(g), m, k, n, 1e-6, eps_outside, relu, None)
+    assert code == 0
+    return dx
+
+
+@pytest.mark.parametrize("m,k,n,dtype", CASES)
 def test_k1_forward(emulated, dtype, m, k, n):
     x, wt, mult, add, _ = _operands(m, k, n, dtype, 0)
     for relu, a in ((1, add), (0, None)):
@@ -95,24 +120,45 @@ def test_k1_forward(emulated, dtype, m, k, n):
         _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, a, relu=bool(relu)), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("m,k,n", SHAPES)
-def test_k2_explain_backward(emulated, dtype, m, k, n):
+def _check_k2(emulated, dtype, m, k, n, tol=None):
     x, wt, mult, add, ct = _operands(m, k, n, dtype, 1)
     a = k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True)
     for relu, mu, eps_outside in ((1, mult, 0), (0, None, 1)):
-        dx = torch.empty(m, k, dtype=dtype)
-        code = emulated.bcos_conv1x1_bwd_explain(
-            k12._DTYPE_CODE[dtype], _ptr(x), _ptr(wt), _ptr(ct), _ptr(a) if relu else None,
-            _ptr(mu), _ptr(dx), m, k, n, 1e-6, eps_outside, relu, None)
-        assert code == 0
+        dx = _k2(emulated, x, wt, ct, a, mu, relu, eps_outside)
         want = k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mu, relu=bool(relu),
                                              eps_outside=bool(eps_outside))
-        _assert_close(dx, want, dtype)
+        _assert_close(dx, want, dtype, tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("m,k,n,dtype", CASES)
+def test_k2_explain_backward(emulated, dtype, m, k, n):
+    _check_k2(emulated, dtype, m, k, n)
+
+
+# The bf16 K2's paths, each through a real shape: Cout > 1024 (g through
+# the scratch, two launches), Cout <= 1024 with 64-row blocks (16 slabs of
+# g resident), 256 < Cout <= 512 at an M with 128-row blocks, and partial
+# TMA boxes in Cin and Cout (small Cout: 64-row blocks, two per SM). The
+# kernel sums u in another order than the plain version, which can move a
+# g across a bf16 rounding boundary (one ulp, 2^-8 relative); over ~1000
+# output channels such flips reach ~1e-3 of max |dx| (7.5e-4 at
+# fused-64-rows, in 10 of 4480 elements), while a tiling or swizzle fault
+# is of the order of max |dx| itself.
+@pytest.mark.parametrize("m,k,n", [(37, 24, 1032), (70, 64, 1000), (33797, 8, 264),
+                                   (130, 72, 136)],
+                         ids=["split", "fused-64-rows", "fused-128-rows", "partial-boxes"])
+def test_k2_bf16_paths(emulated, m, k, n):
+    _check_k2(emulated, torch.bfloat16, m, k, n, tol=4e-3)
+
+
+# bf16 K1 stages z and stores it by TMA where Cout is a multiple of 8 (the
+# shapes of CASES store from the registers): ragged M, partial boxes in Cin
+# and Cout, several tiles per block
+def test_k1_bf16_tma_store(emulated):
+    test_k1_forward(emulated, torch.bfloat16, 130, 72, 264)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", CASES)
 def test_k3_bcos_matmul(emulated, dtype, m, k, n):
     x, wt, _, _, _ = _operands(m, k, n, dtype, 2)
     for eps_outside in (0, 1):

@@ -20,7 +20,11 @@ from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
 from bcosification_tpu_torch.ops.cuda import stream as k4
 
 pytestmark = pytest.mark.cuda
-SHAPES = [(37, 24, 10), (300, 200, 130), (1000, 64, 256), (96, 2048, 1000)]
+# (M, Cin, Cout): ragged small shapes, the classifier, K2's split path
+# (Cout > 1024), one K tile at layer1's width, and a ragged M with 128-row
+# bf16 K2 blocks (256 < Cout <= 512, M >= 33792)
+SHAPES = [(37, 24, 10), (300, 200, 130), (1000, 64, 256), (96, 2048, 1000),
+          (6272, 1024, 2048), (401408 // 8, 64, 256), (33797, 72, 264)]
 
 
 @pytest.fixture
@@ -73,6 +77,17 @@ def test_each_launch_is_counted(gpu):
                     relu=False)
     assert launch_counts() == {"bcos_conv1x1_fwd": 1, "bcos_conv1x1_bwd_explain": 0,
                                "bcos_matmul_fwd": 0, "stream_add": 0}
+
+
+def test_bf16_cin_off_the_tma_grid_raises(gpu):
+    """TMA reads rows of whole 16-byte units: bf16 Cin must be a multiple of 8."""
+    x = torch.randn(64, 20, device=gpu).to(torch.bfloat16)
+    wt = torch.randn(16, 20, device=gpu).to(torch.bfloat16)
+    ct = torch.randn(64, 16, device=gpu).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k12.conv1x1_fwd(x, wt, torch.ones(16, device=gpu), None, relu=False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False)
 
 
 def test_wrapper_rejects_a_cpu_operand(gpu):
