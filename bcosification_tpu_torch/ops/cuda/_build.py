@@ -3,7 +3,9 @@
 The sources are compiled on first use, never at import: each ``csrc/*.cu``
 goes through its own ``nvcc -c`` (all started together), and the objects
 are linked into ``_build/libbcos_kernels_<hash>.so``, where the hash covers
-every source and header. The library is loaded with ``ctypes``; its
+every source and header; nvcc's output is kept beside it
+(``libbcos_kernels_<hash>.log``) and read back when a later process loads
+the built library. The library is loaded with ``ctypes``; its
 functions take plain pointers and a stream and return ``cudaGetLastError()``
 after the launch. A missing ``nvcc`` or a failed build raises with the
 compiler's output; nothing falls back.
@@ -32,6 +34,10 @@ _functions: dict = {}
 build_log = ""  # nvcc's output (with -Xptxas=-v: registers, shared memory, spills)
 
 
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".log")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -54,7 +60,7 @@ def _sources_digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _build(target: Path) -> str:
+def _build(target: Path) -> None:
     nvcc = _nvcc()
     work = BUILD_DIR / f"tmp_{target.stem}_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
@@ -83,9 +89,11 @@ def _build(target: Path) -> str:
     )
     if link.returncode != 0:
         raise RuntimeError(f"linking {target.name} failed:\n{link.stdout}")
+    tmp_log = work / _log_path(target).name
+    tmp_log.write_text("\n".join(log))
+    os.replace(tmp_log, _log_path(target))  # before the library: a library implies its log
     os.replace(tmp_so, target)
     shutil.rmtree(work, ignore_errors=True)
-    return "\n".join(log)
 
 
 def load() -> ctypes.CDLL:
@@ -95,7 +103,9 @@ def load() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"libbcos_kernels_{_sources_digest()}.so"
         if not target.exists():
-            build_log = _build(target)
+            _build(target)
+        log = _log_path(target)
+        build_log = log.read_text() if log.exists() else ""
         _lib = ctypes.CDLL(str(target))
     return _lib
 

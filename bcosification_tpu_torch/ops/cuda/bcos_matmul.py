@@ -8,7 +8,10 @@ Counterpart of ``bcosification_tpu/ops/pallas/bcos_matmul.py``:
 with ssq the row sum of squares of x. K3 (``csrc/bcos_matmul_fwd.cu``) sums
 ssq from the same tiles that feed the product and scales in the epilogue.
 On the main path it carries the GAP-reorder classifier (a 1x1, stride-1,
-bias-free b=2 conv, dispatched from ``ops.bcos.bcos_conv2d``).
+bias-free b=2 conv, dispatched from ``ops.bcos.bcos_conv2d``). In bf16 it
+runs on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``, whose tile
+loads need rows of whole 16-byte units: bf16 K must be a multiple of 8 and
+x and wt 16-byte aligned, or the wrapper raises.
 
 In explanation mode the scale is detached, so the backward is K2 of
 ``bcos_conv1x1`` with mult = 1 and no ReLU mask: dx = (g * |u|/n) @ w^T,
@@ -28,6 +31,7 @@ from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import (
     check_device,
     check_int32,
     check_operands,
+    check_tma,
     conv1x1_bwd_explain,
 )
 
@@ -60,6 +64,7 @@ def _bcos_matmul_fwd_op(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) ->
     m, k = x.shape
     n = wt.shape[0]
     check_int32("bcos_matmul_fwd", x.numel(), wt.numel(), m * n)
+    check_tma("bcos_matmul_fwd", x, wt)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("bcos_matmul_fwd", _ARGS)
     with torch.cuda.device(x.device):

@@ -118,22 +118,21 @@ struct Layout {
   __host__ __device__ static int bytes(int N) { return ssq_offset(N) + R * 4; }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv1x1_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                       const T* __restrict__ ct, const T* __restrict__ a,
-                       const float* __restrict__ mult, T* __restrict__ dx, int M, int K, int N,
+    conv1x1_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                       const float* __restrict__ ct, const float* __restrict__ a,
+                       const float* __restrict__ mult, float* __restrict__ dx, int M, int K, int N,
                        float eps, int eps_outside, int relu) {
   using L = Layout;
   constexpr int R = L::R;
   constexpr int TPR = kThreads / R;  // threads per row in the row-norm sum
   constexpr int EPT = BK / TPR;      // elements per thread of one x tile row
   extern __shared__ __align__(1024) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + R * LDK;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + R * LDK;
   float* Cs = reinterpret_cast<float*>(smem);
-  T* Ws = reinterpret_cast<T*>(smem);
-  T* Gs = reinterpret_cast<T*>(smem + L::g_offset());
+  float* Ws = reinterpret_cast<float*>(smem);
+  float* Gs = reinterpret_cast<float*>(smem + L::g_offset());
   float* ssq_s = reinterpret_cast<float*>(smem + L::ssq_offset(N));
   const int ldg = L::ldg(N);
   const int row0 = blockIdx.x * R;
@@ -147,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int idx = threadIdx.x; idx < R * BK; idx += kThreads) {
         const int r = idx / BK, c = idx % BK;
         const int gr = row0 + r, gk = k0 + c;
-        As[r * LDK + c] = (gr < M && gk < K) ? x[(long long)gr * K + gk] : from_f<T>(0.f);
+        As[r * LDK + c] = (gr < M && gk < K) ? x[(long long)gr * K + gk] : 0.f;
       }
       load_k_tile(Bs, wt, N, n0, K, k0, K);
       __syncthreads();
@@ -155,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
         const int r = threadIdx.x / TPR, c0 = (threadIdx.x % TPR) * EPT;
 #pragma unroll
         for (int j = 0; j < EPT; ++j) {
-          const float v = to_f(As[r * LDK + c0 + j]);
+          const float v = As[r * LDK + c0 + j];
           part += v * v;
         }
       }
@@ -177,12 +176,12 @@ __global__ void __launch_bounds__(kThreads)
         const long long off = (long long)gr * N + gn;
         const float u = Cs[r * LDC + c];
         const float n = eps_outside ? sqrtf(ssq_s[r]) + eps : sqrtf(ssq_s[r] + eps);
-        g = to_f(ct[off]);
+        g = ct[off];
         if (mult != nullptr) g *= mult[gn];
-        if (relu && !(to_f(a[off]) > 0.f)) g = 0.f;
+        if (relu && !(a[off] > 0.f)) g = 0.f;
         g = g * (fabsf(u) / n);
       }
-      Gs[r * ldg + gn] = from_f<T>(g);  // zero past N: phase 2 reads whole chunks
+      Gs[r * ldg + gn] = g;  // zero past N: phase 2 reads whole chunks
     }
     __syncthreads();
   }
@@ -201,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = threadIdx.x; idx < R * 64; idx += kThreads) {
       const int r = idx / 64, c = idx % 64;
       const int gr = row0 + r, gk = kc + c;
-      if (gr < M && gk < K) dx[(long long)gr * K + gk] = from_f<T>(Cs[r * LDC + c]);
+      if (gr < M && gk < K) dx[(long long)gr * K + gk] = Cs[r * LDC + c];
     }
     __syncthreads();
   }
@@ -213,11 +212,11 @@ int launch_f32(const void* x, const void* wt, const void* ct, const void* a, con
   const int bytes = Layout::bytes(N);
   if (bytes > engine::kSmemLimit) return (int)cudaErrorInvalidValue;  // Cout too large
   static const cudaError_t attr =
-      cudaFuncSetAttribute(conv1x1_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(conv1x1_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            engine::kSmemLimit);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((M + kRowsF32 - 1) / kRowsF32);
-  conv1x1_bwd_kernel<float><<<grid, kThreads, bytes, s>>>(
+  conv1x1_bwd_kernel<<<grid, kThreads, bytes, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<const float*>(ct),
       static_cast<const float*>(a), static_cast<const float*>(mult), static_cast<float*>(dx), M,
       K, N, eps, eps_outside, relu);

@@ -45,23 +45,22 @@ namespace {
 
 using namespace bcos;
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv1x1_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+    conv1x1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wt,
                        const float* __restrict__ mult, const float* __restrict__ add,
-                       T* __restrict__ out, int M, int K, int N, float eps, int relu) {
-  constexpr int kTileBytes = 2 * BM * LDK * (int)sizeof(T);
+                       float* __restrict__ out, int M, int K, int N, float eps, int relu) {
+  constexpr int kTileBytes = 2 * BM * LDK * (int)sizeof(float);
   constexpr int kAccBytes = BM * LDC * (int)sizeof(float);
   constexpr int kRegion = kTileBytes > kAccBytes ? kTileBytes : kAccBytes;
   __shared__ __align__(128) unsigned char smem[kRegion];
   __shared__ float ssq_s[BM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + BM * LDK;
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + BM * LDK;
   float* Cs = reinterpret_cast<float*>(smem);  // reused once the K loop is done
 
   const int col0 = blockIdx.x * BN;
   const int row0 = blockIdx.y * BM;
-  BlockMma<T> acc;
+  BlockMma acc;
   gemm_nt_tile(acc, As, Bs, ssq_s, true, x, wt, M, K, N, row0, col0);
   acc.store(Cs, LDC);
   __syncthreads();
@@ -75,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
     float z = (fabsf(u) / n) * u * mult[gc];
     if (add != nullptr) z += add[gc];
     if (relu) z = fmaxf(z, 0.f);
-    out[(long long)gr * N + gc] = from_f<T>(z);
+    out[(long long)gr * N + gc] = z;
   }
 }
 
@@ -185,7 +184,7 @@ extern "C" int bcos_conv1x1_fwd(int dtype, const void* x, const void* wt, const 
   if (dtype == 1) return launch_bf16(x, wt, mult, add, out, M, K, N, eps, relu, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + bcos::BN - 1) / bcos::BN, (M + bcos::BM - 1) / bcos::BM);
-  conv1x1_fwd_kernel<float><<<grid, bcos::kThreads, 0, s>>>(
+  conv1x1_fwd_kernel<<<grid, bcos::kThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(wt),
       static_cast<const float*>(mult), static_cast<const float*>(add), static_cast<float*>(out),
       M, K, N, eps, relu);

@@ -1,4 +1,4 @@
-// The bf16 GEMM engine of K1 and K2 on Hopper, built on hopper.cuh.
+// The bf16 GEMM engine of K1, K2 and K3 on Hopper, built on hopper.cuh.
 //
 // A block owns R = 64 or 128 rows (pixels) and has R / 64 consumer
 // warpgroups, each of which owns 64 of the rows, and one producer warp, one
@@ -10,9 +10,10 @@
 // A operand streams, an A tile of R / 64 boxes. The consumers run chains of
 // m64n128k16 wgmmas with f32 accumulators in registers, keep one stage's
 // wgmmas in flight while the next stage's are issued, and run their
-// epilogues straight from the accumulator registers. A bf16 output tile
-// goes through a staging buffer in shared memory (the TMA box layout) and
-// leaves by TMA stores, so device memory sees whole 128-byte lines.
+// epilogues straight from the accumulator registers. An output tile (bf16,
+// or f32 for K3) goes through a staging buffer in shared memory (the TMA box
+// layout) and leaves by TMA stores, so device memory sees whole 128-byte
+// lines.
 //
 // Two kinds of chain, each 128 output columns wide (kChunk):
 // - u-chain (K-major B): u[R x 128] = x[R x K] wt[n0 : n0 + 128, :]^T over
@@ -51,27 +52,30 @@ constexpr int kMaxThreads = 384;           // launch bound: keeps the compiler a
 __host__ __device__ constexpr int block_threads(int rows) { return 2 * rows + 32; }
 
 // Shared memory of one block from a 1024-byte aligned base: the stages
-// [B tile | A tile of rows * 128 bytes], `outs` output staging buffers (two
-// boxes per consumer warpgroup each), `extra` bytes (K2's resident g),
-// the rows' sums of squares (f32, two buffers: tile i uses buffer i % 2), the
-// barriers.
+// [B tile | A tile of rows * 128 bytes], `outs` output staging buffers (a
+// 64 x 128 tile of out_elem-byte elements per consumer warpgroup each:
+// out_elem boxes), `extra` bytes (K2's resident g), the rows' sums of
+// squares (f32, two buffers: tile i uses buffer i % 2), the barriers.
 struct Smem {
   int rows, stages, extra, outs;
-  __host__ __device__ int stage_bytes() const { return kBTileBytes + rows * 128; }
-  __host__ __device__ int out_offset(int buffer = 0) const {
-    return stages * stage_bytes() + buffer * rows * 256;
+  int out_elem = 2;  // bytes per element of the staged outputs: 2 (bf16) or 4 (f32)
+  __host__ __device__ constexpr int stage_bytes() const { return kBTileBytes + rows * 128; }
+  __host__ __device__ constexpr int out_offset(int buffer = 0) const {
+    return stages * stage_bytes() + buffer * rows * kChunk * out_elem;
   }
-  __host__ __device__ int extra_offset() const { return out_offset(outs); }
-  __host__ __device__ int ssq_offset() const { return extra_offset() + extra; }
-  __host__ __device__ int bar_offset() const { return ssq_offset() + 2 * rows * 4; }
+  __host__ __device__ constexpr int extra_offset() const { return out_offset(outs); }
+  __host__ __device__ constexpr int ssq_offset() const { return extra_offset() + extra; }
+  __host__ __device__ constexpr int bar_offset() const { return ssq_offset() + 2 * rows * 4; }
   // the ring's full and empty barriers, then one per consumer warpgroup
   // for its own TMA loads (op_bar)
-  __host__ __device__ int bytes() const { return bar_offset() + (2 * kMaxStages + 2) * 8; }
+  __host__ __device__ constexpr int bytes() const {
+    return bar_offset() + (2 * kMaxStages + 2) * 8;
+  }
 };
 
 // The most stages (at most kMaxStages) of layout L that fit in `budget`
 // bytes; 0 below 2.
-inline int fit_stages(Smem L, int budget = kSmemLimit) {
+constexpr int fit_stages(Smem L, int budget = kSmemLimit) {
   for (L.stages = kMaxStages; L.stages >= 2; --L.stages)
     if (L.bytes() <= budget) return L.stages;
   return 0;
@@ -217,11 +221,12 @@ __device__ __forceinline__ void mma_chain(float (&acc)[64], Ring& ring, int ktil
   if (prev >= 0) hopper::mbar_arrive(&ring.empty[prev]);
 }
 
-// Byte offset of element (r, c), c < 64, in a 128-byte-swizzled box or slab
-// of 64 columns (1024-byte aligned): chunk c / 8 of row r moves to chunk
-// (c / 8) ^ (r % 8). Two neighbouring columns (c even) stay together.
-__device__ __forceinline__ int swizzled(int r, int c) {
-  return r * 128 + (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
+// Byte offset of element (r, c) in a 128-byte-swizzled box or slab of
+// elem-byte elements (1024-byte aligned), c < 128 / elem: the 16-byte chunk
+// c * elem / 16 of row r moves to chunk (c * elem / 16) ^ (r % 8). Two
+// neighbouring columns (c even) stay together.
+__device__ __forceinline__ int swizzled(int r, int c, int elem = 2) {
+  return r * 128 + ((((c * elem) / 16) ^ (r % 8)) * 16) + (c * elem) % 16;
 }
 
 // (v0, v1) in bf16 at row r, columns c, c + 1 of a warpgroup's staged
@@ -230,6 +235,14 @@ __device__ __forceinline__ void stage_pair(unsigned char* staging, int r, int c,
                                            float v1) {
   *reinterpret_cast<__nv_bfloat162*>(staging + (c / 64) * kBoxBytes + swizzled(r, c % 64)) =
       __floats2bfloat162_rn(v0, v1);
+}
+
+// (v0, v1) in f32 at row r, columns c, c + 1 of a warpgroup's staged
+// 64 x 128 f32 output tile (four boxes of 32 columns).
+__device__ __forceinline__ void stage_pair_f32(unsigned char* staging, int r, int c, float v0,
+                                               float v1) {
+  *reinterpret_cast<float2*>(staging + (c / 32) * kBoxBytes + swizzled(r, c % 32, 4)) =
+      make_float2(v0, v1);
 }
 
 // The barrier of this warpgroup's own TMA loads (see make_ring).
@@ -244,9 +257,10 @@ __device__ __forceinline__ uint32_t staged_pair(const unsigned char* staging, in
   return *reinterpret_cast<const uint32_t*>(staging + (c / 64) * kBoxBytes + swizzled(r, c % 64));
 }
 
-// This warpgroup's staging buffer, from the block's output region.
-__device__ __forceinline__ unsigned char* staging_of(unsigned char* out_region) {
-  return out_region + (threadIdx.x / 128) * 2 * kBoxBytes;
+// This warpgroup's staging buffer, from the block's output region of
+// elem-byte elements.
+__device__ __forceinline__ unsigned char* staging_of(unsigned char* out_region, int elem = 2) {
+  return out_region + (threadIdx.x / 128) * elem * kBoxBytes;
 }
 
 // Before a warpgroup stages a tile: at most kPending of its TMA stores still
@@ -258,16 +272,18 @@ __device__ __forceinline__ void staging_wait() {
   if (threadIdx.x % 128 == 0) hopper::bulk_wait_read<kPending>();
 }
 
-// After every thread of the warpgroup staged its pairs: the tile leaves for
-// (col, row) and (col + 64, row) of the map (the second box only where
-// col + 64 < cols); TMA clips rows and columns beyond the matrix.
+// After every thread of the warpgroup staged its pairs: the tile of
+// elem-byte elements leaves for (col + i * 128 / elem, row) of the map, box
+// i of the buffer, for the boxes that start before `cols`; TMA clips rows
+// and columns beyond the matrix.
 __device__ __forceinline__ void store_staged(const CUtensorMap* map, unsigned char* staging,
-                                             int col, int row, int cols) {
+                                             int col, int row, int cols, int elem = 2) {
   hopper::fence_proxy_async();
   hopper::named_bar_sync(1 + threadIdx.x / 128, 128);
   if (threadIdx.x % 128 == 0) {
-    hopper::tma_store_2d(map, staging, col, row);
-    if (col + 64 < cols) hopper::tma_store_2d(map, staging + kBoxBytes, col + 64, row);
+    for (int i = 0; i < elem; ++i)
+      if (col + i * (128 / elem) < cols)
+        hopper::tma_store_2d(map, staging + i * kBoxBytes, col + i * (128 / elem), row);
     hopper::bulk_commit();
   }
 }
@@ -329,6 +345,18 @@ __device__ __forceinline__ void store_pair(bf16* out, int ld, int row, int col, 
   } else {
     if (col < cols) out[off] = __float2bfloat16(v0);
     if (col + 1 < cols) out[off + 1] = __float2bfloat16(v1);
+  }
+}
+
+// The same for an f32 matrix.
+__device__ __forceinline__ void store_pair(float* out, int ld, int row, int col, int cols, float v0,
+                                           float v1) {
+  const long long off = (long long)row * ld + col;
+  if (col + 1 < cols && (off & 1) == 0) {
+    *reinterpret_cast<float2*>(out + off) = make_float2(v0, v1);
+  } else {
+    if (col < cols) out[off] = v0;
+    if (col + 1 < cols) out[off + 1] = v1;
   }
 }
 

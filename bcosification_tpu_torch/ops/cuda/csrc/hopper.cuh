@@ -1,14 +1,15 @@
-// Hopper (sm_90a) primitives of the bf16 GEMM engine of K1 and K2: TMA tile
+// Hopper (sm_90a) primitives of the bf16 GEMM engine of K1, K2 and K3: TMA tile
 // loads and stores, mbarriers, wgmma descriptors and wgmma itself, fences
 // and named barriers. Every piece of inline PTX of the engine sits behind one of these
 // small functions, so that tests/cuda_emu/hopper.cuh can give each a C++
 // version with the same meaning and run the kernels on the CPU.
 //
-// The one tile format. Every operand tile is built from TMA boxes of 64 x 64
-// bf16 with the 128-byte swizzle: box row r (128 bytes) lands at r * 128 from
-// the box's base, its 16-byte chunk c at chunk c ^ (r % 8). A box's base must
-// be 1024-byte aligned (the swizzle reads address bits 7-9). wgmma reads such
-// tiles through a descriptor (desc_sw128):
+// The one tile format. Every tile is built from TMA boxes of 64 rows of 128
+// bytes with the 128-byte swizzle: 64 bf16 columns, or 32 f32 columns (f32
+// only for outputs). Box row r lands at r * 128 from the box's base, its
+// 16-byte chunk c at chunk c ^ (r % 8). A box's base must be 1024-byte
+// aligned (the swizzle reads address bits 7-9). wgmma reads bf16 tiles
+// through a descriptor (desc_sw128):
 // - K-major (rows of the operand along the box's rows, the contraction along
 //   its 64 columns): rows 8 apart are SBO = 1024 bytes apart; the k16 step s
 //   starts at +32 s bytes; LBO is unused.
@@ -25,14 +26,16 @@
 
 namespace hopper {
 
-constexpr int kBox = 64;                     // a TMA box is kBox x kBox bf16
-constexpr int kBoxBytes = kBox * kBox * 2;   // 8 KB
+constexpr int kBox = 64;                     // a TMA box is kBox rows of 128 bytes:
+constexpr int kBoxBytes = kBox * kBox * 2;   // 64 bf16 or 32 f32 columns, 8 KB
 
-// ---- host: the tensor map of a bf16 matrix [rows, cols] with a row stride
-// of ld elements, read in 64 x 64 boxes with the 128-byte swizzle;
-// out-of-range elements read as zero. TMA needs ld * 2 and the base address
-// to be multiples of 16 bytes. Returns 0 or a nonzero error code.
-inline int encode_tile_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld) {
+// ---- host: the tensor map of a matrix [rows, cols] of `elem`-byte elements
+// (2: bf16, 4: f32) with a row stride of ld elements, read in boxes of 64
+// rows x 128 / elem columns with the 128-byte swizzle; out-of-range
+// elements read as zero. TMA needs ld * elem and the base address to be
+// multiples of 16 bytes. Returns 0 or a nonzero error code.
+inline int encode_tile_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld,
+                           int elem = 2) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -47,11 +50,14 @@ inline int encode_tile_map(CUtensorMap* map, const void* ptr, int rows, int cols
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (elem != 2 && elem != 4) return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {kBox, kBox};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), kBox};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  const CUtensorMapDataType type =
+      elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -102,8 +108,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// one 64 x 64 box at (col, row) of the map into dst (1024-byte aligned);
-// completion is counted on bar in bytes
+// one box at (col, row) of the map into dst (1024-byte aligned); completion
+// is counted on bar in bytes
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int col, int row) {
   asm volatile(
@@ -113,8 +119,8 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// one 64 x 64 box of src (1024-byte aligned, the same swizzle) to (col, row)
-// of the map; parts beyond the matrix are not written. Completion is
+// one box of src (1024-byte aligned, the same swizzle) to (col, row) of the
+// map; parts beyond the matrix are not written. Completion is
 // tracked by the issuing thread's bulk groups.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int col,
                                              int row) {

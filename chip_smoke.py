@@ -14,7 +14,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    uses) each kernel's time at every shape one main-path call gives it,
    with its achieved TFLOP/s and GB/s, beside its bound (at the data-sheet
    and at the measured memory rate), its plain version and torch.matmul on
-   the same GEMM, and each kernel's time per call beside PR 2's;
+   the same GEMM, and each kernel's time per call beside its earlier
+   record (PREVIOUS_MS); K3 is checked with both eps_outside values;
 4. parity: the full-width B-cosified ResNet-50 (224x224, gamma-calibrated),
    fp32, 2 images: the fast forward + explanation on the GPU (kernels)
    against the same call on the CPU (plain versions; W within 1e-3, the
@@ -100,10 +101,10 @@ CHECK_SHAPES = [  # (label, M, Cin, Cout, relu) at batch 128, 224x224
     ("layer4.downsample(s2)", 6272, 1024, 2048, False),
     ("classifier", 6272, 2048, 1000, False),
 ]
-# ms per fwd+explain call in PR 2 (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W),
-# before the K2 and K1 redesign, timed by the same method as time_kernels
-PR2_MS = {"bcos_conv1x1_fwd": 13.65, "bcos_conv1x1_bwd_explain": 45.59,
-          "bcos_matmul_fwd": 0.498}
+# each kernel's earlier ms per fwd+explain call (PERF.md; NVIDIA H100 80GB
+# HBM3, 700.00 W), timed by the same method as time_kernels
+PREVIOUS_MS = {"bcos_conv1x1_fwd": ("PR 3", 5.32), "bcos_conv1x1_bwd_explain": ("PR 3", 7.61),
+               "bcos_matmul_fwd": ("PR 3", 0.507)}
 CARD = ""
 
 
@@ -158,8 +159,9 @@ def kernel_calls(name, x, wt, mult, add, ct, relu):
 
 
 def check_kernels():
-    """Each kernel against its plain version at the four check shapes, both
-    dtypes. Returns {kernel: max abs error over all checks}."""
+    """Each kernel against its plain version at the six check shapes, both
+    dtypes (K3 with both eps_outside values). Returns {kernel: max abs
+    error over all checks}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {name: 0.0 for name in MODEL_KERNELS}
     for label, m, k, n, relu in CHECK_SHAPES:
@@ -167,19 +169,22 @@ def check_kernels():
             x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
             ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
             a = k12.conv1x1_fwd(x, wt, mult, add, relu=True)
-            results = {
-                "bcos_conv1x1_fwd": (k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
-                                     k12.conv1x1_fwd_plain(ref(x), ref(wt), mult, add, relu=relu)),
-                "bcos_conv1x1_bwd_explain": (
-                    k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=relu),
-                    k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), ref(a), mult,
-                                                  relu=relu)),
-                "bcos_matmul_fwd": (k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False),
-                                    k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6,
-                                                             eps_outside=False)),
-            }
+            results = [  # (kernel, variant, kernel's result, plain version's)
+                ("bcos_conv1x1_fwd", "", k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
+                 k12.conv1x1_fwd_plain(ref(x), ref(wt), mult, add, relu=relu)),
+                ("bcos_conv1x1_bwd_explain", "",
+                 k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=relu),
+                 k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), ref(a), mult,
+                                               relu=relu)),
+            ]
+            for eps_outside in (False, True):
+                results.append((
+                    "bcos_matmul_fwd", " eps_outside" if eps_outside else "",
+                    k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside),
+                    k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6,
+                                             eps_outside=eps_outside)))
             torch.cuda.synchronize()
-            for name, (got, want) in results.items():
+            for name, variant, got, want in results:
                 got, want = got.float(), want.float()
                 diff = (got - want).abs()
                 if dtype == torch.float32:
@@ -188,7 +193,7 @@ def check_kernels():
                     err, bound = float((got - want).norm() / want.norm()), 1e-2
                 worst[name] = max(worst[name], float(diff.max()))
                 ok = err <= bound and bool(torch.isfinite(got).all())
-                say(f"check {name:26s} {label:22s} {str(dtype)[6:]:8s} "
+                say(f"check {name + variant:28s} {label:22s} {str(dtype)[6:]:8s} "
                     f"rel err {err:.3e} (bound {bound:.0e}) {'ok' if ok else 'FAILED'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain version at {label}")
@@ -272,7 +277,8 @@ def time_kernels(model, worst, counts, stream_rate):
         del x, wt, ct
     kernels = []
     for name, r in rows.items():
-        say(f"{name} per call: {r['ms']:.4f} ms (PR 2: {PR2_MS[name]:.2f} ms); bound "
+        pr, before = PREVIOUS_MS[name]
+        say(f"{name} per call: {r['ms']:.4f} ms ({pr}: {before:g} ms); bound "
             f"{1e3 * r['bound_s']:.4f} ms at the 3350 GB/s data sheet rate, "
             f"{1e3 * r['measured_bound_s']:.4f} ms at the measured "
             f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
@@ -658,8 +664,8 @@ def main() -> int:
     phase_serving(net, x2)
     seconds["7 serving"] = time.perf_counter() - t0
 
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+    for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518
+        if any(key in line for key in ("Compiling entry", "registers", "spill", "warning")):
             say(f"ptxas: {line.strip()}")
     say("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     say(CARD)

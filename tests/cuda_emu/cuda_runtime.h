@@ -33,6 +33,7 @@ using std::min;
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint4 { unsigned x, y, z, w; };
 struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 typedef void* cudaStream_t;

@@ -1,7 +1,8 @@
 // CPU stand-in for csrc/hopper.cuh (tests only): the same functions in C++,
 // with the meaning the PTX gives them, so that a mistake in a descriptor, a
 // swizzle, a box coordinate or a barrier phase fails on the CPU.
-// - TMA: a synchronous copy of one 64 x 64 bf16 box into shared memory with
+// - TMA: a synchronous copy of one box (64 rows of 128 bytes: 64 bf16 or 32
+//   f32 columns, as the map's element size says) into shared memory with
 //   the 128-byte swizzle (taken from the absolute shared address, as the
 //   hardware does), zeros outside the matrix, then its bytes completed on
 //   the mbarrier; a store copies a box back, skipping what lies outside the
@@ -26,6 +27,7 @@
 struct CUtensorMap {
   const unsigned char* base;
   long long rows, cols, ld_bytes;
+  int elem;  // bytes per element: 2 (bf16) or 4 (f32)
 };
 
 namespace hopper {
@@ -38,9 +40,12 @@ constexpr int kBoxBytes = kBox * kBox * 2;
   std::abort();
 }
 
-inline int encode_tile_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld) {
-  if ((ld * 2) % 16 != 0 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || cols > ld) return 1;
-  *map = {static_cast<const unsigned char*>(ptr), rows, cols, (long long)ld * 2};
+inline int encode_tile_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld,
+                           int elem = 2) {
+  if ((elem != 2 && elem != 4) || ((long long)ld * elem) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || cols > ld)
+    return 1;
+  *map = {static_cast<const unsigned char*>(ptr), rows, cols, (long long)ld * elem, elem};
   return 0;
 }
 
@@ -106,13 +111,14 @@ inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int co
   const uint32_t d = smem_addr(dst);
   if (d % 1024 != 0) emu_fail("TMA box destination not 1024-byte aligned (128-byte swizzle)");
   if (d + kBoxBytes > sizeof(g_dyn_smem)) emu_fail("TMA box beyond shared memory");
+  const int e = map->elem;
   for (int r = 0; r < kBox; ++r)
-    for (int c = 0; c < kBox; ++c) {
+    for (int c = 0; c < 128 / e; ++c) {
       const long long gr = (long long)row + r, gc = (long long)col + c;
-      uint16_t v = 0;
+      uint32_t v = 0;
       if (gr >= 0 && gr < map->rows && gc >= 0 && gc < map->cols)
-        std::memcpy(&v, map->base + gr * map->ld_bytes + gc * 2, 2);
-      std::memcpy(g_dyn_smem + swizzle128(d + r * 128 + c * 2), &v, 2);
+        std::memcpy(&v, map->base + gr * map->ld_bytes + gc * e, e);
+      std::memcpy(g_dyn_smem + swizzle128(d + r * 128 + c * e), &v, e);
     }
   std::lock_guard<std::mutex> lock(g_mbar_mutex);
   EmuMbar& b = mbar_locked(bar);
@@ -123,12 +129,13 @@ inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int co
 inline void tma_store_2d(const CUtensorMap* map, const void* src, int col, int row) {
   const uint32_t d = smem_addr(src);
   if (d % 1024 != 0) emu_fail("TMA box source not 1024-byte aligned (128-byte swizzle)");
+  const int e = map->elem;
   for (int r = 0; r < kBox; ++r)
-    for (int c = 0; c < kBox; ++c) {
+    for (int c = 0; c < 128 / e; ++c) {
       const long long gr = (long long)row + r, gc = (long long)col + c;
       if (gr < 0 || gr >= map->rows || gc < 0 || gc >= map->cols) continue;
-      unsigned char* dst = const_cast<unsigned char*>(map->base) + gr * map->ld_bytes + gc * 2;
-      std::memcpy(dst, g_dyn_smem + swizzle128(d + r * 128 + c * 2), 2);
+      unsigned char* dst = const_cast<unsigned char*>(map->base) + gr * map->ld_bytes + gc * e;
+      std::memcpy(dst, g_dyn_smem + swizzle128(d + r * 128 + c * e), e);
     }
 }
 inline void bulk_commit() {}

@@ -6,8 +6,9 @@ chip_smoke.py and the `cuda` tests on a GPU machine.
 
 The launches are rewritten into calls of the stand-in's launcher, the
 headers of tests/cuda_emu/ take the place of the real ones of the same name
-(hopper.cuh: TMA, mbarriers and wgmma as C++, so the bf16 engine of K1 and
-K2 runs with its real descriptors and swizzle), and the sources are
+(hopper.cuh: TMA, mbarriers and wgmma as C++, so the bf16 engine of K1, K2
+and K3 runs with its real descriptors and swizzles, f32 tiles included), and
+the sources are
 compiled with the host's g++ (C++20, for std::barrier).
 """
 import ctypes
@@ -25,7 +26,8 @@ from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
 
 torch.set_num_threads(1)
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-# (M, Cin, Cout), ragged; bf16 Cin is a multiple of 8 (TMA's 16-byte rows)
+# (M, Cin, Cout), ragged; bf16 Cin is a multiple of 8 (TMA's 16-byte rows);
+# bf16 K3 stores y from the registers at all three (Cout % 4 != 0)
 SHAPES = {torch.float32: [(37, 24, 10), (130, 200, 70), (5, 300, 129)],
           torch.bfloat16: [(37, 24, 10), (130, 200, 70), (5, 296, 129)]}
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5}  # max |diff| / max |ref|
@@ -168,3 +170,15 @@ def test_k3_bcos_matmul(emulated, dtype, m, k, n):
         assert code == 0
         _assert_close(y, k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6,
                                                   eps_outside=bool(eps_outside)), dtype)
+
+
+# bf16 K3 on the engine, each with both eps_outside values: N a multiple of
+# 4 with a ragged last 128-column chunk (y staged in f32 and stored by TMA,
+# clipped at N; rows of wt beyond N read as zeros), N % 4 != 0 (y from the
+# registers), and an M that gives each of the stand-in's two blocks 8
+# tiles (the one staging buffer refilled while the last store may still
+# read it) with one partial K box; rows beyond M in a 128-row block
+@pytest.mark.parametrize("m,k,n", [(70, 512, 1000), (37, 72, 130), (1000, 16, 132)],
+                         ids=["ragged-chunk", "register-store", "many-tiles"])
+def test_k3_bf16_engine(emulated, m, k, n):
+    test_k3_bcos_matmul(emulated, torch.bfloat16, m, k, n)

@@ -90,6 +90,31 @@ def test_bf16_cin_off_the_tma_grid_raises(gpu):
         k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False)
 
 
+def test_bf16_k3_k_off_the_tma_grid_raises(gpu):
+    """bf16 K3 loads x and wt by TMA too: K must be a multiple of 8."""
+    x = torch.randn(64, 20, device=gpu).to(torch.bfloat16)
+    wt = torch.randn(16, 20, device=gpu).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False)
+
+
+@pytest.mark.parametrize("eps_outside", [False, True], ids=["conv", "linear"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k3_at_the_classifier_shape(gpu, dtype, eps_outside):
+    """K3 at the flagship classifier's full shape (batch 128): 49 x 8 tiles
+    of y (128 rows each), the last column chunk 104 wide, y stored by TMA in
+    f32."""
+    m, k, n = 6272, 2048, 1000
+    g = torch.Generator(device=gpu).manual_seed(3)
+    x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(n, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+    y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside)
+    want = k3.bcos_matmul_fwd_plain(x.float(), wt.float(), eps=1e-6, eps_outside=eps_outside)
+    assert y.dtype == torch.float32 and y.shape == (m, n)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
 def test_wrapper_rejects_a_cpu_operand(gpu):
     x = torch.randn(64, 32, device=gpu)
     with pytest.raises(ValueError, match="cpu"):
