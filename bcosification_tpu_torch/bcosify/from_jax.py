@@ -5,7 +5,9 @@
 port model of the same architecture. The port's module names mirror the
 JAX scopes, so a leaf at params/model/layer1_0/conv1/weight is the state
 dict entry ``model.layer1_0.conv1.weight``. Conv weights are HWIO in JAX
-and OIHW here; every other leaf copies as it is.
+and OIHW here; every other leaf copies as it is. ``to_jax_variables(model)``
+is the inverse: parameters go to "params", buffers (the BN running_var and
+num_batches_tracked) to "batch_stats".
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_variables", "flatten_variables"]
+__all__ = ["load_jax_variables", "flatten_variables", "to_jax_variables"]
 
 
 def flatten_variables(variables_np: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -55,3 +57,21 @@ def load_jax_variables(model: torch.nn.Module, variables_np: Mapping[str, Any]) 
                 raise ValueError(f"{name}: JAX shape {arr.shape} (as OIHW) vs "
                                  f"model {tuple(target.shape)}")
             target.copy_(torch.as_tensor(np.array(arr)).to(target.dtype))
+
+
+def to_jax_variables(model: torch.nn.Module) -> Dict[str, Dict[str, Any]]:
+    """{"params": ..., "batch_stats": ...} of ``model`` as nested dicts of
+    numpy arrays in the JAX layout (OIHW -> HWIO)."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for collection, named in (("params", model.named_parameters()),
+                              ("batch_stats", model.named_buffers())):
+        for name, t in named:
+            arr = t.detach().cpu().numpy()
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            *path, leaf = name.split(".")
+            node = out[collection]
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = np.array(arr)
+    return out

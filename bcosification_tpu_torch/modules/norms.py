@@ -1,11 +1,16 @@
-"""Uncentered BatchNorm, eval mode (counterpart of
+"""Uncentered BatchNorm (counterpart of
 ``bcosification_tpu/modules/norms.py::BatchNormUncentered2d``).
 
-Uncentered: divide by the running std, never subtract a mean. In eval mode
-the norm is a per-channel affine, which ``return_affine`` hands to a fused
-conv epilogue as (mult, add) = (weight/std, bias). Channels are the last
-axis (NHWC). Training mode (batch statistics, running-var update) is not
-ported yet and raises.
+Uncentered: divide by a std, never subtract a mean. Channels are the last
+axis (NHWC).
+
+- Eval: the running std. The norm is then a per-channel affine, which
+  ``return_affine`` hands to a fused conv epilogue as (mult, add) =
+  (weight/std, bias).
+- Train: the biased batch variance over (N, H, W), one pass in f32
+  (``max(E[x^2] - E[x]^2, 0)``, not torch's unbiased estimate), and
+  ``running_var = 0.9 running_var + 0.1 var`` with ``var`` detached, updated
+  in place. With ``explain`` the std is detached as well.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import torch
 from torch import nn
 
 __all__ = ["BatchNormUncentered2d", "NoBias"]
+
+MOMENTUM = 0.1  # weight of the batch variance in the running-var update
 
 
 class BatchNormUncentered2d(nn.Module):
@@ -33,16 +40,34 @@ class BatchNormUncentered2d(nn.Module):
     def std(self) -> torch.Tensor:
         return torch.sqrt(self.running_var + self.eps)
 
+    def batch_var(self, x: torch.Tensor) -> torch.Tensor:
+        """Biased per-channel variance of x over (N, H, W), one pass in f32,
+        and the running-var update (in place, under no_grad)."""
+        xs = x.float()
+        n = x.numel() // x.shape[-1]
+        mean = xs.sum(dim=(0, 1, 2)) / n
+        var = torch.clamp((xs * xs).sum(dim=(0, 1, 2)) / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_var.copy_((1 - MOMENTUM) * self.running_var
+                                   + MOMENTUM * var.detach())
+            self.num_batches_tracked.add_(1)
+        return var
+
     def forward(self, x, *, train: bool = False, explain: bool = False,
                 return_affine: bool = False):
-        if train:
-            raise NotImplementedError("BatchNormUncentered2d: training mode is not ported yet")
-        std = self.std()
         if return_affine:
-            mult = 1.0 / std
+            if train:
+                raise ValueError("return_affine is an eval-only fusion hook")
+            mult = 1.0 / self.std()
             if self.weight is not None:
                 mult = mult * self.weight
             return mult, self.bias
+        if train:
+            std = torch.sqrt(self.batch_var(x.detach() if explain else x) + self.eps)
+            if explain:
+                std = std.detach()
+        else:
+            std = self.std()
         out = x / std.to(x.dtype)
         if self.weight is not None:
             out = out * self.weight

@@ -109,7 +109,10 @@ def patch_norms(
     ssq = channel_sumsq(x) if x_sumsq is None else x_sumsq.float()
     kh, kw = _pair(kernel_size)
     ph, pw = _pair(padding)
-    s = nchw(ssq)
+    # [N, 1, H, W] with contiguous strides, not the permuted view: PyTorch
+    # takes that view (C = 1) for channels_last, and its CUDA avg_pool2d
+    # backward is wrong for channels_last inputs (ops/pooling.py, PERF.md)
+    s = ssq.reshape(ssq.shape[0], 1, ssq.shape[1], ssq.shape[2])
     if _pair(dilation) == (1, 1) and 2 * ph <= kh and 2 * pw <= kw:
         s = F.avg_pool2d(s, (kh, kw), _pair(stride), (ph, pw), divisor_override=1)
     else:

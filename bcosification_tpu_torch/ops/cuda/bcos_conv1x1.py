@@ -254,7 +254,8 @@ conv1x1_bwd_explain.launches = 0
 class _Conv1x1BnAct(torch.autograd.Function):
     """K1 forward; K2 as the explanation-mode backward. Only x gets a
     gradient: in explanation mode the weights, the norm and the affine are
-    constants. Training-mode gradients come with the training port."""
+    constants. The train step never reaches K1 (its BN uses batch
+    statistics, which fold into no affine), so there is no other backward."""
 
     @staticmethod
     def forward(ctx, x2, wt, mult, add, relu: bool, explain: bool):
@@ -268,7 +269,8 @@ class _Conv1x1BnAct(torch.autograd.Function):
         if not ctx.explain:
             raise NotImplementedError(
                 "bcos_conv1x1_bn_act: only the explanation-mode backward "
-                "(explain=True) is implemented; training gradients are not ported yet"
+                "(explain=True) is implemented; a train step (train=True) runs the "
+                "unfused conv and BN instead"
             )
         x2, wt, mult, out = ctx.saved_tensors
         dx = conv1x1_bwd_explain(x2, wt, ct.contiguous(), out if ctx.relu else None,

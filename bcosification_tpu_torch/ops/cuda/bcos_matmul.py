@@ -7,16 +7,27 @@ Counterpart of ``bcosification_tpu/ops/pallas/bcos_matmul.py``:
 
 with ssq the row sum of squares of x. K3 (``csrc/bcos_matmul_fwd.cu``) sums
 ssq from the same tiles that feed the product and scales in the epilogue.
-On the main path it carries the GAP-reorder classifier (a 1x1, stride-1,
-bias-free b=2 conv, dispatched from ``ops.bcos.bcos_conv2d``). In bf16 it
+It carries every bias-free, stride-1 1x1 b=2 conv that ``ops.bcos.bcos_conv2d``
+dispatches to it: in eval mode the GAP-reorder classifier, in training (where
+the batch-statistics BN has no affine to fold into K1) also conv1 and conv3
+of every bottleneck and the stride-1 downsample. In bf16 it
 runs on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``, whose tile
 loads need rows of whole 16-byte units: bf16 K must be a multiple of 8 and
 x and wt 16-byte aligned, or the wrapper raises.
 
-In explanation mode the scale is detached, so the backward is K2 of
-``bcos_conv1x1`` with mult = 1 and no ReLU mask: dx = (g * |u|/n) @ w^T,
-the explain branch of the JAX ``_bwd``. dw is not needed for W(x) and is
-not computed; training gradients come with the training port.
+The backward is the JAX ``_bwd`` (``bcos_matmul.py:123-146``), which the
+JAX package computes in XLA outside any Pallas kernel:
+
+- explain (the scale detached): dx = (g * |u|/n) @ w^T is K2 of
+  ``bcos_conv1x1`` with mult = 1 and no ReLU mask; dw = x^T @ (g * |u|/n),
+  only when w needs a gradient (``_BcosMatmul.backward``);
+- training: dy/du = 2|u|/n, plus the row term through n,
+  dx = (g * 2|u|/n) @ w^T + (sum_j g * -|u|u/n^2) * dn/dx and
+  dw = x^T @ (g * 2|u|/n) (``bcos_matmul_bwd``).
+
+Both recompute u. Its three products run on ``torch.matmul`` in x's dtype
+(bf16: f32 accumulation, rounded to bf16 once each), every other term in
+f32. A fused backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import (
     conv1x1_bwd_explain,
 )
 
-__all__ = ["bcos_matmul", "bcos_matmul_fwd", "bcos_matmul_fwd_plain"]
+__all__ = ["bcos_matmul", "bcos_matmul_bwd", "bcos_matmul_fwd", "bcos_matmul_fwd_plain"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = (_I, _P, _P, _P, _I, _I, _I, _F, _I, _P)
@@ -88,6 +99,37 @@ def _bcos_matmul_fwd_fake(x, wt, eps, eps_outside):
 bcos_matmul_fwd.launches = 0
 
 
+def _forward_terms(x, wt, eps: float, eps_outside: bool):
+    """(x in f32, u = x @ wt^T recomputed in x's dtype and taken to f32, the
+    row ssq, n) of the forward."""
+    xf = x.float()
+    u = (x @ wt.t()).float()
+    ssq = (xf * xf).sum(-1, keepdim=True)
+    n = (torch.sqrt(ssq) + eps) if eps_outside else torch.sqrt(ssq + eps)
+    return xf, u, ssq, n
+
+
+def bcos_matmul_bwd(x, wt, gy, *, eps: float, eps_outside: bool, need_dx: bool = True,
+                    need_dw: bool = True):
+    """(dx, dwt) of y = bcos_matmul_fwd(x, wt) in training for the f32
+    cotangent gy [M, N]: the JAX ``_bwd`` with wt = w^T. dx comes back in
+    x's dtype, dwt in wt's; either is None when not asked for."""
+    xf, u, ssq, n = _forward_terms(x, wt, eps, eps_outside)
+    g = gy.float()
+    gu = (g * (2.0 * u.abs() / n)).to(x.dtype)
+    dx = dwt = None
+    if need_dx:
+        gn = (g * (-u.abs() * u / n.square())).sum(-1, keepdim=True)
+        if eps_outside:
+            dn_dx = xf / torch.clamp(torch.sqrt(ssq), min=1e-20)
+        else:
+            dn_dx = xf / torch.sqrt(ssq + eps)
+        dx = ((gu @ wt).float() + gn * dn_dx).to(x.dtype)
+    if need_dw:
+        dwt = (gu.t() @ x).to(wt.dtype)
+    return dx, dwt
+
+
 class _BcosMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wt, eps: float, eps_outside: bool, explain: bool):
@@ -97,15 +139,20 @@ class _BcosMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        if not ctx.explain:
-            raise NotImplementedError(
-                "bcos_matmul: only the explanation-mode backward (explain=True) "
-                "is implemented; training gradients are not ported yet"
-            )
         x, wt = ctx.saved_tensors
-        dx = conv1x1_bwd_explain(x, wt, gy.to(x.dtype).contiguous(), None, None,
-                                 relu=False, eps=ctx.eps, eps_outside=ctx.eps_outside)
-        return dx, None, None, None, None
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        kw = dict(eps=ctx.eps, eps_outside=ctx.eps_outside)
+        if not ctx.explain:
+            dx, dwt = bcos_matmul_bwd(x, wt, gy, need_dx=need_dx, need_dw=need_dw, **kw)
+            return dx, dwt, None, None, None
+        dx = dwt = None
+        if need_dx:
+            dx = conv1x1_bwd_explain(x, wt, gy.to(x.dtype).contiguous(), None, None,
+                                     relu=False, **kw)
+        if need_dw:  # x^T (g |u|/n): the scale is detached
+            _, u, _, n = _forward_terms(x, wt, **kw)
+            dwt = ((gy.float() * (u.abs() / n)).to(x.dtype).t() @ x).to(wt.dtype)
+        return dx, dwt, None, None, None
 
 
 def bcos_matmul(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,

@@ -15,7 +15,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with its achieved TFLOP/s and GB/s, beside its bound (at the data-sheet
    and at the measured memory rate), its plain version and torch.matmul on
    the same GEMM, and each kernel's time per call beside its earlier
-   record (PREVIOUS_MS); K3 is checked with both eps_outside values;
+   record (PREVIOUS_MS); K3 is checked with both eps_outside values, also
+   at five shapes of the train step (TRAIN_CHECK_SHAPES);
 4. parity: the full-width B-cosified ResNet-50 (224x224, gamma-calibrated),
    fp32, 2 images: the fast forward + explanation on the GPU (kernels)
    against the same call on the CPU (plain versions; W within 1e-3, the
@@ -36,7 +37,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launch counts, forward-only, forward + explanation and a mixed loop in
    which 1 batch in 10 is explained, beside the harmonic model of the two
    and the eager calls timed the same way; then explain() on one image
-   (RGBA finite, in [0, 1]).
+   (RGBA finite, in [0, 1]);
+8. train: the supervised recipe (scripts/bench_train.py: Adam 1e-4 with the
+   90-epoch cosine, AGC, UniformOffLabels BCE, EMA, bf16 AMP) on the
+   calibrated net at batch 64, 224x224: Trainer.fit for one epoch of 20
+   steps on one repeated batch made from a seed (initial validation,
+   validation, EMA validation, one checkpoint in a temporary directory),
+   then a resume from that checkpoint for one step. It prints the loss per
+   5 steps (finite, falling), K3's launches per train step (34: every
+   stride-1 1x1 conv), the step's ms and img/s over a window of 10 steps in
+   a row after a warm-up step, the host's issue time per step and the peak
+   memory; then K3's time at each shape of one train step beside its bound;
+   then one fp32 train step of the small flagship on the GPU against the
+   same step on the CPU (loss, every gradient, the BN running_var), and its
+   bf16 amp gradient on the GPU against the fp32 one on the CPU (every leaf,
+   also as a ratio to the CPU amp gradient's own distance from it).
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
@@ -47,17 +62,28 @@ lines are the card, one JSON object with the kernels' numbers, and
 Without a GPU, or without the repository next to it, the script exits
 non-zero and prints no result.
 """
+import collections
 import copy
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
+from pathlib import Path
 
 import torch
 
 from bcosification_tpu_torch import serving
+from bcosification_tpu_torch.losses import (
+    BinaryCrossEntropyLoss,
+    UniformOffLabelsBCEWithLogitsLoss,
+)
+from bcosification_tpu_torch.optim import LRSchedulerFactory, OptimizerFactory
+from bcosification_tpu_torch.training import steps as steps_lib
+from bcosification_tpu_torch.training.trainer import Trainer
 from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
@@ -100,6 +126,15 @@ CHECK_SHAPES = [  # (label, M, Cin, Cout, relu) at batch 128, 224x224
     ("layer4.conv3", 6272, 512, 2048, False),
     ("layer4.downsample(s2)", 6272, 1024, 2048, False),
     ("classifier", 6272, 2048, 1000, False),
+]
+# K3's train-step shapes at batch 64, 224x224 (label, M, K, N): N = 64 is
+# below one 128-wide tile, K = 64 one K step of the engine
+TRAIN_CHECK_SHAPES = [
+    ("train layer1.conv1", 200704, 64, 64),
+    ("train layer1.conv3", 200704, 64, 256),
+    ("train layer4.conv1", 3136, 2048, 512),
+    ("train layer4.conv3", 3136, 512, 2048),
+    ("train classifier", 3136, 2048, 1000),
 ]
 # each kernel's earlier ms per fwd+explain call (PERF.md; NVIDIA H100 80GB
 # HBM3, 700.00 W), timed by the same method as time_kernels
@@ -158,16 +193,39 @@ def kernel_calls(name, x, wt, mult, add, ct, relu):
             lambda: torch.matmul(x, wt.t()))
 
 
+def _check(worst, name, variant, label, dtype, got, want):
+    """Hold one kernel result against its plain version (see phase 3)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        err, bound = float(diff.max() / want.abs().max()), 1e-5
+    else:
+        err, bound = float((got - want).norm() / want.norm()), 1e-2
+    worst[name] = max(worst[name], float(diff.max()))
+    ok = err <= bound and bool(torch.isfinite(got).all())
+    say(f"check {name + variant:28s} {label:22s} {str(dtype)[6:]:8s} "
+        f"rel err {err:.3e} (bound {bound:.0e}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at {label}")
+
+
+def _k3_results(x, wt, ref):
+    return [("bcos_matmul_fwd", " eps_outside" if eps_outside else "",
+             k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside),
+             k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6, eps_outside=eps_outside))
+            for eps_outside in (False, True)]
+
+
 def check_kernels():
     """Each kernel against its plain version at the six check shapes, both
-    dtypes (K3 with both eps_outside values). Returns {kernel: max abs
-    error over all checks}."""
+    dtypes (K3 with both eps_outside values), and K3 also at the train
+    step's shapes. Returns {kernel: max abs error over all checks}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {name: 0.0 for name in MODEL_KERNELS}
-    for label, m, k, n, relu in CHECK_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for label, m, k, n, relu in CHECK_SHAPES:
             x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
-            ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
             a = k12.conv1x1_fwd(x, wt, mult, add, relu=True)
             results = [  # (kernel, variant, kernel's result, plain version's)
                 ("bcos_conv1x1_fwd", "", k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
@@ -176,51 +234,48 @@ def check_kernels():
                  k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=relu),
                  k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), ref(a), mult,
                                                relu=relu)),
-            ]
-            for eps_outside in (False, True):
-                results.append((
-                    "bcos_matmul_fwd", " eps_outside" if eps_outside else "",
-                    k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside),
-                    k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6,
-                                             eps_outside=eps_outside)))
+            ] + _k3_results(x, wt, ref)
             torch.cuda.synchronize()
             for name, variant, got, want in results:
-                got, want = got.float(), want.float()
-                diff = (got - want).abs()
-                if dtype == torch.float32:
-                    err, bound = float(diff.max() / want.abs().max()), 1e-5
-                else:
-                    err, bound = float((got - want).norm() / want.norm()), 1e-2
-                worst[name] = max(worst[name], float(diff.max()))
-                ok = err <= bound and bool(torch.isfinite(got).all())
-                say(f"check {name + variant:28s} {label:22s} {str(dtype)[6:]:8s} "
-                    f"rel err {err:.3e} (bound {bound:.0e}) {'ok' if ok else 'FAILED'}")
-                if not ok:
-                    raise AssertionError(f"{name} disagrees with its plain version at {label}")
+                _check(worst, name, variant, label, dtype, got, want)
             del x, wt, ct, a, results
+        for label, m, k, n in TRAIN_CHECK_SHAPES:
+            x, wt, *_ = operands(m, k, n, dtype, gen)
+            results = _k3_results(x, wt, ref)
+            torch.cuda.synchronize()
+            for name, variant, got, want in results:
+                _check(worst, name, variant, label, dtype, got, want)
+            del x, wt, results
     return worst
+
+
+def conv1x1_shapes(model, batch, size):
+    """([(M, K, N, relu, stride)] of the trunk's 1x1 convs in forward order:
+    conv1, conv3 and the downsample of each bottleneck; (M, K, N) of the
+    classifier) at this batch and input size."""
+    s = ((size + 6 - 7) // 2 + 1 + 2 - 3) // 2 + 1  # 7x7/s2/p3 conv, 3x3/s2/p1 pool
+    convs = []
+    for stage, j, planes, stride, has_ds in model.block_cfgs():
+        cin = model.block_in(stage, j)
+        s_out = (s - 1) // stride + 1
+        convs += [(batch * s * s, cin, planes, True, 1),
+                  (batch * s_out * s_out, planes, 4 * planes, False, 1)]
+        if has_ds:
+            convs.append((batch * s_out * s_out, cin, 4 * planes, False, stride))
+        s = s_out
+    return convs, (batch * s * s, model.block_in(len(model.layers), 0), model.num_classes)
 
 
 def main_path_launches(model, batch, size):
     """[(kernel, M, K, N, relu)] for every kernel launch of one fast
     forward + explanation call at this batch and input size."""
-    s = ((size + 6 - 7) // 2 + 1 + 2 - 3) // 2 + 1  # 7x7/s2/p3 conv, 3x3/s2/p1 pool
+    convs, (m, k, n) = conv1x1_shapes(model, batch, size)
     launches = []
-    for stage, j, planes, stride, has_ds in model.block_cfgs():
-        cin = model.block_in(stage, j)
-        s_out = (s - 1) // stride + 1
-        shapes = [(batch * s * s, cin, planes, True),
-                  (batch * s_out * s_out, planes, 4 * planes, False)]
-        if has_ds:
-            shapes.append((batch * s_out * s_out, cin, 4 * planes, False))
-        for m, k, n, relu in shapes:
-            launches += [("bcos_conv1x1_fwd", m, k, n, relu),
-                         ("bcos_conv1x1_bwd_explain", m, k, n, relu)]
-        s = s_out
-    nf = model.block_in(len(model.layers), 0)
-    launches += [("bcos_matmul_fwd", batch * s * s, nf, model.num_classes, False),
-                 ("bcos_conv1x1_bwd_explain", batch * s * s, nf, model.num_classes, False)]
-    return launches
+    for cm, ck, cn, relu, _ in convs:
+        launches += [("bcos_conv1x1_fwd", cm, ck, cn, relu),
+                     ("bcos_conv1x1_bwd_explain", cm, ck, cn, relu)]
+    return launches + [("bcos_matmul_fwd", m, k, n, False),
+                       ("bcos_conv1x1_bwd_explain", m, k, n, False)]
 
 
 def bound_terms(name, m, k, n, relu):
@@ -238,23 +293,14 @@ def bound_terms(name, m, k, n, relu):
     return flops, nbytes
 
 
-def time_kernels(model, worst, counts, stream_rate):
-    """Per kernel: time, bound, plain and torch.matmul time of ONE main-path
-    call's launches (bf16, batch 128), each distinct shape timed as the
-    median of 10 samples of 10 launches in a row and weighted by how often
-    the call launches it. Each bound is also stated at ``stream_rate``
-    (bytes/s), the streaming rate K4 measured on this card."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    launches = main_path_launches(model, BATCH, SIZE)
-    per_shape = {}
-    for key in launches:
-        per_shape[key] = per_shape.get(key, 0) + 1
-    for name in MODEL_KERNELS:
-        expected = sum(c for key, c in per_shape.items() if key[0] == name)
-        if counts.get(name) != expected:
-            raise AssertionError(f"{name}: {counts.get(name)} launches, shapes list {expected}")
-    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_s=0.0, byte_s=0.0,
-                       bound_s=0.0, measured_bound_s=0.0) for name in MODEL_KERNELS}
+def time_shapes(per_shape, stream_rate, gen, tag=""):
+    """{kernel: row} over ``per_shape`` {(kernel, M, K, N, relu): launches}:
+    each distinct shape timed in bf16 as the median of 10 samples of 10
+    launches in a row (the plain version 3 samples of 3), weighted by its
+    launches. A row sums ms, plain_ms, library_ms (torch.matmul), the bound
+    at the data-sheet rate (bound_s, split into flop_s and byte_s by what
+    binds) and at ``stream_rate`` (bytes/s, K4's measured rate on this card)."""
+    rows = {}
     for (name, m, k, n, relu), count in sorted(per_shape.items()):
         x, wt, mult, add, ct = operands(m, k, n, torch.bfloat16, gen)
         kern, plain, lib = kernel_calls(name, x, wt, mult, add, ct, relu)
@@ -263,20 +309,36 @@ def time_kernels(model, worst, counts, stream_rate):
         t_l = stream_bandwidth.event_ms(lib, 10)
         flops, nbytes = bound_terms(name, m, k, n, relu)
         f_s, b_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        r = rows[name]
+        r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_s=0.0,
+                                       byte_s=0.0, bound_s=0.0, measured_bound_s=0.0))
         r["ms"] += count * t_k
         r["plain_ms"] += count * t_p
         r["library_ms"] += count * t_l
         r["bound_s"] += count * max(f_s, b_s)
         r["measured_bound_s"] += count * max(f_s, b_s * PEAK_BYTES / stream_rate)
         r["flop_s" if f_s >= b_s else "byte_s"] += count * max(f_s, b_s)
-        say(f"time {name:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms, "
+        say(f"time {tag}{name:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms, "
             f"{flops / t_k / 1e9:.1f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s "
-            f"(bound {1e3 * max(f_s, b_s):.4f} ms by {'FLOPs' if f_s >= b_s else 'bytes'}; "
+            f"(bound {1e3 * max(f_s, b_s):.4f} ms by {'FLOPs' if f_s >= b_s else 'bytes'}, "
+            f"{1e3 * max(f_s, b_s * PEAK_BYTES / stream_rate):.4f} ms at the measured rate; "
             f"plain {t_p:.4f}, torch.matmul {t_l:.4f}) [{CARD}]")
         del x, wt, ct
+    return rows
+
+
+def time_kernels(model, worst, counts, stream_rate):
+    """Per kernel: time, bound, plain and torch.matmul time of ONE main-path
+    call's launches (bf16, batch 128; ``time_shapes``)."""
+    per_shape = collections.Counter(main_path_launches(model, BATCH, SIZE))
+    for name in MODEL_KERNELS:
+        expected = sum(c for key, c in per_shape.items() if key[0] == name)
+        if counts.get(name) != expected:
+            raise AssertionError(f"{name}: {counts.get(name)} launches, shapes list {expected}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = time_shapes(per_shape, stream_rate, gen)
     kernels = []
-    for name, r in rows.items():
+    for name in MODEL_KERNELS:
+        r = rows[name]
         pr, before = PREVIOUS_MS[name]
         say(f"{name} per call: {r['ms']:.4f} ms ({pr}: {before:g} ms); bound "
             f"{1e3 * r['bound_s']:.4f} ms at the 3350 GB/s data sheet rate, "
@@ -617,6 +679,264 @@ def phase_serving(net, x2):
         f"in [{float(rgba.min()):.3g}, {float(rgba.max()):.3g}], finite")
 
 
+# --------------------------------------------------------------------------
+# 8: training
+# --------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WINDOW = 64, 20, 10
+TRAIN_EMA_STEPS = 10  # the recipe updates every 32 steps; 10 updates twice in 20
+# one train step: K3 on every stride-1 1x1 conv (conv1 and conv3 of the 16
+# bottlenecks, layer1's downsample, the classifier), no K1 or K2 (the
+# batch-statistics BN folds into no affine; explain is off)
+TRAIN_STEP_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                     "bcos_matmul_fwd": 34, "stream_add": 0}
+# bounds of one fp32 train step of the small flagship, GPU against CPU, and
+# of its bf16 amp gradient on the GPU against the fp32 gradient on the CPU.
+# This net's gradients are sensitive to bf16 rounding: on the CPU the port's
+# amp gradient lies 0.30 from its fp32 one (worst leaf), the JAX package's
+# 0.32. Planted bf16-only faults in the backward (K3's dw halved, K3's dx
+# without its row term and factor 2) read 0.52 and 0.92 on the worst leaf
+# and 39x on the ratio to the CPU amp gradient's own distance.
+TRAIN_PARITY_BOUNDS = {"loss": 1e-5, "gradient": 1e-4, "running_var": 1e-5,
+                       "bf16 gradient": 0.45, "bf16 gradient / cpu bf16 spread": 2.0}
+
+
+def train_k3_launches(model, batch, size):
+    """[("bcos_matmul_fwd", M, K, N, False)] of every K3 launch of one train
+    step of a bottleneck net: each stride-1 1x1 conv and the classifier."""
+    convs, classifier = conv1x1_shapes(model, batch, size)
+    return [("bcos_matmul_fwd", m, k, n, False)
+            for m, k, n, _, stride in convs if stride == 1] + [
+        ("bcos_matmul_fwd", *classifier, False)]
+
+
+def time_train_k3(model, stream_rate):
+    """K3's time over one train step's launches (bf16, batch 64;
+    ``time_shapes``)."""
+    per_shape = collections.Counter(train_k3_launches(model, TRAIN_BATCH, SIZE))
+    if sum(per_shape.values()) != TRAIN_STEP_COUNTS["bcos_matmul_fwd"]:
+        raise AssertionError(f"the train shapes list {sum(per_shape.values())} K3 launches")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    row = time_shapes(per_shape, stream_rate, gen, tag="train ")["bcos_matmul_fwd"]
+    say(f"bcos_matmul_fwd per train step ({sum(per_shape.values())} launches): "
+        f"{row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms at the data-sheet rate, "
+        f"{1e3 * row['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} GB/s; "
+        f"plain {row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f} ms [{CARD}]")
+    return row
+
+
+def device_profile(fn, calls, top=8):
+    """(card ms per call, [(kernel, ms per call)] of the ``top`` largest):
+    the sum of the card's kernel time over ``calls`` calls of ``fn``, from a
+    torch.profiler trace; (None, []) if the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()]
+    total = sum(ms for _, ms in rows)
+    return (total or None), sorted(rows, key=lambda r: -r[1])[:top]
+
+
+class RepeatedBatch:
+    """In-script data module: one batch on the card, ``steps`` times per
+    epoch; validation sees it once."""
+
+    def __init__(self, batch, steps):
+        self.batch, self.steps = batch, steps
+        self.batch_size = batch["image"].shape[0]
+
+    def setup(self, stage=None):
+        pass
+
+    def train_dataloader(self, seed=0):
+        return _RepeatedLoader(self.batch, self.steps)
+
+    def val_dataloader(self):
+        return [self.batch]
+
+
+class _RepeatedLoader:
+    def __init__(self, batch, steps):
+        self.batch, self.steps = batch, steps
+
+    def __iter__(self):
+        return iter([self.batch] * self.steps)
+
+    def __len__(self):
+        return self.steps
+
+    def set_epoch(self, epoch):
+        pass
+
+
+class RecordedLoss:
+    """The train criterion, keeping each step's loss (on the card)."""
+
+    def __init__(self, criterion):
+        self.criterion, self.losses = criterion, []
+
+    def __call__(self, out, target):
+        loss = self.criterion(out, target)
+        self.losses.append(loss.detach())
+        return loss
+
+
+def train_experiment(save_dir, criterion):
+    """The resnet_50 recipe (ImageNet/bcosification experiment_parameters)
+    plus the EMA of scripts/bench_train.py, one epoch long."""
+    return types.SimpleNamespace(save_dir=Path(save_dir), config=dict(
+        criterion=criterion, test_criterion=BinaryCrossEntropyLoss(),
+        optimizer=OptimizerFactory("Adam", 1e-4, bcosify=True, b_opt=False),
+        lr_scheduler=LRSchedulerFactory("cosineannealinglr", epochs=90),
+        trainer=dict(max_epochs=1), use_agc=True,
+        ema={"decay": 0.9998, "steps": TRAIN_EMA_STEPS}, model={}))
+
+
+def _raw_grads(model, criterion, batch, amp):
+    """{name: gradient in f64 on the CPU} of one train-mode backward of a
+    copy of ``model`` (the image in bf16 under amp)."""
+    m = copy.deepcopy(model)
+    image = batch["image"].to(torch.bfloat16) if amp else batch["image"]
+    criterion(m(image, train=True).float(), batch["label"]).backward()
+    return {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+
+
+def train_step_parity(net, batch):
+    """One fp32 train step of ``net`` (AGC, Adam with the cosine, EMA) on the
+    GPU against the same step of a CPU copy on the same batch, and the bf16
+    amp gradient on the GPU against the fp32 one on the CPU: {check: (value,
+    bound)} for the loss, the worst gradient leaf (||d||/||ref||, the raw
+    gradients of one backward), the BN running_var after the step, the worst
+    bf16 leaf, and the worst leaf's ratio of that distance to the CPU bf16
+    gradient's own (the spread bf16 rounding alone makes)."""
+    recipe = train_experiment(".", UniformOffLabelsBCEWithLogitsLoss()).config
+    schedule = recipe["lr_scheduler"].create(1e-4, steps_per_epoch=10)
+    results = []
+    for dev in ("cuda", "cpu"):
+        state = steps_lib.create_train_state(net, recipe["optimizer"].create, with_ema=True,
+                                             device=dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        grads = _raw_grads(state.model, recipe["criterion"], b, amp=False)
+        grads_bf16 = _raw_grads(state.model, recipe["criterion"], b, amp=True)
+        step = steps_lib.make_train_step(recipe["criterion"], schedule, use_agc=True,
+                                         ema_decay=0.9, ema_steps=1)
+        state, metrics = step(state, b)
+        rv = torch.cat([buf.double().cpu() for n, buf in state.model.named_buffers()
+                        if n.endswith("running_var")])
+        results.append((float(metrics["loss"]), grads, grads_bf16, rv))
+    (loss_g, grads_g, bf16_g, rv_g), (loss_c, grads_c, bf16_c, rv_c) = results
+    return {"loss": (abs(loss_g - loss_c) / abs(loss_c), TRAIN_PARITY_BOUNDS["loss"]),
+            "gradient": (max(rel(grads_g[n], grads_c[n]) for n in grads_c),
+                         TRAIN_PARITY_BOUNDS["gradient"]),
+            "running_var": (rel(rv_g, rv_c), TRAIN_PARITY_BOUNDS["running_var"]),
+            "bf16 gradient": (max(rel(bf16_g[n], grads_c[n]) for n in grads_c),
+                              TRAIN_PARITY_BOUNDS["bf16 gradient"]),
+            "bf16 gradient / cpu bf16 spread": (
+                max(rel(bf16_g[n], grads_c[n]) / rel(bf16_c[n], grads_c[n]) for n in grads_c),
+                TRAIN_PARITY_BOUNDS["bf16 gradient / cpu bf16 spread"])}
+
+
+def phase_train(net, stream_rate):
+    """Trainer.fit, resume, the timed window and the fp32 GPU-vs-CPU step.
+    Returns K3's train-step numbers for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    image = torch.rand((TRAIN_BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    batch = {"image": torch.cat([image, 1.0 - image], dim=-1),
+             "label": torch.randint(0, net.num_classes, (TRAIN_BATCH,), device="cuda",
+                                    generator=gen)}
+    data = RepeatedBatch(batch, TRAIN_STEPS)
+    criterion = RecordedLoss(UniformOffLabelsBCEWithLogitsLoss())
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = train_experiment(tmp, criterion)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        trainer = Trainer(exp, {"amp": True})
+        state = trainer.fit(net, data)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        fit_s = time.perf_counter() - t0
+        evals = 3  # the initial, the epoch's and the EMA validation: one forward each
+        want = {"bcos_conv1x1_fwd": 36 * evals, "bcos_conv1x1_bwd_explain": 0,
+                "bcos_matmul_fwd": 34 * TRAIN_STEPS + evals, "stream_add": 0}
+        say(f"train: Trainer.fit of {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, bf16 amp, took "
+            f"{fit_s:.1f} s; launches {counts}")
+        check_counts("Trainer.fit", counts, want)
+        losses = [float(v) for v in criterion.losses]
+        say("train loss per 5 steps: " + ", ".join(
+            f"step {i}: {losses[i]:.6f}" for i in range(0, len(losses), 5))
+            + f", step {len(losses) - 1}: {losses[-1]:.6f}")
+        history = trainer.metrics.history
+        say(f"train metrics: {json.dumps({k: v for k, v in history.items()})}")
+        if (len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses)
+                or not sum(losses[-5:]) < sum(losses[:5])):
+            raise AssertionError(f"train losses are not finite and falling: {losses}")
+        if state.step != TRAIN_STEPS or trainer.ckpt.available_checkpoints() != [0]:
+            raise AssertionError("fit did not take its steps or save its checkpoint")
+
+        resumed = Trainer(exp, {"amp": True}).fit(net, data, max_epochs=2, fast_dev_run=True)
+        if resumed.step != TRAIN_STEPS + 1 or trainer.ckpt.available_checkpoints() != [0, 1]:
+            raise AssertionError(f"resume: step {resumed.step}, checkpoints "
+                                 f"{trainer.ckpt.available_checkpoints()}")
+        say(f"train: resumed from epoch 0 for one step (step {resumed.step}); checkpoints "
+            f"{trainer.ckpt.available_checkpoints()}")
+
+    step = steps_lib.make_train_step(criterion, 1e-4, use_agc=True, ema_decay=0.99,
+                                     ema_steps=32, amp=True)
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    per_step = launch_counts()
+    say(f"train: launches per train step {per_step}")
+    check_counts("train step", per_step, TRAIN_STEP_COUNTS)
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_WINDOW):
+        t0 = time.perf_counter()
+        step(state, batch)
+        host.append(1e3 * (time.perf_counter() - t0))
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_WINDOW
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"train step: {TRAIN_BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per step of "
+        f"{TRAIN_BATCH}, one window of {TRAIN_WINDOW} steps; the host issues a step in "
+        f"{statistics.median(host):.2f} ms (median; {min(host):.2f}-{max(host):.2f}); peak "
+        f"memory {peak_gb:.1f} GB) [{CARD}]")
+    busy, top = device_profile(lambda: step(state, batch), 3)
+    if busy is None:
+        say("train step: the profiler trace holds no device time; card time not measured")
+    else:
+        say(f"train step: the card is busy {busy:.2f} of {ms:.2f} ms per step (idle share "
+            f"{1 - busy / ms:.1%}; torch.profiler over 3 steps) [{CARD}]")
+        for name, kms in top:
+            say(f"train step card time: {kms:8.3f} ms per step  {name[:110]}")
+    if not all(math.isfinite(float(p.detach().float().sum())) for p in state.model.parameters()):
+        raise AssertionError("parameters are not finite after training")
+    del state, resumed
+
+    row = time_train_k3(net.model, stream_rate)
+    row["launches"] = per_step["bcos_matmul_fwd"]
+
+    small = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10,
+                                   inplanes=8, layers=("bottleneck", (1, 1)), seed=SEED)
+    image = torch.rand((4, 32, 32, 3), device="cuda", generator=gen)
+    image = torch.cat([image, 1.0 - image], dim=-1)
+    calibrate(small, image[:1])
+    checks = train_step_parity(small, {"image": image, "label": torch.tensor(
+        [1, 3, 5, 7], device="cuda")})
+    for key, (val, bound) in checks.items():
+        say(f"train parity small flagship gpu vs cpu fp32, {key}: {val:.3e} (bound {bound:g})")
+    if any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("the train step on the GPU disagrees with the CPU")
+    return row
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -663,6 +983,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serving(net, x2)
     seconds["7 serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    train = phase_train(net, probe["k4_gbs"] * 1e9)
+    seconds["8 train"] = time.perf_counter() - t0
+    k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
+    k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
+                   "train_plain_ms": train["plain_ms"],
+                   "train_bound_ms": 1e3 * train["bound_s"],
+                   "train_library_ms": train["library_ms"]})
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518
         if any(key in line for key in ("Compiling entry", "registers", "spill", "warning")):

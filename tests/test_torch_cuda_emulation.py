@@ -177,8 +177,11 @@ def test_k3_bcos_matmul(emulated, dtype, m, k, n):
 # clipped at N; rows of wt beyond N read as zeros), N % 4 != 0 (y from the
 # registers), and an M that gives each of the stand-in's two blocks 8
 # tiles (the one staging buffer refilled while the last store may still
-# read it) with one partial K box; rows beyond M in a 128-row block
-@pytest.mark.parametrize("m,k,n", [(70, 512, 1000), (37, 72, 130), (1000, 16, 132)],
-                         ids=["ragged-chunk", "register-store", "many-tiles"])
+# read it) with one partial K box; rows beyond M in a 128-row block; and the
+# train step's layer1 conv1 (N = 64: half of one 128-column chunk, two of its
+# four f32 boxes stored; K = 64: one K step)
+@pytest.mark.parametrize("m,k,n", [(70, 512, 1000), (37, 72, 130), (1000, 16, 132),
+                                   (300, 64, 64)],
+                         ids=["ragged-chunk", "register-store", "many-tiles", "train-n64-k64"])
 def test_k3_bf16_engine(emulated, m, k, n):
     test_k3_bcos_matmul(emulated, torch.bfloat16, m, k, n)

@@ -1,7 +1,8 @@
 """The PyTorch port on a GPU: each hand-written kernel against its plain
 version, the launch counters, the small flagship on the GPU against the
-same net on the CPU, and an exported explanation program against the eager
-call. Every test here needs a GPU and skips without one.
+same net on the CPU (explanation and one train step), K3's training
+backward against the CPU, and an exported explanation program against the
+eager call. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -135,6 +136,25 @@ def test_avg_pool2d_gradient_matches_cpu(gpu):
     assert _rel(grads[1], grads[0]) <= 1e-6
 
 
+@pytest.mark.parametrize("kernel,stride,padding", [(3, 1, 1), (3, 2, 1), (7, 2, 3), (1, 2, 0)])
+def test_patch_norms_gradient_matches_cpu(gpu, kernel, stride, padding):
+    """The patch norm's input gradient (a train step differentiates it): its
+    [N, 1, H, W] sum of squares pooled on the GPU against the CPU. Pooled
+    as the NHWC view, which PyTorch takes for channels_last when C = 1, the
+    CUDA backward put the small flagship's gradients 1.9 away from the CPU."""
+    from bcosification_tpu_torch.ops import bcos as ops
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 17, 17, 8, generator=g)
+    grads = []
+    for dev in ("cpu", gpu):
+        xx = x.to(dev).clone().requires_grad_(True)
+        n = ops.patch_norms(xx, kernel, stride=stride, padding=padding)
+        (grad,) = torch.autograd.grad(n, xx, torch.ones_like(n))
+        grads.append(grad)
+    assert _rel(grads[1], grads[0]) <= 1e-6
+
+
 @pytest.mark.parametrize("layers", [("bottleneck", (1, 1)), ("basic", (1, 1))],
                          ids=["rn50", "rn18"])
 def test_small_flagship_gpu_matches_cpu(gpu, layers):
@@ -200,3 +220,63 @@ def test_exported_explain_matches_eager(gpu):
     assert torch.equal(sel, sw)
     assert _rel(w, ww) <= 1e-6 and _rel(logits, lw) <= 1e-6
     assert counts["bcos_conv1x1_bwd_explain"] >= 1 and counts["bcos_matmul_fwd"] == 1
+
+
+@pytest.mark.parametrize("eps_outside", [False, True], ids=["conv", "linear"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k3_at_the_layer1_train_shape(gpu, dtype, eps_outside):
+    """K3 at layer1 conv1's train-step shape (a quarter of batch 64's M):
+    N = 64 fills half of one 128-wide tile (the rows of wt beyond N load as
+    zeros, the f32 store boxes are clipped at N) and K = 64 is one K step."""
+    m, k, n = 200704 // 4, 64, 64
+    g = torch.Generator(device=gpu).manual_seed(4)
+    x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(n, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+    y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside)
+    want = k3.bcos_matmul_fwd_plain(x.float(), wt.float(), eps=1e-6, eps_outside=eps_outside)
+    assert y.shape == (m, n) and bool(torch.isfinite(y).all())
+    assert _rel(y, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("eps_outside", [False, True], ids=["conv", "linear"])
+@pytest.mark.parametrize("explain", [False, True], ids=["train", "explain"])
+def test_bcos_matmul_backward_matches_cpu(gpu, explain, eps_outside):
+    """fp32 forward (K3) and backward (torch.matmul products; K2 for the
+    explain dx) on the GPU against the CPU: 1e-5 relative."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1000, 64, generator=g)
+    w = torch.randn(64, 200, generator=g) / 8
+    ct = torch.randn(1000, 200, generator=g)
+    grads = []
+    for dev in ("cpu", gpu):
+        xx = x.to(dev).clone().requires_grad_(True)
+        ww = w.to(dev).clone().requires_grad_(True)
+        reset_launch_counts()
+        k3.bcos_matmul(xx, ww, 1e-6, eps_outside, explain).backward(ct.to(dev))
+        grads.append((xx.grad, ww.grad, launch_counts()))
+    (dx_c, dw_c, _), (dx_g, dw_g, counts) = grads
+    assert counts["bcos_matmul_fwd"] == 1
+    assert counts["bcos_conv1x1_bwd_explain"] == (1 if explain else 0)
+    assert _rel(dx_g, dx_c) <= 1e-5 and _rel(dw_g, dw_c) <= 1e-5
+
+
+def test_small_flagship_train_step_matches_cpu(gpu):
+    """One fp32 train step of the recipe on the GPU against the CPU, and the
+    bf16 amp gradient on the GPU against the fp32 one on the CPU (the same
+    checks as chip_smoke.py phase 8, with its bounds)."""
+    from chip_smoke import FLAGSHIP, calibrate, train_k3_launches, train_step_parity
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
+
+    net = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10, inplanes=8,
+                                 layers=("bottleneck", (1, 1)))
+    g = torch.Generator(device=gpu).manual_seed(6)
+    x = torch.rand(4, 32, 32, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    calibrate(net, x[:1])
+    reset_launch_counts()
+    checks = train_step_parity(net, {"image": x, "label": torch.tensor([1, 3, 5, 7],
+                                                                       device=gpu)})
+    # three forwards on the GPU (the fp32 and the bf16 raw gradients, the step)
+    assert launch_counts()["bcos_matmul_fwd"] == 3 * len(train_k3_launches(net.model, 4, 32))
+    for key, (val, bound) in checks.items():
+        assert val <= bound, (key, val, bound)

@@ -14,8 +14,14 @@ ROOT = Path(__file__).resolve().parents[1]
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import bcosification_tpu_torch
-for mod in pkgutil.walk_packages(bcosification_tpu_torch.__path__, "bcosification_tpu_torch."):
-    importlib.import_module(mod.name)
+names = [mod.name for mod in
+         pkgutil.walk_packages(bcosification_tpu_torch.__path__, "bcosification_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
+             "training.agc", "training.ema", "training.steps", "training.checkpointing",
+             "training.loggers", "training.trainer"):
+    assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "bcosification_tpu"))

@@ -21,29 +21,13 @@ FLAGSHIP_CONFIG = {
 NUM_CLASSES = 10
 
 
-def _store_into(variables_np, tnet):
-    """Write the port model's leaves back into the numpy JAX tree (OIHW ->
-    HWIO): the inverse of load_jax_variables."""
-    state = tnet.state_dict()
-    for collection in ("params", "batch_stats"):
-        stack = [(variables_np[collection], [])]
-        while stack:
-            node, path = stack.pop()
-            for key, value in node.items():
-                if isinstance(value, dict):
-                    stack.append((value, path + [key]))
-                    continue
-                arr = state[".".join(path + [key])].numpy()
-                node[key] = np.array(arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr)
-
-
 def small_pair(arch, layers, input_size, seed=0):
     """(jax net, jax variables, port net, input x [2, S, S, 6] f32) for a small
     flagship with BN gammas calibrated as chip_smoke.py does; the port runs
     on the CPU."""
     from __graft_entry__ import _flagship
     from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
-    from bcosification_tpu_torch.bcosify.from_jax import load_jax_variables
+    from bcosification_tpu_torch.bcosify.from_jax import load_jax_variables, to_jax_variables
     from chip_smoke import calibrate
 
     net, variables = _flagship(input_size=input_size, arch=arch, inplanes=8,
@@ -56,7 +40,7 @@ def small_pair(arch, layers, input_size, seed=0):
     rng = np.random.default_rng(seed)
     probe = torch.from_numpy(rng.random((1, input_size, input_size, 6)).astype(np.float32))
     calibrate(tnet, probe)
-    _store_into(variables_np, tnet)
+    variables_np = to_jax_variables(tnet)
     x = rng.random((2, input_size, input_size, 3)).astype(np.float32)
     x = np.concatenate([x, 1.0 - x], axis=-1)  # AddInverse, NHWC
     variables = jax.tree_util.tree_map(jax.numpy.asarray, variables_np)
