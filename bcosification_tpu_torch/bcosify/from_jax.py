@@ -16,7 +16,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_variables", "flatten_variables", "to_jax_variables"]
+__all__ = ["load_jax_variables", "load_jax_npz", "flatten_variables", "to_jax_variables"]
 
 
 def flatten_variables(variables_np: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -75,3 +75,18 @@ def to_jax_variables(model: torch.nn.Module) -> Dict[str, Dict[str, Any]]:
                 node = node.setdefault(key, {})
             node[leaf] = np.array(arr)
     return out
+
+
+def load_jax_npz(model: torch.nn.Module, path) -> None:
+    """Fill ``model`` from an npz of JAX variables, keyed by their paths
+    ("params/model/layer1_0/conv1/weight", as the JAX package's
+    ``strip_checkpoints`` and ``evaluate.py --weights`` use)."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as loaded:  # plain arrays only: never allow_pickle
+        for key in loaded.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = loaded[key]
+    load_jax_variables(model, tree)

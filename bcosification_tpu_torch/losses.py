@@ -68,6 +68,9 @@ class BinaryCrossEntropyLoss:
             target = (target > self.target_threshold).to(x.dtype)
         return binary_cross_entropy_with_logits(x, target, reduction=self.reduction)
 
+    def __to_config__(self):
+        return dataclasses.asdict(self) | {"name": type(self).__name__}
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformOffLabelsBCEWithLogitsLoss:
@@ -82,3 +85,6 @@ class UniformOffLabelsBCEWithLogitsLoss:
         off_value = self.off_label or (1.0 / x.shape[-1])
         target = torch.clamp(_one_hot_if_needed(x, target), min=off_value)
         return binary_cross_entropy_with_logits(x, target, reduction=self.reduction)
+
+    def __to_config__(self):
+        return dataclasses.asdict(self) | {"name": type(self).__name__}

@@ -7,7 +7,12 @@ variables map onto the state dict one to one (``bcosify/from_jax.py``).
 ``_conv_bn_act`` folds an eval-mode uncentered BN, the activation and the
 block's skip-add into the conv's epilogue whenever the conv is a fusable
 1x1 (conv1, conv3 and the downsample of a bottleneck): those run on the
-hand-written kernel. The k x k convs stay conv -> norm -> act.
+hand-written kernel K1, whose backward is the explanation's (K2). An
+eval-mode forward without ``explain`` whose gradient autograd will need
+(an input gradient, or one of the weights) runs unfused instead, as the
+JAX package's jnp path does: conv (K3 at stride 1, cuDNN at stride 2) ->
+norm -> act, each with its own backward; ``_conv_bn_act.grad_route``
+counts those convs. The k x k convs stay conv -> norm -> act.
 """
 from __future__ import annotations
 
@@ -30,9 +35,18 @@ from bcosification_tpu_torch.ops import pooling
 __all__ = ["BasicBlock", "Bottleneck", "BcosResNet", "resnet18", "resnet50"]
 
 
+def _needs_grad(x, *modules) -> bool:
+    """True when autograd will want a gradient through this conv: grad mode
+    is on and x or a parameter of ``modules`` requires one."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters()))
+
+
 def _conv_bn_act(conv, norm, act, x, f, residual=None, post_act=None):
     """conv -> norm -> act [-> + residual -> post_act], folded into the fused
-    kernel when the conv is an eligible 1x1 and the norm is eval-mode BN."""
+    kernel when the conv is an eligible 1x1, the norm is eval-mode BN, and
+    either ``explain`` is set or no gradient is needed (the fused kernel's
+    backward is the explanation's only)."""
     assert act is None or post_act is None
     relu = isinstance(act, ReLU) or isinstance(post_act, ReLU)
     if (
@@ -43,8 +57,10 @@ def _conv_bn_act(conv, norm, act, x, f, residual=None, post_act=None):
         and (act is None or isinstance(act, (ReLU, Identity)))
         and (post_act is None or isinstance(post_act, (ReLU, Identity)))
     ):
-        mult, add = norm(None, return_affine=True)
-        return conv(x, **f, epilogue=(mult, add, relu, residual))
+        if f["explain"] or not _needs_grad(x, conv, norm):
+            mult, add = norm(None, return_affine=True)
+            return conv(x, **f, epilogue=(mult, add, relu, residual))
+        _conv_bn_act.grad_route += 1
     out = norm(conv(x, **f), **f)
     if act is not None:
         out = act(out, **f)
@@ -53,6 +69,9 @@ def _conv_bn_act(conv, norm, act, x, f, residual=None, post_act=None):
     if post_act is not None:
         out = post_act(out, **f)
     return out
+
+
+_conv_bn_act.grad_route = 0  # eligible 1x1 convs run unfused because a gradient is needed
 
 
 class _Block(nn.Module):

@@ -17,10 +17,12 @@ with the dynamic scale |u|/n detached and u recomputed:
     dx = ((ct * mult * [a > 0]) * |x @ w| / n) @ w^T
 
 In bf16 both run on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``,
-whose tile loads need rows of whole 16-byte units: bf16 Cin must be a
-multiple of 8, or the wrapper raises. K2 in bf16 with Cout above
-``FUSED_MAX_COUT`` writes g to a scratch that the wrapper allocates and
-runs dx = g @ w as a second launch (one op call, one count).
+whose tile loads need rows of whole 16-byte units and 16-byte aligned data:
+a bf16 Cin off the grid of 8 is zero-padded in x and w (and K2's dx sliced
+back), and a misaligned operand gets an aligned copy, before the launch
+(``tma_operands``, counted in ``tma_operands.padded``). K2 in bf16 with
+Cout above ``FUSED_MAX_COUT`` writes g to a scratch that the wrapper
+allocates and runs dx = g @ w as a second launch (one op call, one count).
 
 Each kernel has a wrapper that checks its operands and a plain PyTorch
 version with the same signature. The wrapper calls a ``torch.library``
@@ -100,16 +102,31 @@ def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def check_tma(name: str, *tensors) -> None:
-    """Raise unless the bf16 operands suit the kernels' TMA loads: rows of
-    a multiple of 8 elements (16 bytes) and 16-byte aligned data."""
-    if tensors[0].dtype != torch.bfloat16:
-        return
-    if tensors[0].shape[-1] % 8:
-        raise ValueError(f"{name}: bf16 Cin must be a multiple of 8 (TMA reads 16-byte "
-                         f"rows), got {tensors[0].shape[-1]}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+def tma_operands(x2: torch.Tensor, wt: torch.Tensor):
+    """(x2, wt) as the bf16 kernels' TMA loads need them: rows of a multiple
+    of 8 elements (16 bytes) and 16-byte aligned data. A Cin off that grid
+    is zero-padded in both (zeros change neither x2 @ wt^T nor the row sum
+    of squares); a misaligned operand gets an aligned contiguous copy. The
+    shape and the pointers decide, before any launch; each call that
+    changes an operand adds one to ``tma_operands.padded``. fp32 operands
+    pass unchanged (their kernels do not load by TMA)."""
+    if x2.dtype != torch.bfloat16:
+        return x2, wt
+    pad = -x2.shape[1] % 8
+    x_new, wt_new = x2, wt
+    if pad:
+        x_new = torch.nn.functional.pad(x2, (0, pad))
+        wt_new = torch.nn.functional.pad(wt, (0, pad))
+    if x_new.data_ptr() % 16:
+        x_new = x_new.clone(memory_format=torch.contiguous_format)
+    if wt_new.data_ptr() % 16:
+        wt_new = wt_new.clone(memory_format=torch.contiguous_format)
+    if x_new is not x2 or wt_new is not wt:
+        tma_operands.padded += 1
+    return x_new, wt_new
+
+
+tma_operands.padded = 0
 
 
 def check_device(name: str, x: torch.Tensor) -> None:
@@ -155,7 +172,8 @@ def _conv1x1_fwd_op(x2: Tensor, wt: Tensor, mult: Tensor, add: Optional[Tensor],
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_fwd", x2.numel(), wt.numel(), m * n)
-    check_tma("conv1x1_fwd", x2, wt)
+    x2, wt = tma_operands(x2, wt)
+    k = x2.shape[1]
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     fn = _build.function("bcos_conv1x1_fwd", _FWD_ARGS)
     with torch.cuda.device(x2.device):
@@ -219,7 +237,9 @@ def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_bwd_explain", x2.numel(), wt.numel(), m * n)
-    check_tma("conv1x1_bwd_explain", x2, wt)
+    cin = k
+    x2, wt = tma_operands(x2, wt)
+    k = x2.shape[1]
     dx = torch.empty((m, k), dtype=x2.dtype, device=x2.device)
     g = None
     if x2.dtype == torch.bfloat16 and n > FUSED_MAX_COUT:
@@ -231,7 +251,7 @@ def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
                   torch.cuda.current_stream().cuda_stream)
     _build.check("bcos_conv1x1_bwd_explain", code)
     conv1x1_bwd_explain.launches += 1
-    return dx
+    return dx if k == cin else dx[:, :cin].contiguous()
 
 
 @_conv1x1_bwd_op.register_kernel("cpu")

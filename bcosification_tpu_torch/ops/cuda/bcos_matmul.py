@@ -12,8 +12,9 @@ dispatches to it: in eval mode the GAP-reorder classifier, in training (where
 the batch-statistics BN has no affine to fold into K1) also conv1 and conv3
 of every bottleneck and the stride-1 downsample. In bf16 it
 runs on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``, whose tile
-loads need rows of whole 16-byte units: bf16 K must be a multiple of 8 and
-x and wt 16-byte aligned, or the wrapper raises.
+loads need rows of whole 16-byte units and 16-byte aligned data: a bf16 K
+off the grid of 8 is zero-padded in x and wt, and a misaligned operand
+copied, before the launch (``bcos_conv1x1.tma_operands``).
 
 The backward is the JAX ``_bwd`` (``bcos_matmul.py:123-146``), which the
 JAX package computes in XLA outside any Pallas kernel:
@@ -42,8 +43,8 @@ from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import (
     check_device,
     check_int32,
     check_operands,
-    check_tma,
     conv1x1_bwd_explain,
+    tma_operands,
 )
 
 __all__ = ["bcos_matmul", "bcos_matmul_bwd", "bcos_matmul_fwd", "bcos_matmul_fwd_plain"]
@@ -75,7 +76,8 @@ def _bcos_matmul_fwd_op(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) ->
     m, k = x.shape
     n = wt.shape[0]
     check_int32("bcos_matmul_fwd", x.numel(), wt.numel(), m * n)
-    check_tma("bcos_matmul_fwd", x, wt)
+    x, wt = tma_operands(x, wt)
+    k = x.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("bcos_matmul_fwd", _ARGS)
     with torch.cuda.device(x.device):

@@ -48,7 +48,7 @@
 // Where Cout is not a multiple of 8 (no TMA on ct and a), ct and a are read
 // in the accumulator layout, two columns per load where aligned.
 // TMA needs 16-byte row strides: bf16 Cin must be a multiple of 8 (the
-// wrapper raises otherwise).
+// wrapper zero-pads x and wt otherwise).
 //
 // fp32 keeps the FMA design: a block owns 16 pixels and all of Cout (g in
 // shared memory), walks Cout in 64-wide chunks with the tile loop of

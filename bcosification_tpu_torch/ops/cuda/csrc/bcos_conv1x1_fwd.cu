@@ -33,7 +33,7 @@
 // the consumers store this one, and the other block on the SM fills the
 // gaps of this one's epilogue.
 // TMA needs 16-byte row strides: bf16 Cin must be a multiple of 8 (the
-// wrapper raises otherwise).
+// wrapper zero-pads x and wt otherwise).
 //
 // fp32 keeps the FMA tile loop of bcos_gemm.cuh (64 x 64 tiles), so the
 // kernel can be held tightly against its plain version; the model runs in

@@ -32,8 +32,8 @@
 // 128-byte swizzle on 4-byte elements) for TMA stores that clip at M and N;
 // the store runs under the next tile's mainloop. TMA needs 16-byte rows: y
 // leaves by TMA where N is a multiple of 4, else from the registers as
-// masked float2 pairs; bf16 K must be a multiple of 8 (the wrapper raises
-// otherwise). Of four shared-memory layouts timed side by side (PERF.md,
+// masked float2 pairs; bf16 K must be a multiple of 8 (the wrapper
+// zero-pads x and wt otherwise). Of four shared-memory layouts timed side by side (PERF.md,
 // PR 4), 128-row blocks with one f32 staging buffer (64 KB) and as many
 // stages as fit beside it (5) were the fastest at the classifier's shape.
 //

@@ -91,3 +91,6 @@ class LRSchedulerFactory:
             return base_lr * self.warmup_decay
 
         return schedule
+
+    def __to_config__(self):
+        return {k: v for k, v in dataclasses.asdict(self).items() if v is not None}

@@ -114,3 +114,6 @@ class OptimizerFactory:
     def __repr__(self):
         return (f"{type(self).__name__}(optimizer='{self.name}'"
                 + "".join(f", {k}={v}" for k, v in self.args.items()) + ")")
+
+    def __to_config__(self):
+        return dict(name=self.name.lower(), **self.args)

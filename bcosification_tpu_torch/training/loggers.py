@@ -21,7 +21,7 @@ def setup_loggers(args: Dict[str, Any]) -> None:
         if args.get(key):
             raise NotImplementedError(
                 f"{key}: the event-stream logger back ends are not ported yet "
-                "(port slice 6); metrics.csv and metrics.json.gz are always written"
+                "(port slice 6d); metrics.csv and metrics.json.gz are always written"
             )
 
 

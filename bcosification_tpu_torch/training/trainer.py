@@ -1,6 +1,9 @@
 """The supervised training loop (counterpart of the supervised branch of
 ``bcosification_tpu/training/trainer.py::Trainer``).
 
+``run_training(args)`` is the ``train`` command's assembly: the
+experiment, its model and data module, and one ``fit``.
+
 ``Trainer(experiment, args, device).fit(model, datamodule)`` trains a copy of
 ``model`` and returns the final ``TrainState``. ``experiment`` carries
 ``.config`` (criterion, test_criterion, optimizer, lr_scheduler, trainer,
@@ -20,6 +23,7 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from bcosification_tpu_torch.device import resolve_device
@@ -28,11 +32,23 @@ from bcosification_tpu_torch.training.checkpointing import CheckpointManager
 from bcosification_tpu_torch.training.ema import adjusted_ema_decay
 from bcosification_tpu_torch.training.loggers import MetricsLogger, setup_loggers
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "run_training"]
 
 _SLICE_5 = "port slice 5 (CLIP and knowledge distillation)"
 _SLICE_6 = "port slice 6 (the rest of training)"
 _SLICE_8 = "port slice 8 (distribution)"
+_SLICE_6D = "port slice 6d (loggers and the explanation logger)"
+# flags of the train command whose features are not ported: (flag, the
+# argparse dest, its value when off, the slice that brings it)
+UNPORTED_FLAGS = (
+    ("--tensorboard_logger", "tensorboard_logger", False, _SLICE_6D),
+    ("--wandb_logger", "wandb_logger", False, _SLICE_6D),
+    ("--explanation_logging", "explanation_logging", False, _SLICE_6D),
+    ("--profile_dir", "profile_dir", None, _SLICE_6D),
+    ("--fsdp", "fsdp", False, _SLICE_8),
+    ("--model_parallel", "model_parallel", 1, _SLICE_8),
+    ("--pipeline_parallel", "pipeline_parallel", 1, _SLICE_8),
+)
 
 
 def _check_ported(config: Dict[str, Any]) -> None:
@@ -171,3 +187,36 @@ class Trainer:
         if "loss" in totals:
             out["val_loss"] = totals["loss"] / count
         return out
+
+
+def check_flags(args) -> None:
+    """Raise NotImplementedError, naming the flag and its slice, for a flag
+    of the train command whose feature is not ported; none is ignored."""
+    for flag, dest, off, where in UNPORTED_FLAGS:
+        value = getattr(args, dest, off)
+        if value not in (off, None):
+            raise NotImplementedError(f"{flag}={value} is not ported yet; it comes in {where}")
+
+
+def run_training(args, device=None) -> steps_lib.TrainState:
+    """The train command: the Experiment of (dataset, base_network,
+    experiment_name), numpy and torch seeded from its config's seed (42
+    when it has none), its model and data module, and ``Trainer.fit`` on
+    ``device`` (default the GPU; the CPU only when asked for)."""
+    from bcosification_tpu_torch import settings
+    from bcosification_tpu_torch.experiments.utils.experiment_utils import Experiment
+
+    check_flags(args)
+    dev = resolve_device(device)
+    if getattr(args, "base_directory", None):
+        settings.EXPERIMENT_ROOT = args.base_directory
+    experiment = Experiment(args.dataset, args.base_network, args.experiment_name)
+    seed = experiment.config.get("seed", 42)
+    seed = 42 if seed is None else seed  # 0 is a legitimate seed
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    model = experiment.get_model(device=dev)
+    datamodule = experiment.get_datamodule(cache_dataset=getattr(args, "cache_dataset", None))
+    trainer = Trainer(experiment, vars(args), device=dev)
+    return trainer.fit(model, datamodule, fast_dev_run=getattr(args, "fast_dev_run", False),
+                       resume=getattr(args, "resume", True))

@@ -51,14 +51,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    then one fp32 train step of the small flagship on the GPU against the
    same step on the CPU (loss, every gradient, the BN running_var), and its
    bf16 amp gradient on the GPU against the fp32 one on the CPU (every leaf,
-   also as a ratio to the CPU amp gradient's own distance from it).
+   also as a ratio to the CPU amp gradient's own distance from it);
+9. entry points: a synthetic ImageNet-layout JPEG tree made from a seed
+   (data/synthetic.py: 10 classes, 704 train and 128 val JPEGs of 500x375
+   at quality 90) with IMAGENET_PATH pointing at it; the resnet_50
+   Experiment's train loader alone (img/s, the host's CPU count, its
+   workers); the host-to-card copy of one batch; Trainer.fit for one epoch
+   (bf16 amp) fed by that loader, its img/s beside phase 8's repeated-batch
+   rate and K3's launches per step; then, in-process, ``train
+   --fast_dev_run`` (resuming from the fit's checkpoint), ``evaluate
+   --reload last`` (its top-1/top-5 equal to the val_acc1/val_acc5 logged
+   for the same weights) and ``evaluate --reload fresh``, with K1's and
+   K3's launches per eval batch; then the eval-mode input gradient without
+   explain (fault C1's route: the 1x1 convs unfused, K3 and cuDNN) of the
+   calibrated full-width net in fp32, GPU against CPU, within ten times
+   the CPU's own spread under 1e-7 relative input noise, and phase 5's
+   launch counts again.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
-is the images of one window of about 1.7 s over its time. The last three
-lines are the card, one JSON object with the kernels' numbers, and
-{"ok": true, "device": {...}}.
+is the images of one window of about 1.7 s over its time. No bf16 operand
+of a ResNet-50 path needs the TMA padding (``tma_operands.padded`` stays 0).
+The last three lines are the card, one JSON object with the kernels'
+numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
 non-zero and prints no result.
 """
@@ -66,6 +82,7 @@ import collections
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -76,7 +93,11 @@ from pathlib import Path
 
 import torch
 
-from bcosification_tpu_torch import serving
+from bcosification_tpu_torch import evaluate as evaluate_cli
+from bcosification_tpu_torch import serving, settings
+from bcosification_tpu_torch import train as train_cli
+from bcosification_tpu_torch.data.synthetic import write_imagenet_tree
+from bcosification_tpu_torch.experiments.utils.experiment_utils import Experiment
 from bcosification_tpu_torch.losses import (
     BinaryCrossEntropyLoss,
     UniformOffLabelsBCEWithLogitsLoss,
@@ -87,6 +108,7 @@ from bcosification_tpu_torch.training.trainer import Trainer
 from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
+from bcosification_tpu_torch.models import resnet
 from bcosification_tpu_torch.models.resnet import Bottleneck
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
@@ -908,6 +930,7 @@ def phase_train(net, stream_rate):
         f"{TRAIN_BATCH}, one window of {TRAIN_WINDOW} steps; the host issues a step in "
         f"{statistics.median(host):.2f} ms (median; {min(host):.2f}-{max(host):.2f}); peak "
         f"memory {peak_gb:.1f} GB) [{CARD}]")
+    step_img_s = TRAIN_BATCH / ms * 1e3
     busy, top = device_profile(lambda: step(state, batch), 3)
     if busy is None:
         say("train step: the profiler trace holds no device time; card time not measured")
@@ -922,6 +945,7 @@ def phase_train(net, stream_rate):
 
     row = time_train_k3(net.model, stream_rate)
     row["launches"] = per_step["bcos_matmul_fwd"]
+    row["step_img_s"] = step_img_s
 
     small = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10,
                                    inplanes=8, layers=("bottleneck", (1, 1)), seed=SEED)
@@ -935,6 +959,248 @@ def phase_train(net, stream_rate):
     if any(not val <= bound for val, bound in checks.values()):
         raise AssertionError("the train step on the GPU disagrees with the CPU")
     return row
+
+
+# --------------------------------------------------------------------------
+# 9: the entry points, fed from JPEGs
+# --------------------------------------------------------------------------
+ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 10, 704, 128  # 11 train batches of 64, 2 val
+ENTRY_EXPERIMENT = ("ImageNet", "bcosification", "resnet_50")
+# per eval batch of the ResNet-50: K1 on every 1x1 conv of the trunk, K3 on
+# the classifier
+EVAL_BATCH_COUNTS = {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 0,
+                     "bcos_matmul_fwd": 1, "stream_add": 0}
+# the eval-mode gradient without explain (fault C1's route): no K1; K3 on
+# the 34 stride-1 1x1 convs; the 36 eligible convs run unfused
+EVAL_GRADIENT_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                        "bcos_matmul_fwd": 34, "stream_add": 0}
+
+
+def scaled_counts(counts, k, plus=None):
+    out = {name: k * v for name, v in counts.items()}
+    for name, v in (plus or {}).items():
+        out[name] += v
+    return out
+
+
+def eval_gradients(net, x, weights=False):
+    """{"x": the input gradient[, parameter name: its gradient]} (f64 on
+    the CPU) of sum(logits * c), c a cotangent made from SEED, for
+    net(x, train=False) without explain: the gradient the IxG and Grad
+    explainers take. The net is copied, so its own weights stay frozen."""
+    m = copy.deepcopy(net).requires_grad_(weights)
+    xx = x.detach().clone().requires_grad_(True)
+    out = m(xx, train=False)
+    c = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED)).to(out.device)
+    out.backward(c.to(out.dtype))
+    grads = {"x": xx.grad.double().cpu()}
+    if weights:
+        grads.update({n: p.grad.double().cpu() for n, p in m.named_parameters()})
+    return grads
+
+
+class TimedLoader:
+    """A train loader that records when its epoch's iteration starts and
+    when it ends, after the card has finished the last step's work."""
+
+    def __init__(self, loader):
+        self.loader, self.spans = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        t0 = time.perf_counter()
+        n = 0
+        for batch in self.loader:
+            n += len(batch["label"])
+            yield batch
+        torch.cuda.synchronize()
+        self.spans.append((n, time.perf_counter() - t0))
+
+
+class TimedData:
+    """The data module, with its train loader timed (``TimedLoader``)."""
+
+    def __init__(self, datamodule):
+        self.datamodule, self.loader = datamodule, None
+        self.batch_size = datamodule.batch_size
+
+    def setup(self, stage=None):
+        self.datamodule.setup(stage)
+
+    def train_dataloader(self, seed=0):
+        self.loader = TimedLoader(self.datamodule.train_dataloader(seed=seed))
+        return self.loader
+
+    def val_dataloader(self):
+        return self.datamodule.val_dataloader()
+
+
+def copy_ms(batch, calls=5):
+    """ms of one host-to-card copy of the batch's image array (pageable
+    memory), over ``calls`` copies in a row."""
+    image = torch.from_numpy(batch["image"])
+    image.to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        image.to("cuda")
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls, image.numel() * image.element_size()
+
+
+def phase_entry(net, x2, step_img_s):
+    """The train and evaluate entry points on a synthetic JPEG tree (see
+    the module docstring, phase 9). Returns its numbers for the record."""
+    out = {}
+    old_paths = (settings.IMAGENET_PATH, settings.EXPERIMENT_ROOT, os.environ.get("IMAGENET_PATH"))
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root, exp_root = Path(tmp) / "imagenet", Path(tmp) / "experiments"
+        t0 = time.perf_counter()
+        write_imagenet_tree(data_root, ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL, seed=SEED)
+        say(f"entry: wrote {ENTRY_TRAIN} train and {ENTRY_VAL} val JPEGs (500x375, quality 90, "
+            f"{ENTRY_CLASSES} classes) in {time.perf_counter() - t0:.1f} s")
+        os.environ["IMAGENET_PATH"] = settings.IMAGENET_PATH = str(data_root)
+        settings.EXPERIMENT_ROOT = str(exp_root)
+        try:
+            out.update(_entry_runs(net, x2, step_img_s, exp_root))
+        finally:
+            settings.IMAGENET_PATH, settings.EXPERIMENT_ROOT, env = old_paths
+            if env is None:
+                os.environ.pop("IMAGENET_PATH", None)
+            else:
+                os.environ["IMAGENET_PATH"] = env
+    out.update(_c1_route(net, x2))
+    return out
+
+
+def _entry_runs(net, x2, step_img_s, exp_root):
+    exp = Experiment(*ENTRY_EXPERIMENT)
+    datamodule = exp.get_datamodule()
+    datamodule.setup("fit")
+    loader = datamodule.train_dataloader(seed=0)
+    t0 = time.perf_counter()
+    n, last = 0, None
+    for last in loader:
+        n += len(last["label"])
+    loader_s = time.perf_counter() - t0
+    if n != ENTRY_TRAIN or last["image"].shape != (64, SIZE, SIZE, 6):
+        raise AssertionError(f"the train loader gave {n} images, last batch "
+                             f"{last['image'].shape}")
+    loader_img_s = n / loader_s
+    say(f"entry loader alone: {loader_img_s:.1f} img/s ({n} images in {len(loader)} batches "
+        f"of 64 in {loader_s:.2f} s; PIL decode in {datamodule.num_workers} threads on a host "
+        f"with {os.cpu_count()} CPUs) [{CARD}]")
+    ms_copy, nbytes = copy_ms(last)
+    say(f"entry host-to-card copy of one batch ({nbytes / 1e6:.1f} MB float32, pageable): "
+        f"{ms_copy:.2f} ms = {nbytes / ms_copy / 1e6:.1f} GB/s [{CARD}]")
+
+    model = exp.get_model()
+    calibrate(model, x2[:1])
+    data = TimedData(datamodule)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(exp, {"amp": True})
+    state = trainer.fit(model, data, max_epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    steps, val_batches = ENTRY_TRAIN // 64, -(-ENTRY_VAL // 64)
+    evals = 2 * val_batches  # the initial and the epoch's validation
+    check_counts("Trainer.fit from JPEGs", counts, scaled_counts(
+        EVAL_BATCH_COUNTS, evals, {"bcos_matmul_fwd": TRAIN_STEP_COUNTS["bcos_matmul_fwd"]
+                                   * steps}))
+    (n_fit, train_s), = data.loader.spans
+    fit_img_s = n_fit / train_s
+    history = trainer.metrics.history
+    say(f"entry Trainer.fit from JPEGs (bf16 amp, batch 64, {steps} steps): {fit_img_s:.1f} "
+        f"img/s over the epoch's train loop ({train_s:.2f} s); phase 8's repeated batch on the "
+        f"card: {step_img_s:.1f} img/s; fit with two validations and a checkpoint "
+        f"{fit_s:.1f} s; K3 launches per train step "
+        f"{(counts['bcos_matmul_fwd'] - evals) / steps:g}; launches {counts} [{CARD}]")
+    say(f"entry fit metrics: {json.dumps(history)}")
+    if state.step != steps or not math.isfinite(history["train_loss"][-1][1]):
+        raise AssertionError(f"fit from JPEGs: step {state.step}, history {history}")
+    del state, trainer, model
+
+    base = ["--base_directory", str(exp_root)]
+    reset_launch_counts()
+    train_cli.main(["--dataset", ENTRY_EXPERIMENT[0], "--base_network", ENTRY_EXPERIMENT[1],
+                    "--experiment_name", ENTRY_EXPERIMENT[2], "--amp", "--fast_dev_run", *base])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_counts("train --fast_dev_run", counts, scaled_counts(
+        EVAL_BATCH_COUNTS, val_batches, {"bcos_matmul_fwd": TRAIN_STEP_COUNTS["bcos_matmul_fwd"]}))
+    if exp.available_checkpoints() != [0, 1]:
+        raise AssertionError(f"train --fast_dev_run: checkpoints {exp.available_checkpoints()}")
+    logged = exp.load_metrics()
+    want = (logged["val_acc1"][-1], logged["val_acc5"][-1])
+    say(f"entry train --fast_dev_run: resumed from epoch 0, one step, checkpoints "
+        f"{exp.available_checkpoints()}, logged val_acc1/val_acc5 at epoch {want[0][0]}: "
+        f"{want[0][1]:.6f} / {want[1][1]:.6f}; launches {counts}")
+
+    results = {}
+    for reload in ("last", "fresh"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        top1, top5, (c1, c5, n) = evaluate_cli.main(
+            ["--experiment_name", ENTRY_EXPERIMENT[2], "--reload", reload, *base])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        say(f"entry evaluate --reload {reload}: top-1 {top1:.6f} ({c1}/{n}), top-5 {top5:.6f} "
+            f"({c5}/{n}) in {time.perf_counter() - t0:.1f} s; launches {counts}")
+        check_counts(f"evaluate --reload {reload}", counts,
+                     scaled_counts(EVAL_BATCH_COUNTS, val_batches))
+        if n != ENTRY_VAL:
+            raise AssertionError(f"evaluate --reload {reload} saw {n} images")
+        results[reload] = (top1, top5)
+    if results["last"] != (want[0][1], want[1][1]):
+        raise AssertionError(f"evaluate --reload last {results['last']} differs from the "
+                             f"logged {want}")
+    say("entry evaluate --reload last equals the fit's logged val_acc1/val_acc5: True")
+    return {"loader_img_s": loader_img_s, "fit_img_s": fit_img_s, "copy_ms": ms_copy}
+
+
+def _c1_route(net, x2):
+    """Fault C1's route at full width: the eval-mode input gradient without
+    explain, GPU against CPU in fp32, bounded by ten times the CPU's own
+    spread under 1e-7 relative input noise; then phase 5's counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    route = resnet._conv_bn_act.grad_route
+    reset_launch_counts()
+    got = eval_gradients(net, x2)["x"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    unfused = resnet._conv_bn_act.grad_route - route
+    check_counts("eval-mode gradient", counts, EVAL_GRADIENT_COUNTS)
+    if unfused != 36:
+        raise AssertionError(f"eval-mode gradient: {unfused} convs took the unfused route")
+    cpu_net = copy.deepcopy(net).to("cpu")
+    want = eval_gradients(cpu_net, x2.cpu())["x"]
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 7))
+    spread = rel(eval_gradients(cpu_net, x2.cpu() * (1 + 1e-7 * noise))["x"], want)
+    err, bound = rel(got, want), 10 * spread
+    say(f"entry C1 route: eval-mode input gradient without explain, fp32, 2 images, gpu vs cpu "
+        f"{err:.3e} (bound {bound:.3e} = 10 x the cpu spread under 1e-7 relative input noise, "
+        f"{spread:.3e}); {unfused} convs unfused; launches {counts}")
+    if not err <= bound or not torch.isfinite(got).all():
+        raise AssertionError("the eval-mode gradient on the GPU disagrees with the CPU")
+    reset_launch_counts()
+    fast_dynamic_linear_weights(net, x2)
+    torch.cuda.synchronize()
+    check_counts("fwd+explain after the gradient", launch_counts(), EXPLAIN_COUNTS)
+    reset_launch_counts()
+    with torch.no_grad():
+        net(x2)
+    torch.cuda.synchronize()
+    check_counts("forward after the gradient", launch_counts(), FORWARD_COUNTS)
+    say("entry phase 5's launch counts after the gradient: unchanged (36 / 37 / 1 and 36 / 0 / 1)")
+    return {"c1_err": err, "c1_bound": bound}
 
 
 def main() -> int:
@@ -987,6 +1253,12 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(net, probe["k4_gbs"] * 1e9)
     seconds["8 train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_entry(net, x2, train["step_img_s"])
+    seconds["9 entry points"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} ResNet-50 calls padded their operands")
+    say("TMA operand padding on the ResNet-50 paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],

@@ -80,23 +80,82 @@ def test_each_launch_is_counted(gpu):
                                "bcos_matmul_fwd": 0, "stream_add": 0}
 
 
-def test_bf16_cin_off_the_tma_grid_raises(gpu):
-    """TMA reads rows of whole 16-byte units: bf16 Cin must be a multiple of 8."""
-    x = torch.randn(64, 20, device=gpu).to(torch.bfloat16)
-    wt = torch.randn(16, 20, device=gpu).to(torch.bfloat16)
-    ct = torch.randn(64, 16, device=gpu).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        k12.conv1x1_fwd(x, wt, torch.ones(16, device=gpu), None, relu=False)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False)
+def _off_grid_operands(gpu, offset):
+    """bf16 x [200, 300], wt [40, 300], ct [200, 40]; with ``offset`` x is a
+    view one element (2 bytes) off the 16-byte grid."""
+    g = torch.Generator(device=gpu).manual_seed(8)
+    m, cin, cout = 200, 300, 40
+    base = torch.randn(m * cin + offset, device=gpu, generator=g).to(torch.bfloat16)
+    x = base[offset:].view(m, cin)
+    wt = (torch.randn(cout, cin, device=gpu, generator=g) / cin ** 0.5).to(torch.bfloat16)
+    ct = torch.randn(m, cout, device=gpu, generator=g).to(torch.bfloat16)
+    return x, wt, ct, torch.rand(cout, device=gpu, generator=g) + 0.5
 
 
-def test_bf16_k3_k_off_the_tma_grid_raises(gpu):
-    """bf16 K3 loads x and wt by TMA too: K must be a multiple of 8."""
-    x = torch.randn(64, 20, device=gpu).to(torch.bfloat16)
-    wt = torch.randn(16, 20, device=gpu).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-view"])
+def test_bf16_cin_off_the_tma_grid_matches_plain(gpu, offset):
+    """bf16 Cin = 300 (not a multiple of 8): K1 and K2 run on zero-padded
+    operands (an offset view also gets an aligned copy) and agree with their
+    plain versions within phase 3's bf16 bound; each call is counted."""
+    x, wt, ct, mult = _off_grid_operands(gpu, offset)
+    reset_launch_counts()
+    before = k12.tma_operands.padded
+    a = k12.conv1x1_fwd(x, wt, mult, None, relu=True)
+    dx = k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=True)
+    assert k12.tma_operands.padded - before == 2
+    assert launch_counts()["bcos_conv1x1_fwd"] == 1
+    assert launch_counts()["bcos_conv1x1_bwd_explain"] == 1
+    assert dx.shape == x.shape and dx.is_contiguous()
+    assert _rel(a, k12.conv1x1_fwd_plain(x.float(), wt.float(), mult, None, relu=True)) <= 1e-2
+    want = k12.conv1x1_bwd_explain_plain(x.float(), wt.float(), ct.float(), a.float(), mult,
+                                         relu=True)
+    assert _rel(dx, want) <= 1e-2
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-view"])
+def test_bf16_k3_k_off_the_tma_grid_matches_plain(gpu, offset):
+    """bf16 K3 at K = 300 and on an offset view: padded, counted, and equal
+    to its plain version within the bf16 bound; an aligned K = 304 is not
+    padded."""
+    x, wt, _, _ = _off_grid_operands(gpu, offset)
+    before = k12.tma_operands.padded
+    for eps_outside in (False, True):
+        y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside)
+        want = k3.bcos_matmul_fwd_plain(x.float(), wt.float(), eps=1e-6, eps_outside=eps_outside)
+        assert _rel(y, want) <= 1e-2
+    assert k12.tma_operands.padded - before == 2
+    x8 = torch.zeros(64, 304, device=gpu, dtype=torch.bfloat16)
+    k3.bcos_matmul_fwd(x8, torch.ones(8, 304, device=gpu, dtype=torch.bfloat16), eps=1e-6,
+                       eps_outside=False)
+    assert k12.tma_operands.padded - before == 2
+
+
+def test_eval_gradient_without_explain_matches_cpu(gpu):
+    """The eval-mode, non-explain gradient of the small flagship in x and
+    every weight, GPU against CPU (fp32): the eligible 1x1 convs run
+    unfused (K3 at stride 1, cuDNN at stride 2), never K1."""
+    from chip_smoke import FLAGSHIP, calibrate, eval_gradients
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
+    from bcosification_tpu_torch.models import resnet
+
+    net = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10, inplanes=8,
+                                 layers=("bottleneck", (1, 1)))
+    g = torch.Generator(device=gpu).manual_seed(9)
+    x = torch.rand(2, 32, 32, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    calibrate(net, x[:1])
+    before = resnet._conv_bn_act.grad_route
+    reset_launch_counts()
+    got = eval_gradients(net, x, weights=True)
+    counts = launch_counts()
+    assert resnet._conv_bn_act.grad_route - before == 6
+    # conv1 and conv3 of both blocks, the stride-1 downsample, the classifier
+    assert counts == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                      "bcos_matmul_fwd": 6, "stream_add": 0}
+    want = eval_gradients(copy.deepcopy(net).to("cpu"), x.cpu(), weights=True)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert _rel(got[name], want[name]) <= 1e-4, name
 
 
 @pytest.mark.parametrize("eps_outside", [False, True], ids=["conv", "linear"])

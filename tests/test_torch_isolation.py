@@ -20,7 +20,13 @@ for name in names:
     importlib.import_module(name)
 for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "training.agc", "training.ema", "training.steps", "training.checkpointing",
-             "training.loggers", "training.trainer"):
+             "training.loggers", "training.trainer", "settings", "data.categories",
+             "data.transforms", "data.presets", "data.sampler", "data.loader",
+             "data.caching", "data.datamodules", "data.synthetic",
+             "experiments.utils.config_utils", "experiments.utils.metric_utils",
+             "experiments.utils.experiment_utils",
+             "experiments.ImageNet.bcosification.experiment_parameters",
+             "experiments.ImageNet.bcosification.model", "train", "evaluate"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
@@ -67,3 +73,29 @@ def test_entry_points_raise_without_gpu():
     # asked for explicitly, the CPU runs the plain versions
     _, _, w = fast_dynamic_linear_weights(net, x, device="cpu")
     assert w.shape == x.shape
+
+
+def test_train_and_evaluate_raise_without_gpu(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from bcosification_tpu_torch import evaluate, settings, train
+    from bcosification_tpu_torch.training.trainer import run_training
+
+    monkeypatch.setattr(settings, "EXPERIMENT_ROOT", str(tmp_path))
+    args = train.get_parser().parse_args(
+        ["--dataset", "ImageNet", "--base_network", "bcosification",
+         "--experiment_name", "resnet_18", "--fast_dev_run"])
+    with pytest.raises(RuntimeError, match="GPU"):
+        run_training(args)
+    eval_args = evaluate.get_parser().parse_args(["--experiment_name", "resnet_18",
+                                                  "--reload", "fresh"])
+    with pytest.raises(RuntimeError, match="GPU"):
+        evaluate.run_evaluation(eval_args)
+    assert not any(tmp_path.iterdir())  # refused before anything was built or written
+    # asked for the CPU, evaluate builds the model there (no data: IMAGENET_PATH unset)
+    monkeypatch.setattr(settings, "IMAGENET_PATH", None)
+    with pytest.raises(AssertionError, match="IMAGENET_PATH"):
+        evaluate.run_evaluation(eval_args, device="cpu")
+    with pytest.raises(AssertionError, match="IMAGENET_PATH"):
+        evaluate.run_evaluation(evaluate.get_parser().parse_args(
+            ["--experiment_name", "resnet_18", "--reload", "fresh", "--no-cuda"]))

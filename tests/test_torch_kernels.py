@@ -93,12 +93,47 @@ def test_stride2_1x1_matches_jax_conv():
     np.testing.assert_allclose(g.numpy(), np.asarray(want_dx), **TOL)
 
 
-def test_k1_backward_outside_explain_mode_raises():
-    x4, w, mult, add = _inputs(3)
-    x4t = _t(x4).requires_grad_(True)
-    z = tconv.bcos_conv1x1_bn_act(x4t, _t(w), _t(mult), _t(add), relu=True, explain=False)
-    with pytest.raises(NotImplementedError):
-        z.sum().backward()
+def test_eval_gradient_without_explain_matches_jax():
+    """An eval-mode forward without explain, differentiated in x and every
+    weight (what IxG, Grad and GB explainers need): the port routes the
+    1x1 convs that would reach K1 unfused, as the JAX package's jnp path
+    does, and matches jax.grad of apply(train=False, explain=False)."""
+    from bcosification_tpu_torch.models import resnet
+    from torch_port_helpers import small_pair
+
+    net, variables, tnet, x = small_pair("resnet50", ("bottleneck", (1, 1)), 32)
+    ct = np.random.default_rng(21).standard_normal((2, 10)).astype(np.float32)
+
+    def f(params, xx):
+        out = net.apply({"params": params, "batch_stats": variables["batch_stats"]}, xx,
+                        train=False, explain=False)
+        return jnp.sum(out * jnp.asarray(ct))
+
+    want_p, want_x = jax.grad(f, argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(want_p)[0]:
+        arr = np.asarray(leaf)
+        flat[".".join(k.key for k in path)] = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+
+    tnet.requires_grad_(True)
+    xt = _t(x).requires_grad_(True)
+    before = resnet._conv_bn_act.grad_route
+    (tnet(xt, train=False) * _t(ct)).sum().backward()
+    # conv1, conv3 and the downsample of both bottlenecks
+    assert resnet._conv_bn_act.grad_route - before == 6
+
+    def rel(got, ref):
+        return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+    assert rel(xt.grad.numpy(), np.asarray(want_x)) <= 1e-5
+    params = dict(tnet.named_parameters())
+    assert sorted(params) == sorted(flat)
+    for name, p in params.items():
+        assert rel(p.grad.numpy(), flat[name]) <= 1e-5, name
+    # without a gradient the eval forward keeps the fused kernel's route
+    with torch.no_grad():
+        tnet(xt, train=False)
+    assert resnet._conv_bn_act.grad_route - before == 6
 
 
 @pytest.mark.parametrize("eps_outside", [False, True])
@@ -142,3 +177,39 @@ def test_cpu_tensors_never_count_as_launches():
     x4, w, mult, add = _inputs(5)
     tconv.bcos_conv1x1_bn_act(_t(x4), _t(w), _t(mult), _t(add), relu=True, explain=True)
     assert launch_counts() == {name: 0 for name in KERNELS}
+
+
+@pytest.mark.parametrize("cin", [300, 24])
+def test_tma_operands_pad_and_realign(cin):
+    """bf16 operands off the TMA grid: Cin zero-padded to a multiple of 8,
+    a misaligned view copied to aligned storage, each such call counted;
+    the padded operands give the same K1, K2 and K3 results."""
+    g = torch.Generator().manual_seed(cin)
+    m, cout = 70, 36
+    base = torch.randn(m * cin + 1, generator=g).to(torch.bfloat16)
+    x = base[1:].view(m, cin)  # offset by one element: 2 bytes off the 16-byte grid
+    assert x.is_contiguous() and x.data_ptr() % 16
+    wt = torch.randn(cout, cin, generator=g).to(torch.bfloat16)
+    before = tconv.tma_operands.padded
+    xp, wtp = tconv.tma_operands(x, wt)
+    assert tconv.tma_operands.padded == before + 1
+    assert xp.shape[1] % 8 == 0 and xp.data_ptr() % 16 == 0 and wtp.data_ptr() % 16 == 0
+    assert xp.shape[1] - cin == (-cin) % 8
+    assert torch.equal(xp[:, :cin], x) and not xp[:, cin:].any() and not wtp[:, cin:].any()
+    mult, add = torch.rand(cout, generator=g) + 0.5, torch.randn(cout, generator=g)
+    ct = torch.randn(m, cout, generator=g).to(torch.bfloat16)
+    a = tconv.conv1x1_fwd_plain(x, wt, mult, add, relu=True)
+    assert torch.equal(tconv.conv1x1_fwd_plain(xp, wtp, mult, add, relu=True), a)
+    dx = tconv.conv1x1_bwd_explain_plain(xp, wtp, ct, a, mult, relu=True)[:, :cin]
+    assert torch.equal(dx, tconv.conv1x1_bwd_explain_plain(x, wt, ct, a, mult, relu=True))
+    y = tmm.bcos_matmul_fwd_plain(xp, wtp, eps=1e-6, eps_outside=False)
+    torch.testing.assert_close(y, tmm.bcos_matmul_fwd_plain(x, wt, eps=1e-6, eps_outside=False),
+                               rtol=1e-6, atol=0)
+    # aligned operands on the grid, and fp32 operands, pass unchanged and uncounted
+    before = tconv.tma_operands.padded
+    x8 = torch.randn(m, 64).to(torch.bfloat16)
+    w8 = torch.randn(cout, 64).to(torch.bfloat16)
+    assert all(a is b for a, b in zip(tconv.tma_operands(x8, w8), (x8, w8)))
+    xf = x.float()
+    assert tconv.tma_operands(xf, wt.float())[0] is xf
+    assert tconv.tma_operands.padded == before
