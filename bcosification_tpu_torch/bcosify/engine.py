@@ -1,23 +1,24 @@
-"""Build a bcosified ResNet (counterpart of
-``bcosification_tpu/bcosify/engine.py::build_bcosified_resnet``).
+"""Build a bcosified ResNet or DenseNet (counterpart of
+``bcosification_tpu/bcosify/engine.py::build_bcosified_{resnet,densenet}``).
 
 The architecture: BcosifyConv2d convs (raw weights, fixed b), uncentered BN
 (bias-free unless ``use_bias``), ReLU (or Identity), an avg-pool stem, the
 classifier as a 1x1 conv before the global average pool, and the
 BcosifyNetwork wrapper (6-channel Normalize + LogitLayer). The weights
-come from a torchvision ResNet state dict (``bcosify/torch_import.py``) or
-from a random init.
+come from a torchvision state dict (``bcosify/torch_import.py``) or from a
+random init.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from bcosification_tpu_torch.bcosify.torch_import import resnet_state_dict
+from bcosification_tpu_torch.bcosify.torch_import import densenet_state_dict, resnet_state_dict
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.models import resnet as resnet_lib
+from bcosification_tpu_torch.models.densenet import DENSENET_CONFIGS, BcosDenseNet
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
 from bcosification_tpu_torch.modules import (
     BatchNormUncentered2d,
@@ -27,7 +28,7 @@ from bcosification_tpu_torch.modules import (
     ReLU,
 )
 
-__all__ = ["build_bcosified_resnet", "RESNET_LAYERS"]
+__all__ = ["build_bcosified_resnet", "build_bcosified_densenet", "RESNET_LAYERS"]
 
 RESNET_LAYERS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -56,6 +57,13 @@ def _bcosify_factories(model_config: Dict[str, Any]):
     return conv_layer, norm_layer, act_layer, use_bias, bargs
 
 
+def _generator(model_config: Dict[str, Any], seed: Optional[int]) -> torch.Generator:
+    """The random init's generator: ``seed``, else model_config's "seed", else 0."""
+    if seed is None:
+        seed = model_config.get("seed", 0) or 0
+    return torch.Generator().manual_seed(int(seed))
+
+
 def build_bcosified_resnet(
     model_config: Dict[str, Any],
     state_dict=None,
@@ -81,9 +89,7 @@ def build_bcosified_resnet(
     dev = resolve_device(device)
     block, counts = layers if layers is not None else RESNET_LAYERS[model_config["name"]]
     conv_layer, norm_layer, act_layer, use_bias, bargs = _bcosify_factories(model_config)
-    if seed is None:
-        seed = model_config.get("seed", 0) or 0
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = _generator(model_config, seed)
     backbone = resnet_lib.BcosResNet(
         block, counts, num_classes=num_classes, inplanes=inplanes,
         conv_layer=conv_layer, norm_layer=norm_layer, act_layer=act_layer,
@@ -93,6 +99,45 @@ def build_bcosified_resnet(
     net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True)
     if state_dict is not None:
         net.load_state_dict(resnet_state_dict(
+            state_dict, net,
+            fold_bn_bias=bargs.get("norm_layer", "BnUncV2") == "BnUncV2", use_bias=use_bias))
+    return net.to(dev).eval().requires_grad_(False)
+
+
+def build_bcosified_densenet(
+    model_config: Dict[str, Any],
+    state_dict: Optional[Mapping[str, Any]] = None,
+    *,
+    num_classes: int = 1000,
+    arch_cfg: Optional[Dict[str, Any]] = None,
+    device=None,
+    seed: Optional[int] = None,
+) -> BcosifyNetwork:
+    """BcosifyNetwork(BcosDenseNet) in eval mode on ``device`` (default the
+    GPU; raises without one unless device="cpu"): the layers of
+    ``build_bcosified_resnet`` on DENSENET_CONFIGS[name], the avg-pool stem
+    pool (the recipe's standard change features[3] -> AvgPool2d(3, 2, 1)).
+
+    With ``state_dict`` (a torchvision DenseNet checkpoint) the weights are
+    converted by ``densenet_state_dict``; without it the net is randomly
+    initialised from ``seed`` (default: model_config's "seed", else 0).
+
+    ``arch_cfg`` overrides DENSENET_CONFIGS[name] (growth_rate,
+    block_config, num_init_features and optionally bn_size), e.g. for a
+    small test net.
+    """
+    dev = resolve_device(device)
+    cfg = arch_cfg if arch_cfg is not None else DENSENET_CONFIGS[model_config["name"]]
+    conv_layer, norm_layer, act_layer, use_bias, bargs = _bcosify_factories(model_config)
+    backbone = BcosDenseNet(
+        num_classes=num_classes, conv_layer=conv_layer, norm_layer=norm_layer,
+        act_layer=act_layer, fc_layer=partial(conv_layer, use_bias=use_bias), stem_pool="avg",
+        gap_reorder=bool(bargs.get("gap", True)), generator=_generator(model_config, seed),
+        **cfg,
+    )
+    net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True)
+    if state_dict is not None:
+        net.load_state_dict(densenet_state_dict(
             state_dict, net,
             fold_bn_bias=bargs.get("norm_layer", "BnUncV2") == "BnUncV2", use_bias=use_bias))
     return net.to(dev).eval().requires_grad_(False)

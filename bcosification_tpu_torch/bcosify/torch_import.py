@@ -1,5 +1,6 @@
-"""torchvision ResNet state dict -> the port's state dict (counterpart of
-``bcosification_tpu/bcosify/torch_import.py::resnet_torch_to_variables``).
+"""torchvision ResNet and DenseNet state dicts -> the port's state dict
+(counterpart of ``bcosification_tpu/bcosify/torch_import.py::
+{resnet,densenet}_torch_to_variables``).
 
 The conversion applies the B-cosification transforms (``bcosify/params.py``)
 in the reference's order: the stem's channel doubling (``add_channels``)
@@ -18,11 +19,8 @@ import torch
 
 from bcosification_tpu_torch.bcosify import params as P
 
-__all__ = ["resnet_state_dict", "fill_state_dict"]
+__all__ = ["resnet_state_dict", "densenet_state_dict", "fill_state_dict"]
 
-# torchvision entries the bcosified model may drop by design: the fc bias
-# when the recipe removes all biases
-_DROPPABLE = ("fc.bias",)
 # torchvision's BatchNorm eps, used by the BnUncV2 bias fold
 _BN_EPS = 1e-5
 
@@ -54,6 +52,49 @@ def fill_state_dict(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> D
     return out
 
 
+class _Import:
+    """The strict conversion of one torchvision state dict ``tsd``: ``take``
+    marks an entry as used, ``bn`` converts a BatchNorm, ``finish`` checks
+    that every entry but ``droppable`` was used and fills the model's
+    state dict."""
+
+    def __init__(self, tsd: Mapping[str, Any], *, fold_bn_bias: bool, use_bias: bool):
+        self.tsd, self.fold_bn_bias, self.use_bias = tsd, fold_bn_bias, use_bias
+        self.used = set()
+        self.flat: Dict[str, np.ndarray] = {}
+
+    def take(self, key: str) -> np.ndarray:
+        if key not in self.tsd:
+            raise KeyError(f"missing torchvision entry {key}")
+        self.used.add(key)
+        return _np(self.tsd[key])
+
+    def bn(self, src: str, dst: str) -> None:
+        w, b = self.take(f"{src}.weight"), self.take(f"{src}.bias")
+        mean, var = self.take(f"{src}.running_mean"), self.take(f"{src}.running_var")
+        self.flat[f"{dst}.weight"] = w
+        if self.use_bias:
+            self.flat[f"{dst}.bias"] = (P.bn_uncentered_fold_bias(b, mean, var, w, _BN_EPS)
+                                        if self.fold_bn_bias else b)
+        self.flat[f"{dst}.running_var"] = var
+        tracked = f"{src}.num_batches_tracked"
+        self.flat[f"{dst}.num_batches_tracked"] = (self.take(tracked) if tracked in self.tsd
+                                                   else np.zeros((), np.int32))
+
+    def classifier(self, src: str, dst: str) -> None:
+        """The Linear ``src`` as the 1x1 conv ``dst`` of the GAP-reorder
+        head; its bias only with ``use_bias``."""
+        self.flat[f"{dst}.weight"] = P.linear_to_conv1x1_weight(self.take(f"{src}.weight"))
+        if self.use_bias and f"{src}.bias" in self.tsd:
+            self.flat[f"{dst}.bias"] = self.take(f"{src}.bias")
+
+    def finish(self, net: torch.nn.Module, droppable=()) -> Dict[str, torch.Tensor]:
+        unused = sorted(set(self.tsd) - self.used - set(droppable))
+        if unused:
+            raise KeyError(f"torchvision entries that map onto nothing: {unused[:10]}")
+        return fill_state_dict(net, self.flat)
+
+
 def resnet_state_dict(
     tsd: Mapping[str, Any],
     net: torch.nn.Module,
@@ -69,47 +110,56 @@ def resnet_state_dict(
     fc bias: the reference's recipe removes all biases, but keeping them
     makes the b=1 conversion exact.
     """
-    used = set()
-
-    def take(key: str) -> np.ndarray:
-        if key not in tsd:
-            raise KeyError(f"missing torchvision entry {key}")
-        used.add(key)
-        return _np(tsd[key])
-
-    flat: Dict[str, np.ndarray] = {}
-
-    def bn(src: str, dst: str) -> None:
-        w, b = take(f"{src}.weight"), take(f"{src}.bias")
-        mean, var = take(f"{src}.running_mean"), take(f"{src}.running_var")
-        flat[f"{dst}.weight"] = w
-        if use_bias:
-            flat[f"{dst}.bias"] = (P.bn_uncentered_fold_bias(b, mean, var, w, _BN_EPS)
-                                   if fold_bn_bias else b)
-        flat[f"{dst}.running_var"] = var
-        tracked = f"{src}.num_batches_tracked"
-        flat[f"{dst}.num_batches_tracked"] = (take(tracked) if tracked in tsd
-                                              else np.zeros((), np.int32))
-
-    flat["model.conv1.weight"] = P.add_channels_conv_weight(take("conv1.weight"))
-    bn("bn1", "model.bn1")
+    imp = _Import(tsd, fold_bn_bias=fold_bn_bias, use_bias=use_bias)
+    imp.flat["model.conv1.weight"] = P.add_channels_conv_weight(imp.take("conv1.weight"))
+    imp.bn("bn1", "model.bn1")
 
     m = net.model
     n_convs = 3 if m.block == "bottleneck" else 2
     for stage, j, _, _, has_ds in m.block_cfgs():
         src, dst = f"layer{stage + 1}.{j}", f"model.layer{stage + 1}_{j}"
         for k in range(1, n_convs + 1):
-            flat[f"{dst}.conv{k}.weight"] = take(f"{src}.conv{k}.weight")
-            bn(f"{src}.bn{k}", f"{dst}.bn{k}")
+            imp.flat[f"{dst}.conv{k}.weight"] = imp.take(f"{src}.conv{k}.weight")
+            imp.bn(f"{src}.bn{k}", f"{dst}.bn{k}")
         if has_ds:
-            flat[f"{dst}.downsample_conv.weight"] = take(f"{src}.downsample.0.weight")
-            bn(f"{src}.downsample.1", f"{dst}.downsample_norm")
+            imp.flat[f"{dst}.downsample_conv.weight"] = imp.take(f"{src}.downsample.0.weight")
+            imp.bn(f"{src}.downsample.1", f"{dst}.downsample_norm")
 
-    flat["model.fc.weight"] = P.linear_to_conv1x1_weight(take("fc.weight"))
-    if use_bias and "fc.bias" in tsd:
-        flat["model.fc.bias"] = take("fc.bias")
+    imp.classifier("fc", "model.fc")
+    return imp.finish(net, droppable=("fc.bias",))
 
-    unused = sorted(set(tsd) - used - set(_DROPPABLE))
-    if unused:
-        raise KeyError(f"torchvision entries that map onto nothing: {unused[:10]}")
-    return fill_state_dict(net, flat)
+
+def densenet_state_dict(
+    tsd: Mapping[str, Any],
+    net: torch.nn.Module,
+    *,
+    fold_bn_bias: bool = True,
+    use_bias: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``net`` (a BcosifyNetwork(BcosDenseNet), 6-channel
+    AddInverse input) converted from the torchvision DenseNet state dict
+    ``tsd`` (features.conv0, features.norm0,
+    features.denseblockI.denselayerJ.{norm1,conv1,norm2,conv2},
+    features.transitionI.{norm,conv}, features.norm5, classifier), with the
+    transforms of ``resnet_state_dict``: conv0's channel doubling, the
+    BnUncV2 bias fold, biases only with ``use_bias``, the classifier's
+    Linear as a 1x1 conv."""
+    imp = _Import(tsd, fold_bn_bias=fold_bn_bias, use_bias=use_bias)
+    m = net.model
+    imp.flat["model.conv0.weight"] = P.add_channels_conv_weight(
+        imp.take("features.conv0.weight"))
+    imp.bn("features.norm0", "model.norm0")
+    for i, num_layers in enumerate(m.block_config):
+        for j in range(num_layers):
+            src = f"features.denseblock{i + 1}.denselayer{j + 1}"
+            dst = f"model.denseblock{i + 1}_denselayer{j + 1}"
+            for k in (1, 2):
+                imp.bn(f"{src}.norm{k}", f"{dst}.norm{k}")
+                imp.flat[f"{dst}.conv{k}.weight"] = imp.take(f"{src}.conv{k}.weight")
+        if m.transition(i) is not None:
+            src, dst = f"features.transition{i + 1}", f"model.transition{i + 1}"
+            imp.bn(f"{src}.norm", f"{dst}.norm")
+            imp.flat[f"{dst}.conv.weight"] = imp.take(f"{src}.conv.weight")
+    imp.bn("features.norm5", "model.norm5")
+    imp.classifier("classifier", "model.classifier")
+    return imp.finish(net, droppable=("classifier.bias",))

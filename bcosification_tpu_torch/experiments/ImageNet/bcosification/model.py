@@ -1,6 +1,6 @@
 """Model factory of ImageNet/bcosification (the port's counterpart of
 ``bcosification_tpu/experiments/ImageNet/bcosification/model.py``): the
-bcosified torchvision ResNet of ``bcosify/engine.py::build_bcosified_resnet``
+bcosified torchvision ResNet or DenseNet of ``bcosify/engine.py``
 (GAP-reorder classifier, avg-pool stem, biases nulled, the 6-channel
 BcosifyNetwork wrapper), with torchvision's weights converted by
 ``bcosify/torch_import.py``.
@@ -18,14 +18,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bcosification_tpu_torch.bcosify.engine import RESNET_LAYERS, build_bcosified_resnet
+from bcosification_tpu_torch.bcosify.engine import (
+    RESNET_LAYERS,
+    build_bcosified_densenet,
+    build_bcosified_resnet,
+)
+from bcosification_tpu_torch.models.densenet import DENSENET_CONFIGS
 
 __all__ = ["get_model", "load_torchvision_state_dict"]
 
-DENSENET_SLICE = "port slice 4 (ROADMAP A6, the other families)"
-# the only standard change the ResNet recipe makes, which the port's ResNet
-# builds in (its stem pool is avg-pool 3x3/s2/p1)
-SUPPORTED_CHANGES = {"maxpool": "avgpool_3_2_1"}
+# per family: its build function, its archs, and the one standard change
+# its recipe makes, which the port's net builds in (the stem pool, in
+# torchvision's naming, as avg-pool 3x3/s2/p1)
+FAMILIES = (
+    (build_bcosified_resnet, RESNET_LAYERS, {"maxpool": "avgpool_3_2_1"}),
+    (build_bcosified_densenet, DENSENET_CONFIGS, {"features[3]": "avgpool_3_2_1"}),
+)
 
 
 def load_torchvision_state_dict(arch_name: str, weights_spec):
@@ -60,18 +68,14 @@ def get_model(model_config, device=None):
     (default the GPU; ``"cpu"`` when asked)."""
     assert model_config.get("is_bcos", False), "Should be true!"
     arch_name = model_config["name"]
-    if arch_name.startswith("densenet"):
-        raise NotImplementedError(
-            f"{arch_name}: the bcosified DenseNet is not ported yet; it comes in "
-            f"{DENSENET_SLICE}")
-    if arch_name not in RESNET_LAYERS:
+    family = next((f for f in FAMILIES if arch_name in f[1]), None)
+    if family is None:
         raise ValueError(f"unsupported arch {arch_name!r}")
+    build, _, supported = family
     changes = model_config.get("standard_changes") or {}
-    if any(SUPPORTED_CHANGES.get(k) != v for k, v in changes.items()):
+    if any(supported.get(k) != v for k, v in changes.items()):
         raise NotImplementedError(
-            f"standard_changes {changes}: the port's ResNet supports only "
-            f"{SUPPORTED_CHANGES}")
+            f"standard_changes {changes}: the port's {arch_name} supports only {supported}")
     state_dict = load_torchvision_state_dict(arch_name, model_config.get("weights"))
     num_classes = model_config.get("args", {}).get("num_classes", 1000)
-    return build_bcosified_resnet(model_config, state_dict, num_classes=num_classes,
-                                  device=device)
+    return build(model_config, state_dict, num_classes=num_classes, device=device)

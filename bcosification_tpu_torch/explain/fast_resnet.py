@@ -46,31 +46,35 @@ def supports(net) -> bool:
     """True if ``net`` is a BcosifyNetwork(BcosResNet) this pass handles."""
     from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
     from bcosification_tpu_torch.models.resnet import BcosResNet
-    from bcosification_tpu_torch.modules import (
-        BatchNormUncentered2d,
-        BcosConv2d,
-        Identity,
-        ReLU,
-    )
 
     if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, BcosResNet):
         return False
     m = net.model
     if m.stem_pool != "avg" or not m.gap_reorder or m.with_logit_layer:
         return False
+    return plain_b2_layers(m) == -1  # one BN per conv but the fc
+
+
+def plain_b2_layers(m):
+    """The number of uncentered BNs of ``m`` minus that of its B-cos convs,
+    or None unless every conv is of one type, b=2, max_out 1, ungrouped,
+    undilated and bias-free, and every activation is of one type (ReLU or
+    Identity): the layers the hand-scheduled passes are written for."""
+    from bcosification_tpu_torch.modules import BatchNormUncentered2d, BcosConv2d, Identity
+
     convs = [mod for mod in m.modules() if isinstance(mod, BcosConv2d)]
     if len({(type(c), c.normalize_weights) for c in convs}) != 1:
-        return False
+        return None
     for c in convs:
         if c.b != 2 or c.max_out != 1 or c.groups != 1 or c.bias is not None:
-            return False
+            return None
         if c.dilation != (1, 1):
-            return False
+            return None
     acts = [mod for mod in m.modules() if isinstance(mod, (ReLU, Identity))]
     if len({type(a) for a in acts}) != 1:
-        return False
+        return None
     norms = [mod for mod in m.modules() if isinstance(mod, BatchNormUncentered2d)]
-    return len(norms) == len(convs) - 1  # one BN per conv but the fc
+    return len(norms) - len(convs)
 
 
 def _weight(conv, dtype) -> torch.Tensor:

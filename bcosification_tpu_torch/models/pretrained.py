@@ -12,8 +12,10 @@ its random init and a warning says so.
 The registry holds the bcosified ResNets the port builds, under the
 bcosification experiments' names. The JAX package's other entry points
 (the from-scratch B-cos ResNets, DenseNets, VGGs, ConvNeXts, ViTs) raise
-"not ported yet". The port has no network path: the JAX package's download
-(``BCOS_ALLOW_DOWNLOAD=1``) raises here.
+"not ported yet"; the bcosified DenseNet is built by the experiments
+(``Experiment("ImageNet", "bcosification", "densenet_121")``). The port
+has no network path: the JAX package's download (``BCOS_ALLOW_DOWNLOAD=1``)
+raises here.
 """
 from __future__ import annotations
 
@@ -110,6 +112,12 @@ def load_model(name: str, pretrained: bool = True, **kwargs):
     """The registered model ``name`` built with ``kwargs`` (e.g. device=),
     its weights from $BCOS_WEIGHTS_DIR when ``pretrained``."""
     if name not in _REGISTRY:
+        if name.startswith("densenet") and name in NOT_PORTED:
+            raise NotImplementedError(
+                f"entry point {name!r} is the from-scratch B-cos DenseNet (BcosConv2d, "
+                "PositionNorm; not ported yet, ROADMAP A6), not the bcosified torchvision "
+                "DenseNet, which Experiment('ImageNet', 'bcosification', 'densenet_121') "
+                "builds")
         if name in NOT_PORTED:
             raise NotImplementedError(f"entry point {name!r} is not ported yet; "
                                       f"available: {list_available()}")

@@ -20,18 +20,22 @@ from torch import nn
 # registers the bcos_torch custom ops, which torch.export.load resolves
 import bcosification_tpu_torch.ops.cuda  # noqa: F401
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain import fast_resnet
+from bcosification_tpu_torch.explain import fast_densenet, fast_resnet
 
 __all__ = ["export_forward", "export_explain", "load_serialized"]
 
+# the hand-scheduled explanation passes, which torch.export traces (a
+# program cannot hold the generic pass's autograd.grad)
+_FAST_PASSES = (fast_resnet, fast_densenet)
+
 
 class _Explain(nn.Module):
-    def __init__(self, net):
+    def __init__(self, net, fast):
         super().__init__()
-        self.net = net
+        self.net, self.fast = net, fast
 
     def forward(self, x):
-        return fast_resnet.fast_dynamic_linear_weights(self.net, x, device=x.device)
+        return self.fast.fast_dynamic_linear_weights(self.net, x, device=x.device)
 
 
 def _export(module: nn.Module, input_size: int, channels: int, dtype, device) -> bytes:
@@ -56,13 +60,15 @@ def export_explain(net, *, input_size: int = 224, channels: int = 6,
                    dtype=torch.float32, device=None) -> bytes:
     """Serialized program of the fused forward + explanation: x ->
     (logits, selected_idx, W), W(x) the dynamic-linear weights of the
-    predicted class, from the hand-scheduled pass
-    (``explain/fast_resnet.py``). Raises for a model that pass does not
-    support."""
-    if not fast_resnet.supports(net):
-        raise ValueError("export_explain: the model is not supported by the fast "
-                         "explanation pass (see explain.fast_resnet.supports)")
-    return _export(_Explain(net), input_size, channels, dtype, device)
+    predicted class, from the hand-scheduled pass of the model's family
+    (``explain/fast_resnet.py``, ``explain/fast_densenet.py``). Raises for a
+    model that neither pass supports."""
+    for fast in _FAST_PASSES:
+        if fast.supports(net):
+            return _export(_Explain(net, fast), input_size, channels, dtype, device)
+    raise ValueError("export_explain: the model is not supported by any hand-scheduled "
+                     "explanation pass (see explain.fast_resnet.supports and "
+                     "explain.fast_densenet.supports)")
 
 
 class Serialized:

@@ -66,19 +66,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    explain (fault C1's route: the 1x1 convs unfused, K3 and cuDNN) of the
    calibrated full-width net in fp32, GPU against CPU, within ten times
    the CPU's own spread under 1e-7 relative input noise, and phase 5's
-   launch counts again.
+   launch counts again;
+10. DenseNet-121 (the densenet_121 recipe; growth 32, blocks 6/12/24/16,
+   random init from SEED, gamma-calibrated), on the same JPEG tree: K3 and
+   K2 against their plain versions at six of its shapes in both dtypes
+   (phase 3's bounds), then timed at all 62 shapes of one forward (K3) and
+   one explanation (K2) beside their bounds, plain versions and
+   torch.matmul; fp32 parity on 2 images of the hand-scheduled pass
+   (explain/fast_densenet.py), GPU against CPU (W within ten times the
+   CPU's own spread under 1e-7 relative input noise, pre-logits 1e-4,
+   argmax identical), and the generic autograd W against it (1e-4);
+   forward-only and fwd+explain images/s at batch 128, bf16, over windows
+   of about 1.7 s, with their launch counts (K3 62 / K2 0 / K1 0 and K3 62
+   / K2 62 / K1 0), host issue time and peak memory; the forward and the
+   explanation programs exported, loaded from bytes and held to the eager
+   calls (fault C3); Trainer.fit of the Experiment at batch 64, bf16 amp, on one
+   repeated batch (a falling loss, K3 62 launches per step, the step's
+   img/s, host ms and peak memory); then ``train --fast_dev_run``
+   resuming from it and ``evaluate --reload last`` equal to the logged
+   accuracies.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No bf16 operand
-of a ResNet-50 path needs the TMA padding (``tma_operands.padded`` stays 0).
+of a ResNet-50 or DenseNet-121 path needs the TMA padding
+(``tma_operands.padded`` stays 0).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
 non-zero and prints no result.
 """
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -105,11 +125,14 @@ from bcosification_tpu_torch.losses import (
 from bcosification_tpu_torch.optim import LRSchedulerFactory, OptimizerFactory
 from bcosification_tpu_torch.training import steps as steps_lib
 from bcosification_tpu_torch.training.trainer import Trainer
-from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
+from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet, build_bcosified_resnet
+from bcosification_tpu_torch.explain import fast_densenet
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
 from bcosification_tpu_torch.models import resnet
+from bcosification_tpu_torch.models.densenet import BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
+from bcosification_tpu_torch.modules import BcosConv2d, ReLU
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
 from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
@@ -148,6 +171,9 @@ CHECK_SHAPES = [  # (label, M, Cin, Cout, relu) at batch 128, 224x224
     ("layer4.conv3", 6272, 512, 2048, False),
     ("layer4.downsample(s2)", 6272, 1024, 2048, False),
     ("classifier", 6272, 2048, 1000, False),
+    # DenseNet-121's conv1 widths (phase 10): Cout 128 beside a deep Cin
+    ("densenet b1.l6.conv1", 401408, 224, 128, True),
+    ("densenet b3.l24.conv1", 25088, 992, 128, True),
 ]
 # K3's train-step shapes at batch 64, 224x224 (label, M, K, N): N = 64 is
 # below one 128-wide tile, K = 64 one K step of the engine
@@ -394,13 +420,20 @@ def _output_rms(net, probe, module, transform=None):
     return float(seen[0].double().pow(2).mean().sqrt())
 
 
-def calibrate(net, probe):
-    """Scale each BN gamma, in forward order, so that its segment's output
-    has RMS 1 on ``probe``: a random-init b=2 net contracts to ~1e-20 and
-    makes every comparison vacuous. A uniform factor on all gammas does not
-    work at full depth: the early layers overflow before the output
-    reaches O(1). Returns the pre-logit magnitude afterwards."""
-    m = net.model
+def calibration_steps(m):
+    """[(BN, module, transform)] of ``calibrate`` in forward order: each BN
+    gamma is divided by the RMS of ``module``'s output (or transform(it))."""
+    if isinstance(m, BcosDenseNet):
+        # pre-activation: each norm's gamma scales the conv after it (b=2
+        # convs are homogeneous of degree 1), and a concat keeps the older
+        # features as they are, so only the new ones are rescaled
+        steps = [(m.norm0, m.norm0, None)]
+        for i in range(len(m.block_config)):
+            for layer in m.dense_layers(i):
+                steps += [(layer.norm1, layer.conv1, None), (layer.norm2, layer.conv2, None)]
+            if m.transition(i) is not None:
+                steps.append((m.transition(i).norm, m.transition(i).conv, None))
+        return steps + [(m.norm5, m.classifier, None)]
     steps = [(m.bn1, m.bn1, None)]
     for blk in m.blocks():
         if isinstance(blk, Bottleneck):
@@ -414,8 +447,18 @@ def calibrate(net, probe):
             steps += [(blk.bn1, blk.bn1, None), (blk.bn2, blk.bn2, None)]
         if hasattr(blk, "downsample_norm"):
             steps.append((blk.downsample_norm, blk.downsample_conv, None))
+    return steps
+
+
+def calibrate(net, probe):
+    """Scale each BN gamma, in forward order, so that its segment's output
+    (ResNet) or the conv after it (DenseNet) has RMS 1 on ``probe``: a
+    random-init b=2 net contracts to ~1e-20 and makes every comparison
+    vacuous. A uniform factor on all gammas does not work at full depth:
+    the early layers overflow before the output reaches O(1). Returns the
+    pre-logit magnitude afterwards."""
     with torch.no_grad():
-        for bn, module, transform in steps:
+        for bn, module, transform in calibration_steps(net.model):
             bn.weight.div_(_output_rms(net, probe, module, transform))
         mag = float((net(probe).double() - net.logit_bias).abs().max())
     if not 1e-4 < mag < 1e4:
@@ -722,13 +765,37 @@ TRAIN_PARITY_BOUNDS = {"loss": 1e-5, "gradient": 1e-4, "running_var": 1e-5,
                        "bf16 gradient": 0.45, "bf16 gradient / cpu bf16 spread": 2.0}
 
 
+def k3_shapes(model, batch, size):
+    """[(module name, M, K, N)] of every conv that ``ops.bcos.bcos_conv2d``
+    sends to K3 (a bias-free b=2 1x1 at stride 1) in one forward of the
+    backbone ``model`` at this batch and input size, in forward order: read
+    from the convs' inputs in one forward at batch 1 (forward hooks), so it
+    holds for any family. Its K3 launches are not counted by any caller."""
+    names = {mod: name for name, mod in model.named_modules()}
+    seen = []
+
+    def hook(mod, args, out):
+        if (mod.kernel_size == (1, 1) and mod.stride == (1, 1) and mod.padding == (0, 0)
+                and mod.groups == 1 and mod.max_out == 1 and mod.bias is None and mod.b == 2):
+            _, h, w, k = args[0].shape
+            seen.append((names[mod], batch * h * w, k, mod.weight.shape[0]))
+
+    convs = [mod for mod in model.modules() if isinstance(mod, BcosConv2d)]
+    handles = [mod.register_forward_hook(hook) for mod in convs]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, size, size, convs[0].in_channels),
+                              device=convs[0].weight.device))
+    finally:
+        for handle in handles:
+            handle.remove()
+    return seen
+
+
 def train_k3_launches(model, batch, size):
     """[("bcos_matmul_fwd", M, K, N, False)] of every K3 launch of one train
-    step of a bottleneck net: each stride-1 1x1 conv and the classifier."""
-    convs, classifier = conv1x1_shapes(model, batch, size)
-    return [("bcos_matmul_fwd", m, k, n, False)
-            for m, k, n, _, stride in convs if stride == 1] + [
-        ("bcos_matmul_fwd", *classifier, False)]
+    step: each stride-1 1x1 conv and the classifier (``k3_shapes``)."""
+    return [("bcos_matmul_fwd", m, k, n, False) for _, m, k, n in k3_shapes(model, batch, size)]
 
 
 def time_train_k3(model, stream_rate):
@@ -832,7 +899,13 @@ def train_step_parity(net, batch):
     bound)} for the loss, the worst gradient leaf (||d||/||ref||, the raw
     gradients of one backward), the BN running_var after the step, the worst
     bf16 leaf, and the worst leaf's ratio of that distance to the CPU bf16
-    gradient's own (the spread bf16 rounding alone makes)."""
+    gradient's own (the spread bf16 rounding alone makes).
+
+    A leaf whose fp32 CPU gradient is zero up to rounding (below 1e-6 of the
+    largest leaf's norm: the DenseNet's norm0 gamma, whose per-channel scale
+    every train-mode BN after it divides out again) is measured against the
+    largest leaf's norm instead of its own, and has no bf16 ratio (a ratio
+    of two rounding noises)."""
     recipe = train_experiment(".", UniformOffLabelsBCEWithLogitsLoss()).config
     schedule = recipe["lr_scheduler"].create(1e-4, steps_per_epoch=10)
     results = []
@@ -849,14 +922,22 @@ def train_step_parity(net, batch):
                         if n.endswith("running_var")])
         results.append((float(metrics["loss"]), grads, grads_bf16, rv))
     (loss_g, grads_g, bf16_g, rv_g), (loss_c, grads_c, bf16_c, rv_c) = results
+    top = max(float(g.norm()) for g in grads_c.values())
+    noise = {n for n, g in grads_c.items() if float(g.norm()) < 1e-6 * top}
+
+    def leaf(got, n):
+        return float((got[n] - grads_c[n]).norm()) / (top if n in noise else
+                                                      float(grads_c[n].norm()))
+
+    signal = [n for n in grads_c if n not in noise]
     return {"loss": (abs(loss_g - loss_c) / abs(loss_c), TRAIN_PARITY_BOUNDS["loss"]),
-            "gradient": (max(rel(grads_g[n], grads_c[n]) for n in grads_c),
+            "gradient": (max(leaf(grads_g, n) for n in grads_c),
                          TRAIN_PARITY_BOUNDS["gradient"]),
             "running_var": (rel(rv_g, rv_c), TRAIN_PARITY_BOUNDS["running_var"]),
-            "bf16 gradient": (max(rel(bf16_g[n], grads_c[n]) for n in grads_c),
+            "bf16 gradient": (max(leaf(bf16_g, n) for n in grads_c),
                               TRAIN_PARITY_BOUNDS["bf16 gradient"]),
             "bf16 gradient / cpu bf16 spread": (
-                max(rel(bf16_g[n], grads_c[n]) / rel(bf16_c[n], grads_c[n]) for n in grads_c),
+                max(leaf(bf16_g, n) / leaf(bf16_c, n) for n in signal),
                 TRAIN_PARITY_BOUNDS["bf16 gradient / cpu bf16 spread"])}
 
 
@@ -1053,10 +1134,12 @@ def copy_ms(batch, calls=5):
     return 1e3 * (time.perf_counter() - t0) / calls, image.numel() * image.element_size()
 
 
-def phase_entry(net, x2, step_img_s):
-    """The train and evaluate entry points on a synthetic JPEG tree (see
-    the module docstring, phase 9). Returns its numbers for the record."""
-    out = {}
+@contextlib.contextmanager
+def synthetic_imagenet():
+    """A synthetic ImageNet-layout JPEG tree in a temporary directory (see
+    the module docstring, phase 9), with IMAGENET_PATH and the experiment
+    root pointing into it while the context lasts; yields the experiment
+    root."""
     old_paths = (settings.IMAGENET_PATH, settings.EXPERIMENT_ROOT, os.environ.get("IMAGENET_PATH"))
     with tempfile.TemporaryDirectory() as tmp:
         data_root, exp_root = Path(tmp) / "imagenet", Path(tmp) / "experiments"
@@ -1067,13 +1150,19 @@ def phase_entry(net, x2, step_img_s):
         os.environ["IMAGENET_PATH"] = settings.IMAGENET_PATH = str(data_root)
         settings.EXPERIMENT_ROOT = str(exp_root)
         try:
-            out.update(_entry_runs(net, x2, step_img_s, exp_root))
+            yield exp_root
         finally:
             settings.IMAGENET_PATH, settings.EXPERIMENT_ROOT, env = old_paths
             if env is None:
                 os.environ.pop("IMAGENET_PATH", None)
             else:
                 os.environ["IMAGENET_PATH"] = env
+
+
+def phase_entry(net, x2, step_img_s, exp_root):
+    """The train and evaluate entry points on the synthetic JPEG tree, then
+    fault C1's route. Returns its numbers for the record."""
+    out = _entry_runs(net, x2, step_img_s, exp_root)
     out.update(_c1_route(net, x2))
     return out
 
@@ -1127,42 +1216,56 @@ def _entry_runs(net, x2, step_img_s, exp_root):
         raise AssertionError(f"fit from JPEGs: step {state.step}, history {history}")
     del state, trainer, model
 
+    cli_round_trip(ENTRY_EXPERIMENT, exp_root, EVAL_BATCH_COUNTS,
+                   TRAIN_STEP_COUNTS["bcos_matmul_fwd"], ("last", "fresh"))
+    return {"loader_img_s": loader_img_s, "fit_img_s": fit_img_s, "copy_ms": ms_copy}
+
+
+def cli_round_trip(experiment, exp_root, eval_counts, train_step_k3, reloads, tag="entry"):
+    """``train --fast_dev_run`` of ``experiment`` (resuming from the
+    checkpoint of epoch 0 under ``exp_root``), then ``evaluate --reload``
+    each of ``reloads``, with the launch counts of each (``eval_counts`` per
+    eval batch, ``train_step_k3`` K3 launches per train step); the top-1 and
+    top-5 of ``--reload last`` must equal the val_acc1/val_acc5 the train
+    command logged."""
+    exp = Experiment(*experiment)
+    val_batches = -(-ENTRY_VAL // 64)
     base = ["--base_directory", str(exp_root)]
     reset_launch_counts()
-    train_cli.main(["--dataset", ENTRY_EXPERIMENT[0], "--base_network", ENTRY_EXPERIMENT[1],
-                    "--experiment_name", ENTRY_EXPERIMENT[2], "--amp", "--fast_dev_run", *base])
+    train_cli.main(["--dataset", experiment[0], "--base_network", experiment[1],
+                    "--experiment_name", experiment[2], "--amp", "--fast_dev_run", *base])
     torch.cuda.synchronize()
     counts = launch_counts()
-    check_counts("train --fast_dev_run", counts, scaled_counts(
-        EVAL_BATCH_COUNTS, val_batches, {"bcos_matmul_fwd": TRAIN_STEP_COUNTS["bcos_matmul_fwd"]}))
+    check_counts(f"{experiment[2]} train --fast_dev_run", counts, scaled_counts(
+        eval_counts, val_batches, {"bcos_matmul_fwd": train_step_k3}))
     if exp.available_checkpoints() != [0, 1]:
         raise AssertionError(f"train --fast_dev_run: checkpoints {exp.available_checkpoints()}")
     logged = exp.load_metrics()
     want = (logged["val_acc1"][-1], logged["val_acc5"][-1])
-    say(f"entry train --fast_dev_run: resumed from epoch 0, one step, checkpoints "
-        f"{exp.available_checkpoints()}, logged val_acc1/val_acc5 at epoch {want[0][0]}: "
-        f"{want[0][1]:.6f} / {want[1][1]:.6f}; launches {counts}")
+    say(f"{tag} train --experiment_name {experiment[2]} --fast_dev_run: resumed from epoch 0, "
+        f"one step, checkpoints {exp.available_checkpoints()}, logged val_acc1/val_acc5 at "
+        f"epoch {want[0][0]}: {want[0][1]:.6f} / {want[1][1]:.6f}; launches {counts}")
 
     results = {}
-    for reload in ("last", "fresh"):
+    for reload in reloads:
         reset_launch_counts()
         t0 = time.perf_counter()
         top1, top5, (c1, c5, n) = evaluate_cli.main(
-            ["--experiment_name", ENTRY_EXPERIMENT[2], "--reload", reload, *base])
+            ["--experiment_name", experiment[2], "--reload", reload, *base])
         torch.cuda.synchronize()
         counts = launch_counts()
-        say(f"entry evaluate --reload {reload}: top-1 {top1:.6f} ({c1}/{n}), top-5 {top5:.6f} "
+        say(f"{tag} evaluate --reload {reload}: top-1 {top1:.6f} ({c1}/{n}), top-5 {top5:.6f} "
             f"({c5}/{n}) in {time.perf_counter() - t0:.1f} s; launches {counts}")
         check_counts(f"evaluate --reload {reload}", counts,
-                     scaled_counts(EVAL_BATCH_COUNTS, val_batches))
+                     scaled_counts(eval_counts, val_batches))
         if n != ENTRY_VAL:
             raise AssertionError(f"evaluate --reload {reload} saw {n} images")
         results[reload] = (top1, top5)
     if results["last"] != (want[0][1], want[1][1]):
         raise AssertionError(f"evaluate --reload last {results['last']} differs from the "
                              f"logged {want}")
-    say("entry evaluate --reload last equals the fit's logged val_acc1/val_acc5: True")
-    return {"loader_img_s": loader_img_s, "fit_img_s": fit_img_s, "copy_ms": ms_copy}
+    say(f"{tag} evaluate --reload last equals the train command's logged "
+        f"val_acc1/val_acc5: True")
 
 
 def _c1_route(net, x2):
@@ -1201,6 +1304,331 @@ def _c1_route(net, x2):
     check_counts("forward after the gradient", launch_counts(), FORWARD_COUNTS)
     say("entry phase 5's launch counts after the gradient: unchanged (36 / 37 / 1 and 36 / 0 / 1)")
     return {"c1_err": err, "c1_bound": bound}
+
+
+# --------------------------------------------------------------------------
+# 10: DenseNet-121
+# --------------------------------------------------------------------------
+DENSENET_EXPERIMENT = ("ImageNet", "bcosification", "densenet_121")
+# (label, M, Cin, Cout, relu) at batch 128, 224x224: the first and the
+# widest conv1 of block 1, transition 1, the deepest conv1 of block 3,
+# transition 3 and the classifier. relu: K2 with the conv1's folded norm2 +
+# act2 (mult and mask); otherwise K2 as K3's explanation backward (neither)
+DENSENET_CHECK_SHAPES = [
+    ("densenet b1.l1.conv1", 401408, 64, 128, True),
+    ("densenet b1.l6.conv1", 401408, 224, 128, True),
+    ("densenet transition1", 401408, 256, 128, False),
+    ("densenet b3.l24.conv1", 25088, 992, 128, True),
+    ("densenet transition3", 25088, 1024, 512, False),
+    ("densenet classifier", 6272, 1024, 1000, False),
+]
+# one forward: K3 at the 62 1x1 convs (58 conv1s, 3 transitions, the
+# classifier); the explanation adds K2 at each; no K1 (no norm is folded
+# into a conv); a train step: K3 at the same 62
+DENSENET_FORWARD_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                           "bcos_matmul_fwd": 62, "stream_add": 0}
+DENSENET_EXPLAIN_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 62,
+                           "bcos_matmul_fwd": 62, "stream_add": 0}
+WINDOW_S = 1.7  # seconds of the card's work per timing window
+
+
+def densenet_launches(model, batch, size):
+    """[(kernel, M, K, N, relu)] of every kernel launch of one fast
+    forward + explanation of the DenseNet (``explain/fast_densenet.py``):
+    K3 at each 1x1 conv, K2 at each, with the mask where it folds a
+    conv1's act2."""
+    relu = isinstance(model.act0, ReLU)
+    launches = []
+    for name, m, k, n in k3_shapes(model, batch, size):
+        launches += [("bcos_matmul_fwd", m, k, n, False),
+                     ("bcos_conv1x1_bwd_explain", m, k, n, relu and name.endswith("conv1"))]
+    return launches
+
+
+def check_densenet_kernels(worst):
+    """K3 and K2 against their plain versions at DENSENET_CHECK_SHAPES, in
+    both dtypes with phase 3's bounds (K2 as the DenseNet pass calls it)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for label, m, k, n, relu in DENSENET_CHECK_SHAPES:
+            x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
+            a = k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True) if relu else None
+            mu = mult if relu else None
+            results = [
+                ("bcos_matmul_fwd", "", k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False),
+                 k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6, eps_outside=False)),
+                ("bcos_conv1x1_bwd_explain", "", k12.conv1x1_bwd_explain(x, wt, ct, a, mu,
+                                                                           relu=relu),
+                 k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct),
+                                               None if a is None else ref(a), mu, relu=relu)),
+            ]
+            torch.cuda.synchronize()
+            for name, variant, got, want in results:
+                _check(worst, name, variant, label, dtype, got, want)
+            del x, wt, ct, a, results
+
+
+def densenet_parity(net, x2):
+    """fp32, 2 images: the fast pass on the GPU against the CPU, the pre-logit
+    features within 1e-4 and the argmax identical; W with PyTorch's own CUDA
+    convs in place of cuDNN's within ten times the CPU's own spread under
+    1e-7 relative input noise, and W with cuDNN within phase 4's bound;
+    then the generic autograd W on the GPU against the fast one (1e-4).
+
+    Each cuDNN conv alone agrees with the CPU to 6e-7, yet through the 120
+    layers' ReLU masks cuDNN's fp32 convs move W by ~240 times that spread,
+    PyTorch's own by about one spread (PERF.md §6): the kernels and the
+    pass are held with the latter."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lg, sg, wg = fast_densenet.fast_dynamic_linear_weights(net, x2)
+    lm, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x2)
+    torch.backends.cudnn.enabled = False
+    try:
+        _, _, w_native = fast_densenet.fast_dynamic_linear_weights(net, x2)
+    finally:
+        torch.backends.cudnn.enabled = True
+    cpu_net = copy.deepcopy(net).to("cpu")
+    t0 = time.perf_counter()
+    lc, sc, wc = fast_densenet.fast_dynamic_linear_weights(cpu_net, x2.cpu(), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 9))
+    _, _, wn = fast_densenet.fast_dynamic_linear_weights(
+        cpu_net, x2.cpu() * (1 + 1e-7 * noise), device="cpu")
+    spread = rel(wn, wc)
+    bias = net.logit_bias
+    err, err_native = rel(wg, wc), rel(w_native, wc)
+    checks = {
+        "W gpu-kernels (torch convs) vs cpu-plain": (err_native, 10 * spread),
+        "W gpu-kernels (cudnn convs) vs cpu-plain": (err, 1e-3),
+        "W module-path vs fast-path (gpu)": (rel(wm, wg), 1e-4),
+        "pre-logit gpu vs cpu (max rel)": (float(
+            ((lg.double().cpu() - bias) - (lc.double() - bias)).abs().max()
+            / (lc.double() - bias).abs().max()), 1e-4),
+        "pre-logit module vs fast (max rel)": (float(
+            (lm.double() - lg.double()).abs().max() / (lg.double() - bias).abs().max()), 1e-4),
+    }
+    say(f"densenet parity W on the cpu under 1e-7 relative input noise: {spread:.3e}; "
+        f"gpu vs cpu {err_native:.3e} = {err_native / spread:.2f} x that spread with PyTorch's "
+        f"CUDA convs, {err:.3e} = {err / spread:.2f} x with cuDNN's")
+    for key, (val, bound) in checks.items():
+        say(f"densenet parity {key}: {val:.3e} (bound {bound:.3e})")
+    same_sel = bool((sg.cpu() == sc).all() and (sm == sg).all())
+    say(f"densenet parity argmax identical: {same_sel}; cpu plain pass took {cpu_s:.1f} s")
+    if not same_sel or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("DenseNet-121 parity failed")
+    if not all(torch.isfinite(t).all() for t in (lg, wg)) or wg.shape != x2.shape:
+        raise AssertionError("DenseNet-121 outputs are not finite or mis-shaped")
+
+
+def _batch128(x2, seed):
+    """bf16 batch of 128 whose first two images are x2 (rounded to bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    x[:2] = x2
+    return x.to(torch.bfloat16)
+
+
+def counted(fn):
+    """(fn(), the launch counts of that call alone)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def windowed(fn):
+    """(ms per call over one window of about WINDOW_S of the card's work,
+    the calls in it, the median host ms to issue one call, the peak memory
+    in GB of one call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single, _, host = timed_iters(fn, 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    calls = max(3, round(1e3 * WINDOW_S / single))
+    return window_ms(fn, calls), calls, host, peak_gb
+
+
+def densenet_throughput(net, x2):
+    """Forward-only and forward + explanation images/s at batch 128, bf16,
+    with each call's launch counts, host issue time and peak memory."""
+    x = _batch128(x2, SEED + 10)
+
+    def explain_call():
+        return fast_densenet.fast_dynamic_linear_weights(net, x)
+
+    def forward_call():
+        with torch.no_grad():
+            return net(x)
+
+    explain_call()
+    (logits, sel, w), counts_explain = counted(explain_call)
+    _, counts_forward = counted(forward_call)
+    say(f"densenet launches per fwd+explain call: {counts_explain}; per forward: "
+        f"{counts_forward}")
+    check_counts("densenet fwd+explain", counts_explain, DENSENET_EXPLAIN_COUNTS)
+    check_counts("densenet forward", counts_forward, DENSENET_FORWARD_COUNTS)
+    if not (torch.isfinite(logits).all() and torch.isfinite(w).all()) or w.shape != x.shape:
+        raise AssertionError("DenseNet-121 bf16 outputs are not finite or mis-shaped")
+    l_ref, _, w_ref = fast_densenet.fast_dynamic_linear_weights(net, x[:2].float())
+    pre = (logits[:2].double() - net.logit_bias, l_ref.double() - net.logit_bias)
+    say(f"densenet bf16 vs fp32 on the first two images: W rel {rel(w[:2].float(), w_ref):.3e}, "
+        f"pre-logit max rel {float((pre[0] - pre[1]).abs().max() / pre[1].abs().max()):.3e}")
+    del logits, sel, w, l_ref, w_ref
+    out = {}
+    for what, fn in (("fwd+explain", explain_call), ("forward-only", forward_call)):
+        ms, calls, host, peak_gb = windowed(fn)
+        say(f"densenet throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per batch "
+            f"of {BATCH}, one window of {calls} calls; the host issues one call in {host:.2f} "
+            f"ms; peak memory of one call {peak_gb:.2f} GB) [{CARD}]")
+        out[what] = {"img_s": BATCH / ms * 1e3, "ms": ms, "host_ms": host, "peak_gb": peak_gb}
+    return out
+
+
+def densenet_serving(net, x2):
+    """The forward and the forward + explanation programs exported, saved to
+    bytes and loaded back; at batch 128, bf16, against the eager calls
+    (argmax identical, logits and W within 1e-6 relative: the same ops and
+    kernels on the same inputs; the same launch counts), then timed."""
+    t0 = time.perf_counter()
+    blob_fwd = serving.export_forward(net, input_size=SIZE, dtype=torch.bfloat16)
+    blob = serving.export_explain(net, input_size=SIZE, dtype=torch.bfloat16)
+    fwd, program = serving.load_serialized(blob_fwd), serving.load_serialized(blob)
+    export_s = time.perf_counter() - t0
+    say(f"densenet serving: exported and loaded both programs in {export_s:.1f} s "
+        f"({len(blob_fwd) / 1e6:.1f} MB and {len(blob) / 1e6:.1f} MB)")
+    x = _batch128(x2, SEED + 11)
+    (logits, sel, w), counts = counted(lambda: program.call(x))
+    check_counts("densenet loaded fwd+explain", counts, DENSENET_EXPLAIN_COUNTS)
+    logits_f, counts_f = counted(lambda: fwd.call(x))
+    check_counts("densenet loaded forward", counts_f, DENSENET_FORWARD_COUNTS)
+    le, se, we = fast_densenet.fast_dynamic_linear_weights(net, x)
+    with torch.no_grad():
+        lf = net(x)
+    bias = net.logit_bias
+    checks = {
+        "W loaded vs eager (rel)": (rel(w.float(), we.float()), 1e-6),
+        "pre-logit loaded vs eager fwd+explain (rel)": (rel(logits.double() - bias,
+                                                            le.double() - bias), 1e-6),
+        "pre-logit loaded vs eager forward (rel)": (rel(logits_f.double() - bias,
+                                                        lf.double() - bias), 1e-6),
+    }
+    for key, (val, bound) in checks.items():
+        say(f"densenet serving {key}: {val:.3e} (bound {bound:.0e})")
+    if (not torch.equal(sel, se) or not torch.equal(logits_f.argmax(1), lf.argmax(1))
+            or any(not val <= bound for val, bound in checks.values())):
+        raise AssertionError("the loaded DenseNet programs disagree with the eager calls")
+    out = {"export_s": export_s}
+    for what, call in (("forward-only", lambda: fwd.call(x)),
+                       ("fwd+explain", lambda: program.call(x))):
+        ms, calls, host, _ = windowed(call)
+        say(f"densenet serving loaded {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
+            f"window of {calls} calls; host {host:.2f} ms) [{CARD}]")
+        out[what] = BATCH / ms * 1e3
+    return out
+
+
+def densenet_train(net):
+    """Trainer.fit of the densenet_121 Experiment (its own recipe: Adam 1e-4
+    with the 90-epoch cosine, AGC, UniformOffLabels BCE; bf16 amp) at batch
+    64 for TRAIN_STEPS steps on one repeated batch: the first of its train
+    loader over the synthetic tree (seed 0), so that the net learns the
+    tree's classes. It trains into the Experiment's own directory, from
+    which the train command resumes. Then the step's launches, its time over
+    TRAIN_WINDOW steps in a row, the host's issue time and the peak memory."""
+    exp = Experiment(*DENSENET_EXPERIMENT)
+    datamodule = exp.get_datamodule()
+    datamodule.setup("fit")
+    batches = iter(datamodule.train_dataloader(seed=0))
+    first = next(batches)
+    batches.close()  # stops the loader's threads
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in first.items()}
+    criterion = RecordedLoss(exp.config["criterion"])
+    exp.config = dict(exp.config, criterion=criterion)
+    t0 = time.perf_counter()
+    trainer = Trainer(exp, {"amp": True})
+    state, counts = counted(lambda: trainer.fit(net, RepeatedBatch(batch, TRAIN_STEPS),
+                                                max_epochs=1))
+    fit_s = time.perf_counter() - t0
+    evals = 2  # the initial and the epoch's validation, one batch each
+    say(f"densenet train: Trainer.fit of {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, bf16 amp, "
+        f"took {fit_s:.1f} s; launches {counts}")
+    check_counts("densenet Trainer.fit", counts,
+                 scaled_counts(DENSENET_FORWARD_COUNTS, TRAIN_STEPS + evals))
+    losses = [float(v) for v in criterion.losses]
+    say("densenet train loss per 5 steps: " + ", ".join(
+        f"step {i}: {losses[i]:.6f}" for i in range(0, len(losses), 5))
+        + f", step {len(losses) - 1}: {losses[-1]:.6f}")
+    if (len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses)
+            or not sum(losses[-5:]) < sum(losses[:5])):
+        raise AssertionError(f"DenseNet train losses are not finite and falling: {losses}")
+    if state.step != TRAIN_STEPS or trainer.ckpt.available_checkpoints() != [0]:
+        raise AssertionError("the DenseNet fit did not take its steps or save its checkpoint")
+
+    step = steps_lib.make_train_step(criterion, 1e-4, use_agc=True, amp=True)
+    step(state, batch)  # warm-up
+    _, per_step = counted(lambda: step(state, batch))
+    say(f"densenet train: launches per train step {per_step}")
+    check_counts("densenet train step", per_step, DENSENET_FORWARD_COUNTS)
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_WINDOW):
+        t0 = time.perf_counter()
+        step(state, batch)
+        host.append(1e3 * (time.perf_counter() - t0))
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_WINDOW
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    say(f"densenet train step: {TRAIN_BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per step of "
+        f"{TRAIN_BATCH}, one window of {TRAIN_WINDOW} steps; the host issues a step in "
+        f"{statistics.median(host):.2f} ms (median; {min(host):.2f}-{max(host):.2f}); peak "
+        f"memory {peak_gb:.1f} GB) [{CARD}]")
+    if not all(math.isfinite(float(p.detach().float().sum())) for p in state.model.parameters()):
+        raise AssertionError("DenseNet parameters are not finite after training")
+    return {"step_img_s": TRAIN_BATCH / ms * 1e3, "step_ms": ms, "peak_gb": peak_gb}
+
+
+def phase_densenet(x2, stream_rate, worst, exp_root):
+    """Phase 10: the full-width DenseNet-121 of the densenet_121 recipe
+    (random init from SEED, gamma-calibrated). Returns the DenseNet keys of
+    K2's and K3's rows of the kernels line."""
+    t0 = time.perf_counter()
+    net = build_bcosified_densenet(Experiment(*DENSENET_EXPERIMENT).model_config, seed=SEED)
+    mag = calibrate(net, x2[:1])
+    say(f"densenet: built DenseNet-121 and calibrated its BN gammas in "
+        f"{time.perf_counter() - t0:.1f} s: pre-logit magnitude {mag:.3g} on the probe")
+    check_densenet_kernels(worst)
+    launches = densenet_launches(net.model, BATCH, SIZE)
+    per_shape = collections.Counter(launches)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = time_shapes(per_shape, stream_rate, gen, tag="densenet ")
+    densenet_parity(net, x2)
+    rates = densenet_throughput(net, x2)
+    served = densenet_serving(net, x2)
+    trained = densenet_train(net)
+    cli_round_trip(DENSENET_EXPERIMENT, exp_root, DENSENET_FORWARD_COUNTS,
+                   DENSENET_FORWARD_COUNTS["bcos_matmul_fwd"], ("last",), tag="densenet")
+    say(f"densenet summary: fwd+explain {rates['fwd+explain']['img_s']:.1f} img/s, forward-only "
+        f"{rates['forward-only']['img_s']:.1f}; loaded fwd+explain {served['fwd+explain']:.1f}, "
+        f"forward-only {served['forward-only']:.1f}; train step {trained['step_img_s']:.1f} img/s "
+        f"(peak {trained['peak_gb']:.1f} GB); export {served['export_s']:.1f} s [{CARD}]")
+    keys = {}
+    for name in ("bcos_matmul_fwd", "bcos_conv1x1_bwd_explain"):
+        r = rows[name]
+        say(f"densenet {name} per fwd+explain call ({DENSENET_EXPLAIN_COUNTS[name]} launches): "
+            f"{r['ms']:.4f} ms; bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate, "
+            f"{1e3 * r['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} "
+            f"GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
+        keys[name] = {"densenet_launches": DENSENET_EXPLAIN_COUNTS[name],
+                      "densenet_ms": r["ms"], "densenet_bound_ms": 1e3 * r["bound_s"],
+                      "densenet_plain_ms": r["plain_ms"], "densenet_library_ms": r["library_ms"]}
+    return keys
 
 
 def main() -> int:
@@ -1254,16 +1682,27 @@ def main() -> int:
     train = phase_train(net, probe["k4_gbs"] * 1e9)
     seconds["8 train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_entry(net, x2, train["step_img_s"])
-    seconds["9 entry points"] = time.perf_counter() - t0
+    with synthetic_imagenet() as exp_root:
+        phase_entry(net, x2, train["step_img_s"], exp_root)
+        seconds["9 entry points"] = time.perf_counter() - t0
+        if k12.tma_operands.padded:
+            raise AssertionError(f"{k12.tma_operands.padded} ResNet-50 calls padded their operands")
+        say("TMA operand padding on the ResNet-50 paths: 0 calls")
+        del net
+        t0 = time.perf_counter()
+        densenet = phase_densenet(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
+        seconds["10 densenet"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
-        raise AssertionError(f"{k12.tma_operands.padded} ResNet-50 calls padded their operands")
-    say("TMA operand padding on the ResNet-50 paths: 0 calls")
+        raise AssertionError(f"{k12.tma_operands.padded} DenseNet-121 calls padded their operands")
+    say("TMA operand padding on the DenseNet-121 paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
                    "train_bound_ms": 1e3 * train["bound_s"],
                    "train_library_ms": train["library_ms"]})
+    for row in kernels:
+        row.update(densenet.get(row["name"], {}))
+        row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518
         if any(key in line for key in ("Compiling entry", "registers", "spill", "warning")):

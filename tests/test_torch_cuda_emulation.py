@@ -153,6 +153,24 @@ def test_k2_bf16_paths(emulated, m, k, n):
     _check_k2(emulated, torch.bfloat16, m, k, n, tol=4e-3)
 
 
+# K2 at a DenseNet conv1's width, Cout = 128 (one wgmma tile) and Cin 224
+# (several TMA boxes): as K3's explanation backward (no mult, no mask, the
+# conv's eps) and with the folded norm2 + act2 of the hand-scheduled pass
+# (mult and mask), in both dtypes. bf16 is held to test_k2_bf16_paths'
+# bound: a g that the kernel's summation order moves across a bf16
+# rounding boundary (4.8e-4 of max |dx| here)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k2_at_the_densenet_width(emulated, dtype):
+    tol = 4e-3 if dtype == torch.bfloat16 else None
+    x, wt, mult, add, ct = _operands(200, 224, 128, dtype, 2)
+    dx = _k2(emulated, x, wt, ct, None, None, 0, 0)
+    _assert_close(dx, k12.conv1x1_bwd_explain_plain(x, wt, ct, None, None, relu=False), dtype,
+                  tol)
+    a = k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True)
+    dx = _k2(emulated, x, wt, ct, a, mult, 1, 0)
+    _assert_close(dx, k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mult, relu=True), dtype, tol)
+
+
 # bf16 K1 stages z and stores it by TMA where Cout is a multiple of 8 (the
 # shapes of CASES store from the registers): ragged M, partial boxes in Cin
 # and Cout, several tiles per block

@@ -91,11 +91,6 @@ def test_metrics_agree():
     assert tm.compute() == jm.compute()
 
 
-def test_densenet_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="A6"):
-        Experiment("ImageNet", "bcosification", "densenet_121").get_model(device="cpu")
-
-
 def test_unsupported_standard_changes_raise():
     config = tcu.update_config(tparams.CONFIGS["resnet_18"]["model"],
                                {"standard_changes": {"maxpool": "maxpool_3_2_1"}})

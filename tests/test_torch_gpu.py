@@ -1,8 +1,8 @@
 """The PyTorch port on a GPU: each hand-written kernel against its plain
-version, the launch counters, the small flagship on the GPU against the
-same net on the CPU (explanation and one train step), K3's training
-backward against the CPU, and an exported explanation program against the
-eager call. Every test here needs a GPU and skips without one.
+version, the launch counters, the small flagship and the small DenseNet on
+the GPU against the same net on the CPU (explanation and one train step),
+K3's training backward against the CPU, and exported explanation programs
+against the eager calls. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -339,3 +339,137 @@ def test_small_flagship_train_step_matches_cpu(gpu):
     assert launch_counts()["bcos_matmul_fwd"] == 3 * len(train_k3_launches(net.model, 4, 32))
     for key, (val, bound) in checks.items():
         assert val <= bound, (key, val, bound)
+
+
+# --------------------------------------------------------------------------
+# the DenseNet (slice 7): K3 and K2 at its shapes, the small DenseNet on the
+# GPU against the CPU, and its exported explanation
+# --------------------------------------------------------------------------
+DENSENET_SMALL = dict(growth_rate=8, block_config=(2, 2), num_init_features=16, bn_size=2)
+
+
+def _small_densenet(gpu, seed, n, size):
+    from chip_smoke import FLAGSHIP, calibrate
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet
+
+    net = build_bcosified_densenet({**FLAGSHIP, "name": "densenet121"}, num_classes=10,
+                                   arch_cfg=DENSENET_SMALL)
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.rand(n, size, size, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    calibrate(net, x[:1])
+    return net, x
+
+
+# (M, Cin, Cout): a block-1 conv1 at 1/8 of batch 128, block 3's deepest conv1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,cin,cout", [(401408 // 8, 224, 128), (25088, 992, 128)])
+def test_k3_and_k2_at_densenet_shapes(gpu, dtype, m, cin, cout):
+    """As the DenseNet pass calls them: K3; K2 as K3's explanation backward
+    (no mult, no mask) and with a conv1's folded norm2 + act2."""
+    g = torch.Generator(device=gpu).manual_seed(m + cin)
+    x = torch.randn(m, cin, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(cout, cin, device=gpu, generator=g) / cin ** 0.5).to(dtype)
+    mult = torch.rand(cout, device=gpu, generator=g) + 0.5
+    ct = torch.randn(m, cout, device=gpu, generator=g).to(dtype)
+    ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False)
+    assert _rel(y, k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6, eps_outside=False)) <= tol
+    a = k12.conv1x1_fwd_plain(x, wt, mult, None, relu=True)
+    for relu, mu, aa in ((False, None, None), (True, mult, a)):
+        dx = k12.conv1x1_bwd_explain(x, wt, ct, aa, mu, relu=relu)
+        want = k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct),
+                                             None if aa is None else ref(aa), mu, relu=relu)
+        assert _rel(dx, want) <= tol
+    torch.cuda.synchronize()
+
+
+def test_small_densenet_gpu_matches_cpu(gpu):
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+    from bcosification_tpu_torch.explain.fast_densenet import fast_dynamic_linear_weights
+
+    net, x = _small_densenet(gpu, 0, 2, 64)
+    n_1x1 = sum(DENSENET_SMALL["block_config"]) + len(DENSENET_SMALL["block_config"])
+    cpu = copy.deepcopy(net).to("cpu")
+    reset_launch_counts()
+    logits, sel, w = fast_dynamic_linear_weights(net, x)
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n_1x1,
+                               "bcos_matmul_fwd": n_1x1, "stream_add": 0}
+    reset_launch_counts()
+    with torch.no_grad():
+        out = net(x)
+    assert launch_counts()["bcos_matmul_fwd"] == n_1x1
+    lc, sc, wc = fast_dynamic_linear_weights(cpu, x.cpu(), device="cpu")
+    _, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x)
+    with torch.no_grad():
+        outc = cpu(x.cpu())
+    assert torch.equal(sel.cpu(), sc) and torch.equal(sm, sel)
+    # five layers deep: fp32 summation order moves W by ~1e-6, far below this
+    assert _rel(w, wc) <= 1e-5
+    assert _rel(wm, w) <= 1e-5
+    bias = net.logit_bias
+    assert _rel(logits.double() - bias, lc.double() - bias) <= 1e-5
+    assert _rel(out.double() - bias, outc.double() - bias) <= 1e-5
+
+
+def test_small_densenet_train_step_matches_cpu(gpu):
+    """One fp32 train step of the recipe on the GPU against the CPU (chip_smoke
+    phase 8's fp32 checks and bounds): loss, every gradient leaf, the BN
+    running_var. The bf16 bounds of phase 8 were set on the ResNet; the
+    DenseNet's bf16 training is held by phase 10's falling loss."""
+    from chip_smoke import train_k3_launches, train_step_parity
+
+    net, x = _small_densenet(gpu, 6, 4, 32)
+    reset_launch_counts()
+    checks = train_step_parity(net, {"image": x, "label": torch.tensor([1, 3, 5, 7],
+                                                                       device=gpu)})
+    # three forwards on the GPU (the fp32 and the bf16 raw gradients, the step)
+    assert launch_counts()["bcos_matmul_fwd"] == 3 * len(train_k3_launches(net.model, 4, 32))
+    for key in ("loss", "gradient", "running_var"):
+        val, bound = checks[key]
+        assert val <= bound, (key, val, bound)
+
+
+def test_exported_densenet_explain_matches_eager(gpu):
+    """Fault C3 on the card: the DenseNet's explanation program, loaded from
+    bytes, equals the eager pass and launches the same kernels."""
+    from bcosification_tpu_torch import serving
+    from bcosification_tpu_torch.explain.fast_densenet import fast_dynamic_linear_weights
+
+    net, x = _small_densenet(gpu, 1, 3, 64)
+    program = serving.load_serialized(serving.export_explain(net, input_size=64))
+    reset_launch_counts()
+    logits, sel, w = program.call(x)
+    counts = launch_counts()
+    reset_launch_counts()
+    lw, sw, ww = fast_dynamic_linear_weights(net, x)
+    assert counts == launch_counts() and counts["bcos_conv1x1_fwd"] == 0
+    assert torch.equal(sel, sw)
+    assert _rel(w, ww) <= 1e-6 and _rel(logits, lw) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["stem", "conv2"])
+def test_cudnn_convs_match_cpu_per_op(gpu, case):
+    """Each fp32 cuDNN conv of the DenseNet's explanation, alone, agrees with
+    the CPU's (f64) to 1e-6: the 3x3 conv2 and its transpose, the 7x7/s2
+    stem and its transpose. (Through the 120 layers' ReLU masks, cuDNN's
+    convs still move the full-width W far more than PyTorch's own CUDA
+    convs do; chip_smoke.py phase 10.)"""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+    if case == "stem":
+        fwd = lambda x, w: F.conv2d(x, w, stride=2, padding=3)
+        bwd = lambda x, w: F.conv_transpose2d(x, w, stride=2, padding=3, output_padding=1)
+        x, w, ct = (torch.randn(2, 6, 224, 224, generator=g), torch.randn(64, 6, 7, 7, generator=g),
+                    torch.randn(2, 64, 112, 112, generator=g))
+    else:
+        fwd = lambda x, w: F.conv2d(x, w, padding=1)
+        bwd = lambda x, w: F.conv_transpose2d(x, w, padding=1)
+        x, w, ct = (torch.randn(8, 128, 56, 56, generator=g),
+                    torch.randn(32, 128, 3, 3, generator=g), torch.randn(8, 32, 56, 56, generator=g))
+    for fn, inp in ((fwd, x), (bwd, ct)):
+        want = fn(inp.double(), w.double())
+        got = fn(inp.to(gpu).contiguous(memory_format=torch.channels_last), w.to(gpu))
+        assert _rel(got, want) <= 1e-6

@@ -26,7 +26,8 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "experiments.utils.config_utils", "experiments.utils.metric_utils",
              "experiments.utils.experiment_utils",
              "experiments.ImageNet.bcosification.experiment_parameters",
-             "experiments.ImageNet.bcosification.model", "train", "evaluate"):
+             "experiments.ImageNet.bcosification.model", "train", "evaluate",
+             "models.densenet", "explain.fast_densenet"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
