@@ -81,7 +81,15 @@ class Experiment:
     def _ckpt_manager(self):
         from bcosification_tpu_torch.training.checkpointing import CheckpointManager
 
-        return CheckpointManager(str(self.save_dir), monitor="val_acc1", mode="max")
+        monitor = "val_loss" if self._is_clip_kd() else "val_acc1"
+        return CheckpointManager(str(self.save_dir), monitor=monitor,
+                                 mode="min" if monitor == "val_loss" else "max")
+
+    def _is_clip_kd(self) -> bool:
+        """A CLIP knowledge-distillation config: its checkpoints are ranked by
+        the validation loss, the others by the top-1 accuracy."""
+        bargs = self.config.get("model", {}).get("bcosify_args", {}) or {}
+        return bool(bargs.get("clip_kd", False))
 
     def available_checkpoints(self):
         return self._ckpt_manager().available_checkpoints()

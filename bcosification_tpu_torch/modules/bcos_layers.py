@@ -12,6 +12,13 @@ the conv. On the port every fusable 1x1 shape (b=2, groups=1, max_out=1,
 no conv bias, any stride) goes to the hand-written kernel
 (``ops/cuda/bcos_conv1x1.py``); anything else computes the plain B-cos
 conv and applies the affine, the residual and the ReLU after it.
+
+Linear weights are (in, out), the JAX layout (x @ w), so the JAX variables
+copy as they are. ``BcosifyLinear`` is the conversion-time B-cos linear
+(a bias-free b=2 one runs on the B-cos matmul kernel, ``ops.bcos_linear``);
+``PlainLinear`` is nn.Linear in that layout. Both take ``weight_only``:
+the weight alone, no bias and no dynamic scale (the pooled CLIP attention
+head applies its projections so).
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from torch import nn
 from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import bcos_conv1x1_bn_act
 
-__all__ = ["BcosConv2d", "BcosifyConv2d", "LogitLayer"]
+__all__ = ["BcosConv2d", "BcosifyConv2d", "BcosifyLinear", "LogitLayer", "PlainLinear"]
 
 
 class _ConvBase(nn.Module):
@@ -133,6 +140,55 @@ class BcosifyConv2d(BcosConv2d):
     training."""
 
     normalize_weights = False
+
+
+class _LinearBase(nn.Module):
+    """Holds an (in, out) weight and optional bias, both initialised
+    U(-1/sqrt(in), 1/sqrt(in)) from ``generator``, as the JAX layers."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features, self.features = in_features, features
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(torch.empty((in_features, features), device=device))
+        self.bias = (nn.Parameter(torch.empty(features, device=device))
+                     if use_bias else None)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+
+class PlainLinear(_LinearBase):
+    """nn.Linear with an (in, out) weight; ``weight_only`` skips the bias."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, **kwargs):
+        super().__init__(in_features, features, use_bias, **kwargs)
+
+    def forward(self, x, *, train: bool = False, explain: bool = False,
+                weight_only: bool = False):
+        out = x @ self.weight.to(x.dtype)
+        if self.bias is not None and not weight_only:
+            out = out + self.bias
+        return out
+
+
+class BcosifyLinear(_LinearBase):
+    """Conversion-time B-cos linear: raw (pretrained) weights, fixed b.
+    ``weight_only`` applies the weight plainly: no bias, no dynamic scale."""
+
+    def __init__(self, in_features: int, features: int, *, b: float = 2.0, max_out: int = 1,
+                 use_bias: bool = False, **kwargs):
+        super().__init__(in_features, features * max_out, use_bias, **kwargs)
+        self.b, self.max_out = b, max_out
+
+    def forward(self, x, *, train: bool = False, explain: bool = False,
+                weight_only: bool = False):
+        if weight_only:
+            return x @ self.weight.to(x.dtype)
+        return ops.bcos_linear(x, self.weight, b=self.b, max_out=self.max_out,
+                               normalize_weights=False, bias=self.bias, explain=explain)
 
 
 class LogitLayer(nn.Module):

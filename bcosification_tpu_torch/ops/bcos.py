@@ -16,7 +16,9 @@ backward pass. The k x k convs stay on ``F.conv2d`` (cuDNN on the GPU); the
 patch norm is the windowed sum of the per-pixel channel sum of squares,
 ``F.avg_pool2d(..., divisor_override=1)``. The 1x1, stride-1, bias-free b=2
 conv is a B-cos matmul and goes to the hand-written kernel
-(``ops/cuda/bcos_matmul.py``).
+(``ops/cuda/bcos_matmul.py``), and so does the bias-free b=2 linear, with
+the linear norm sqrt(||x||^2) + 1e-12 (``eps_outside``): the JAX package
+computes that one in XLA, the port on the same kernel as the 1x1 convs.
 """
 from __future__ import annotations
 
@@ -33,10 +35,12 @@ __all__ = [
     "nhwc",
     "conv2d",
     "normed_conv_weight",
+    "normed_linear_weight",
     "channel_sumsq",
     "patch_norms",
     "dynamic_scale",
     "bcos_conv2d",
+    "bcos_linear",
 ]
 
 # Exact values matter for parity with the reference: conv patch norms add
@@ -81,6 +85,15 @@ def normed_conv_weight(w: torch.Tensor, scale: Optional[torch.Tensor] = None) ->
     w = w / torch.sqrt((w * w).sum(dim=(1, 2, 3), keepdim=True))
     if scale is not None:
         w = w * scale.reshape(-1, 1, 1, 1)
+    return w
+
+
+def normed_linear_weight(w: torch.Tensor, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L2-normalise an (in, out) linear weight per output feature (the JAX
+    layout, x @ w), optionally times a per-output ``scale``."""
+    w = w / torch.sqrt((w * w).sum(dim=0, keepdim=True))
+    if scale is not None:
+        w = w * scale.reshape(1, -1)
     return w
 
 
@@ -188,4 +201,43 @@ def bcos_conv2d(
         return out
     norm = patch_norms(x, w.shape[2:], stride=stride, padding=padding, dilation=dilation,
                        groups=groups, x_sumsq=x_sumsq).to(out.dtype)
+    return dynamic_scale(out, norm, b, explain=explain) * out
+
+
+def bcos_linear(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    b: Union[Number, torch.Tensor] = 2.0,
+    max_out: int = 1,
+    normalize_weights: bool = True,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    explain: bool = False,
+) -> torch.Tensor:
+    """B-cos linear transform over the last axis of x; w is (in, out * max_out).
+
+    ``normalize_weights=True`` is ``BcosLinear``, ``False`` ``BcosifyLinear``
+    (raw weights, optional ``bias`` before the dynamic scale). The norm is
+    sqrt(||x||^2) + 1e-12. A bias-free b=2 linear without max-out runs as
+    the B-cos matmul kernel (K3, ``eps_outside``); its result is cast to
+    x's dtype.
+    """
+    out_features = w.shape[-1] // max_out
+    wn = normed_linear_weight(w, scale) if normalize_weights else w
+    if isinstance(b, (int, float)) and b == 2 and max_out == 1 and bias is None:
+        from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul
+
+        lead = x.shape[:-1]
+        y = bcos_matmul(x.reshape(-1, x.shape[-1]), wn, LINEAR_NORM_EPS, True, explain)
+        return y.view(*lead, -1).to(x.dtype)
+    out = x @ wn.to(x.dtype)
+    if bias is not None:
+        out = out + bias
+    if max_out > 1:
+        out = out.reshape(*out.shape[:-1], out_features, max_out).amax(-1)
+    if isinstance(b, (int, float)) and b == 1:
+        return out
+    xf = x.float()
+    norm = (torch.sqrt((xf * xf).sum(-1, keepdim=True)) + LINEAR_NORM_EPS).to(out.dtype)
     return dynamic_scale(out, norm, b, explain=explain) * out

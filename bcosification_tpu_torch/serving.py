@@ -8,7 +8,9 @@ needed at load time. The batch is a symbolic dimension, so one artifact
 serves any batch size; the input size, channels, dtype and device are fixed
 at export. The hand-written kernels appear in the program as the
 ``bcos_torch`` custom ops, so a loaded program launches them (and counts
-the launches) as the eager model does.
+the launches) as the eager model does. ``export_text_explain`` packages
+the text-grounded explanation of a B-cosified CLIP image tower: (x, t) ->
+(scores, W) through ``explain/fast_clip.py``.
 """
 from __future__ import annotations
 
@@ -20,9 +22,9 @@ from torch import nn
 # registers the bcos_torch custom ops, which torch.export.load resolves
 import bcosification_tpu_torch.ops.cuda  # noqa: F401
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain import fast_densenet, fast_resnet
+from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_resnet
 
-__all__ = ["export_forward", "export_explain", "load_serialized"]
+__all__ = ["export_forward", "export_explain", "export_text_explain", "load_serialized"]
 
 # the hand-scheduled explanation passes, which torch.export traces (a
 # program cannot hold the generic pass's autograd.grad)
@@ -38,11 +40,25 @@ class _Explain(nn.Module):
         return self.fast.fast_dynamic_linear_weights(self.net, x, device=x.device)
 
 
-def _export(module: nn.Module, input_size: int, channels: int, dtype, device) -> bytes:
+class _TextExplain(nn.Module):
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, t):
+        return fast_clip.fast_text_dlw(self.net, x, t, device=x.device)
+
+
+def _export(module: nn.Module, input_size: int, channels: int, dtype, device,
+            extra=()) -> bytes:
+    """The program of module(x, *extra) with a symbolic batch in x [batch?,
+    S, S, C]; ``extra`` are (shape, dtype) of further fixed-shape inputs."""
     dev = resolve_device(device)
     example = torch.zeros((2, input_size, input_size, channels), dtype=dtype, device=dev)
+    others = tuple(torch.zeros(shape, dtype=dt, device=dev) for shape, dt in extra)
     batch = torch.export.Dim("batch", min=1)
-    program = torch.export.export(module.eval(), (example,), dynamic_shapes=({0: batch},),
+    program = torch.export.export(module.eval(), (example, *others),
+                                  dynamic_shapes=({0: batch},) + (None,) * len(others),
                                   strict=False)
     buf = io.BytesIO()
     torch.export.save(program, buf)
@@ -52,7 +68,8 @@ def _export(module: nn.Module, input_size: int, channels: int, dtype, device) ->
 def export_forward(net, *, input_size: int = 224, channels: int = 6,
                    dtype=torch.float32, device=None) -> bytes:
     """Serialized program of ``net(x)`` (eval mode) for x [batch?, S, S, C]
-    on ``device`` (default the GPU, where net must lie)."""
+    on ``device`` (default the GPU, where net must lie): the logits of a
+    classifier, the features of a CLIP image tower."""
     return _export(net, input_size, channels, dtype, device)
 
 
@@ -71,17 +88,35 @@ def export_explain(net, *, input_size: int = 224, channels: int = 6,
                      "explain.fast_densenet.supports)")
 
 
+def export_text_explain(net, *, embed_dim: int, input_size: int = 224, channels: int = 6,
+                        dtype=torch.float32, device=None) -> bytes:
+    """Serialized program of the text-grounded explanation of a B-cosified
+    CLIP image tower: (x [batch?, S, S, C], t [embed_dim]) -> (scores
+    [batch?], W like x), score_b the cosine of the tower's explain-mode
+    features with t (per location and averaged for attn-unpool towers) and
+    W = d score / dx, through the hand-scheduled pass
+    (``explain/fast_clip.py``). Raises for a tower that pass does not
+    support."""
+    if not fast_clip.supports(net):
+        raise ValueError("export_text_explain: the model is not supported by the "
+                         "hand-scheduled CLIP pass (see explain.fast_clip.supports)")
+    return _export(_TextExplain(net), input_size, channels, dtype, device,
+                   extra=(((embed_dim,), dtype),))
+
+
 class Serialized:
-    """A loaded artifact: ``.call(x)`` runs the program."""
+    """A loaded artifact: ``.call(x)`` (``.call(x, t)`` for the text-grounded
+    explanation) runs the program."""
 
     def __init__(self, program):
         self.program = program
         self._module = program.module()
 
-    def call(self, x: torch.Tensor):
-        return self._module(x)
+    def call(self, *inputs: torch.Tensor):
+        return self._module(*inputs)
 
 
 def load_serialized(blob: bytes) -> Serialized:
-    """Rehydrate an artifact of ``export_forward`` or ``export_explain``."""
+    """Rehydrate an artifact of ``export_forward``, ``export_explain`` or
+    ``export_text_explain``."""
     return Serialized(torch.export.load(io.BytesIO(blob)))

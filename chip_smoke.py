@@ -84,13 +84,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    repeated batch (a falling loss, K3 62 launches per step, the step's
    img/s, host ms and peak memory); then ``train --fast_dev_run``
    resuming from it and ``evaluate --reload last`` equal to the logged
-   accuracies.
+   accuracies;
+11. CLIP-RN50 (the clip_bcosification recipe's student, pooled and
+   attn-unpool; widths 64 / 2048, 32 heads, embed_dim 1024, random init
+   from SEED, gamma-calibrated), on the same JPEG tree: K1, K2 and K3
+   against their plain versions at six CLIP shapes in both dtypes (phase
+   3's bounds; at the c_proj shape K2 and K3 with the linear norm,
+   eps_outside); per head, fp32 parity on 2 images of the text-grounded
+   explanation (explain/fast_clip.py), GPU against CPU (scores 1e-4; W as
+   phase 10 holds it) and the module's autograd against it (scores 1e-4, W
+   ten times the CPU's spread: the module runs K3 and the BN apart); the
+   encode and the text fwd+explain images/s at batch 128, bf16, with their
+   launch counts (encode: K3 36, +1 unpooled; explanation: K1 36, K2 36,
+   +1 K2 and +1 K3 unpooled), host issue time and peak memory; the pooled
+   tower's text explanation and forward exported, loaded from bytes and
+   held to the eager calls; the zero-shot classifier of a random-init text
+   tower over 1000 classes x 80 templates in bf16 (tokenize and tower
+   timed), 8 classes in fp32 against the CPU (1e-4), and
+   ``zeroshot_evaluate`` of both heads over the tree's val split; then
+   each kernel's time at every shape of one attn-unpool encode (K3) and
+   text explanation (K1, K2, K3) beside its bound.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No bf16 operand
-of a ResNet-50 or DenseNet-121 path needs the TMA padding
+of a ResNet-50, DenseNet-121 or CLIP-RN50 path needs the TMA padding
 (``tma_operands.padded`` stays 0).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
@@ -124,15 +143,21 @@ from bcosification_tpu_torch.losses import (
 )
 from bcosification_tpu_torch.optim import LRSchedulerFactory, OptimizerFactory
 from bcosification_tpu_torch.training import steps as steps_lib
+from bcosification_tpu_torch.training import zeroshot
 from bcosification_tpu_torch.training.trainer import Trainer
+from bcosification_tpu_torch.bcosify.clip_import import build_clip_text
 from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet, build_bcosified_resnet
-from bcosification_tpu_torch.explain import fast_densenet
+from bcosification_tpu_torch.clip.model import ModifiedResNet, clip_rn50_config
+from bcosification_tpu_torch.clip.tokenizer import tokenize
+from bcosification_tpu_torch.data.imagenet import imagenet_classes, imagenet_templates
+from bcosification_tpu_torch.explain import fast_clip, fast_densenet
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
 from bcosification_tpu_torch.models import resnet
 from bcosification_tpu_torch.models.densenet import BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
 from bcosification_tpu_torch.modules import BcosConv2d, ReLU
+from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
 from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
@@ -225,19 +250,23 @@ def operands(m, k, n, dtype, gen):
     return x, wt, mult, add, ct
 
 
-def kernel_calls(name, x, wt, mult, add, ct, relu):
-    """(kernel call, plain call, torch.matmul call) for one launch's work."""
+def kernel_calls(name, x, wt, mult, add, ct, relu, eps_outside=False):
+    """(kernel call, plain call, torch.matmul call) for one launch's work;
+    ``eps_outside``: a B-cos linear's (the linear norm, no BN's mult)."""
     if name == "bcos_conv1x1_fwd":
         return (lambda: k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
                 lambda: k12.conv1x1_fwd_plain(x, wt, mult, add, relu=relu),
                 lambda: torch.matmul(x, wt.t()))
+    eps = LINEAR_NORM_EPS if eps_outside else 1e-6
     if name == "bcos_conv1x1_bwd_explain":
         a = k12.conv1x1_fwd(x, wt, mult, add, relu=True) if relu else None
-        return (lambda: k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=relu),
-                lambda: k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mult, relu=relu),
+        mu = None if eps_outside else mult
+        kw = dict(relu=relu, eps=eps, eps_outside=eps_outside)
+        return (lambda: k12.conv1x1_bwd_explain(x, wt, ct, a, mu, **kw),
+                lambda: k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mu, **kw),
                 lambda: torch.matmul(torch.matmul(x, wt.t()), wt))
-    return (lambda: k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False),
-            lambda: k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6, eps_outside=False),
+    return (lambda: k3.bcos_matmul_fwd(x, wt, eps=eps, eps_outside=eps_outside),
+            lambda: k3.bcos_matmul_fwd_plain(x, wt, eps=eps, eps_outside=eps_outside),
             lambda: torch.matmul(x, wt.t()))
 
 
@@ -342,16 +371,17 @@ def bound_terms(name, m, k, n, relu):
 
 
 def time_shapes(per_shape, stream_rate, gen, tag=""):
-    """{kernel: row} over ``per_shape`` {(kernel, M, K, N, relu): launches}:
+    """{kernel: row} over ``per_shape`` {(kernel, M, K, N, relu[,
+    eps_outside]): launches}:
     each distinct shape timed in bf16 as the median of 10 samples of 10
     launches in a row (the plain version 3 samples of 3), weighted by its
     launches. A row sums ms, plain_ms, library_ms (torch.matmul), the bound
     at the data-sheet rate (bound_s, split into flop_s and byte_s by what
     binds) and at ``stream_rate`` (bytes/s, K4's measured rate on this card)."""
     rows = {}
-    for (name, m, k, n, relu), count in sorted(per_shape.items()):
+    for (name, m, k, n, relu, *linear), count in sorted(per_shape.items()):
         x, wt, mult, add, ct = operands(m, k, n, torch.bfloat16, gen)
-        kern, plain, lib = kernel_calls(name, x, wt, mult, add, ct, relu)
+        kern, plain, lib = kernel_calls(name, x, wt, mult, add, ct, relu, any(linear))
         t_k = stream_bandwidth.event_ms(kern, 10)
         t_p = stream_bandwidth.event_ms(plain, 3, warmup=1, burst=3)
         t_l = stream_bandwidth.event_ms(lib, 10)
@@ -365,7 +395,8 @@ def time_shapes(per_shape, stream_rate, gen, tag=""):
         r["bound_s"] += count * max(f_s, b_s)
         r["measured_bound_s"] += count * max(f_s, b_s * PEAK_BYTES / stream_rate)
         r["flop_s" if f_s >= b_s else "byte_s"] += count * max(f_s, b_s)
-        say(f"time {tag}{name:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms, "
+        label = name + (" linear" if any(linear) else "")
+        say(f"time {tag}{label:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms, "
             f"{flops / t_k / 1e9:.1f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s "
             f"(bound {1e3 * max(f_s, b_s):.4f} ms by {'FLOPs' if f_s >= b_s else 'bytes'}, "
             f"{1e3 * max(f_s, b_s * PEAK_BYTES / stream_rate):.4f} ms at the measured rate; "
@@ -423,6 +454,14 @@ def _output_rms(net, probe, module, transform=None):
 def calibration_steps(m):
     """[(BN, module, transform)] of ``calibrate`` in forward order: each BN
     gamma is divided by the RMS of ``module``'s output (or transform(it))."""
+    if isinstance(m, ModifiedResNet):  # CLIP: every norm runs apart from its conv
+        steps = [(bn, bn, None) for _, bn, _, _ in m.stem()]
+        for blk in m.blocks():
+            steps += [(blk.bn1, blk.bn1, None), (blk.bn2, blk.bn2, None),
+                      (blk.bn3, blk.bn3, None)]
+            if blk.has_downsample:
+                steps.append((blk.downsample_norm, blk.downsample_norm, None))
+        return steps
     if isinstance(m, BcosDenseNet):
         # pre-activation: each norm's gamma scales the conv after it (b=2
         # convs are homogeneous of degree 1), and a concat keeps the older
@@ -452,15 +491,17 @@ def calibration_steps(m):
 
 def calibrate(net, probe):
     """Scale each BN gamma, in forward order, so that its segment's output
-    (ResNet) or the conv after it (DenseNet) has RMS 1 on ``probe``: a
-    random-init b=2 net contracts to ~1e-20 and makes every comparison
-    vacuous. A uniform factor on all gammas does not work at full depth:
-    the early layers overflow before the output reaches O(1). Returns the
-    pre-logit magnitude afterwards."""
+    (ResNet), the conv after it (DenseNet) or the norm's own output (CLIP)
+    has RMS 1 on ``probe``: a random-init b=2 net contracts to ~1e-20 and
+    makes every comparison vacuous. A uniform factor on all gammas does not
+    work at full depth: the early layers overflow before the output reaches
+    O(1). Returns the pre-logit magnitude (a CLIP tower's feature
+    magnitude) afterwards."""
+    bias = net.logit_bias if net.with_logit_layer else 0.0
     with torch.no_grad():
         for bn, module, transform in calibration_steps(net.model):
             bn.weight.div_(_output_rms(net, probe, module, transform))
-        mag = float((net(probe).double() - net.logit_bias).abs().max())
+        mag = float((net(probe).double() - bias).abs().max())
     if not 1e-4 < mag < 1e4:
         raise AssertionError(f"gamma calibration failed: pre-logit magnitude {mag}")
     return mag
@@ -1631,6 +1672,333 @@ def phase_densenet(x2, stream_rate, worst, exp_root):
     return keys
 
 
+# --------------------------------------------------------------------------
+# 11: CLIP-RN50
+# --------------------------------------------------------------------------
+CLIP_NAME = "resnet_50_clip_b2_noBias_randomResizedCrop_sigLip_ImageNet_bcosification"
+CLIP_EXPERIMENTS = {"pooled": ("ImageNet", "clip_bcosification", CLIP_NAME),
+                    "unpool": ("ImageNet", "clip_bcosification", CLIP_NAME + "_attnUnpool")}
+# (label, M, K, N, relu, eps_outside) at batch 128, 224x224: conv1 of
+# layer1's first block and of layer2's (the last 1x1 at 56x56), layer2's
+# conv3 after its avg-pool, layer3's downsample, a layer4 conv3 (K2's split
+# path, Cout 2048) and the attn-unpool c_proj (the B-cos linear)
+CLIP_CHECK_SHAPES = [
+    ("clip layer1_0.conv1", 401408, 64, 64, True, False),
+    ("clip layer2_0.conv1", 401408, 256, 128, True, False),
+    ("clip layer2_0.conv3", 100352, 128, 512, False, False),
+    ("clip layer3_0.downsample", 25088, 512, 1024, False, False),
+    ("clip layer4_1.conv3", 6272, 512, 2048, False, False),
+    ("clip attnpool.c_proj", 6272, 2048, 1024, False, True),
+]
+CLIP_1X1 = 36  # conv1 and conv3 of the 16 bottlenecks, the 4 downsamples
+
+
+def clip_counts(unpool, explain):
+    """Launches of one encode (the module forward: K3 at every 1x1 conv,
+    and at the B-cos c_proj when unpooled) or one text-grounded explanation
+    (K1 and K2 at every 1x1; the unpooled c_proj adds one K3 and one K2)."""
+    if explain:
+        return {"bcos_conv1x1_fwd": CLIP_1X1, "bcos_conv1x1_bwd_explain": CLIP_1X1 + unpool,
+                "bcos_matmul_fwd": int(unpool), "stream_add": 0}
+    return {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+            "bcos_matmul_fwd": CLIP_1X1 + unpool, "stream_add": 0}
+
+
+def clip_launches(net, batch, size, explain):
+    """[(kernel, M, K, N, relu[, eps_outside])] of every launch of one encode
+    or one text-grounded explanation (``clip_counts``), the 1x1 shapes read
+    from forward hooks (``k3_shapes``)."""
+    convs = k3_shapes(net.model, batch, size)
+    pool = net.model.attnpool
+    linear = []
+    if pool.attn_unpool:
+        k, n = pool.c_proj.weight.shape
+        linear = [("bcos_matmul_fwd", convs[-1][1], k, n, False, True)]
+        if explain:
+            linear.append(("bcos_conv1x1_bwd_explain", convs[-1][1], k, n, False, True))
+    if not explain:
+        return [("bcos_matmul_fwd", m, k, n, False) for _, m, k, n in convs] + linear
+    out = []
+    for name, m, k, n in convs:
+        relu = name.endswith("conv1")
+        out += [("bcos_conv1x1_fwd", m, k, n, relu), ("bcos_conv1x1_bwd_explain", m, k, n, relu)]
+    return out + linear
+
+
+def check_clip_kernels(worst):
+    """K1 (at the convs), K2 and K3 against their plain versions at
+    CLIP_CHECK_SHAPES, both dtypes, phase 3's bounds: K2 as the CLIP pass
+    calls it (the BN's mult, and the mask at a conv1; at c_proj no mult and
+    the linear norm, eps_outside), K3 with both eps_outside values."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for label, m, k, n, relu, linear in CLIP_CHECK_SHAPES:
+            x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
+            eps = LINEAR_NORM_EPS if linear else 1e-6
+            a = k12.conv1x1_fwd(x, wt, mult, add, relu=True) if relu else None
+            mu = None if linear else mult
+            kw = dict(relu=relu, eps=eps, eps_outside=linear)
+            results = [
+                ("bcos_conv1x1_bwd_explain", " eps_outside" if linear else "",
+                 k12.conv1x1_bwd_explain(x, wt, ct, a, mu, **kw),
+                 k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct),
+                                               None if a is None else ref(a), mu, **kw)),
+            ] + [("bcos_matmul_fwd", " eps_outside" if e else "",
+                  k3.bcos_matmul_fwd(x, wt, eps=eps, eps_outside=e),
+                  k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=eps, eps_outside=e))
+                 for e in (False, True)]
+            if not linear:
+                results.append(("bcos_conv1x1_fwd", "",
+                                k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
+                                k12.conv1x1_fwd_plain(ref(x), ref(wt), mult, add, relu=relu)))
+            torch.cuda.synchronize()
+            for name, variant, got, want in results:
+                _check(worst, name, variant, label, dtype, got, want)
+            del x, wt, ct, a, results
+
+
+def _text_direction(dim, seed, device):
+    """A unit text embedding made from ``seed``."""
+    t = torch.randn(dim, generator=torch.Generator().manual_seed(seed))
+    return (t / t.norm()).to(device)
+
+
+def clip_parity(net, x2, head):
+    """fp32, 2 images, the text-grounded explanation: the fast pass on the
+    GPU against the CPU (scores within 1e-4; W with PyTorch's own CUDA convs
+    within ten times the CPU's spread under 1e-7 relative input noise, with
+    cuDNN's within phase 4's 1e-3, as phase 10 holds them), and the port's
+    autograd through the module forward against the fast pass on the GPU
+    (scores 1e-4, W ten times that spread). Unlike ResNet-50's, the module
+    path does not share the fast pass's kernels: it runs each 1x1 conv on
+    K3 and its BN apart, where the pass runs K1, and at full depth that
+    rounding moves W by about one spread (~1e-4; PERF.md)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = x2.device
+    t = _text_direction(net.model.attnpool.c_proj.features, SEED + 15, dev)
+    sg, wg = fast_clip.fast_text_dlw(net, x2, t, device=dev)
+    xx = x2.clone().requires_grad_(True)
+    sm = fast_clip.text_score_head(net(xx, explain=True), t)
+    (wm,) = torch.autograd.grad(sm.sum(), xx)
+    torch.backends.cudnn.enabled = False
+    try:
+        _, w_native = fast_clip.fast_text_dlw(net, x2, t, device=dev)
+    finally:
+        torch.backends.cudnn.enabled = True
+    cpu = copy.deepcopy(net).to("cpu")
+    t0 = time.perf_counter()
+    sc, wc = fast_clip.fast_text_dlw(cpu, x2.cpu(), t.cpu(), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 16))
+    _, wn = fast_clip.fast_text_dlw(cpu, x2.cpu() * (1 + 1e-7 * noise), t.cpu(), device="cpu")
+    spread = rel(wn, wc)
+    err, err_native = rel(wg, wc), rel(w_native, wc)
+
+    def max_rel(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max() / b.double().abs().max())
+
+    checks = {
+        "W gpu-kernels (torch convs) vs cpu-plain": (err_native, 10 * spread),
+        "W gpu-kernels (cudnn convs) vs cpu-plain": (err, 1e-3),
+        "W module-path vs fast-path (gpu)": (rel(wm, wg), 10 * spread),
+        "scores gpu vs cpu (max rel)": (max_rel(sg, sc), 1e-4),
+        "scores module vs fast (max rel)": (max_rel(sm.detach(), sg), 1e-4),
+    }
+    say(f"clip {head} parity W on the cpu under 1e-7 relative input noise: {spread:.3e}; gpu "
+        f"vs cpu {err_native:.3e} = {err_native / spread:.2f} x that spread with PyTorch's CUDA "
+        f"convs, {err:.3e} = {err / spread:.2f} x with cuDNN's; scores {sg.tolist()}; cpu pass "
+        f"took {cpu_s:.1f} s")
+    for key, (val, bound) in checks.items():
+        say(f"clip {head} parity {key}: {val:.3e} (bound {bound:.3e})")
+    if any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError(f"CLIP {head} parity failed")
+    if not all(torch.isfinite(v).all() for v in (sg, wg)) or wg.shape != x2.shape:
+        raise AssertionError(f"CLIP {head} outputs are not finite or mis-shaped")
+    return t
+
+
+def clip_throughput(net, x, t, unpool, head):
+    """Encode and text-grounded fwd+explain images/s at batch 128, bf16, each
+    with its launch counts, host issue time and peak memory."""
+    def encode():
+        with torch.no_grad():
+            return net(x)
+
+    def text_explain():
+        return fast_clip.fast_text_dlw(net, x, t, device=x.device)
+
+    out = {}
+    for what, fn, explain_ in (("encode", encode, False), ("fwd+explain", text_explain, True)):
+        fn()
+        result, counts = counted(fn)
+        check_counts(f"clip {head} {what}", counts, clip_counts(unpool, explain_))
+        outs = result if isinstance(result, tuple) else (result,)
+        if not all(torch.isfinite(v).all() for v in outs):
+            raise AssertionError(f"CLIP {head} {what}: outputs are not finite")
+        ms, calls, host, peak_gb = windowed(fn)
+        say(f"clip {head} throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per batch "
+            f"of {BATCH}, one window of {calls} calls; the host issues one call in {host:.2f} "
+            f"ms; peak memory of one call {peak_gb:.2f} GB; launches {counts}) [{CARD}]")
+        out[what] = {"img_s": BATCH / ms * 1e3, "ms": ms, "host_ms": host, "peak_gb": peak_gb}
+    return out
+
+
+def clip_zeroshot(nets, device):
+    """The zero-shot classifier of a random-init CLIP-RN50 text tower (from
+    SEED) over the 1000 ImageNet classes x 80 templates in bf16 (tokenize
+    and tower timed apart, then the whole ``zeroshot_classifier`` call):
+    [1024, 1000], finite, unit-norm columns; 8 classes in fp32 on the GPU
+    against the CPU (1e-4); then ``zeroshot_evaluate`` of each head over
+    the val split of the synthetic tree through the Experiment's data
+    module (the CLIP eval preset), with its K3 launches per batch."""
+    texts = [zeroshot.format_template(t, c) for c in imagenet_classes for t in imagenet_templates]
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(tokenize(texts))
+    tok_s = time.perf_counter() - t0
+    cfg = clip_rn50_config()
+    text = build_clip_text(None, cfg, seed=SEED, device=device)
+    text16 = copy.deepcopy(text).to(torch.bfloat16)
+    chunk = 32 * len(imagenet_templates)
+    with torch.no_grad():
+        text16(tokens[:chunk])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(texts), chunk):
+            text16(tokens[i:i + chunk])
+        torch.cuda.synchronize()
+    tower_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w = zeroshot.zeroshot_classifier(text16, imagenet_classes, imagenet_templates)
+    torch.cuda.synchronize()
+    classifier_s = time.perf_counter() - t0
+    norms = w.norm(dim=0)
+    say(f"clip zero-shot: tokenized {len(texts)} prompts in {tok_s:.2f} s (host); the bf16 text "
+        f"tower over them in {tower_s:.2f} s ({len(texts) / tower_s:.0f} prompts/s); "
+        f"zeroshot_classifier {classifier_s:.2f} s -> {tuple(w.shape)}, column norms "
+        f"{float(norms.min()):.6f}-{float(norms.max()):.6f} [{CARD}]")
+    if (tuple(w.shape) != (cfg["embed_dim"], len(imagenet_classes))
+            or not bool(torch.isfinite(w).all()) or float((norms - 1).abs().max()) > 1e-5):
+        raise AssertionError("the zero-shot classifier is not [embed_dim, classes] finite unit "
+                             "columns")
+    w_gpu = zeroshot.zeroshot_classifier(text, imagenet_classes[:8], imagenet_templates)
+    t0 = time.perf_counter()
+    w_cpu = zeroshot.zeroshot_classifier(copy.deepcopy(text).to("cpu"), imagenet_classes[:8],
+                                         imagenet_templates)
+    err = rel(w_gpu, w_cpu)
+    say(f"clip zero-shot fp32, 8 classes x 80 templates, gpu vs cpu: {err:.3e} (bound 1e-4; "
+        f"the cpu took {time.perf_counter() - t0:.1f} s)")
+    if not err <= 1e-4:
+        raise AssertionError("the zero-shot classifier on the GPU disagrees with the CPU")
+    del text, text16
+    out = {"tokenize_s": tok_s, "tower_s": tower_s, "classifier_s": classifier_s}
+    for head, (net, cos_power) in nets.items():
+        dm = Experiment(*CLIP_EXPERIMENTS[head]).get_datamodule()
+        dm.setup("test")
+        loader = dm.val_dataloader()
+
+        def encode(images):
+            return net(torch.cat([images, 1.0 - images], dim=-1).to(torch.bfloat16))
+
+        t0 = time.perf_counter()
+        acc, counts = counted(lambda: zeroshot.zeroshot_evaluate(encode, loader, w.to(
+            torch.bfloat16), cos_power=cos_power))
+        batches = len(loader)  # the CLIP config's batch of 64
+        check_counts(f"clip {head} zeroshot_evaluate", counts,
+                     scaled_counts(clip_counts(head == "unpool", False), batches))
+        say(f"clip {head} zeroshot_evaluate over {ENTRY_VAL} val JPEGs ({batches} batches, "
+            f"cos_power {cos_power}): top-1 {acc['acc1']:.4f}, top-5 {acc['acc5']:.4f} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+        out[f"{head}_acc1"] = acc["acc1"]
+    return out
+
+
+def clip_serving(net, x, t):
+    """The pooled tower's text-grounded explanation and forward exported,
+    saved to bytes and loaded back: at batch 128, bf16, equal to the eager
+    calls (1e-6 relative: the same ops and kernels on the same inputs) with
+    the same launch counts; the loaded explanation's images/s."""
+    t0 = time.perf_counter()
+    blob = serving.export_text_explain(net, embed_dim=t.shape[0], input_size=SIZE,
+                                       dtype=torch.bfloat16, device=x.device)
+    blob_fwd = serving.export_forward(net, input_size=SIZE, dtype=torch.bfloat16,
+                                      device=x.device)
+    program, fwd = serving.load_serialized(blob), serving.load_serialized(blob_fwd)
+    export_s = time.perf_counter() - t0
+    say(f"clip serving: exported and loaded both programs in {export_s:.1f} s "
+        f"({len(blob) / 1e6:.1f} MB and {len(blob_fwd) / 1e6:.1f} MB)")
+    t16 = t.to(torch.bfloat16)
+    (s, w), counts = counted(lambda: program.call(x, t16))
+    check_counts("clip loaded text explain", counts, clip_counts(False, True))
+    feats, counts_f = counted(lambda: fwd.call(x))
+    check_counts("clip loaded forward", counts_f, clip_counts(False, False))
+    es, ew = fast_clip.fast_text_dlw(net, x, t16, device=x.device)
+    with torch.no_grad():
+        ef = net(x)
+    checks = {"scores loaded vs eager (rel)": (rel(s.float(), es.float()), 1e-6),
+              "W loaded vs eager (rel)": (rel(w.float(), ew.float()), 1e-6),
+              "features loaded vs eager forward (rel)": (rel(feats.float(), ef.float()), 1e-6)}
+    for key, (val, bound) in checks.items():
+        say(f"clip serving {key}: {val:.3e} (bound {bound:.0e})")
+    if any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("the loaded CLIP programs disagree with the eager calls")
+    ms, calls, host, _ = windowed(lambda: program.call(x, t16))
+    say(f"clip serving loaded text fwd+explain: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
+        f"window of {calls} calls; host {host:.2f} ms) [{CARD}]")
+    return {"export_s": export_s, "loaded_img_s": BATCH / ms * 1e3}
+
+
+def phase_clip(x2, stream_rate, worst):
+    """Phase 11: the CLIP-RN50 student of the clip_bcosification recipe, pooled
+    and attn-unpool (random init from SEED, gamma-calibrated), on the card.
+    Returns the CLIP keys of K1's, K2's and K3's rows of the kernels line."""
+    check_clip_kernels(worst)
+    nets, rates = {}, {}
+    for head, experiment in CLIP_EXPERIMENTS.items():
+        t0 = time.perf_counter()
+        exp = Experiment(*experiment)
+        net = exp.get_model()
+        mag = calibrate(net, x2[:1])
+        say(f"clip {head}: built {experiment[2]} and calibrated its BN gammas in "
+            f"{time.perf_counter() - t0:.1f} s: feature magnitude {mag:.3g} on the probe")
+        t = clip_parity(net, x2, head)
+        x = _batch128(x2, SEED + 17)
+        rates[head] = clip_throughput(net, x, t, head == "unpool", head)
+        nets[head] = (net, int(exp.model_config.get("cos_power", 1)) if head == "unpool" else 0)
+    pooled = nets["pooled"][0]
+    served = clip_serving(pooled, _batch128(x2, SEED + 18),
+                          _text_direction(pooled.model.attnpool.c_proj.features, SEED + 19,
+                                          x2.device))
+    zs = clip_zeroshot(nets, x2.device)
+    unpool = nets["unpool"][0]
+    gen = torch.Generator(device=x2.device).manual_seed(SEED + 20)
+    rows = {what: time_shapes(collections.Counter(clip_launches(unpool, BATCH, SIZE, explain_)),
+                              stream_rate, gen, tag=f"clip {what} ")
+            for what, explain_ in (("encode", False), ("explain", True))}
+    say(f"clip summary: pooled encode {rates['pooled']['encode']['img_s']:.1f} img/s, text "
+        f"fwd+explain {rates['pooled']['fwd+explain']['img_s']:.1f}; attn-unpool encode "
+        f"{rates['unpool']['encode']['img_s']:.1f}, text fwd+explain "
+        f"{rates['unpool']['fwd+explain']['img_s']:.1f}; loaded text fwd+explain "
+        f"{served['loaded_img_s']:.1f}; export {served['export_s']:.1f} s; zero-shot classifier "
+        f"{zs['classifier_s']:.2f} s [{CARD}]")
+    keys = {}
+    for what, explain_ in (("encode", False), ("explain", True)):
+        counts = clip_counts(True, explain_)
+        for name, r in rows[what].items():
+            say(f"clip {name} per attn-unpool {what} ({counts[name]} launches): {r['ms']:.4f} ms; "
+                f"bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate, "
+                f"{1e3 * r['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} "
+                f"GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms "
+                f"[{CARD}]")
+            keys.setdefault(name, {}).update({
+                f"clip_{what}_launches": counts[name], f"clip_{what}_ms": r["ms"],
+                f"clip_{what}_bound_ms": 1e3 * r["bound_s"],
+                f"clip_{what}_plain_ms": r["plain_ms"],
+                f"clip_{what}_library_ms": r["library_ms"]})
+    return keys
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -1692,9 +2060,16 @@ def main() -> int:
         t0 = time.perf_counter()
         densenet = phase_densenet(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["10 densenet"] = time.perf_counter() - t0
+        if k12.tma_operands.padded:
+            raise AssertionError(f"{k12.tma_operands.padded} DenseNet-121 calls padded their "
+                                 "operands")
+        say("TMA operand padding on the DenseNet-121 paths: 0 calls")
+        t0 = time.perf_counter()
+        clip = phase_clip(x2, probe["k4_gbs"] * 1e9, worst)
+        seconds["11 clip"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
-        raise AssertionError(f"{k12.tma_operands.padded} DenseNet-121 calls padded their operands")
-    say("TMA operand padding on the DenseNet-121 paths: 0 calls")
+        raise AssertionError(f"{k12.tma_operands.padded} CLIP-RN50 calls padded their operands")
+    say("TMA operand padding on the CLIP-RN50 paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -1702,6 +2077,7 @@ def main() -> int:
                    "train_library_ms": train["library_ms"]})
     for row in kernels:
         row.update(densenet.get(row["name"], {}))
+        row.update(clip.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518

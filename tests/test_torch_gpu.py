@@ -1,8 +1,9 @@
 """The PyTorch port on a GPU: each hand-written kernel against its plain
-version, the launch counters, the small flagship and the small DenseNet on
-the GPU against the same net on the CPU (explanation and one train step),
-K3's training backward against the CPU, and exported explanation programs
-against the eager calls. Every test here needs a GPU and skips without one.
+version, the launch counters, the small flagship, the small DenseNet and
+the small CLIP-RN50 tower on the GPU against the same net on the CPU
+(explanation and one train step; the CLIP tower's text-grounded
+explanation), K3's training backward against the CPU, and exported
+explanation programs against the eager calls. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -473,3 +474,92 @@ def test_cudnn_convs_match_cpu_per_op(gpu, case):
         want = fn(inp.double(), w.double())
         got = fn(inp.to(gpu).contiguous(memory_format=torch.channels_last), w.to(gpu))
         assert _rel(got, want) <= 1e-6
+
+
+# the small CLIP-RN50 student of tests/test_torch_clip.py at 64x64
+CLIP_SMALL = {"vision_layers": (1, 1, 1, 1), "vision_width": 16, "embed_dim": 32,
+              "image_resolution": 64}
+
+
+def _small_clip(gpu, unpool, seed=0):
+    """The small CLIP student on the GPU, gamma-calibrated as chip_smoke.py
+    does, and a batch of 2 images."""
+    from chip_smoke import calibrate
+    from bcosification_tpu_torch.bcosify.clip_import import build_bcosified_clip_visual
+
+    config = {"bcosify_args": {"use_bias": False}, "attn_unpool": unpool}
+    net = build_bcosified_clip_visual(config, None, dict(CLIP_SMALL), seed=seed)
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.rand(2, 64, 64, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    calibrate(net, x[:1])
+    t = torch.randn(CLIP_SMALL["embed_dim"], device=gpu, generator=g)
+    return net, x, t / t.norm()
+
+
+@pytest.mark.parametrize("unpool", [False, True], ids=["pooled", "unpool"])
+def test_small_clip_text_explain_gpu_matches_cpu(gpu, unpool):
+    """The text-grounded explanation (explain/fast_clip.py) on the GPU: K1 and
+    K2 at the 12 1x1 convs, the unpooled c_proj on K3 and K2 with the linear
+    norm; scores and W against the CPU (1e-5) and the module's autograd on
+    the GPU (1e-5); the encode on K3."""
+    from bcosification_tpu_torch.explain import fast_clip
+
+    net, x, t = _small_clip(gpu, unpool)
+    reset_launch_counts()
+    s, w = fast_clip.fast_text_dlw(net, x, t)
+    assert launch_counts() == {"bcos_conv1x1_fwd": 12, "bcos_conv1x1_bwd_explain": 12 + unpool,
+                               "bcos_matmul_fwd": int(unpool), "stream_add": 0}
+    reset_launch_counts()
+    with torch.no_grad():
+        net(x)
+    assert launch_counts()["bcos_matmul_fwd"] == 12 + unpool
+    sc, wc = fast_clip.fast_text_dlw(copy.deepcopy(net).to("cpu"), x.cpu(), t.cpu(),
+                                     device="cpu")
+    xx = x.clone().requires_grad_(True)
+    sm = fast_clip.text_score_head(net(xx, explain=True), t)
+    (wm,) = torch.autograd.grad(sm.sum(), xx)
+    # five segments deep: fp32 summation order moves W by ~1e-6, far below this
+    assert _rel(s, sc) <= 1e-5 and _rel(w, wc) <= 1e-5
+    assert _rel(sm.detach(), s) <= 1e-5 and _rel(wm, w) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k3_and_k2_at_the_clip_c_proj_shape(gpu, dtype):
+    """The attn-unpool c_proj at batch 128 (M = 128 x 49, K 2048, N 1024): K3
+    forward and K2 backward with the linear norm (sqrt(ssq) + 1e-12,
+    eps_outside) and no mult, against their plain versions."""
+    from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
+
+    m, k, n = 6272, 2048, 1024
+    g = torch.Generator(device=gpu).manual_seed(9)
+    x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(n, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+    ct = torch.randn(m, n, device=gpu, generator=g).to(dtype)
+    ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
+    y = k3.bcos_matmul_fwd(x, wt, **kw)
+    assert _rel(y, k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)) <= tol
+    dx = k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False, **kw)
+    want = k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None, relu=False, **kw)
+    assert _rel(dx, want) <= tol
+    torch.cuda.synchronize()
+
+
+def test_exported_text_explain_matches_eager(gpu):
+    """The attn-unpool tower's text-grounded explanation program, loaded from
+    bytes, equals the eager pass and launches the same kernels."""
+    from bcosification_tpu_torch import serving
+    from bcosification_tpu_torch.explain import fast_clip
+
+    net, x, t = _small_clip(gpu, True, seed=1)
+    program = serving.load_serialized(serving.export_text_explain(
+        net, embed_dim=CLIP_SMALL["embed_dim"], input_size=64))
+    reset_launch_counts()
+    s, w = program.call(x, t)
+    counts = launch_counts()
+    reset_launch_counts()
+    es, ew = fast_clip.fast_text_dlw(net, x, t)
+    assert counts == launch_counts() and counts["bcos_conv1x1_fwd"] == 12
+    assert _rel(s, es) <= 1e-6 and _rel(w, ew) <= 1e-6

@@ -27,7 +27,11 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "experiments.utils.experiment_utils",
              "experiments.ImageNet.bcosification.experiment_parameters",
              "experiments.ImageNet.bcosification.model", "train", "evaluate",
-             "models.densenet", "explain.fast_densenet"):
+             "models.densenet", "explain.fast_densenet", "modules.bcosattnpool",
+             "clip", "clip.model", "clip.tokenizer", "clip.load", "bcosify.clip_import",
+             "explain.fast_clip", "data.imagenet", "training.zeroshot",
+             "experiments.ImageNet.clip_bcosification.experiment_parameters",
+             "experiments.ImageNet.clip_bcosification.model"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
@@ -74,6 +78,39 @@ def test_entry_points_raise_without_gpu():
     # asked for explicitly, the CPU runs the plain versions
     _, _, w = fast_dynamic_linear_weights(net, x, device="cpu")
     assert w.shape == x.shape
+
+
+def test_clip_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from bcosification_tpu_torch import serving
+    from bcosification_tpu_torch.bcosify import clip_import
+    from bcosification_tpu_torch.clip.load import load
+    from bcosification_tpu_torch.experiments.utils.experiment_utils import Experiment
+    from bcosification_tpu_torch.explain import fast_clip
+
+    cfg = {"vision_layers": (1, 1, 1, 1), "vision_width": 16, "embed_dim": 32,
+           "image_resolution": 32, "context_length": 77, "vocab_size": 49408,
+           "transformer_width": 64, "transformer_heads": 4, "transformer_layers": 1}
+    config = {"bcosify_args": {"use_bias": False}, "attn_unpool": True}
+    for build in (lambda: clip_import.build_bcosified_clip_visual(config, None, cfg),
+                  lambda: clip_import.build_clip_teacher_visual(None, cfg),
+                  lambda: clip_import.build_clip_text(None, cfg),
+                  lambda: load("RN50", pretrained=False)):
+        with pytest.raises(RuntimeError, match="GPU"):
+            build()
+    name = "resnet_50_clip_b2_noBias_randomResizedCrop_sigLip_ImageNet_bcosification"
+    with pytest.raises(RuntimeError, match="GPU"):
+        Experiment("ImageNet", "clip_bcosification", name).get_model()
+    net = clip_import.build_bcosified_clip_visual(config, None, cfg, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 32, 32, 6)).astype(np.float32))
+    t = torch.ones(32)
+    with pytest.raises(RuntimeError, match="GPU"):
+        fast_clip.fast_text_dlw(net, x, t)
+    with pytest.raises(RuntimeError, match="GPU"):
+        serving.export_text_explain(net, embed_dim=32, input_size=32)
+    scores, w = fast_clip.fast_text_dlw(net, x, t, device="cpu")
+    assert scores.shape == (1,) and w.shape == x.shape
 
 
 def test_train_and_evaluate_raise_without_gpu(tmp_path, monkeypatch):
