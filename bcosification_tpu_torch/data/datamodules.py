@@ -8,8 +8,8 @@
 readers. Batches are dicts of numpy arrays, "image" [N, H, W, C] float32
 and "label"; the trainer moves them to the card.
 
-Not ported yet: the VOC and CC3M modules, the C++ loader
-(``native_loader=True`` raises) and the per-process split of a
+CC3M's module is in ``data/cc3m.py``. Not ported yet: the VOC module, the
+C++ loader (``native_loader=True`` raises) and the per-process split of a
 multi-process run (``split_by_process`` raises).
 """
 from __future__ import annotations

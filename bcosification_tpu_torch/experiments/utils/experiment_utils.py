@@ -79,17 +79,17 @@ class Experiment:
         return cls(cfg)
 
     def _ckpt_manager(self):
-        from bcosification_tpu_torch.training.checkpointing import CheckpointManager
+        from bcosification_tpu_torch.training.checkpointing import CheckpointManager, monitor_for
 
-        monitor = "val_loss" if self._is_clip_kd() else "val_acc1"
-        return CheckpointManager(str(self.save_dir), monitor=monitor,
-                                 mode="min" if monitor == "val_loss" else "max")
+        monitor, mode = monitor_for(self.config)
+        return CheckpointManager(str(self.save_dir), monitor=monitor, mode=mode)
 
     def _is_clip_kd(self) -> bool:
         """A CLIP knowledge-distillation config: its checkpoints are ranked by
         the validation loss, the others by the top-1 accuracy."""
-        bargs = self.config.get("model", {}).get("bcosify_args", {}) or {}
-        return bool(bargs.get("clip_kd", False))
+        from bcosification_tpu_torch.training.checkpointing import is_clip_kd
+
+        return is_clip_kd(self.config)
 
     def available_checkpoints(self):
         return self._ckpt_manager().available_checkpoints()

@@ -146,6 +146,8 @@ class _LinearBase(nn.Module):
     """Holds an (in, out) weight and optional bias, both initialised
     U(-1/sqrt(in), 1/sqrt(in)) from ``generator``, as the JAX layers."""
 
+    weight_unit_axis = -1  # the output units are the weight's last axis (training/agc.py)
+
     def __init__(self, in_features: int, features: int, use_bias: bool, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -2,39 +2,53 @@
 ``bcosification_tpu/training/agc.py``.
 
 Each output unit's gradient is clipped to ``clip_factor`` times the unit's
-parameter norm. The unit is the FIRST axis here (OIHW conv weights,
-[out, in] linears), where the JAX package's HWIO / (in, out) layouts put it
-last: unit-wise norms reduce over every axis but the first. Parameters with
-at most one axis longer than 1 (vectors, scalars) use their full norm.
+parameter norm; unit-wise norms reduce over every axis but the unit's.
+The unit is the FIRST axis of a torch layout (OIHW conv weights, [out, in]
+linears), where the JAX package's HWIO / (in, out) layouts put it last. The
+port's own linears keep the JAX (in, out) weight (``modules/bcos_layers.py``)
+and declare it with ``weight_unit_axis = -1``; clipping a module's gradients
+reads that. Parameters with at most one axis longer than 1 (vectors,
+scalars) use their full norm.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Union
 
 import torch
+from torch import nn
 
 __all__ = ["unitwise_norm", "clip_grad", "adaptive_clip_grads_"]
 
 
-def unitwise_norm(x: torch.Tensor) -> torch.Tensor:
+def unitwise_norm(x: torch.Tensor, unit_axis: int = 0) -> torch.Tensor:
     if sum(1 for s in x.shape if s > 1) <= 1:
         return torch.linalg.vector_norm(x)
-    return torch.sqrt((x * x).sum(dim=tuple(range(1, x.ndim)), keepdim=True))
+    unit_axis %= x.ndim
+    dims = tuple(d for d in range(x.ndim) if d != unit_axis)
+    return torch.sqrt((x * x).sum(dim=dims, keepdim=True))
 
 
 def clip_grad(p: torch.Tensor, g: torch.Tensor, clip_factor: float = 0.01,
-              eps: float = 1e-3) -> torch.Tensor:
+              eps: float = 1e-3, unit_axis: int = 0) -> torch.Tensor:
     """The clipped gradient of one parameter."""
-    max_norm = torch.clamp(unitwise_norm(p), min=eps) * clip_factor
-    grad_norm = unitwise_norm(g)
+    max_norm = torch.clamp(unitwise_norm(p, unit_axis), min=eps) * clip_factor
+    grad_norm = unitwise_norm(g, unit_axis)
     clipped = g * (max_norm / torch.clamp(grad_norm, min=1e-6))
     return torch.where(grad_norm < max_norm, g, clipped)
 
 
 @torch.no_grad()
-def adaptive_clip_grads_(params: Iterable[torch.Tensor], clip_factor: float = 0.01,
-                         eps: float = 1e-3) -> None:
-    """Clip the ``.grad`` of every parameter that has one, in place."""
-    for p in params:
+def adaptive_clip_grads_(params: Union[nn.Module, Iterable[torch.Tensor]],
+                         clip_factor: float = 0.01, eps: float = 1e-3) -> None:
+    """Clip the ``.grad`` of every parameter that has one, in place.
+    ``params``: parameters in a torch layout (the unit on the first axis),
+    or a module, whose weights take the unit axis their module declares
+    (``weight_unit_axis``, default 0)."""
+    if isinstance(params, nn.Module):
+        pairs = [(p, getattr(m, "weight_unit_axis", 0) if n == "weight" else 0)
+                 for m in params.modules() for n, p in m.named_parameters(recurse=False)]
+    else:
+        pairs = [(p, 0) for p in params]
+    for p, unit_axis in pairs:
         if p.grad is not None:
-            p.grad.copy_(clip_grad(p, p.grad, clip_factor, eps))
+            p.grad.copy_(clip_grad(p, p.grad, clip_factor, eps, unit_axis))

@@ -18,9 +18,21 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "is_clip_kd", "monitor_for"]
 
 _FILE = "state.pt"
+
+
+def is_clip_kd(config: Dict[str, Any]) -> bool:
+    """A CLIP knowledge-distillation config (``model.bcosify_args.clip_kd``)."""
+    bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
+    return bool(bargs.get("clip_kd", False))
+
+
+def monitor_for(config: Dict[str, Any]) -> Tuple[str, str]:
+    """(metric, mode) that ranks the checkpoints of ``config``: the
+    validation loss (min) for CLIP KD, the top-1 accuracy (max) otherwise."""
+    return ("val_loss", "min") if is_clip_kd(config) else ("val_acc1", "max")
 
 
 class CheckpointManager:

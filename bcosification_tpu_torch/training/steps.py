@@ -99,7 +99,7 @@ def make_train_step(
         params = [p for p in model.parameters() if p.grad is not None]
         grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
         if use_agc:
-            agc_lib.adaptive_clip_grads_(params, AGC_CLIP_FACTOR)
+            agc_lib.adaptive_clip_grads_(model, AGC_CLIP_FACTOR)
         elif gradient_clip_val:
             torch.nn.utils.clip_grads_with_norm_(params, gradient_clip_val, grad_norm)
         if lr_schedule is not None:

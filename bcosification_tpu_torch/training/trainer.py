@@ -1,5 +1,6 @@
-"""The supervised training loop (counterpart of the supervised branch of
-``bcosification_tpu/training/trainer.py::Trainer``).
+"""The training loops (counterpart of
+``bcosification_tpu/training/trainer.py::Trainer``): supervised training and
+CLIP knowledge distillation.
 
 ``run_training(args)`` is the ``train`` command's assembly: the
 experiment, its model and data module, and one ``fit``.
@@ -16,9 +17,20 @@ A fit validates the converted model first (epoch -1, recorded in the
 history but not in ``metrics.csv``), then runs epochs of train steps, each
 followed by validation (and EMA validation), a ``metrics.csv`` row and a
 checkpoint. With ``resume`` it restarts after the last checkpoint.
+
+A config with ``clip_kd`` goes to ``fit_kd``: the student learns from the
+frozen CLIP teacher of its model name (``clip/load.py``) with the SigLIP
+loss (``training/kd.py``) on the image batches of its data module (a
+loader without a length runs ``steps_per_epoch`` steps, 5000 by default).
+Each epoch logs ``train_loss``, ``val_loss`` (fixed logit scale 10 and bias
+-10, at most ``max_val_batches`` batches), ``epoch_time_s`` and, when
+``DATA_ROOT`` or ``IMAGENET_PATH`` is set, the zero-shot top-1 of each
+dataset found there. KD checkpoints are ranked by ``val_loss``
+(``checkpointing.monitor_for``).
 """
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -28,13 +40,12 @@ import torch
 
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.training import steps as steps_lib
-from bcosification_tpu_torch.training.checkpointing import CheckpointManager
+from bcosification_tpu_torch.training.checkpointing import CheckpointManager, monitor_for
 from bcosification_tpu_torch.training.ema import adjusted_ema_decay
 from bcosification_tpu_torch.training.loggers import MetricsLogger, setup_loggers
 
 __all__ = ["Trainer", "run_training"]
 
-_SLICE_5 = "port slice 5 (CLIP and knowledge distillation)"
 _SLICE_6 = "port slice 6 (the rest of training)"
 _SLICE_8 = "port slice 8 (distribution)"
 _SLICE_6D = "port slice 6d (loggers and the explanation logger)"
@@ -57,12 +68,13 @@ def _check_ported(config: Dict[str, Any]) -> None:
     tcfg = config.get("trainer", {}) or {}
     bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
     unported = [
-        (config.get("clip_kd", False) or bargs.get("clip_kd", False), "clip_kd (fit_kd)", _SLICE_5),
         (int(tcfg.get("pipeline_parallel", 1) or 1) > 1, "trainer.pipeline_parallel", _SLICE_8),
         (int(tcfg.get("model_parallel", 1) or 1) > 1, "trainer.model_parallel", _SLICE_8),
         (tcfg.get("fsdp", False), "trainer.fsdp", _SLICE_8),
         ((config.get("data", {}) or {}).get("split_by_process", False),
          "data.split_by_process", _SLICE_8),
+        ((config.get("data", {}) or {}).get("split_shards_by_process", False),
+         "data.split_shards_by_process", _SLICE_8),
         (int(tcfg.get("accumulate_grad_batches", 1) or 1) > 1,
          "trainer.accumulate_grad_batches > 1", _SLICE_6),
         (bargs.get("linear_b", False), "bcosify_args.linear_b (learnable b)", _SLICE_6),
@@ -83,7 +95,8 @@ class Trainer:
         setup_loggers(self.args)
         self.save_dir = Path(experiment.save_dir)
         self.save_dir.mkdir(parents=True, exist_ok=True)
-        self.ckpt = CheckpointManager(str(self.save_dir), monitor="val_acc1", mode="max")
+        monitor, mode = monitor_for(self.config)
+        self.ckpt = CheckpointManager(str(self.save_dir), monitor=monitor, mode=mode)
         self.metrics = MetricsLogger(self.save_dir)
         self.metrics.log_hparams(self.config)
 
@@ -91,10 +104,28 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
+    def _schedule(self, steps_per_epoch: int):
+        """The config's schedule(step) -> lr, or its constant lr."""
+        opt_factory, sched_factory = self.config["optimizer"], self.config.get("lr_scheduler")
+        return (sched_factory.create(opt_factory.lr, steps_per_epoch)
+                if sched_factory is not None else opt_factory.lr)
+
+    def _resume(self, state: steps_lib.TrainState) -> int:
+        """Load the last checkpoint into ``state``; the epoch to start at."""
+        restored, last_epoch = self.ckpt.restore("last", map_location=self.device)
+        if restored is None:
+            return 0
+        state.load_state_dict(restored)
+        print(f"Resuming from epoch {last_epoch}")
+        return last_epoch + 1
+
     def fit(self, model, datamodule, max_epochs: Optional[int] = None,
             fast_dev_run: bool = False, resume: bool = True) -> steps_lib.TrainState:
         config = self.config
         _check_ported(config)
+        if config.get("clip_kd", False):
+            return self.fit_kd(model, datamodule, max_epochs=max_epochs,
+                               fast_dev_run=fast_dev_run, resume=resume)
         tcfg = config.get("trainer", {}) or {}
         max_epochs = max_epochs or tcfg.get("max_epochs", 90)
         datamodule.setup("fit")
@@ -102,9 +133,7 @@ class Trainer:
         steps_per_epoch = max(len(train_loader), 1)
 
         opt_factory = config["optimizer"]
-        sched_factory = config.get("lr_scheduler")
-        schedule = (sched_factory.create(opt_factory.lr, steps_per_epoch)
-                    if sched_factory is not None else opt_factory.lr)
+        schedule = self._schedule(steps_per_epoch)
         ema_config = config.get("ema", None)
         ema_decay, ema_steps = None, 32
         if ema_config is not None:
@@ -124,13 +153,7 @@ class Trainer:
                                              with_ema=ema_config is not None,
                                              device=self.device)
 
-        start_epoch = 0
-        if resume:
-            restored, last_epoch = self.ckpt.restore("last", map_location=self.device)
-            if restored is not None:
-                state.load_state_dict(restored)
-                start_epoch = last_epoch + 1
-                print(f"Resuming from epoch {last_epoch}")
+        start_epoch = self._resume(state) if resume else 0
         if start_epoch == 0 and not fast_dev_run:
             # the conversion-quality metric: the model as converted, before training
             init_metrics = self.validate(eval_step, state, datamodule)
@@ -174,6 +197,125 @@ class Trainer:
             if fast_dev_run:
                 break
         return state
+
+    def fit_kd(self, model, datamodule, max_epochs: Optional[int] = None,
+               fast_dev_run: bool = False, resume: bool = True) -> steps_lib.TrainState:
+        """SigLIP knowledge distillation of the student ``model`` from the
+        frozen CLIP teacher (see the module docstring). There is no initial
+        validation and no EMA, as in the JAX trainer's KD loop."""
+        from bcosification_tpu_torch.clip.load import MODEL_CONFIG_CLIP_NAMES
+        from bcosification_tpu_torch.clip.load import load as clip_load
+        from bcosification_tpu_torch.training import kd as kd_lib
+
+        config = self.config
+        mcfg = config.get("model", {}) or {}
+        max_epochs = max_epochs or (config.get("trainer", {}) or {}).get("max_epochs", 90)
+        datamodule.setup("fit")
+        train_loader = datamodule.train_dataloader(seed=config.get("seed", 0) or 0)
+        if getattr(train_loader, "mode", None) == "pair":
+            train_loader.mode = "image"  # the captions are not used: skip tokenizing them
+        try:
+            steps_per_epoch = max(len(train_loader), 1)
+        except TypeError:  # a tar-shard stream has no length
+            steps_per_epoch = config.get("steps_per_epoch", 5000)
+
+        clip_name = MODEL_CONFIG_CLIP_NAMES.get(mcfg.get("name", "resnet50clip"), "RN50")
+        teacher, text_model, _, _ = clip_load(clip_name, device=self.device)
+        kd_cos_power = int(mcfg.get("cos_power", 1)) if mcfg.get("attn_unpool") else 0
+        train_step = kd_lib.make_kd_train_step(
+            teacher, self._schedule(steps_per_epoch),
+            logit_scale=float(mcfg.get("logit_scale_value", 10)),
+            logit_bias=float(mcfg.get("logit_bias_value", -10)), cos_power=kd_cos_power,
+            use_agc=config.get("use_agc", True), amp=bool(self.args.get("amp", False)))
+        state = steps_lib.create_train_state(model, config["optimizer"].create,
+                                             device=self.device)
+        start_epoch = self._resume(state) if resume else 0
+
+        @torch.no_grad()
+        def val_loss(images):
+            t_feat, s_out = kd_lib.kd_forward_features(state.model, teacher, images)
+            return kd_lib.kd_loss(s_out, t_feat, 10.0, -10.0, kd_cos_power)
+
+        max_val_batches = config.get("max_val_batches", 200)
+        for epoch in range(start_epoch, max_epochs):
+            t0 = time.time()
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            losses = []
+            for batch in train_loader:
+                state, metrics = train_step(state, self._to_device({"image": batch["image"]}))
+                losses.append(metrics["loss"])
+                if fast_dev_run:
+                    break
+            val_losses = []
+            for batch in datamodule.val_dataloader():
+                images = torch.as_tensor(batch["image"]).to(self.device)
+                val_losses.append(float(val_loss(images)))
+                if fast_dev_run or len(val_losses) >= max_val_batches:
+                    break
+            nan = float("nan")
+            epoch_metrics = {
+                "train_loss": float(torch.stack(losses).mean()) if losses else nan,
+                "val_loss": float(np.mean(val_losses)) if val_losses else nan,
+                "epoch_time_s": time.time() - t0,
+            }
+            epoch_metrics.update(self._maybe_zeroshot(state.model, text_model, kd_cos_power))
+            self.metrics.log(epoch, epoch_metrics)
+            self.ckpt.save(state.state_dict(), epoch, epoch_metrics)
+            print(f"epoch {epoch}: kd loss {epoch_metrics['train_loss']:.4f} val "
+                  f"{epoch_metrics['val_loss']:.4f} ({epoch_metrics['epoch_time_s']:.1f}s)")
+            if fast_dev_run:
+                break
+        return state
+
+    def _maybe_zeroshot(self, model, text_model, cos_power: int) -> Dict[str, float]:
+        """The zero-shot top-1 of the student (``zeroshot_{name}_acc1``; an
+        attn-unpool student's locations weighted with ``cos_power``) on each
+        dataset found: CIFAR10/100, FashionMNIST and STL10 under DATA_ROOT,
+        ImageNet at IMAGENET_PATH (its classifier from
+        IMAGENET_RN50_ZEROSHOT_WEIGHTS_PATH when that is set, else from the
+        text tower). Only missing data is skipped."""
+        from bcosification_tpu_torch import settings
+        from bcosification_tpu_torch.data.datamodules import ClassificationDataModule
+        from bcosification_tpu_torch.data.imagenet import imagenet_templates
+        from bcosification_tpu_torch.data.presets import CLIPBcosImageNetClassificationPresetEval
+        from bcosification_tpu_torch.training import zeroshot as zs_lib
+
+        results: Dict[str, float] = {}
+        if not settings.DATA_ROOT and not settings.IMAGENET_PATH:
+            return results
+        registry = ClassificationDataModule.registry()
+        specs = []
+        if settings.DATA_ROOT:
+            for name, subdir in (("CIFAR10", "cifar-10-batches-py"),
+                                 ("CIFAR100", "cifar-100-python"),
+                                 ("FashionMNIST", "FashionMNIST"), ("STL10", "stl10_binary")):
+                if os.path.isdir(os.path.join(settings.DATA_ROOT, subdir)):
+                    specs.append((name, registry[name]))
+        if settings.IMAGENET_PATH:
+            specs.append(("ImageNet", registry["ImageNet"]))
+
+        def encode(images):
+            return model(torch.cat([images, 1.0 - images], dim=-1), train=False)
+
+        try:
+            for name, cls in specs:
+                dm = cls({"batch_size": 64, "num_workers": 8, "train_transform": None,
+                          "test_transform": CLIPBcosImageNetClassificationPresetEval(
+                              crop_size=224)})
+                dm.setup("test")
+                if name == "ImageNet" and settings.IMAGENET_RN50_ZEROSHOT_WEIGHTS_PATH:
+                    w = zs_lib.load_zeroshot_weights(
+                        settings.IMAGENET_RN50_ZEROSHOT_WEIGHTS_PATH).to(self.device)
+                else:
+                    w = zs_lib.zeroshot_classifier(text_model, dm.CATEGORIES,
+                                                   imagenet_templates)
+                acc = zs_lib.zeroshot_evaluate(encode, dm.test_dataloader(), w,
+                                               cos_power=cos_power)
+                results[f"zeroshot_{name}_acc1"] = acc["acc1"]
+        except (FileNotFoundError, NotADirectoryError) as e:
+            print(f"zeroshot eval skipped (data not present): {e}")
+        return results
 
     def validate(self, eval_step, state, datamodule) -> Dict[str, float]:
         totals: Dict[str, Any] = {}

@@ -103,7 +103,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    timed), 8 classes in fp32 against the CPU (1e-4), and
    ``zeroshot_evaluate`` of both heads over the tree's val split; then
    each kernel's time at every shape of one attn-unpool encode (K3) and
-   text explanation (K1, K2, K3) beside its bound.
+   text explanation (K1, K2, K3) beside its bound;
+12. CLIP-RN50 knowledge distillation (the clip_bcosification KD recipe:
+   Adam 1e-4 with the cosine, AGC, SigLIP with logit scale 10 and bias -10;
+   phase 11's calibrated students, the random-init teacher of clip/load.py):
+   K3 against its plain version at every distinct shape of a KD train step
+   at batch 64 in both dtypes (phase 3's bounds; the unpooled c_proj with
+   eps_outside); per head, Trainer.fit of the ImageNet KD Experiment
+   (-> fit_kd) for one epoch of 20 steps at batch 64, 224x224, bf16 amp on
+   one repeated batch made from SEED, then a resume for one step: the loss
+   per 5 steps (finite), the launches (K3 36 per step pooled, 37 attn-unpool;
+   K1 and K2 0), the teacher's parameter hash against a fresh load's, the
+   student's moved, the best checkpoint the minimum val_loss; the KD step's
+   ms, img/s, host issue ms, peak memory, card busy time and top kernels
+   over a window of 10 steps, and the bf16 teacher forward alone; one fp32
+   KD step of each full-width head on 2 images, GPU against CPU (the loss
+   1e-5, every gradient within ten times the CPU's spread under 1e-7
+   relative input noise, the BN running_var within ten times the CPU's
+   spread in it under that noise or the batch reversed); K3's time at every shape
+   of one attn-unpool KD step beside its bound, plain version and
+   torch.matmul; a synthetic CC3M tree (data/synthetic.py: 332 train shards,
+   4 of them distinct, and 2 val shards of 70 JPEG + caption pairs) with
+   CC3M_PATH at it: the CC3M train loader alone (img/s), ``train --dataset
+   CC3M ... _sigLip_kd_CC3M_bcosification --fast_dev_run`` in process and
+   once more resuming; then ``train --fast_dev_run`` of the ImageNet KD
+   config over phase 9's JPEG tree, resuming from the fit, whose epoch
+   metrics hold ``zeroshot_ImageNet_acc1`` (the per-epoch zero-shot, K3 in
+   its encode).
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
@@ -119,6 +145,8 @@ non-zero and prints no result.
 import collections
 import contextlib
 import copy
+import hashlib
+import importlib
 import json
 import math
 import os
@@ -135,17 +163,18 @@ import torch
 from bcosification_tpu_torch import evaluate as evaluate_cli
 from bcosification_tpu_torch import serving, settings
 from bcosification_tpu_torch import train as train_cli
-from bcosification_tpu_torch.data.synthetic import write_imagenet_tree
+from bcosification_tpu_torch.data.synthetic import write_cc3m_tree, write_imagenet_tree
 from bcosification_tpu_torch.experiments.utils.experiment_utils import Experiment
 from bcosification_tpu_torch.losses import (
     BinaryCrossEntropyLoss,
     UniformOffLabelsBCEWithLogitsLoss,
 )
 from bcosification_tpu_torch.optim import LRSchedulerFactory, OptimizerFactory
+from bcosification_tpu_torch.training import kd as kd_lib
 from bcosification_tpu_torch.training import steps as steps_lib
 from bcosification_tpu_torch.training import zeroshot
 from bcosification_tpu_torch.training.trainer import Trainer
-from bcosification_tpu_torch.bcosify.clip_import import build_clip_text
+from bcosification_tpu_torch.bcosify.clip_import import build_clip_teacher_visual, build_clip_text
 from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet, build_bcosified_resnet
 from bcosification_tpu_torch.clip.model import ModifiedResNet, clip_rn50_config
 from bcosification_tpu_torch.clip.tokenizer import tokenize
@@ -1996,7 +2025,364 @@ def phase_clip(x2, stream_rate, worst):
                 f"clip_{what}_bound_ms": 1e3 * r["bound_s"],
                 f"clip_{what}_plain_ms": r["plain_ms"],
                 f"clip_{what}_library_ms": r["library_ms"]})
-    return keys
+    return keys, {head: net for head, (net, _) in nets.items()}
+
+
+# --------------------------------------------------------------------------
+# 12: CLIP-RN50 knowledge distillation
+# --------------------------------------------------------------------------
+CC3M_EXPERIMENT = ("CC3M", "clip_bcosification",
+                   "resnet_50_clip_b2_noBias_randomResizedCrop_sigLip_kd_CC3M_bcosification")
+KD_BATCH, KD_STEPS, KD_WINDOW = 64, 20, 10
+CC3M_DISTINCT, CC3M_PAIRS, CC3M_LOADER_BATCHES = 4, 70, 10
+# one fp32 KD step, GPU against CPU: the loss within 1e-5 relative, every
+# student gradient within ten times the CPU's own spread under 1e-7 relative
+# input noise (as phases 9-11 hold full-depth gradients and W)
+KD_LOSS_BOUND = 1e-5
+
+
+def kd_counts(unpool):
+    """Launches of one KD train step: the student's train forward runs K3 at
+    every 1x1 conv (and at the unpooled c_proj, eps_outside), as one encode
+    does; the teacher has no B-cos layer; the backward is plain matmuls."""
+    return clip_counts(unpool, False)
+
+
+def check_kd_kernels(students, worst):
+    """K3 against its plain version at every distinct shape of one KD train
+    step at batch 64 (both heads: the unpooled c_proj with the linear norm,
+    eps_outside), both dtypes, phase 3's bounds."""
+    shapes = sorted({key for net in students.values()
+                     for key in clip_launches(net, KD_BATCH, SIZE, False)})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for name, m, k, n, _, *linear in shapes:
+            x, wt, *_ = operands(m, k, n, dtype, gen)
+            kw = dict(eps=LINEAR_NORM_EPS if any(linear) else 1e-6, eps_outside=any(linear))
+            got = k3.bcos_matmul_fwd(x, wt, **kw)
+            want = k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)
+            torch.cuda.synchronize()
+            _check(worst, name, " eps_outside" if any(linear) else "",
+                   f"kd M={m} K={k} N={n}", dtype, got, want)
+            del x, wt, got, want
+    return len(shapes)
+
+
+def param_hash(module) -> str:
+    h = hashlib.sha256()
+    for p in module.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def recorded_kd():
+    """While it lasts: the loss of every KD train step (``kd_loss`` called with
+    gradient on) and every teacher that ``clip.load.load`` hands out."""
+    record = types.SimpleNamespace(losses=[], teachers=[])
+    load_module = importlib.import_module("bcosification_tpu_torch.clip.load")
+    loss_fn, load_fn = kd_lib.kd_loss, load_module.load
+
+    def kd_loss(*args, **kwargs):
+        loss = loss_fn(*args, **kwargs)
+        if torch.is_grad_enabled():
+            record.losses.append(loss.detach())
+        return loss
+
+    def load(*args, **kwargs):
+        out = load_fn(*args, **kwargs)
+        record.teachers.append(out[0])
+        return out
+
+    kd_lib.kd_loss, load_module.load = kd_loss, load
+    try:
+        yield record
+    finally:
+        kd_lib.kd_loss, load_module.load = loss_fn, load_fn
+
+
+@contextlib.contextmanager
+def without_zeroshot():
+    """No zero-shot datasets while it lasts (IMAGENET_PATH and DATA_ROOT
+    unset for the port), so that a KD epoch skips its zero-shot."""
+    old = settings.IMAGENET_PATH, settings.DATA_ROOT
+    settings.IMAGENET_PATH = settings.DATA_ROOT = None
+    try:
+        yield
+    finally:
+        settings.IMAGENET_PATH, settings.DATA_ROOT = old
+
+
+def kd_fit(head, net, batch):
+    """Trainer.fit of the ImageNet KD Experiment (-> fit_kd) for one epoch of
+    KD_STEPS steps on one repeated batch, bf16 amp, then a resume for one
+    step: the losses, the launches, the checkpoints, the teacher frozen and
+    the student moved. Returns the teacher."""
+    unpool = head == "unpool"
+    exp = Experiment(*CLIP_EXPERIMENTS[head])
+    data = RepeatedBatch(batch, KD_STEPS)
+    with without_zeroshot(), recorded_kd() as rec:
+        t0 = time.perf_counter()
+        trainer = Trainer(exp, {"amp": True})
+        state, counts = counted(lambda: trainer.fit(net, data, max_epochs=1))
+        fit_s = time.perf_counter() - t0
+        teacher = rec.teachers[0]
+        teacher_hash = param_hash(teacher)
+        check_counts(f"kd {head} Trainer.fit", counts,
+                     scaled_counts(kd_counts(unpool), KD_STEPS + 1))  # + one val batch
+        resumed = Trainer(exp, {"amp": True}).fit(net, data, max_epochs=2, fast_dev_run=True)
+    losses = [float(v) for v in rec.losses]
+    history = trainer.metrics.history
+    say(f"kd {head} Trainer.fit (-> fit_kd) of {KD_STEPS} steps at batch {KD_BATCH}, bf16 amp: "
+        f"{fit_s:.1f} s; launches {counts}; loss per 5 steps: " + ", ".join(
+            f"step {i}: {losses[i]:.6f}" for i in range(0, KD_STEPS, 5))
+        + f", step {KD_STEPS - 1}: {losses[KD_STEPS - 1]:.6f}; falling: "
+        f"{sum(losses[KD_STEPS - 5:KD_STEPS]) < sum(losses[:5])}")
+    say(f"kd {head} metrics: {json.dumps(history)}")
+    if len(losses) != KD_STEPS + 1 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"kd {head}: the losses are not finite: {losses}")
+    if state.step != KD_STEPS or resumed.step != KD_STEPS + 1:
+        raise AssertionError(f"kd {head}: steps {state.step}, {resumed.step} after the resume")
+    val = {e: v for e, v in exp.load_metrics()["val_loss"]}
+    best = trainer.ckpt.resolve("best")
+    checkpoints = trainer.ckpt.available_checkpoints()
+    same_teacher = rec.teachers[-1] is not teacher and param_hash(rec.teachers[-1]) == teacher_hash
+    frozen = param_hash(teacher) == teacher_hash and same_teacher
+    moved = param_hash(resumed.model) != param_hash(net)
+    say(f"kd {head} resume: one step from epoch 0 (step {resumed.step}); checkpoints "
+        f"{checkpoints}; val_loss per epoch {val}; best {best} (the minimum: "
+        f"{best == min(val, key=val.get)}); teacher hash after {KD_STEPS} steps {teacher_hash}, "
+        f"equal to a fresh load's: {frozen}; "
+        f"student hash {param_hash(net)} -> {param_hash(resumed.model)}, moved: {moved}")
+    if checkpoints != [0, 1] or best != min(val, key=val.get) or not frozen or not moved:
+        raise AssertionError(f"kd {head}: checkpoints, best, teacher or student wrong")
+    return teacher
+
+
+def kd_window(head, net, teacher, batch):
+    """One KD train step's launches (kd_counts), then its ms, img/s, host issue
+    ms and peak memory over KD_WINDOW steps in a row after a warm-up step,
+    the card's busy time and top kernels, and the teacher's forward alone."""
+    unpool = head == "unpool"
+    opt = OptimizerFactory("Adam", 1e-4, bcosify=True, b_opt=False)
+    state = steps_lib.create_train_state(net, opt.create)
+    step = kd_lib.make_kd_train_step(teacher, 1e-4, cos_power=2 if unpool else 0, amp=True)
+    step(state, batch)
+    _, per_step = counted(lambda: step(state, batch))
+    check_counts(f"kd {head} train step", per_step, kd_counts(unpool))
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(KD_WINDOW):
+        t0 = time.perf_counter()
+        step(state, batch)
+        host.append(1e3 * (time.perf_counter() - t0))
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / KD_WINDOW
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    x3 = ((batch["image"] - torch.tensor(kd_lib.CLIP_MEAN, device="cuda"))
+          / torch.tensor(kd_lib.CLIP_STD, device="cuda")).to(torch.bfloat16)
+
+    def teacher_forward():
+        with torch.no_grad():
+            return teacher(x3)
+
+    teacher_ms = window_ms(teacher_forward, KD_WINDOW)
+    out = {"ms": ms, "img_s": KD_BATCH / ms * 1e3, "host_ms": statistics.median(host),
+           "peak_gb": peak_gb, "teacher_ms": teacher_ms, "launches": per_step}
+    say(f"kd {head} train step: {out['img_s']:.1f} img/s ({ms:.2f} ms per step of {KD_BATCH}, "
+        f"one window of {KD_WINDOW} steps; the host issues a step in {out['host_ms']:.2f} ms "
+        f"(median; {min(host):.2f}-{max(host):.2f}); peak memory {peak_gb:.1f} GB; the bf16 "
+        f"teacher forward alone {teacher_ms:.2f} ms; launches {per_step}) [{CARD}]")
+    busy, top = device_profile(lambda: step(state, batch), 3)
+    if busy is None:
+        say(f"kd {head} train step: the profiler trace holds no device time; card time not "
+            "measured")
+    else:
+        out["busy_ms"] = busy
+        say(f"kd {head} train step: the card is busy {busy:.2f} of {ms:.2f} ms per step (idle "
+            f"share {1 - busy / ms:.1%}; torch.profiler over 3 steps) [{CARD}]")
+        for name, kms in top:
+            say(f"kd {head} train step card time: {kms:8.3f} ms per step  {name[:100]}")
+    if not all(math.isfinite(float(p.detach().float().sum())) for p in state.model.parameters()):
+        raise AssertionError(f"kd {head}: parameters are not finite after training")
+    return out
+
+
+def _kd_grads(student, teacher, images, cos_power):
+    """(loss, {name: gradient}, BN running_var) in f64 on the CPU of one
+    train-mode KD loss of a copy of ``student``."""
+    s = copy.deepcopy(student).requires_grad_(True)
+    t_feat, s_out = kd_lib.kd_forward_features(s, teacher, images, train=True)
+    loss = kd_lib.kd_loss(s_out, t_feat, 10.0, -10.0, cos_power)
+    loss.backward()
+    rv = torch.cat([b.double().cpu() for n, b in s.named_buffers() if n.endswith("running_var")])
+    return (float(loss.detach()), {n: p.grad.double().cpu() for n, p in s.named_parameters()},
+            rv)
+
+
+def kd_step_parity(student, teacher, images, cos_power):
+    """One fp32 KD loss and backward of ``student`` (train mode) on the GPU
+    against the same on a CPU copy: {check: (value, bound)} for the loss
+    (KD_LOSS_BOUND relative); the worst gradient leaf (its distance over the
+    largest leaf's norm), within ten times the CPU's own spread under 1e-7
+    relative input noise; the BN running_var after the forward, within ten
+    times the CPU's own spread in it under that noise or under the batch in
+    reverse order (the same statistics summed in another order: the
+    one-pass f32 variance E[x^2] - E[x]^2 loses digits where the mean is
+    large)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loss_g, grads_g, rv_g = _kd_grads(student, teacher, images, cos_power)
+    cpu_s, cpu_t, x = (copy.deepcopy(student).to("cpu"), copy.deepcopy(teacher).to("cpu"),
+                       images.cpu())
+    loss_c, grads_c, rv_c = _kd_grads(cpu_s, cpu_t, x, cos_power)
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED + 22))
+    _, grads_n, rv_n = _kd_grads(cpu_s, cpu_t, x * (1 + 1e-7 * noise), cos_power)
+    _, _, rv_r = _kd_grads(cpu_s, cpu_t, x.flip(0), cos_power)
+    top = max(float(g.norm()) for g in grads_c.values())
+
+    def worst(grads):
+        return max(float((grads[n] - g).norm()) for n, g in grads_c.items()) / top
+
+    spread = worst(grads_n)
+    return {"loss": (abs(loss_g - loss_c) / abs(loss_c), KD_LOSS_BOUND),
+            "gradient": (worst(grads_g), 10 * spread),
+            "running_var": (rel(rv_g, rv_c), 10 * max(rel(rv_n, rv_c), rel(rv_r, rv_c)))}
+
+
+def kd_parity(students, x2):
+    """Phase 12 (f): kd_step_parity of the full-width pooled and attn-unpool
+    students (fp32, 2 images) with the random-init teacher made from SEED."""
+    teacher = build_clip_teacher_visual(None, clip_rn50_config(), seed=SEED)
+    images = x2[..., :3].float().contiguous()
+    for head, net in students.items():
+        t0 = time.perf_counter()
+        checks = kd_step_parity(net, teacher, images, 2 if head == "unpool" else 0)
+        for key, (val, bound) in checks.items():
+            say(f"kd {head} parity fp32 gpu vs cpu, {key}: {val:.3e} (bound {bound:.3e})")
+        say(f"kd {head} parity took {time.perf_counter() - t0:.1f} s")
+        if any(not val <= bound for val, bound in checks.values()):
+            raise AssertionError(f"the KD step of the {head} tower on the GPU disagrees with "
+                                 "the CPU")
+
+
+def kd_cli(experiment, exp_root, counts, checkpoints, tag):
+    """``train --fast_dev_run`` of a KD experiment in process (fp32), its
+    launches, checkpoints and finite epoch metrics; returns its metrics."""
+    exp = Experiment(*experiment)
+    args = ["--dataset", experiment[0], "--base_network", experiment[1], "--experiment_name",
+            experiment[2], "--fast_dev_run", "--base_directory", str(exp_root)]
+    t0 = time.perf_counter()
+    _, got = counted(lambda: train_cli.main(args))
+    logged = exp.load_metrics()
+    last = {k: v[-1] for k, v in logged.items()}
+    say(f"kd {tag} train --experiment_name {experiment[2]} --fast_dev_run: "
+        f"{time.perf_counter() - t0:.1f} s; checkpoints {exp.available_checkpoints()}; epoch "
+        f"metrics {json.dumps(last)}; launches {got}")
+    check_counts(f"kd {tag} train --fast_dev_run", got, counts)
+    if exp.available_checkpoints() != checkpoints or not all(
+            math.isfinite(v[1]) for v in last.values()):
+        raise AssertionError(f"kd {tag}: checkpoints {exp.available_checkpoints()}, "
+                             f"metrics {last}")
+    return last
+
+
+@contextlib.contextmanager
+def synthetic_cc3m():
+    """A synthetic CC3M tree (data/synthetic.py: CC3M_DISTINCT distinct train
+    shards of CC3M_PAIRS JPEG + caption pairs of 500x375, linked to 332
+    shards, and 2 val shards) in a temporary directory, with CC3M_PATH
+    pointing at it while the context lasts."""
+    old = settings.CC3M_PATH, os.environ.get("CC3M_PATH")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_cc3m_tree(tmp, CC3M_DISTINCT, CC3M_PAIRS, seed=SEED)
+        say(f"kd cc3m: wrote 332 train shards ({CC3M_DISTINCT} distinct) and 2 val shards of "
+            f"{CC3M_PAIRS} JPEG + caption pairs in {time.perf_counter() - t0:.1f} s")
+        os.environ["CC3M_PATH"] = settings.CC3M_PATH = tmp
+        try:
+            yield tmp
+        finally:
+            settings.CC3M_PATH = old[0]
+            if old[1] is None:
+                os.environ.pop("CC3M_PATH", None)
+            else:
+                os.environ["CC3M_PATH"] = old[1]
+
+
+def kd_cc3m(exp_root):
+    """Phase 12 (g): the CC3M train loader alone (image mode, as fit_kd reads
+    it), then ``train`` of the CC3M KD config with --fast_dev_run, twice (the
+    second resumes)."""
+    with synthetic_cc3m():
+        dm = Experiment(*CC3M_EXPERIMENT).get_datamodule()
+        dm.setup("fit")
+        loader = dm.train_dataloader(seed=SEED)
+        loader.mode = "image"
+        t0 = time.perf_counter()
+        n = 0
+        for i, batch in enumerate(loader):
+            n += len(batch["key"])
+            if i + 1 == CC3M_LOADER_BATCHES:
+                break
+        loader_s = time.perf_counter() - t0
+        if n != CC3M_LOADER_BATCHES * dm.batch_size or batch["image"].shape != (
+                dm.batch_size, SIZE, SIZE, 3):
+            raise AssertionError(f"the CC3M loader gave {n} images, {batch['image'].shape}")
+        say(f"kd cc3m train loader alone: {n / loader_s:.1f} img/s ({n} images in "
+            f"{CC3M_LOADER_BATCHES} batches in {loader_s:.2f} s, the first after filling the "
+            f"shuffle buffer of {loader.shuffle_buffer}; PIL decode in the calling thread on a "
+            f"host with {os.cpu_count()} CPUs) [{CARD}]")
+        # one train step and one val batch per run; no zero-shot data here
+        with without_zeroshot():
+            for checkpoints in ([0], [0, 1]):
+                kd_cli(CC3M_EXPERIMENT, exp_root, scaled_counts(kd_counts(False), 2),
+                       checkpoints, "cc3m")
+    return n / loader_s
+
+
+def phase_kd(students, x2, stream_rate, worst, exp_root):
+    """Phase 12: CLIP knowledge distillation of the CLIP-RN50 student, pooled
+    and attn-unpool, on the card (see the module docstring). Returns the KD
+    keys of K3's row of the kernels line."""
+    n_shapes = check_kd_kernels(students, worst)
+    say(f"kd: K3 checked at the {n_shapes} distinct shapes of a KD train step at batch "
+        f"{KD_BATCH}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    image = torch.rand((KD_BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    batch = {"image": image}
+    steps = {}
+    for head, net in students.items():
+        teacher = kd_fit(head, net, batch)
+        steps[head] = kd_window(head, net, teacher, batch)
+        del teacher
+    kd_parity(students, x2)
+    unpool = students["unpool"]
+    per_shape = collections.Counter(clip_launches(unpool, KD_BATCH, SIZE, False))
+    row = time_shapes(per_shape, stream_rate, gen, tag="kd ")["bcos_matmul_fwd"]
+    launches = steps["unpool"]["launches"]["bcos_matmul_fwd"]
+    say(f"kd bcos_matmul_fwd per attn-unpool KD train step ({launches} launches): "
+        f"{row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms at the data-sheet rate, "
+        f"{1e3 * row['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} GB/s; "
+        f"plain {row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f} ms [{CARD}]")
+    loader_img_s = kd_cc3m(exp_root)
+    # the ImageNet KD config from the command, resuming from kd_fit's
+    # checkpoints; with IMAGENET_PATH set its epoch ends with the zero-shot
+    # over the val split (2 batches of 64), K3 in its encode
+    last = kd_cli(CLIP_EXPERIMENTS["pooled"], exp_root, scaled_counts(kd_counts(False), 4),
+                  [0, 1, 2], "imagenet")
+    if "zeroshot_ImageNet_acc1" not in last:
+        raise AssertionError("the ImageNet KD epoch logged no zeroshot_ImageNet_acc1")
+    say(f"kd summary: train step pooled {steps['pooled']['img_s']:.1f} img/s, attn-unpool "
+        f"{steps['unpool']['img_s']:.1f} img/s; teacher forward {steps['pooled']['teacher_ms']:.2f} "
+        f"ms; CC3M loader {loader_img_s:.1f} img/s; zero-shot top-1 after the ImageNet KD epoch "
+        f"{last['zeroshot_ImageNet_acc1'][1]:.4f} [{CARD}]")
+    return {"kd_launches": launches, "kd_ms": row["ms"], "kd_bound_ms": 1e3 * row["bound_s"],
+            "kd_plain_ms": row["plain_ms"], "kd_library_ms": row["library_ms"]}
 
 
 def main() -> int:
@@ -2065,16 +2451,20 @@ def main() -> int:
                                  "operands")
         say("TMA operand padding on the DenseNet-121 paths: 0 calls")
         t0 = time.perf_counter()
-        clip = phase_clip(x2, probe["k4_gbs"] * 1e9, worst)
+        clip, students = phase_clip(x2, probe["k4_gbs"] * 1e9, worst)
         seconds["11 clip"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kd = phase_kd(students, x2, probe["k4_gbs"] * 1e9, worst, exp_root)
+        seconds["12 clip kd"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
         raise AssertionError(f"{k12.tma_operands.padded} CLIP-RN50 calls padded their operands")
-    say("TMA operand padding on the CLIP-RN50 paths: 0 calls")
+    say("TMA operand padding on the CLIP-RN50 paths (KD included): 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
                    "train_bound_ms": 1e3 * train["bound_s"],
                    "train_library_ms": train["library_ms"]})
+    k3_row.update(kd)
     for row in kernels:
         row.update(densenet.get(row["name"], {}))
         row.update(clip.get(row["name"], {}))

@@ -163,7 +163,7 @@ def test_categories_and_registry_match():
         assert getattr(jcat, name) == getattr(tcat, name), name
     assert jcat.imagenet_class_index() == tcat.imagenet_class_index()
     ported = set(tdm.ClassificationDataModule.registry())
-    assert ported == {"ImageNet", "CIFAR10", "CIFAR100", "FashionMNIST", "STL10"}
+    assert ported == {"ImageNet", "CIFAR10", "CIFAR100", "FashionMNIST", "STL10", "CC3M"}
     assert ported < set(jdm.ClassificationDataModule.registry())
 
 

@@ -2,8 +2,9 @@
 version, the launch counters, the small flagship, the small DenseNet and
 the small CLIP-RN50 tower on the GPU against the same net on the CPU
 (explanation and one train step; the CLIP tower's text-grounded
-explanation), K3's training backward against the CPU, and exported
-explanation programs against the eager calls. Every test here needs a GPU and skips without one.
+explanation and one KD step), K3's training backward against the CPU (also
+with the linear norm at the KD c_proj's shape), K3's launches per KD step,
+and exported explanation programs against the eager calls. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -563,3 +564,80 @@ def test_exported_text_explain_matches_eager(gpu):
     es, ew = fast_clip.fast_text_dlw(net, x, t)
     assert counts == launch_counts() and counts["bcos_conv1x1_fwd"] == 12
     assert _rel(s, es) <= 1e-6 and _rel(w, ew) <= 1e-6
+
+
+# --------------------------------------------------------------------------
+# CLIP knowledge distillation (slice 9): the small student and teacher
+# --------------------------------------------------------------------------
+def _small_kd(gpu, unpool):
+    """The small calibrated student (``_small_clip``), the small CLIP teacher
+    at 64x64 (random init) and 3 raw images: 4 locations unpooled, HW != B."""
+    from bcosification_tpu_torch.bcosify.clip_import import build_clip_teacher_visual
+
+    net, _, _ = _small_clip(gpu, unpool)
+    teacher = build_clip_teacher_visual(None, dict(CLIP_SMALL, vision_patch_size=None), seed=3)
+    g = torch.Generator(device=gpu).manual_seed(12)
+    return net, teacher, torch.rand(3, 64, 64, 3, device=gpu, generator=g)
+
+
+@pytest.mark.parametrize("unpool", [False, True], ids=["pooled", "unpool"])
+def test_small_kd_step_gpu_matches_cpu(gpu, unpool):
+    """One fp32 KD loss and backward (train mode) on the GPU against the
+    CPU, with chip_smoke.kd_step_parity's checks and bounds: the loss 1e-5,
+    every gradient within ten times the CPU's own spread under 1e-7
+    relative input noise, the BN running_var within ten times the CPU's
+    spread in it under that noise or the batch reversed."""
+    from chip_smoke import kd_step_parity
+
+    net, teacher, images = _small_kd(gpu, unpool)
+    checks = kd_step_parity(net, teacher, images, 2 if unpool else 0)
+    for key, (val, bound) in checks.items():
+        assert val <= bound, (key, val, bound)
+
+
+@pytest.mark.parametrize("amp", [False, True], ids=["fp32", "amp"])
+@pytest.mark.parametrize("unpool", [False, True], ids=["pooled", "unpool"])
+def test_kd_train_step_launches(gpu, unpool, amp):
+    """One KD train step: K3 at the student's 12 1x1 convs (13 with the
+    unpooled c_proj), K1 and K2 never; a finite loss."""
+    from bcosification_tpu_torch.optim import OptimizerFactory
+    from bcosification_tpu_torch.training import kd, steps
+
+    net, teacher, images = _small_kd(gpu, unpool)
+    opt = OptimizerFactory("Adam", 1e-4, bcosify=True, b_opt=False)
+    state = steps.create_train_state(net, opt.create)
+    step = kd.make_kd_train_step(teacher, 1e-4, cos_power=2 if unpool else 0, amp=amp)
+    reset_launch_counts()
+    state, metrics = step(state, {"image": images})
+    torch.cuda.synchronize()
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                               "bcos_matmul_fwd": 12 + unpool, "stream_add": 0}
+    assert torch.isfinite(metrics["loss"]) and state.step == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k3_eps_outside_training_backward_at_the_kd_c_proj_shape(gpu, dtype):
+    """K3 with the linear norm (sqrt(ssq) + 1e-12, eps_outside) and its
+    training backward at the attn-unpool c_proj of a KD step at batch 64
+    (M = 64 x 49, K 2048, N 1024): y, dx and dw on the GPU against the CPU
+    in fp32 (1e-5; bf16 on the GPU within 1e-2)."""
+    from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
+
+    m, k, n = 3136, 2048, 1024
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(m, k, generator=g)
+    w = torch.randn(k, n, generator=g) / k ** 0.5
+    ct = torch.randn(m, n, generator=g)
+    results = []
+    for dev, dt in (("cpu", torch.float32), (gpu, dtype)):
+        xx = x.to(dev, dt, copy=True).requires_grad_(True)
+        ww = w.to(dev, dt, copy=True).requires_grad_(True)
+        reset_launch_counts()
+        y = k3.bcos_matmul(xx, ww, LINEAR_NORM_EPS, True, False)
+        y.backward(ct.to(dev))
+        results.append((y.detach(), xx.grad, ww.grad, launch_counts()))
+    (y_c, dx_c, dw_c, _), (y_g, dx_g, dw_g, counts) = results
+    assert counts["bcos_matmul_fwd"] == 1 and counts["bcos_conv1x1_bwd_explain"] == 0
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in ((y_g, y_c), (dx_g, dx_c), (dw_g, dw_c)):
+        assert _rel(got, want) <= tol

@@ -31,7 +31,9 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "clip", "clip.model", "clip.tokenizer", "clip.load", "bcosify.clip_import",
              "explain.fast_clip", "data.imagenet", "training.zeroshot",
              "experiments.ImageNet.clip_bcosification.experiment_parameters",
-             "experiments.ImageNet.clip_bcosification.model"):
+             "experiments.ImageNet.clip_bcosification.model", "training.kd", "data.cc3m",
+             "experiments.CC3M.clip_bcosification.experiment_parameters",
+             "experiments.CC3M.clip_bcosification.model"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
