@@ -14,7 +14,8 @@ Each import is strict within the checkpoint's part that it reads (the keys
 under ``visual.`` for an image tower, the others but ``logit_scale`` for the
 text tower): a key the model needs and does not find, a key that maps onto
 nothing (beside the entries the conversion drops) or a shape the model does
-not have raises. The CLIP ViT towers come with the ViT slice.
+not have raises. The CLIP ViT towers come with the CLIP ViT slice
+(``clip.model.VIT_SLICE``).
 """
 from __future__ import annotations
 
@@ -54,21 +55,12 @@ _PROJS = ("q_proj", "k_proj", "v_proj", "c_proj")
 
 
 class _ClipImport(_Import):
-    """``_Import`` over one part of a CLIP checkpoint, with its linears."""
+    """``_Import`` over one part of a CLIP checkpoint."""
 
     def __init__(self, sd: Mapping[str, Any], visual: bool, **kwargs):
         part = {k: v for k, v in sd.items()
                 if k.startswith("visual.") == visual and k != "logit_scale"}
         super().__init__(part, **kwargs)
-
-    def linear(self, src: str, dst: str, bias: bool = True) -> None:
-        """An (out, in) Linear as the port's (in, out) weight [and bias]."""
-        self.flat[f"{dst}.weight"] = np.ascontiguousarray(self.take(f"{src}.weight").T)
-        if bias:
-            self.flat[f"{dst}.bias"] = self.take(f"{src}.bias")
-
-    def copy(self, src: str, dst: str) -> None:
-        self.flat[dst] = self.take(src)
 
     def teacher_bn(self, src: str, dst: str) -> None:
         for leaf in ("weight", "bias", "running_mean", "running_var"):

@@ -1,11 +1,14 @@
-"""Build a bcosified ResNet or DenseNet (counterpart of
-``bcosification_tpu/bcosify/engine.py::build_bcosified_{resnet,densenet}``).
+"""Build a bcosified ResNet, DenseNet or SimpleViT (counterpart of
+``bcosification_tpu/bcosify/engine.py::build_bcosified_{resnet,densenet}``
+and of the ViT factory ``experiments/ImageNet/vit_bcosification/model.py``).
 
 The architecture: BcosifyConv2d convs (raw weights, fixed b), uncentered BN
 (bias-free unless ``use_bias``), ReLU (or Identity), an avg-pool stem, the
 classifier as a 1x1 conv before the global average pool, and the
-BcosifyNetwork wrapper (6-channel Normalize + LogitLayer). The weights
-come from a torchvision state dict (``bcosify/torch_import.py``) or from a
+BcosifyNetwork wrapper (6-channel Normalize + LogitLayer). The ViT:
+BcosifyLinear linears but ``to_qkv``, which stays plain, the detachable
+LayerNorm and GELU. The weights come from a torchvision (or the hub's
+standard SimpleViT) state dict (``bcosify/torch_import.py``) or from a
 random init.
 """
 from __future__ import annotations
@@ -15,20 +18,29 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from bcosification_tpu_torch.bcosify.torch_import import densenet_state_dict, resnet_state_dict
+from bcosification_tpu_torch.bcosify.torch_import import (
+    densenet_state_dict,
+    resnet_state_dict,
+    simple_vit_state_dict,
+)
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.models import resnet as resnet_lib
 from bcosification_tpu_torch.models.densenet import DENSENET_CONFIGS, BcosDenseNet
+from bcosification_tpu_torch.models import vit as vit_lib
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
 from bcosification_tpu_torch.modules import (
     BatchNormUncentered2d,
     BcosifyConv2d,
+    BcosifyLinear,
+    DetachableGELU,
+    DetachableLayerNorm,
     Identity,
     NoBias,
     ReLU,
 )
 
-__all__ = ["build_bcosified_resnet", "build_bcosified_densenet", "RESNET_LAYERS"]
+__all__ = ["build_bcosified_resnet", "build_bcosified_densenet", "build_bcosified_vit",
+           "RESNET_LAYERS"]
 
 RESNET_LAYERS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -140,4 +152,50 @@ def build_bcosified_densenet(
         net.load_state_dict(densenet_state_dict(
             state_dict, net,
             fold_bn_bias=bargs.get("norm_layer", "BnUncV2") == "BnUncV2", use_bias=use_bias))
+    return net.to(dev).eval().requires_grad_(False)
+
+
+def build_bcosified_vit(
+    model_config: Dict[str, Any],
+    state_dict: Optional[Mapping[str, Any]] = None,
+    *,
+    num_classes: int = 1000,
+    arch_cfg: Optional[Dict[str, Any]] = None,
+    device=None,
+    seed: Optional[int] = None,
+) -> BcosifyNetwork:
+    """BcosifyNetwork(SimpleViT) of the vit_bcosification recipe in eval mode
+    on ``device`` (default the GPU; raises without one unless device="cpu"):
+    BcosifyLinear (b of bcos_args; a bias only with bcosify_args.use_bias)
+    for every linear but to_qkv (plain, bias-free), the detachable LayerNorm
+    (bias-free unless use_bias), the detachable GELU (Identity when
+    model_config's "act_layer" is false), the head on the token mean or
+    (``args.gap_reorder``) on each token, and the LogitLayer when
+    model_config's "logit_layer" is true.
+
+    With ``state_dict`` (the hub's standard SimpleViT) the weights are
+    converted by ``simple_vit_state_dict``; without it the net is randomly
+    initialised from ``seed`` (default: model_config's "seed", else 0).
+    ``arch_cfg`` overrides VIT_CONFIGS[name] (dim, heads, mlp_dim, depth,
+    patch_size, image_size), e.g. for a small test net.
+    """
+    dev = resolve_device(device)
+    cfg = arch_cfg if arch_cfg is not None else vit_lib.VIT_CONFIGS[model_config["name"]]
+    args = model_config.get("args", {}) or {}
+    bargs = model_config.get("bcosify_args", {}) or {}
+    use_bias = bool(bargs.get("use_bias", False))
+    b = float((model_config.get("bcos_args", {}) or {}).get("b", 2))
+    backbone = vit_lib.SimpleViT(
+        num_classes=num_classes,
+        linear_layer=partial(BcosifyLinear, b=b, use_bias=use_bias),
+        norm_layer=DetachableLayerNorm if use_bias else NoBias(DetachableLayerNorm),
+        act_layer=DetachableGELU if model_config.get("act_layer", True) else Identity,
+        gap_reorder=bool(args.get("gap_reorder", False)),
+        generator=_generator(model_config, seed), **cfg,
+    )
+    net = BcosifyNetwork(backbone, num_classes=num_classes,
+                         with_logit_layer=bool(model_config.get("logit_layer", False)),
+                         logit_bias=model_config.get("logit_bias"))
+    if state_dict is not None:
+        net.load_state_dict(simple_vit_state_dict(state_dict, net, use_bias=use_bias))
     return net.to(dev).eval().requires_grad_(False)

@@ -15,6 +15,7 @@ __all__ = [
     "add_channels_conv_weight",
     "bn_uncentered_fold_bias",
     "linear_to_conv1x1_weight",
+    "vit_patchify_linear_add_channels",
 ]
 
 
@@ -39,3 +40,15 @@ def linear_to_conv1x1_weight(w: np.ndarray) -> np.ndarray:
     GAP-reorder classifier."""
     assert w.ndim == 2
     return w.reshape(*w.shape, 1, 1)
+
+
+def vit_patchify_linear_add_channels(w: np.ndarray) -> np.ndarray:
+    """Channel doubling of a ViT's linear patch embedding, (out, 3 p p) ->
+    (out, 6 p p). A patch flattens pixel-major with the channels innermost
+    ((p1 p2 c)), so each pixel's 3 input columns become 6, [w / 2, -w / 2]:
+    on the normalised AddInverse patch ([n, -n] per pixel) the doubled
+    weight gives w's map of n exactly, as the stem conv's doubling does."""
+    out, in_dim = w.shape
+    assert in_dim % 3 == 0, f"expected 3 channels per pixel, got {w.shape}"
+    w3 = np.asarray(w).reshape(out, in_dim // 3, 3)
+    return np.concatenate([w3 / 2.0, -w3 / 2.0], axis=2).reshape(out, 2 * in_dim)

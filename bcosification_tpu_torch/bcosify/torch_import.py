@@ -1,6 +1,7 @@
-"""torchvision ResNet and DenseNet state dicts -> the port's state dict
-(counterpart of ``bcosification_tpu/bcosify/torch_import.py::
-{resnet,densenet}_torch_to_variables``).
+"""torchvision ResNet and DenseNet state dicts, and the standard SimpleViT
+of the B-cos hub, -> the port's state dict (counterpart of
+``bcosification_tpu/bcosify/torch_import.py::{resnet,densenet,simple_vit}_
+torch_to_variables``).
 
 The conversion applies the B-cosification transforms (``bcosify/params.py``)
 in the reference's order: the stem's channel doubling (``add_channels``)
@@ -19,7 +20,8 @@ import torch
 
 from bcosification_tpu_torch.bcosify import params as P
 
-__all__ = ["resnet_state_dict", "densenet_state_dict", "fill_state_dict"]
+__all__ = ["resnet_state_dict", "densenet_state_dict", "simple_vit_state_dict",
+           "fill_state_dict"]
 
 # torchvision's BatchNorm eps, used by the BnUncV2 bias fold
 _BN_EPS = 1e-5
@@ -80,6 +82,15 @@ class _Import:
         tracked = f"{src}.num_batches_tracked"
         self.flat[f"{dst}.num_batches_tracked"] = (self.take(tracked) if tracked in self.tsd
                                                    else np.zeros((), np.int32))
+
+    def linear(self, src: str, dst: str, bias: bool = True) -> None:
+        """An (out, in) Linear as the port's (in, out) weight [and bias]."""
+        self.flat[f"{dst}.weight"] = np.ascontiguousarray(self.take(f"{src}.weight").T)
+        if bias:
+            self.flat[f"{dst}.bias"] = self.take(f"{src}.bias")
+
+    def copy(self, src: str, dst: str) -> None:
+        self.flat[dst] = self.take(src)
 
     def classifier(self, src: str, dst: str) -> None:
         """The Linear ``src`` as the 1x1 conv ``dst`` of the GAP-reorder
@@ -163,3 +174,51 @@ def densenet_state_dict(
     imp.bn("features.norm5", "model.norm5")
     imp.classifier("classifier", "model.classifier")
     return imp.finish(net, droppable=("classifier.bias",))
+
+
+def simple_vit_state_dict(
+    tsd: Mapping[str, Any],
+    net: torch.nn.Module,
+    *,
+    use_bias: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The state dict of ``net`` (a BcosifyNetwork(SimpleViT), 6-channel
+    AddInverse input) converted from the hub's *standard* SimpleViT state
+    dict ``tsd`` (to_patch_embedding.linear, transformer.encoder_{i}.attn.
+    {norm,to_qkv,to_out}, transformer.encoder_{i}.ff.net.{norm,linear1,
+    linear2}, linear_head.{norm,linear}).
+
+    The patch embedding's input columns are doubled per pixel
+    (``params.vit_patchify_linear_add_channels``). to_qkv and to_out take
+    their weights alone (both are bias-free); the norms' and the other
+    linears' biases are kept only with ``use_bias``, and dropped otherwise.
+    """
+    imp = _Import(tsd, fold_bn_bias=False, use_bias=use_bias)
+    m = net.model
+    w = P.vit_patchify_linear_add_channels(imp.take("to_patch_embedding.linear.weight"))
+    imp.flat["model.to_patch_embedding_linear.weight"] = np.ascontiguousarray(w.T)
+    if use_bias:
+        imp.copy("to_patch_embedding.linear.bias", "model.to_patch_embedding_linear.bias")
+    dropped = ["to_patch_embedding.linear.bias"]
+
+    def norm(src, dst):
+        imp.copy(f"{src}.weight", f"{dst}.weight")
+        if use_bias:
+            imp.copy(f"{src}.bias", f"{dst}.bias")
+        dropped.append(f"{src}.bias")
+
+    def linear(src, dst):
+        imp.linear(src, dst, bias=use_bias)
+        dropped.append(f"{src}.bias")
+
+    for i in range(m.depth):
+        src, dst = f"transformer.encoder_{i}", f"model.encoder_{i}"
+        norm(f"{src}.attn.norm", f"{dst}.attn.norm")
+        imp.linear(f"{src}.attn.to_qkv", f"{dst}.attn.to_qkv", bias=False)
+        imp.linear(f"{src}.attn.to_out", f"{dst}.attn.to_out", bias=False)
+        norm(f"{src}.ff.net.norm", f"{dst}.ff.norm")
+        linear(f"{src}.ff.net.linear1", f"{dst}.ff.linear1")
+        linear(f"{src}.ff.net.linear2", f"{dst}.ff.linear2")
+    norm("linear_head.norm", "model.linear_head_norm")
+    linear("linear_head.linear", "model.linear_head_linear")
+    return imp.finish(net, droppable=() if use_bias else dropped)

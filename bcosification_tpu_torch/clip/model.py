@@ -52,7 +52,8 @@ __all__ = [
     "config_from_state_dict",
 ]
 
-VIT_SLICE = "the port's ViT slice (ROADMAP A6: models/vit.py and the CLIP ViT towers)"
+VIT_SLICE = ("the CLIP ViT slice (ROADMAP A6: CLIPVisionTransformer, clip_vit_config and the "
+             "vit*clip configs)")
 
 
 class QuickGELU(nn.Module):
@@ -228,7 +229,7 @@ class ModifiedResNet(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """Pre-norm transformer block of plain linears with the combined q/k/v
     projection ``attn_in_proj``, optionally causal (the text tower's; the
-    B-cos variants of the ViT student come with the ViT slice)."""
+    B-cos variants of the ViT student come with the CLIP ViT slice)."""
 
     def __init__(self, d_model: int, n_head: int, causal: bool = False, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -336,13 +337,13 @@ def clip_rn50_config() -> dict:
 
 
 def clip_vit_config(name: str = "ViT-B/32") -> dict:
-    raise NotImplementedError(f"CLIP tower {name!r}: the ViT towers come with {VIT_SLICE}")
+    raise NotImplementedError(f"CLIP tower {name!r}: they come with {VIT_SLICE}")
 
 
 def config_from_state_dict(sd) -> dict:
     """The CLIP architecture of an OpenAI checkpoint (its keys and shapes)."""
     if "visual.proj" in sd:
-        raise NotImplementedError(f"a CLIP ViT checkpoint: the ViT towers come with {VIT_SLICE}")
+        raise NotImplementedError(f"a CLIP ViT checkpoint: they come with {VIT_SLICE}")
     counts = [len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")})
               for b in (1, 2, 3, 4)]
     out_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)

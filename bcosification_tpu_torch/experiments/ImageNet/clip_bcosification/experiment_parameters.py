@@ -93,7 +93,7 @@ attn_unpool = {
 }
 
 # the CLIP ViT towers through the same recipe (their model factory raises
-# until the ViT slice)
+# until the CLIP ViT slice, clip.model.VIT_SLICE)
 vits_clip = {
     f"vit_{tag}_clip_b2_noBias_randomResizedCrop_sigLip_ImageNet_bcosification": (
         update_default(

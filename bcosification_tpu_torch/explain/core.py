@@ -124,9 +124,9 @@ def make_explain_fn(model, smooth: int = 15, alpha_percentile: float = 99.5,
     ``fast``: "auto" routes B-cosified ResNets through the hand-scheduled
     pass (``fast_resnet.supports``); True forces it (raises if unsupported);
     False always differentiates the module forward. Other nets, the
-    DenseNet among them, differentiate the module forward, as in the JAX
-    package (the DenseNet's own pass, ``fast_densenet``, serves
-    ``serving.export_explain``).
+    DenseNet and the ViT among them, differentiate the module forward, as
+    in the JAX package (their own passes, ``fast_densenet`` and
+    ``fast_vit``, serve ``serving.export_explain``).
 
     Unlike the JAX package, which caches its jitted functions per model,
     nothing is cached: the function is a closure that costs nothing to build,

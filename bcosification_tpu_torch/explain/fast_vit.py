@@ -1,0 +1,222 @@
+"""Hand-scheduled explanation pass for the B-cosified SimpleViT, the ViT's
+counterpart of ``explain/fast_densenet.py``.
+
+It computes what ``explain.core.dynamic_linear_weights`` computes on the
+module forward (logits and W(x) = d logit[selected] / d x of the
+explanation-mode model: every dynamic scale, LayerNorm variance, GELU gate
+and attention matrix detached) with an explicitly written linear backward
+and no autograd, so that ``torch.export`` traces it
+(``serving.export_explain``): an exported program cannot hold an
+``autograd.grad`` call.
+
+The forward is the module's, op for op. Each bias-free b=2 B-cos linear
+(the patch embedding, to_out, linear1, linear2 and the head) runs on K3
+(``bcos_matmul_fwd``, the linear norm: ``eps_outside``) and its backward on
+K2 (``conv1x1_bwd_explain``) with the bare cotangent (mult 1, no mask), as
+K3's explanation backward does; a biased one (``useBias``) takes the plain
+route both ways, dx = (g |u + b| / n) @ w^T. The rest of the backward:
+
+- LayerNorm, its variance detached: dx = c - mean(c), c = g w / std;
+- GELU, its gate detached: g * gate;
+- attention, q and k detached: dv = A^T dout per head, then through the v
+  columns of to_qkv (the q and k columns get no cotangent);
+- the residuals add their cotangents; the token mean spreads its cotangent
+  evenly over the tokens (with ``gap_reorder`` the head runs on every token
+  first); the positional embedding is a constant; the patches go back to
+  the image by the inverse of the patchify, then through the Normalize.
+
+Scope (``supports``): BcosifyNetwork(SimpleViT) with BcosifyLinear linears
+(b=2, max_out 1) but a plain bias-free to_qkv, the detachable LayerNorm and
+GELU (or Identity), no conv stem and no MoE: every config of
+ImageNet/vit_bcosification that builds.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from bcosification_tpu_torch.device import resolve_device
+from bcosification_tpu_torch.models.vit import _patchify, _unpatchify, pos_emb_sincos_2d
+from bcosification_tpu_torch.modules import (
+    BcosifyLinear,
+    DetachableGELU,
+    DetachableLayerNorm,
+    Identity,
+)
+from bcosification_tpu_torch.ops import bcos as ops
+from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain
+from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
+
+__all__ = ["supports", "fast_dynamic_linear_weights"]
+
+
+def supports(net) -> bool:
+    """True if ``net`` is a BcosifyNetwork(SimpleViT) this pass handles."""
+    from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
+    from bcosification_tpu_torch.models.vit import SimpleViT
+
+    if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, SimpleViT):
+        return False
+    m = net.model
+    for enc in m.encoders():
+        linears = (enc.attn.to_out, enc.ff.linear1, enc.ff.linear2)
+        if not (all(_bcos_linear(lin) for lin in linears)
+                and all(type(n) is DetachableLayerNorm and n.detachable
+                        for n in (enc.attn.norm, enc.ff.norm))
+                and (type(enc.ff.act) is Identity
+                     or (type(enc.ff.act) is DetachableGELU and enc.ff.act.detachable))):
+            return False
+    return (_bcos_linear(m.to_patch_embedding_linear) and _bcos_linear(m.linear_head_linear)
+            and type(m.linear_head_norm) is DetachableLayerNorm
+            and m.linear_head_norm.detachable)
+
+
+def _bcos_linear(lin) -> bool:
+    return type(lin) is BcosifyLinear and lin.b == 2 and lin.max_out == 1
+
+
+def fast_dynamic_linear_weights(
+    net, x: torch.Tensor, idx=None, *, device=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(logits, selected_idx, W) for x [N, H, W, 6]: what
+    ``dynamic_linear_weights(lambda t: net(t, explain=True), x, idx)``
+    gives, when ``supports(net)``. Runs on ``device`` (default the GPU;
+    raises without one unless device="cpu")."""
+    dev = resolve_device(device)
+    if not supports(net):
+        raise ValueError("fast ViT explain pass: unsupported model (see supports())")
+    with torch.no_grad():
+        return _fast(net, x.to(dev), idx)
+
+
+class _Linear:
+    """One B-cos linear's forward, and the transpose of its explanation-mode
+    (scale detached) map. A bias-free one runs K3 forward and K2 backward."""
+
+    def __init__(self, lin: BcosifyLinear, a: torch.Tensor):
+        self.a = a.reshape(-1, a.shape[-1])
+        self.lead = a.shape[:-1]
+        self.bias = lin.bias
+        self.w = lin.weight.to(a.dtype)
+        if self.bias is None:
+            self.wt = self.w.t().contiguous()
+
+    def forward(self) -> torch.Tensor:
+        """The output in the input's dtype, as ``ops.bcos_linear`` gives it;
+        a biased one keeps its scale for the backward."""
+        if self.bias is None:
+            y = bcos_matmul_fwd(self.a, self.wt, eps=ops.LINEAR_NORM_EPS, eps_outside=True)
+            return y.view(*self.lead, -1).to(self.a.dtype)
+        u = self.a @ self.w + self.bias
+        af = self.a.float()
+        n = (torch.sqrt((af * af).sum(-1, keepdim=True)) + ops.LINEAR_NORM_EPS).to(u.dtype)
+        self.scale = u.abs() / n
+        return (self.scale * u).view(*self.lead, -1)
+
+    def backward(self, ct: torch.Tensor) -> torch.Tensor:
+        """The input's cotangent from the output's ``ct``."""
+        ct = ct.reshape(-1, ct.shape[-1])
+        if self.bias is None:
+            dx = conv1x1_bwd_explain(self.a, self.wt, ct.to(self.a.dtype).contiguous(), None,
+                                     None, relu=False, eps=ops.LINEAR_NORM_EPS,
+                                     eps_outside=True)
+        else:
+            dx = (ct * self.scale).to(self.a.dtype) @ self.w.t()
+        return dx.view(*self.lead, -1)
+
+
+def _norm_bwd(ct, norm: DetachableLayerNorm, std, dtype):
+    """A LayerNorm's input cotangent, its variance detached: c - mean(c)
+    with c = ct * weight / std, in f32, cast to the input's dtype."""
+    c = ct.float()
+    if norm.weight is not None:
+        c = c * norm.weight
+    c = c / std
+    return (c - c.mean(-1, keepdim=True)).to(dtype)
+
+
+class _Encoder:
+    """One encoder's explanation-mode forward and the transpose of its map."""
+
+    def __init__(self, enc, x):
+        self.enc, self.dtype = enc, x.dtype
+        attn, ff = enc.attn, enc.ff
+        n1, self.std1 = attn.norm.normalize(x, explain=True)
+        w_qkv = attn.to_qkv.weight.to(x.dtype)
+        self.w_v = w_qkv[:, 2 * attn.heads * attn.dim_head:]
+        q, k, v = (attn.split_heads(t) for t in (n1 @ w_qkv).chunk(3, dim=-1))
+        self.attn = attn.attend(q, k)
+        o = torch.matmul(self.attn, v)
+        b, h, n, d = o.shape
+        self.to_out = _Linear(attn.to_out, o.transpose(1, 2).reshape(b, n, h * d))
+        x = self.to_out.forward() + x
+        n2, self.std2 = ff.norm.normalize(x, explain=True)
+        self.linear1 = _Linear(ff.linear1, n2)
+        h1 = self.linear1.forward()
+        self.gate = ff.act.gate(h1) if isinstance(ff.act, DetachableGELU) else None
+        self.linear2 = _Linear(ff.linear2, h1 if self.gate is None else self.gate * h1)
+        self.out = self.linear2.forward() + x
+
+    def backward(self, ct):
+        attn = self.enc.attn
+        ct_a = self.linear2.backward(ct)
+        if self.gate is not None:
+            ct_a = ct_a * self.gate
+        ct_x1 = ct + _norm_bwd(self.linear1.backward(ct_a), self.enc.ff.norm, self.std2,
+                               self.dtype)
+        ct_o = self.to_out.backward(ct_x1)
+        ct_v = torch.matmul(self.attn.transpose(-1, -2), attn.split_heads(ct_o))
+        b, h, n, d = ct_v.shape
+        ct_n1 = ct_v.transpose(1, 2).reshape(b, n, h * d) @ self.w_v.t()
+        return ct_x1 + _norm_bwd(ct_n1, attn.norm, self.std1, self.dtype)
+
+
+def _fast(net, x, idx):
+    m = net.model
+    dtype = x.dtype
+
+    # ---------------- forward (explanation-mode values) ----------------
+    mean = torch.tensor(net.mean, dtype=dtype, device=x.device)
+    std_in = torch.tensor(net.std, dtype=dtype, device=x.device)
+    xn = (x - mean) / std_in
+    p1, p2 = m.patch_size
+    patch = _Linear(m.to_patch_embedding_linear, _patchify(xn, p1, p2))
+    t = patch.forward()
+    nb, h, w, d = t.shape
+    t = t.reshape(nb, h * w, d) + pos_emb_sincos_2d(h, w, d, dtype=t.dtype, device=t.device)
+    encoders = []
+    for enc in m.encoders():
+        encoders.append(_Encoder(enc, t))
+        t = encoders[-1].out
+    hn = t if m.gap_reorder else t.mean(dim=1)
+    t_dtype = t.dtype  # x's, or f32 after a biased patch embedding
+    hn, std_h = m.linear_head_norm.normalize(hn, explain=True)
+    head = _Linear(m.linear_head_linear, hn)
+    logits = head.forward()
+    if m.gap_reorder:
+        logits = logits.mean(dim=1)
+    if net.with_logit_layer:
+        if net.logit_temperature is not None:
+            logits = logits / net.logit_temperature
+        logits = logits + net.logit_bias
+
+    # ---------------- backward (explicit linear transpose) ----------------
+    if idx is None:
+        sel = logits.argmax(dim=1)
+    else:
+        sel = torch.as_tensor(idx, device=x.device).expand(nb)
+    ct = F.one_hot(sel, logits.shape[-1]).to(logits.dtype)
+    if net.with_logit_layer and net.logit_temperature is not None:
+        ct = ct / net.logit_temperature
+    n_tok = h * w
+    if m.gap_reorder:  # the mean over the head's tokens
+        ct = (ct / n_tok)[:, None, :].expand(nb, n_tok, ct.shape[-1])
+    ct = _norm_bwd(head.backward(ct), m.linear_head_norm, std_h, t_dtype)
+    if not m.gap_reorder:  # the token mean before the head
+        ct = (ct / n_tok)[:, None, :].expand(nb, n_tok, d)
+    for enc in reversed(encoders):
+        ct = enc.backward(ct)
+    ct_p = patch.backward(ct.reshape(nb, h, w, d))
+    return logits, sel, _unpatchify(ct_p, p1, p2) / std_in

@@ -1,5 +1,5 @@
 """Modules of the port: B-cos layers, norms and activations."""
-from bcosification_tpu_torch.modules.activations import Identity, ReLU
+from bcosification_tpu_torch.modules.activations import DetachableGELU, Identity, ReLU
 from bcosification_tpu_torch.modules.bcos_layers import (
     BcosConv2d,
     BcosifyConv2d,
@@ -7,13 +7,19 @@ from bcosification_tpu_torch.modules.bcos_layers import (
     LogitLayer,
     PlainLinear,
 )
-from bcosification_tpu_torch.modules.norms import BatchNormUncentered2d, NoBias
+from bcosification_tpu_torch.modules.norms import (
+    BatchNormUncentered2d,
+    DetachableLayerNorm,
+    NoBias,
+)
 
 __all__ = [
     "BatchNormUncentered2d",
     "BcosConv2d",
     "BcosifyConv2d",
     "BcosifyLinear",
+    "DetachableGELU",
+    "DetachableLayerNorm",
     "Identity",
     "LogitLayer",
     "NoBias",

@@ -1,8 +1,8 @@
-"""Uncentered BatchNorm (counterpart of
-``bcosification_tpu/modules/norms.py::BatchNormUncentered2d``).
+"""Norms of the port (counterpart of ``bcosification_tpu/modules/norms.py``):
+the uncentered BatchNorm of the CNNs and the transformer's LayerNorm.
 
-Uncentered: divide by a std, never subtract a mean. Channels are the last
-axis (NHWC).
+``BatchNormUncentered2d`` divides by a std and never subtracts a mean.
+Channels are the last axis (NHWC).
 
 - Eval: the running std. The norm is then a per-channel affine, which
   ``return_affine`` hands to a fused conv epilogue as (mult, add) =
@@ -11,6 +11,10 @@ axis (NHWC).
   (``max(E[x^2] - E[x]^2, 0)``, not torch's unbiased estimate), and
   ``running_var = 0.9 running_var + 0.1 var`` with ``var`` detached, updated
   in place. With ``explain`` the std is detached as well.
+
+``DetachableLayerNorm`` normalises the last axis and detaches its variance
+under ``explain``. ``NoBias`` and ``Unaffine`` preset a norm's flags and
+name the factory as the JAX package's do (the configs show the name).
 """
 from __future__ import annotations
 
@@ -19,7 +23,14 @@ import functools
 import torch
 from torch import nn
 
-__all__ = ["BatchNormUncentered2d", "NoBias"]
+__all__ = [
+    "BatchNormUncentered2d",
+    "DetachableGNLayerNorm2d",
+    "DetachableLayerNorm",
+    "NoBias",
+    "PlainLayerNorm",
+    "Unaffine",
+]
 
 MOMENTUM = 0.1  # weight of the batch variance in the running-var update
 
@@ -76,8 +87,63 @@ class BatchNormUncentered2d(nn.Module):
         return out.to(x.dtype)
 
 
+class DetachableLayerNorm(nn.Module):
+    """LayerNorm over the last axis, the transformer's norm: the statistics
+    in f32, the output cast back to x's dtype. With ``explain`` the
+    variance is detached (the mean is not), so the norm is linear in x.
+    ``detachable=False`` is the plain nn.LayerNorm of the standard ViT
+    configs: the same forward, no detach."""
+
+    def __init__(self, features: int, eps: float = 1e-5, use_weight: bool = True,
+                 use_bias: bool = True, detachable: bool = True, *, device=None):
+        super().__init__()
+        self.features, self.eps, self.detachable = features, eps, detachable
+        self.weight = nn.Parameter(torch.ones(features, device=device)) if use_weight else None
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+
+    def normalize(self, x, *, explain: bool = False):
+        """(the output, the f32 std sqrt(var + eps) it divided by)."""
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        if explain and self.detachable:
+            var = var.detach()
+        std = torch.sqrt(var + self.eps)
+        out = (xf - mean) / std
+        if self.weight is not None:
+            out = out * self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return out.to(x.dtype), std
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        return self.normalize(x, explain=explain)[0]
+
+
+def PlainLayerNorm(features: int, **kwargs):
+    """The plain nn.LayerNorm of the standard ViT configs: no detach."""
+    return DetachableLayerNorm(features, detachable=False, **kwargs)
+
+
+def DetachableGNLayerNorm2d(features: int, **kwargs):
+    """The conv stem's group norm of the ViT-C configs; it comes with the
+    vit_final slice (ROADMAP A6), and so do those configs' models."""
+    raise NotImplementedError("DetachableGNLayerNorm2d (the ViT-C conv stem's norm) is not "
+                              "ported yet; it comes with the vit_final slice")
+
+
+def _preset(make_layer, suffix: str, **flags):
+    new = functools.partial(make_layer, **flags)
+    functools.update_wrapper(new, make_layer, updated=())
+    new.__name__ = getattr(make_layer, "__name__", "layer") + suffix
+    return new
+
+
 def NoBias(make_layer):
     """Layer factory wrapper that disables the bias term."""
-    new = functools.partial(make_layer, use_bias=False)
-    functools.update_wrapper(new, make_layer, updated=())
-    return new
+    return _preset(make_layer, "NoBias", use_bias=False)
+
+
+def Unaffine(make_layer):
+    """Layer factory wrapper that disables both weight and bias."""
+    return _preset(make_layer, "Unaffine", use_bias=False, use_weight=False)

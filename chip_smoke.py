@@ -129,14 +129,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    once more resuming; then ``train --fast_dev_run`` of the ImageNet KD
    config over phase 9's JPEG tree, resuming from the fit, whose epoch
    metrics hold ``zeroshot_ImageNet_acc1`` (the per-epoch zero-shot, K3 in
-   its encode).
+   its encode);
+13. ViT-B/16 (the vit_bcosification recipe's bcosifyv2 config: dim 768,
+   depth 12, 12 heads, mlp 3072, patch 16, 196 tokens, no bias, GELU, the
+   head on the token mean, the LogitLayer; random init from SEED, and its
+   useBias_noGelu_gapReorder variant): K3 and K2 against their plain
+   versions at the five shapes of its bias-free B-cos linears in both
+   dtypes (phase 3's bounds; the linear norm, eps_outside; K2 with the bare
+   cotangent, its bf16 scratch route at linear1's Cout 3072); per config,
+   fp32 parity on 2 images, GPU against CPU, of the logits and of W from
+   the hand-scheduled pass (explain/fast_vit.py) and from the module path
+   (autograd), and the two paths against each other (W within ten times
+   the CPU's spread under 1e-7 relative input noise, pre-logits 1e-4,
+   argmax identical), and its launch counts (K3 38 per forward, K2 38 per
+   explanation, K1 0; the variant 12 and 12); forward-only and fwd+explain
+   (fast pass and module path) images/s at batch 128, bf16, with launch
+   counts, host issue time, peak memory, the card's busy time and its top
+   kernels (torch.profiler); both programs exported, loaded
+   from bytes and held to the eager calls, the export seconds; ``evaluate
+   --base_network vit_bcosification --reload fresh`` over phase 9's tree,
+   K3 38 per eval batch; then each kernel's time at every shape of one
+   explanation beside its bound, plain version and torch.matmul.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No bf16 operand
-of a ResNet-50, DenseNet-121 or CLIP-RN50 path needs the TMA padding
-(``tma_operands.padded`` stays 0).
+of a ResNet-50, DenseNet-121, CLIP-RN50 or ViT-B/16 path needs the TMA
+padding (``tma_operands.padded`` stays 0).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
@@ -179,7 +199,7 @@ from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet, bui
 from bcosification_tpu_torch.clip.model import ModifiedResNet, clip_rn50_config
 from bcosification_tpu_torch.clip.tokenizer import tokenize
 from bcosification_tpu_torch.data.imagenet import imagenet_classes, imagenet_templates
-from bcosification_tpu_torch.explain import fast_clip, fast_densenet
+from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_vit
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
 from bcosification_tpu_torch.models import resnet
@@ -2385,6 +2405,281 @@ def phase_kd(students, x2, stream_rate, worst, exp_root):
             "kd_plain_ms": row["plain_ms"], "kd_library_ms": row["library_ms"]}
 
 
+# --------------------------------------------------------------------------
+# 13: ViT-B/16
+# --------------------------------------------------------------------------
+VIT_NAME = "bcosifyv2_bcos_simple_vit_b_patch16_224"
+VIT_EXPERIMENTS = {"default": ("ImageNet", "vit_bcosification", VIT_NAME),
+                   "useBias_noGelu_gapReorder": ("ImageNet", "vit_bcosification",
+                                                 VIT_NAME + "_useBias_noGelu_gapReorder")}
+# launches of one fwd+explain of each (K3 and K2 at every bias-free B-cos
+# linear: the patch embedding, to_out, linear1 and linear2 of the 12
+# encoders, the head; with useBias to_out alone); a forward drops the K2s
+VIT_LINEARS = {"default": 38, "useBias_noGelu_gapReorder": 12}
+VIT_ROWS = BATCH * (SIZE // 16) ** 2  # 25088 token rows at batch 128
+# (label, M, K, N) of ViT-B/16's bias-free B-cos linears at batch 128, 224x224
+VIT_CHECK_SHAPES = [
+    ("vit patch embedding", VIT_ROWS, 1536, 768),
+    ("vit to_out", VIT_ROWS, 768, 768),
+    ("vit linear1", VIT_ROWS, 768, 3072),  # K2's bf16 scratch route (Cout > 1024)
+    ("vit linear2", VIT_ROWS, 3072, 768),
+    ("vit head", BATCH, 768, 1000),
+]
+
+
+def vit_launches(net, batch, size, explain):
+    """[(kernel, M, K, N, relu, eps_outside)] of every launch of one forward
+    or one fwd+explain of a B-cosified SimpleViT: K3 (and K2) with the
+    linear norm at each bias-free B-cos linear, in forward order."""
+    m = net.model
+    rows = batch * (size // m.patch_size[0]) * (size // m.patch_size[1])
+    linears = [(m.to_patch_embedding_linear, rows)]
+    for enc in m.encoders():
+        linears += [(enc.attn.to_out, rows), (enc.ff.linear1, rows), (enc.ff.linear2, rows)]
+    linears.append((m.linear_head_linear, rows if m.gap_reorder else batch))
+    out = []
+    for lin, r in linears:
+        if lin.bias is None:
+            k, n = lin.weight.shape
+            out.append(("bcos_matmul_fwd", r, k, n, False, True))
+            if explain:
+                out.append(("bcos_conv1x1_bwd_explain", r, k, n, False, True))
+    return out
+
+
+def vit_counts(net, explain):
+    counts = collections.Counter(key[0] for key in vit_launches(net, 1, SIZE, explain))
+    return {name: counts.get(name, 0) for name in MODEL_KERNELS + ("stream_add",)}
+
+
+def check_vit_kernels(worst):
+    """K3 and K2 against their plain versions at VIT_CHECK_SHAPES, both
+    dtypes, phase 3's bounds, as the ViT calls them: the linear norm
+    (eps_outside), K2 with the bare cotangent (no mult, no mask)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for label, m, k, n in VIT_CHECK_SHAPES:
+            x, wt, _, _, ct = operands(m, k, n, dtype, gen)
+            results = [
+                ("bcos_matmul_fwd", " eps_outside", k3.bcos_matmul_fwd(x, wt, **kw),
+                 k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)),
+                ("bcos_conv1x1_bwd_explain", " eps_outside",
+                 k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False, **kw),
+                 k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None,
+                                               relu=False, **kw)),
+            ]
+            torch.cuda.synchronize()
+            for name, variant, got, want in results:
+                _check(worst, name, variant, label, dtype, got, want)
+            del x, wt, ct, results
+
+
+def vit_parity(net, x2, tag):
+    """fp32, 2 images: the logits and W of the fast pass (explain/fast_vit.py)
+    and of the module path (autograd) on the GPU against the same calls on
+    the CPU, and the two paths against each other on the GPU: W within ten
+    times the CPU's own spread under 1e-7 relative input noise, the
+    pre-logits within 1e-4, the argmax identical."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lg, sg, wg = fast_vit.fast_dynamic_linear_weights(net, x2)
+    lm, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x2)
+    cpu = copy.deepcopy(net).to("cpu")
+    t0 = time.perf_counter()
+    lc, sc, wc = fast_vit.fast_dynamic_linear_weights(cpu, x2.cpu(), device="cpu")
+    lmc, smc, wmc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x2.cpu(), device="cpu")
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 25))
+    ln, _, wn = fast_vit.fast_dynamic_linear_weights(cpu, x2.cpu() * (1 + 1e-7 * noise),
+                                                     device="cpu")
+    cpu_s = time.perf_counter() - t0
+    bias = net.logit_bias
+    spread = rel(wn, wc)
+
+    def pre_rel(a, b):
+        a, b = a.double().cpu() - bias, b.double().cpu() - bias
+        return float((a - b).abs().max() / b.abs().max())
+
+    checks = {
+        "W fast pass gpu vs cpu": (rel(wg, wc), 10 * spread),
+        "W module path gpu vs cpu": (rel(wm, wmc), 10 * spread),
+        "W module path vs fast pass (gpu)": (rel(wm, wg), 10 * spread),
+        "pre-logit fast pass gpu vs cpu (max rel)": (pre_rel(lg, lc), 1e-4),
+        "pre-logit module path gpu vs cpu (max rel)": (pre_rel(lm, lmc), 1e-4),
+        "pre-logit module path vs fast pass (gpu, max rel)": (pre_rel(lm, lg), 1e-4),
+    }
+    say(f"vit {tag} parity: pre-logit RMS {float((lc.double() - bias).pow(2).mean().sqrt()):.4g}"
+        f" (the CPU's pre-logits move {pre_rel(ln, lc):.3e} under 1e-7 relative input noise); W "
+        f"on the cpu under that noise: {spread:.3e}; the three CPU passes took {cpu_s:.1f} s")
+    for key, (val, bound) in checks.items():
+        say(f"vit {tag} parity {key}: {val:.3e} (bound {bound:.3e})")
+    same_sel = bool((sg.cpu() == sc).all() and (sm == sg).all() and (smc == sc).all())
+    say(f"vit {tag} parity argmax identical: {same_sel}")
+    if not same_sel or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError(f"ViT-B/16 {tag} parity failed")
+    if not all(torch.isfinite(t).all() for t in (lg, wg)) or wg.shape != x2.shape:
+        raise AssertionError(f"ViT-B/16 {tag} outputs are not finite or mis-shaped")
+
+
+def vit_throughput(net, x):
+    """Forward-only, fast-pass and module-path fwd+explain images/s at batch
+    128, bf16, each with its launch counts, host issue time and peak memory."""
+    def forward():
+        with torch.no_grad():
+            return net(x)
+
+    calls = (("forward-only", forward, False),
+             ("fwd+explain (fast pass)",
+              lambda: fast_vit.fast_dynamic_linear_weights(net, x), True),
+             ("fwd+explain (module path)",
+              lambda: dynamic_linear_weights(lambda t: net(t, explain=True), x), True))
+    out = {}
+    for what, fn, explain_ in calls:
+        fn()
+        result, counts = counted(fn)
+        check_counts(f"vit {what}", counts, vit_counts(net, explain_))
+        outs = result if isinstance(result, tuple) else (result,)
+        if not all(torch.isfinite(v).all() for v in outs if v.is_floating_point()):
+            raise AssertionError(f"ViT-B/16 {what}: outputs are not finite")
+        del result, outs
+        ms, n_calls, host, peak_gb = windowed(fn)
+        busy, top = device_profile(fn, 3)
+        say(f"vit throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per batch of "
+            f"{BATCH}, one window of {n_calls} calls; the host issues one call in {host:.2f} "
+            f"ms; peak memory of one call {peak_gb:.2f} GB; launches {counts}) [{CARD}]")
+        say(f"vit {what}: card busy {busy or 0:.2f} ms per call (torch.profiler); top kernels: "
+            + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
+        out[what] = {"img_s": BATCH / ms * 1e3, "ms": ms, "host_ms": host, "peak_gb": peak_gb}
+    return out
+
+
+def vit_serving(net, x):
+    """The forward and the fwd+explain programs exported, saved to bytes and
+    loaded back: at batch 128, bf16, equal to the eager calls (1e-6
+    relative, the same launch counts); the loaded fwd+explain's images/s and
+    the seconds of each export and of the two loads."""
+    seconds = {}
+    t0 = time.perf_counter()
+    blob_fwd = serving.export_forward(net, input_size=SIZE, dtype=torch.bfloat16)
+    seconds["export_forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = serving.export_explain(net, input_size=SIZE, dtype=torch.bfloat16)
+    seconds["export_explain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd, program = serving.load_serialized(blob_fwd), serving.load_serialized(blob)
+    seconds["load both"] = time.perf_counter() - t0
+    say("vit serving: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+        + f" ({len(blob_fwd) / 1e6:.1f} MB and {len(blob) / 1e6:.1f} MB)")
+    (logits, sel, w), counts = counted(lambda: program.call(x))
+    check_counts("vit loaded fwd+explain", counts, vit_counts(net, True))
+    logits_f, counts_f = counted(lambda: fwd.call(x))
+    check_counts("vit loaded forward", counts_f, vit_counts(net, False))
+    le, se, we = fast_vit.fast_dynamic_linear_weights(net, x)
+    with torch.no_grad():
+        lf = net(x)
+    bias = net.logit_bias
+    checks = {
+        "W loaded vs eager (rel)": (rel(w.float(), we.float()), 1e-6),
+        "pre-logit loaded vs eager fwd+explain (rel)": (rel(logits.double() - bias,
+                                                            le.double() - bias), 1e-6),
+        "pre-logit loaded vs eager forward (rel)": (rel(logits_f.double() - bias,
+                                                        lf.double() - bias), 1e-6),
+    }
+    for key, (val, bound) in checks.items():
+        say(f"vit serving {key}: {val:.3e} (bound {bound:.0e})")
+    if (not torch.equal(sel, se) or not torch.equal(logits_f.argmax(1), lf.argmax(1))
+            or any(not val <= bound for val, bound in checks.values())):
+        raise AssertionError("the loaded ViT-B/16 programs disagree with the eager calls")
+    del logits, sel, w, le, se, we
+    ms, calls, host, _ = windowed(lambda: program.call(x))
+    say(f"vit serving loaded fwd+explain: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one window "
+        f"of {calls} calls; host {host:.2f} ms) [{CARD}]")
+    return {"export_seconds": seconds, "loaded_img_s": BATCH / ms * 1e3}
+
+
+def vit_evaluate(net, exp_root):
+    """``evaluate --base_network vit_bcosification --experiment_name VIT_NAME
+    --reload fresh`` over the synthetic tree's val split, with its launches
+    (K3 at every bias-free B-cos linear per eval batch of 64)."""
+    experiment = VIT_EXPERIMENTS["default"]
+    batches = -(-ENTRY_VAL // Experiment(*experiment).config["data"]["batch_size"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    top1, top5, (c1, c5, n) = evaluate_cli.main(
+        ["--base_network", experiment[1], "--experiment_name", experiment[2], "--reload",
+         "fresh", "--base_directory", str(exp_root)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    eval_s = time.perf_counter() - t0
+    say(f"vit evaluate --reload fresh: top-1 {top1:.6f} ({c1}/{n}), top-5 {top5:.6f} ({c5}/{n}) "
+        f"in {eval_s:.1f} s ({batches} batches); launches {counts}")
+    check_counts("vit evaluate --reload fresh", counts,
+                 scaled_counts(vit_counts(net, False), batches))
+    if n != ENTRY_VAL:
+        raise AssertionError(f"vit evaluate saw {n} images")
+    return eval_s
+
+
+def phase_vit(x2, stream_rate, worst, exp_root):
+    """Phase 13: ViT-B/16 of the vit_bcosification recipe (random init from
+    SEED), the default config and its useBias_noGelu_gapReorder variant.
+    Returns the ViT keys of K2's and K3's rows of the kernels line."""
+    check_vit_kernels(worst)
+    nets = {}
+    for tag, experiment in VIT_EXPERIMENTS.items():
+        t0 = time.perf_counter()
+        net = Experiment(*experiment).get_model()
+        for explain_ in (False, True):
+            n = vit_counts(net, explain_)["bcos_matmul_fwd"]
+            if n != VIT_LINEARS[tag]:
+                raise AssertionError(f"vit {tag}: {n} bias-free B-cos linears, expected "
+                                     f"{VIT_LINEARS[tag]}")
+        say(f"vit {tag}: built {experiment[2]} in {time.perf_counter() - t0:.1f} s; "
+            f"{VIT_LINEARS[tag]} bias-free B-cos linears")
+        vit_parity(net, x2, tag)
+        x = _batch128(x2, SEED + 26)
+        for explain_ in (False, True):  # the counts of this variant on the card
+            fn = ((lambda: fast_vit.fast_dynamic_linear_weights(net, x)) if explain_
+                  else (lambda: net(x, explain=False)))
+            with torch.no_grad():
+                _, counts = counted(fn)
+            check_counts(f"vit {tag} {'fwd+explain' if explain_ else 'forward'}", counts,
+                         vit_counts(net, explain_))
+            say(f"vit {tag} launches per {'fwd+explain' if explain_ else 'forward'}: {counts}")
+        del x
+        nets[tag] = net
+    net = nets["default"]
+    del nets
+    x = _batch128(x2, SEED + 27)
+    rates = vit_throughput(net, x)
+    served = vit_serving(net, x)
+    del x
+    eval_s = vit_evaluate(net, exp_root)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    rows = time_shapes(collections.Counter(vit_launches(net, BATCH, SIZE, True)), stream_rate,
+                       gen, tag="vit ")
+    say(f"vit summary: forward-only {rates['forward-only']['img_s']:.1f} img/s, fwd+explain "
+        f"{rates['fwd+explain (fast pass)']['img_s']:.1f} (fast pass) / "
+        f"{rates['fwd+explain (module path)']['img_s']:.1f} (module path); loaded fwd+explain "
+        f"{served['loaded_img_s']:.1f}; export_forward "
+        f"{served['export_seconds']['export_forward']:.1f} s, export_explain "
+        f"{served['export_seconds']['export_explain']:.1f} s; evaluate "
+        f"{eval_s:.1f} s [{CARD}]")
+    keys = {}
+    counts = vit_counts(net, True)
+    for name, r in rows.items():
+        what = "explanation" if name == "bcos_conv1x1_bwd_explain" else "forward"
+        say(f"vit {name} per ViT-B/16 {what} ({counts[name]} launches): {r['ms']:.4f} ms; "
+            f"bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate, "
+            f"{1e3 * r['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} GB/s; "
+            f"plain {r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
+        keys[name] = {"vit_launches": counts[name], "vit_ms": r["ms"],
+                      "vit_bound_ms": 1e3 * r["bound_s"], "vit_plain_ms": r["plain_ms"],
+                      "vit_library_ms": r["library_ms"]}
+    return keys
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2456,9 +2751,17 @@ def main() -> int:
         t0 = time.perf_counter()
         kd = phase_kd(students, x2, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["12 clip kd"] = time.perf_counter() - t0
+        if k12.tma_operands.padded:
+            raise AssertionError(f"{k12.tma_operands.padded} CLIP-RN50 calls padded their "
+                                 "operands")
+        say("TMA operand padding on the CLIP-RN50 paths (KD included): 0 calls")
+        del students
+        t0 = time.perf_counter()
+        vit = phase_vit(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
+        seconds["13 vit"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
-        raise AssertionError(f"{k12.tma_operands.padded} CLIP-RN50 calls padded their operands")
-    say("TMA operand padding on the CLIP-RN50 paths (KD included): 0 calls")
+        raise AssertionError(f"{k12.tma_operands.padded} ViT-B/16 calls padded their operands")
+    say("TMA operand padding on the ViT-B/16 paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -2468,6 +2771,7 @@ def main() -> int:
     for row in kernels:
         row.update(densenet.get(row["name"], {}))
         row.update(clip.get(row["name"], {}))
+        row.update(vit.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518

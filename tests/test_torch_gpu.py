@@ -4,6 +4,8 @@ the small CLIP-RN50 tower on the GPU against the same net on the CPU
 (explanation and one train step; the CLIP tower's text-grounded
 explanation and one KD step), K3's training backward against the CPU (also
 with the linear norm at the KD c_proj's shape), K3's launches per KD step,
+the small SimpleViT on the GPU against the CPU (forward, W of the module
+path and of fast_vit, launch counts), K3 and K2 at a ViT-B linear1 shape,
 and exported explanation programs against the eager calls. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
@@ -641,3 +643,105 @@ def test_k3_eps_outside_training_backward_at_the_kd_c_proj_shape(gpu, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     for got, want in ((y_g, y_c), (dx_g, dx_c), (dw_g, dw_c)):
         assert _rel(got, want) <= tol
+
+
+# --------------------------------------------------------------------------
+# The B-cosified SimpleViT (slice 10)
+# --------------------------------------------------------------------------
+VIT_SMALL = dict(dim=32, heads=2, mlp_dim=64, depth=2, patch_size=8, image_size=32)
+
+
+def _small_vit(gpu, bias="noBias", gap="noGapReorder", n=2, seed=0):
+    """The vit_bcosification recipe's net at VIT_SMALL (random init from
+    ``seed``, 10 classes) on the GPU, and AddInverse images [n, 32, 32, 6]."""
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_vit
+
+    config = {"name": "simple_vit_b_patch16_224", "act_layer": True, "logit_layer": True,
+              "bcos_args": {"b": 2}, "bcosify_args": {"use_bias": bias == "useBias"},
+              "args": {"gap_reorder": gap == "gapReorder"}}
+    net = build_bcosified_vit(config, num_classes=10, arch_cfg=VIT_SMALL, seed=seed)
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.rand(n, 32, 32, 3, device=gpu, generator=g)
+    return net, torch.cat([x, 1.0 - x], dim=-1)
+
+
+@pytest.mark.parametrize("bias,gap", [("noBias", "noGapReorder"), ("useBias", "gapReorder")])
+def test_small_vit_gpu_matches_cpu(gpu, bias, gap):
+    """fp32: the forward and W (fast_vit and the module path) on the GPU
+    against the CPU, fast_vit against the module path, and the launches:
+    K3 and K2 at every bias-free B-cos linear (3 per encoder + the patch
+    embedding and the head; with useBias to_out alone), K1 never."""
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+    from bcosification_tpu_torch.explain.fast_vit import fast_dynamic_linear_weights
+
+    net, x = _small_vit(gpu, bias, gap)
+    n = VIT_SMALL["depth"] if bias == "useBias" else 3 * VIT_SMALL["depth"] + 2
+    cpu = copy.deepcopy(net).to("cpu")
+    reset_launch_counts()
+    logits, sel, w = fast_dynamic_linear_weights(net, x)
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n,
+                               "bcos_matmul_fwd": n, "stream_add": 0}
+    reset_launch_counts()
+    _, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x)
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n,
+                               "bcos_matmul_fwd": n, "stream_add": 0}
+    reset_launch_counts()
+    with torch.no_grad():
+        out = net(x)
+    assert launch_counts()["bcos_matmul_fwd"] == n
+    lc, sc, wc = fast_dynamic_linear_weights(cpu, x.cpu(), device="cpu")
+    _, smc, wmc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x.cpu(), device="cpu")
+    with torch.no_grad():
+        outc = cpu(x.cpu())
+    assert torch.equal(sel.cpu(), sc) and torch.equal(sm, sel) and torch.equal(smc, sc)
+    assert _rel(w, wc) <= 1e-5 and _rel(wm, wmc) <= 1e-5
+    assert _rel(wm, w) <= 1e-5
+    bias_ = net.logit_bias
+    assert _rel(logits.double() - bias_, lc.double() - bias_) <= 1e-5
+    assert _rel(out.double() - bias_, outc.double() - bias_) <= 1e-5
+
+
+def test_exported_vit_explain_matches_eager(gpu):
+    """The ViT's explanation and forward programs, loaded from bytes, equal
+    the eager calls and launch the same kernels."""
+    from bcosification_tpu_torch import serving
+    from bcosification_tpu_torch.explain.fast_vit import fast_dynamic_linear_weights
+
+    net, x = _small_vit(gpu, n=3, seed=1)
+    program = serving.load_serialized(serving.export_explain(net, input_size=32))
+    forward = serving.load_serialized(serving.export_forward(net, input_size=32))
+    reset_launch_counts()
+    logits, sel, w = program.call(x)
+    counts = launch_counts()
+    reset_launch_counts()
+    lw, sw, ww = fast_dynamic_linear_weights(net, x)
+    assert counts == launch_counts() and counts["bcos_conv1x1_bwd_explain"] == 8
+    assert torch.equal(sel, sw)
+    assert _rel(w, ww) <= 1e-6 and _rel(logits, lw) <= 1e-6
+    with torch.no_grad():
+        assert _rel(forward.call(x), net(x)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cout", [768, 3072], ids=["fused", "scratch"])
+def test_k3_and_k2_at_a_vit_linear_shape(gpu, dtype, cout):
+    """A ViT-B token matmul at 1/8 of batch 128 (M = 16 x 196, K 768): K3
+    forward and K2 backward with the linear norm (eps_outside), bare
+    cotangent; Cout 3072 (linear1) takes K2's bf16 scratch route, Cout 768
+    its fused one."""
+    from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
+
+    m, k = 16 * 196, 768
+    g = torch.Generator(device=gpu).manual_seed(cout)
+    x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(cout, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+    ct = torch.randn(m, cout, device=gpu, generator=g).to(dtype)
+    ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
+    y = k3.bcos_matmul_fwd(x, wt, **kw)
+    assert _rel(y, k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)) <= tol
+    dx = k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False, **kw)
+    want = k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None, relu=False, **kw)
+    assert _rel(dx, want) <= tol
+    torch.cuda.synchronize()

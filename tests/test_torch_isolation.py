@@ -33,7 +33,9 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "experiments.ImageNet.clip_bcosification.experiment_parameters",
              "experiments.ImageNet.clip_bcosification.model", "training.kd", "data.cc3m",
              "experiments.CC3M.clip_bcosification.experiment_parameters",
-             "experiments.CC3M.clip_bcosification.model"):
+             "experiments.CC3M.clip_bcosification.model", "models.vit", "explain.fast_vit",
+             "experiments.ImageNet.vit_bcosification.experiment_parameters",
+             "experiments.ImageNet.vit_bcosification.model"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
