@@ -13,8 +13,9 @@ The forward is the module's, op for op. Each bias-free b=2 B-cos linear
 (the patch embedding, to_out, linear1, linear2 and the head) runs on K3
 (``bcos_matmul_fwd``, the linear norm: ``eps_outside``) and its backward on
 K2 (``conv1x1_bwd_explain``) with the bare cotangent (mult 1, no mask), as
-K3's explanation backward does; a biased one (``useBias``) takes the plain
-route both ways, dx = (g |u + b| / n) @ w^T. The rest of the backward:
+K3's explanation backward does; a BcosLinear's on its unit-normalised
+weight. A biased one (``useBias``) takes the plain route both ways,
+dx = (g |u + b| / n) @ w^T. The rest of the backward:
 
 - LayerNorm, its variance detached: dx = c - mean(c), c = g w / std;
 - GELU, its gate detached: g * gate;
@@ -23,12 +24,16 @@ route both ways, dx = (g |u + b| / n) @ w^T. The rest of the backward:
 - the residuals add their cotangents; the token mean spreads its cotangent
   evenly over the tokens (with ``gap_reorder`` the head runs on every token
   first); the positional embedding is a constant; the patches go back to
-  the image by the inverse of the patchify, then through the Normalize.
+  the image by the inverse of the patchify, then through the Normalize
+  (BcosifyNetwork's; a bare SimpleViT has none). The wrapper's logit layer
+  divides the cotangent by its temperature; the SimpleViT's has none.
 
-Scope (``supports``): BcosifyNetwork(SimpleViT) with BcosifyLinear linears
-(b=2, max_out 1) but a plain bias-free to_qkv, the detachable LayerNorm and
-GELU (or Identity), no conv stem and no MoE: every config of
-ImageNet/vit_bcosification that builds.
+Scope (``supports``): a SimpleViT, bare or in a BcosifyNetwork, with B-cos
+linears (BcosifyLinear or BcosLinear, b=2, max_out 1) but a plain bias-free
+to_qkv, the detachable LayerNorm and GELU (or Identity), and no conv stem:
+every config of ImageNet/vit_bcosification that builds and the
+``bcos_simple_vit_*`` configs of ImageNet/vit_final. The ViT-C stem has no
+hand-written transpose yet (its models explain through autograd).
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.models.vit import _patchify, _unpatchify, pos_emb_sincos_2d
 from bcosification_tpu_torch.modules import (
-    BcosifyLinear,
+    BcosLinear,
     DetachableGELU,
     DetachableLayerNorm,
     Identity,
@@ -52,14 +57,23 @@ from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
 __all__ = ["supports", "fast_dynamic_linear_weights"]
 
 
-def supports(net) -> bool:
-    """True if ``net`` is a BcosifyNetwork(SimpleViT) this pass handles."""
+def _parts(net):
+    """(the SimpleViT, the BcosifyNetwork around it or None)."""
     from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
+
+    if isinstance(net, BcosifyNetwork):
+        return net.model, net
+    return net, None
+
+
+def supports(net) -> bool:
+    """True if ``net`` is a SimpleViT (bare or in a BcosifyNetwork) this
+    pass handles."""
     from bcosification_tpu_torch.models.vit import SimpleViT
 
-    if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, SimpleViT):
+    m, _ = _parts(net)
+    if not isinstance(m, SimpleViT) or m.conv_stem:
         return False
-    m = net.model
     for enc in m.encoders():
         linears = (enc.attn.to_out, enc.ff.linear1, enc.ff.linear2)
         if not (all(_bcos_linear(lin) for lin in linears)
@@ -74,13 +88,20 @@ def supports(net) -> bool:
 
 
 def _bcos_linear(lin) -> bool:
-    return type(lin) is BcosifyLinear and lin.b == 2 and lin.max_out == 1
+    return isinstance(lin, BcosLinear) and lin.b == 2 and lin.max_out == 1
+
+
+def _logit_layers(net):
+    """The logit layers after the head, in forward order."""
+    m, wrapper = _parts(net)
+    return [owner.logit_layer for owner in (m, wrapper)
+            if owner is not None and owner.with_logit_layer]
 
 
 def fast_dynamic_linear_weights(
     net, x: torch.Tensor, idx=None, *, device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(logits, selected_idx, W) for x [N, H, W, 6]: what
+    """(logits, selected_idx, W) for x [N, H, W, C]: what
     ``dynamic_linear_weights(lambda t: net(t, explain=True), x, idx)``
     gives, when ``supports(net)``. Runs on ``device`` (default the GPU;
     raises without one unless device="cpu")."""
@@ -95,11 +116,12 @@ class _Linear:
     """One B-cos linear's forward, and the transpose of its explanation-mode
     (scale detached) map. A bias-free one runs K3 forward and K2 backward."""
 
-    def __init__(self, lin: BcosifyLinear, a: torch.Tensor):
+    def __init__(self, lin: BcosLinear, a: torch.Tensor):
         self.a = a.reshape(-1, a.shape[-1])
         self.lead = a.shape[:-1]
         self.bias = lin.bias
-        self.w = lin.weight.to(a.dtype)
+        w = ops.normed_linear_weight(lin.weight) if lin.normalize_weights else lin.weight
+        self.w = w.to(a.dtype)
         if self.bias is None:
             self.wt = self.w.t().contiguous()
 
@@ -174,15 +196,16 @@ class _Encoder:
 
 
 def _fast(net, x, idx):
-    m = net.model
+    m, wrapper = _parts(net)
     dtype = x.dtype
 
     # ---------------- forward (explanation-mode values) ----------------
-    mean = torch.tensor(net.mean, dtype=dtype, device=x.device)
-    std_in = torch.tensor(net.std, dtype=dtype, device=x.device)
-    xn = (x - mean) / std_in
+    if wrapper is not None:
+        mean = torch.tensor(wrapper.mean, dtype=dtype, device=x.device)
+        std_in = torch.tensor(wrapper.std, dtype=dtype, device=x.device)
+        x = (x - mean) / std_in
     p1, p2 = m.patch_size
-    patch = _Linear(m.to_patch_embedding_linear, _patchify(xn, p1, p2))
+    patch = _Linear(m.to_patch_embedding_linear, _patchify(x, p1, p2))
     t = patch.forward()
     nb, h, w, d = t.shape
     t = t.reshape(nb, h * w, d) + pos_emb_sincos_2d(h, w, d, dtype=t.dtype, device=t.device)
@@ -197,10 +220,9 @@ def _fast(net, x, idx):
     logits = head.forward()
     if m.gap_reorder:
         logits = logits.mean(dim=1)
-    if net.with_logit_layer:
-        if net.logit_temperature is not None:
-            logits = logits / net.logit_temperature
-        logits = logits + net.logit_bias
+    logit_layers = _logit_layers(net)
+    for layer in logit_layers:
+        logits = layer(logits)
 
     # ---------------- backward (explicit linear transpose) ----------------
     if idx is None:
@@ -208,8 +230,9 @@ def _fast(net, x, idx):
     else:
         sel = torch.as_tensor(idx, device=x.device).expand(nb)
     ct = F.one_hot(sel, logits.shape[-1]).to(logits.dtype)
-    if net.with_logit_layer and net.logit_temperature is not None:
-        ct = ct / net.logit_temperature
+    for layer in logit_layers:
+        if layer.logit_temperature is not None:
+            ct = ct / layer.logit_temperature
     n_tok = h * w
     if m.gap_reorder:  # the mean over the head's tokens
         ct = (ct / n_tok)[:, None, :].expand(nb, n_tok, ct.shape[-1])
@@ -218,5 +241,5 @@ def _fast(net, x, idx):
         ct = (ct / n_tok)[:, None, :].expand(nb, n_tok, d)
     for enc in reversed(encoders):
         ct = enc.backward(ct)
-    ct_p = patch.backward(ct.reshape(nb, h, w, d))
-    return logits, sel, _unpatchify(ct_p, p1, p2) / std_in
+    w_in = _unpatchify(patch.backward(ct.reshape(nb, h, w, d)), p1, p2)
+    return logits, sel, (w_in if wrapper is None else w_in / std_in)

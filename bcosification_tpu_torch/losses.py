@@ -1,9 +1,12 @@
-"""Classification losses of the supervised recipe (counterpart of
+"""Classification losses of the supervised recipes (counterpart of
 ``bcosification_tpu/losses.py``: ``binary_cross_entropy_with_logits``,
-``BinaryCrossEntropyLoss`` and ``UniformOffLabelsBCEWithLogitsLoss``).
+``cross_entropy``, ``BinaryCrossEntropyLoss``, ``CrossEntropyLoss`` and
+``UniformOffLabelsBCEWithLogitsLoss``).
 
 Targets are class indices [N] or dense [N, C]; dense targets of another
-shape than the logits are one-hot encoded. ``SigLipLoss`` is the CLIP
+shape than the logits are one-hot encoded by the BCE losses. The softmax
+cross-entropy of the standard ViT baselines takes either: dense targets
+are class probabilities (mixup's). ``SigLipLoss`` is the CLIP
 recipe's sigmoid pairwise loss, in one process; its ring exchange across
 processes comes with port slice 8 (distribution).
 """
@@ -17,7 +20,9 @@ import torch.nn.functional as F
 
 __all__ = [
     "binary_cross_entropy_with_logits",
+    "cross_entropy",
     "BinaryCrossEntropyLoss",
+    "CrossEntropyLoss",
     "UniformOffLabelsBCEWithLogitsLoss",
     "SigLipLoss",
 ]
@@ -27,6 +32,14 @@ def _one_hot_if_needed(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     if target.shape != x.shape:
         target = F.one_hot(target.long(), x.shape[-1])
     return target.to(x.dtype)
+
+
+def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def binary_cross_entropy_with_logits(
@@ -44,11 +57,14 @@ def binary_cross_entropy_with_logits(
     loss = -(pos + (1 - target) * log_sig_neg_x)
     if weight is not None:
         loss = loss * weight
-    if reduction == "mean":
-        return loss.mean()
-    if reduction == "sum":
-        return loss.sum()
-    return loss
+    return _reduce(loss, reduction)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  reduction: str = "mean") -> torch.Tensor:
+    """Softmax cross-entropy with integer labels over the last axis."""
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels.long()[..., None])[..., 0]
+    return _reduce(nll, reduction)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +85,34 @@ class BinaryCrossEntropyLoss:
         if self.target_threshold is not None:
             target = (target > self.target_threshold).to(x.dtype)
         return binary_cross_entropy_with_logits(x, target, reduction=self.reduction)
+
+    def __to_config__(self):
+        return dataclasses.asdict(self) | {"name": type(self).__name__}
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossEntropyLoss:
+    """Softmax cross-entropy over the last axis with torch.nn.CrossEntropyLoss
+    semantics: integer class labels, or class-probability targets of the
+    logits' shape, and optional label smoothing; the criterion of the
+    standard (non-B-cos) ViT baselines."""
+
+    label_smoothing: float = 0.0
+    reduction: str = "mean"
+
+    def __call__(self, x, target):
+        assert x.shape[0] == target.shape[0]
+        s = self.label_smoothing
+        if target.ndim == x.ndim:  # class-probability targets
+            probs = target.to(x.dtype)
+            if s > 0.0:
+                probs = probs * (1 - s) + s / x.shape[-1]
+            loss = -(probs * torch.log_softmax(x, dim=-1)).sum(-1)
+        else:
+            loss = cross_entropy(x, target, reduction="none")
+            if s > 0.0:
+                loss = (1 - s) * loss - s * torch.log_softmax(x, dim=-1).mean(-1)
+        return _reduce(loss, self.reduction)
 
     def __to_config__(self):
         return dataclasses.asdict(self) | {"name": type(self).__name__}

@@ -2,38 +2,47 @@
 ``bcosification_tpu/models/vit.py``), tokens on the second-to-last axis and
 features last.
 
-The lucidrains SimpleViT parameterised by layer factories: the patches of an
+The lucidrains SimpleViT parameterised by layer factories: an optional
+conv stem (ViT-C: 3x3 convs with padding 1, stride 2 where the width
+grows, each followed by a 2D norm and the activation), the patches of the
 NHWC image flattened pixel-major ((p1 p2 c), the order the channel-doubled
 patch weight of ``bcosify/params.py`` assumes), a linear patch embedding,
 the fixed 2D sin-cos positional embedding, ``depth`` pre-norm encoders
-(attention, then the feed-forward, each added to its input) and a head of
+(attention, then the feed-forward, each added to its input), a head of
 norm and linear, on the token mean or, with ``gap_reorder``, on every token
-before the mean. The B-cosified ViT keeps ``to_qkv`` a plain bias-free
-linear and detaches q and k under ``explain``, so the attention matrix is
-part of the dynamic weights W(x).
+before the mean, and an optional logit layer (a bias). The
+B-cos ViTs keep ``to_qkv`` a plain bias-free linear and detach q and k
+under ``explain``, so the attention matrix is part of the dynamic weights
+W(x).
 
-Sub-module names mirror the JAX scopes (to_patch_embedding_linear,
-encoder_{i}.attn.{norm,to_qkv,to_out}, encoder_{i}.ff.{norm,linear1,act,
-linear2}, linear_head_norm, linear_head_linear), so the JAX variables map
-onto the state dict one to one (``bcosify/from_jax.py``). The attention
-runs on ``torch.matmul`` and softmax in the input dtype, as the JAX
-package's runs in XLA; every bias-free b=2 B-cos linear runs on K3
+Sub-module names mirror the JAX scopes (conv_stem_{3i, 3i+1, 3i+2},
+to_patch_embedding_linear, encoder_{i}.attn.{norm,to_qkv,to_out},
+encoder_{i}.ff.{norm,linear1,act,linear2}, linear_head_norm,
+linear_head_linear, logit_layer), so the JAX variables map onto the state
+dict one to one (``bcosify/from_jax.py``). The attention runs on
+``torch.matmul`` and softmax in the input dtype, as the JAX package's runs
+in XLA; every bias-free b=2 B-cos linear runs on K3
 (``ops.bcos.bcos_linear``).
 
-Not ported yet: the ViT-C conv stem (the ``vitc_*`` entries, with the
-vit_final slice) and the switch-MoE feed-forward (``moe_experts``, with the
-MoE slice); both raise NotImplementedError. The positional embedding is
-always added, and the logit layer is the BcosifyNetwork wrapper's, as in
-every config of the grid.
+Not ported yet: the switch-MoE feed-forward (``moe_experts``, with the MoE
+slice), which raises NotImplementedError. The positional embedding is
+always added.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
-from bcosification_tpu_torch.modules import DetachableLayerNorm, Identity, PlainLinear
+from bcosification_tpu_torch.modules import (
+    BcosLinear,
+    DetachableLayerNorm,
+    Identity,
+    LogitLayer,
+    PlainLinear,
+)
 
 __all__ = [
     "pos_emb_sincos_2d",
@@ -50,16 +59,14 @@ __all__ = [
     "vitc_b_patch1_14",
     "vitc_l_patch1_14",
     "VIT_CONFIGS",
-    "VIT_FINAL_SLICE",
     "MOE_SLICE",
 ]
 
-VIT_FINAL_SLICE = "the vit_final slice (ROADMAP A6)"
-MOE_SLICE = "the MoE slice (ROADMAP A6: modules/moe.py)"
+MOE_SLICE = "the MoE slice (ROADMAP A7: modules/moe.py)"
 
 
 SINCOS_TEMPERATURE = 10_000.0
-CHANNELS = 6  # the AddInverse image's channels
+CHANNELS = 6  # the AddInverse image's channels, the default input
 
 
 def pos_emb_sincos_2d(h: int, w: int, dim: int, dtype=torch.float32,
@@ -171,48 +178,66 @@ def _pair(v) -> Tuple[int, int]:
 
 
 class SimpleViT(nn.Module):
-    """``linear_layer``: the B-cos (or plain) linear factory; the JAX
-    default, ``BcosLinear`` with unit-norm weights, comes with the vit_final
-    slice, so the port asks for one. The image has 6 channels (AddInverse)."""
+    """``linear_layer``: the B-cos (or plain) linear factory, by default
+    ``BcosLinear`` (unit-norm weights), as in JAX. ``channels``: the
+    image's channels (6 for AddInverse, 3 for the standard baselines).
+    ``conv_stem``: the stem's widths, with ``conv2d_layer`` and
+    ``norm2d_layer`` its factories; the patch embedding then reads
+    ``conv_stem[-1]`` channels. ``with_logit_layer``: a logit layer after
+    the head, of bias ``logit_bias`` (default -log(num_classes - 1))."""
 
     def __init__(self, image_size: Union[int, Tuple[int, int]] = 224,
                  patch_size: Union[int, Tuple[int, int]] = 16, num_classes: int = 1000,
                  dim: int = 384, depth: int = 12, heads: int = 6, mlp_dim: int = 1536, *,
-                 linear_layer: Optional[Callable] = None,
+                 linear_layer: Callable = BcosLinear,
                  norm_layer: Callable = DetachableLayerNorm, act_layer: Callable = Identity,
-                 conv_stem: Optional[Sequence[int]] = None, gap_reorder: bool = False,
-                 moe_experts: int = 0, device=None,
+                 norm2d_layer: Optional[Callable] = None,
+                 conv2d_layer: Optional[Callable] = None,
+                 conv_stem: Optional[Sequence[int]] = None, channels: int = CHANNELS,
+                 gap_reorder: bool = False, with_logit_layer: bool = False,
+                 logit_bias: Optional[float] = None, moe_experts: int = 0, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if linear_layer is None:
-            raise NotImplementedError(f"BcosLinear (unit-norm weights) is not ported yet; it "
-                                      f"comes with {VIT_FINAL_SLICE}: pass linear_layer")
-        if conv_stem:
-            raise NotImplementedError(f"the ViT-C conv stem is not ported yet; it comes with "
-                                      f"{VIT_FINAL_SLICE}")
         if moe_experts > 0:
             raise NotImplementedError(f"the switch-MoE feed-forward (moe_experts > 0) is not "
                                       f"ported yet; it comes with {MOE_SLICE}")
         self.image_size, self.patch_size = _pair(image_size), _pair(patch_size)
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
         self.heads, self.mlp_dim = heads, mlp_dim
-        self.gap_reorder = gap_reorder
+        self.conv_stem, self.channels = tuple(conv_stem or ()), channels
+        self.gap_reorder, self.with_logit_layer = gap_reorder, with_logit_layer
         kw = dict(device=device, generator=generator)
+        in_ch = channels
+        for i, out_ch in enumerate(self.conv_stem):
+            setattr(self, f"conv_stem_{3 * i}", conv2d_layer(
+                in_ch, out_ch, 3, stride=2 if out_ch > in_ch else 1, padding=1, **kw))
+            setattr(self, f"conv_stem_{3 * i + 1}", norm2d_layer(out_ch, device=device))
+            setattr(self, f"conv_stem_{3 * i + 2}", act_layer())
+            in_ch = out_ch
         p1, p2 = self.patch_size
-        self.to_patch_embedding_linear = linear_layer(p1 * p2 * CHANNELS, dim, **kw)
+        self.to_patch_embedding_linear = linear_layer(p1 * p2 * in_ch, dim, **kw)
         for i in range(depth):
             setattr(self, f"encoder_{i}", Encoder(
                 dim, heads, dim // heads, mlp_dim, linear_layer=linear_layer,
                 norm_layer=norm_layer, act_layer=act_layer, **kw))
         self.linear_head_norm = norm_layer(dim, device=device)
         self.linear_head_linear = linear_layer(dim, num_classes, **kw)
+        if with_logit_layer:
+            self.logit_layer = LogitLayer(
+                None, -math.log(num_classes - 1) if logit_bias is None else logit_bias)
 
     def encoders(self):
         """The encoders in forward order."""
         return [getattr(self, f"encoder_{i}") for i in range(self.depth)]
 
+    def stem(self):
+        """The stem's modules in forward order: conv, norm, act per width."""
+        return [getattr(self, f"conv_stem_{i}") for i in range(3 * len(self.conv_stem))]
+
     def forward(self, img, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
+        for layer in self.stem():
+            img = layer(img, **f)
         x = self.to_patch_embedding_linear(_patchify(img, *self.patch_size), **f)
         b, h, w, d = x.shape
         x = x.reshape(b, h * w, d) + pos_emb_sincos_2d(h, w, d, dtype=x.dtype, device=x.device)
@@ -222,7 +247,10 @@ class SimpleViT(nn.Module):
         def head(t):
             return self.linear_head_linear(self.linear_head_norm(t, **f), **f)
 
-        return head(x).mean(dim=1) if self.gap_reorder else head(x.mean(dim=1))
+        x = head(x).mean(dim=1) if self.gap_reorder else head(x.mean(dim=1))
+        if self.with_logit_layer:
+            x = self.logit_layer(x, **f)
+        return x
 
 
 def _entry(**defaults):

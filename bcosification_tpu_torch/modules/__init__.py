@@ -4,11 +4,14 @@ from bcosification_tpu_torch.modules.bcos_layers import (
     BcosConv2d,
     BcosifyConv2d,
     BcosifyLinear,
+    BcosLinear,
     LogitLayer,
+    PlainConv2d,
     PlainLinear,
 )
 from bcosification_tpu_torch.modules.norms import (
     BatchNormUncentered2d,
+    DetachableGNLayerNorm2d,
     DetachableLayerNorm,
     NoBias,
 )
@@ -18,11 +21,14 @@ __all__ = [
     "BcosConv2d",
     "BcosifyConv2d",
     "BcosifyLinear",
+    "BcosLinear",
     "DetachableGELU",
+    "DetachableGNLayerNorm2d",
     "DetachableLayerNorm",
     "Identity",
     "LogitLayer",
     "NoBias",
+    "PlainConv2d",
     "PlainLinear",
     "ReLU",
 ]

@@ -14,11 +14,14 @@ no conv bias, any stride) goes to the hand-written kernel
 conv and applies the affine, the residual and the ReLU after it.
 
 Linear weights are (in, out), the JAX layout (x @ w), so the JAX variables
-copy as they are. ``BcosifyLinear`` is the conversion-time B-cos linear
-(a bias-free b=2 one runs on the B-cos matmul kernel, ``ops.bcos_linear``);
-``PlainLinear`` is nn.Linear in that layout. Both take ``weight_only``:
-the weight alone, no bias and no dynamic scale (the pooled CLIP attention
-head applies its projections so).
+copy as they are. ``BcosLinear`` is the B-cos linear with unit-norm weight
+columns, ``BcosifyLinear`` the conversion-time one on raw weights (a
+bias-free b=2 one of either runs on the B-cos matmul kernel,
+``ops.bcos_linear``; BcosLinear hands it the normalised weight);
+``PlainLinear`` is nn.Linear in that layout. ``PlainConv2d`` is a plain
+biased conv (the standard baselines' ViT-C stem). BcosifyLinear and
+PlainLinear take ``weight_only``: the weight alone, no bias and no dynamic
+scale (the pooled CLIP attention head applies its projections so).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from torch import nn
 from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import bcos_conv1x1_bn_act
 
-__all__ = ["BcosConv2d", "BcosifyConv2d", "BcosifyLinear", "LogitLayer", "PlainLinear"]
+__all__ = ["BcosConv2d", "BcosifyConv2d", "BcosLinear", "BcosifyLinear", "LogitLayer",
+           "PlainConv2d", "PlainLinear"]
 
 
 class _ConvBase(nn.Module):
@@ -134,6 +138,19 @@ class BcosConv2d(_ConvBase):
         )
 
 
+class PlainConv2d(_ConvBase):
+    """Plain biased conv of an NHWC input (the JAX package's
+    ``NormedConv2d(use_weight_norm=False, use_bias=True)``); the bias cast to
+    the output's dtype, as the JAX package adds it."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=1, **kwargs):
+        super().__init__(in_channels, features, kernel_size, use_bias=True, **kwargs)
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        out = ops.conv2d(x, self.weight, self.stride, self.padding, self.dilation, self.groups)
+        return out + self.bias.to(out.dtype)
+
+
 class BcosifyConv2d(BcosConv2d):
     """Conversion-time B-cos conv: the raw (pretrained) weights are not
     unit-normalised. Only a fixed b is ported; learnable b comes with
@@ -176,21 +193,36 @@ class PlainLinear(_LinearBase):
         return out
 
 
-class BcosifyLinear(_LinearBase):
-    """Conversion-time B-cos linear: raw (pretrained) weights, fixed b.
-    ``weight_only`` applies the weight plainly: no bias, no dynamic scale."""
+class BcosLinear(_LinearBase):
+    """The B-cos linear: unit-norm weight columns (``ops.normed_linear_weight``),
+    the output scaled by |cos(x, w_hat)|^(b-1). A bias-free b=2 one runs on
+    K3, which gets the normalised weight; autograd carries the weight's
+    gradient back through the normalisation."""
+
+    normalize_weights = True
 
     def __init__(self, in_features: int, features: int, *, b: float = 2.0, max_out: int = 1,
                  use_bias: bool = False, **kwargs):
         super().__init__(in_features, features * max_out, use_bias, **kwargs)
         self.b, self.max_out = b, max_out
 
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        return ops.bcos_linear(x, self.weight, b=self.b, max_out=self.max_out,
+                               normalize_weights=self.normalize_weights, bias=self.bias,
+                               explain=explain)
+
+
+class BcosifyLinear(BcosLinear):
+    """Conversion-time B-cos linear: raw (pretrained) weights, fixed b.
+    ``weight_only`` applies the weight plainly: no bias, no dynamic scale."""
+
+    normalize_weights = False
+
     def forward(self, x, *, train: bool = False, explain: bool = False,
                 weight_only: bool = False):
         if weight_only:
             return x @ self.weight.to(x.dtype)
-        return ops.bcos_linear(x, self.weight, b=self.b, max_out=self.max_out,
-                               normalize_weights=False, bias=self.bias, explain=explain)
+        return super().forward(x, train=train, explain=explain)
 
 
 class LogitLayer(nn.Module):

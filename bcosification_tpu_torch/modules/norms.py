@@ -1,5 +1,6 @@
 """Norms of the port (counterpart of ``bcosification_tpu/modules/norms.py``):
-the uncentered BatchNorm of the CNNs and the transformer's LayerNorm.
+the uncentered BatchNorm of the CNNs, the transformer's LayerNorm and the
+group norms of the ViT-C conv stem.
 
 ``BatchNormUncentered2d`` divides by a std and never subtracts a mean.
 Channels are the last axis (NHWC).
@@ -13,8 +14,13 @@ Channels are the last axis (NHWC).
   in place. With ``explain`` the std is detached as well.
 
 ``DetachableLayerNorm`` normalises the last axis and detaches its variance
-under ``explain``. ``NoBias`` and ``Unaffine`` preset a norm's flags and
-name the factory as the JAX package's do (the configs show the name).
+under ``explain``. ``DetachableGroupNorm2d`` normalises each group of
+channels of an NHWC image over (H, W, the group's channels), centered, in
+f32, and detaches only its variance under ``explain``;
+``DetachableGNLayerNorm2d`` is its one-group case (the ViT-C stem's norm),
+``DetachableGNInstanceNorm2d`` its one-channel-per-group case. ``NoBias``
+and ``Unaffine`` preset a norm's flags and name the factory as the JAX
+package's do (the configs show the name).
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ from torch import nn
 
 __all__ = [
     "BatchNormUncentered2d",
+    "DetachableGNInstanceNorm2d",
     "DetachableGNLayerNorm2d",
+    "DetachableGroupNorm2d",
     "DetachableLayerNorm",
     "NoBias",
     "PlainLayerNorm",
@@ -125,11 +133,46 @@ def PlainLayerNorm(features: int, **kwargs):
     return DetachableLayerNorm(features, detachable=False, **kwargs)
 
 
+class DetachableGroupNorm2d(nn.Module):
+    """Centered group norm of an NHWC image: the statistics of each group
+    of channels over (H, W, the group's channels), in f32; the normalised
+    image is cast to x's dtype before the (c,) f32 affine, and the result
+    cast back, as in the JAX package. With ``explain`` only the variance is
+    detached (the mean is linear in x)."""
+
+    def __init__(self, features: int, num_groups: int = 32, eps: float = 1e-5,
+                 use_weight: bool = True, use_bias: bool = True, *, device=None):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(f"{features} channels do not split into {num_groups} groups")
+        self.features, self.num_groups, self.eps = features, num_groups, eps
+        self.weight = nn.Parameter(torch.ones(features, device=device)) if use_weight else None
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        n, h, w, c = x.shape
+        g = self.num_groups
+        xg = x.reshape(n, h, w, g, c // g).float()
+        mean = xg.mean(dim=(1, 2, 4), keepdim=True)
+        var = (xg - mean).square().mean(dim=(1, 2, 4), keepdim=True)
+        if explain:
+            var = var.detach()
+        out = ((xg - mean) / torch.sqrt(var + self.eps)).reshape(n, h, w, c).to(x.dtype)
+        if self.weight is not None:
+            out = out * self.weight
+        if self.bias is not None:
+            out = out + self.bias
+        return out.to(x.dtype)
+
+
+def DetachableGNInstanceNorm2d(features: int, **kwargs):
+    """The group norm with one channel per group."""
+    return DetachableGroupNorm2d(features, num_groups=features, **kwargs)
+
+
 def DetachableGNLayerNorm2d(features: int, **kwargs):
-    """The conv stem's group norm of the ViT-C configs; it comes with the
-    vit_final slice (ROADMAP A6), and so do those configs' models."""
-    raise NotImplementedError("DetachableGNLayerNorm2d (the ViT-C conv stem's norm) is not "
-                              "ported yet; it comes with the vit_final slice")
+    """The group norm with one group: the ViT-C conv stem's norm."""
+    return DetachableGroupNorm2d(features, num_groups=1, **kwargs)
 
 
 def _preset(make_layer, suffix: str, **flags):

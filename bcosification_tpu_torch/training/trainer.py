@@ -49,10 +49,6 @@ __all__ = ["Trainer", "run_training"]
 _SLICE_6 = "port slice 6 (the rest of training)"
 _SLICE_8 = "port slice 8 (distribution)"
 _SLICE_6D = "port slice 6d (loggers and the explanation logger)"
-# base networks whose training is not ported: (base_network, the slice that brings it)
-UNPORTED_BASE_NETWORKS = {
-    "vit_bcosification": "the ViT training slice (ROADMAP A6: the vit_bcosification recipe)",
-}
 # flags of the train command whose features are not ported: (flag, the
 # argparse dest, its value when off, the slice that brings it)
 UNPORTED_FLAGS = (
@@ -66,15 +62,12 @@ UNPORTED_FLAGS = (
 )
 
 
-def _check_ported(config: Dict[str, Any], base_network: Optional[str] = None) -> None:
-    """Raise NotImplementedError, naming the later slice, for the base
-    networks and the options of the JAX trainer that the port does not have
-    yet."""
+def _check_ported(config: Dict[str, Any]) -> None:
+    """Raise NotImplementedError, naming the later slice, for the options of
+    the JAX trainer that the port does not have yet."""
     tcfg = config.get("trainer", {}) or {}
     bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
     unported = [
-        (base_network in UNPORTED_BASE_NETWORKS, f"training a {base_network} network",
-         UNPORTED_BASE_NETWORKS.get(base_network)),
         (int(tcfg.get("pipeline_parallel", 1) or 1) > 1, "trainer.pipeline_parallel", _SLICE_8),
         (int(tcfg.get("model_parallel", 1) or 1) > 1, "trainer.model_parallel", _SLICE_8),
         (tcfg.get("fsdp", False), "trainer.fsdp", _SLICE_8),
@@ -129,7 +122,7 @@ class Trainer:
     def fit(self, model, datamodule, max_epochs: Optional[int] = None,
             fast_dev_run: bool = False, resume: bool = True) -> steps_lib.TrainState:
         config = self.config
-        _check_ported(config, getattr(self.experiment, "base_network", None))
+        _check_ported(config)
         if config.get("clip_kd", False):
             return self.fit_kd(model, datamodule, max_epochs=max_epochs,
                                fast_dev_run=fast_dev_run, resume=resume)

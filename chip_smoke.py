@@ -149,14 +149,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    from bytes and held to the eager calls, the export seconds; ``evaluate
    --base_network vit_bcosification --reload fresh`` over phase 9's tree,
    K3 38 per eval batch; then each kernel's time at every shape of one
-   explanation beside its bound, plain version and torch.matmul.
+   explanation beside its bound, plain version and torch.matmul;
+14. ViT training and the from-scratch ViTs of vit_final (random init from
+   SEED): K3 against its plain version at every distinct shape of a
+   ViT-B/16 train step at batch 64 and of the ViT-C B forward at batch 128
+   in both dtypes (phase 3's bounds, eps_outside); (a) ViT-B/16 of phase 13
+   under its own recipe (Adam, AGC, UniformOffLabels BCE, bf16 amp) at
+   batch 64: K3 38 launches per step (K1, K2 none), the step's ms, img/s,
+   host issue ms, peak memory, card busy time and top kernels over a window
+   of 10 steps, finite losses; one fp32 step on 2 images on the GPU against
+   the CPU through Adam's first moment (within ten times the CPU's spread
+   under 1e-7 relative input noise; the loss 1e-5) and the updated
+   parameters (within 2e-3 of the step-0 lr beyond one fp32 spacing); (b) the ViT-C B
+   (bcos_vitc_b_patch1_14: a stem of six 3x3 B-cos convs with the group
+   LayerNorm, 11 encoders of BcosLinear, the logit layer inside): fp32 on
+   2 images, GPU against CPU (pre-logits and logits 1e-4, W of the module
+   path within ten times the CPU's spread, argmax identical); forward-only
+   and fwd+explain (module path) at batch 128, bf16, K3 35 per forward, and
+   its recipe's train step at batch 128; (c) the B-cos ViT-B of vit_final
+   (bcos_simple_vit_b_patch16_224): phase 13's parity of the fast pass and
+   the module path, then the exported forward and explanation at depth 2,
+   loaded from bytes and held to the eager calls; (d) ``train --base_network
+   vit_final --fast_dev_run --amp`` of bcos_vitc_ti_patch1_14 and of the
+   standard vitc_ti_patch1_14 (3 channels, no K3) over phase 9's tree, each
+   followed by ``evaluate --reload last`` equal to the logged accuracies;
+   (e) K3's time at every shape of (a) and (b) beside its bound, plain
+   version and torch.matmul.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No bf16 operand
-of a ResNet-50, DenseNet-121, CLIP-RN50 or ViT-B/16 path needs the TMA
-padding (``tma_operands.padded`` stays 0).
+of a ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16 or ViT-C path needs the
+TMA padding (``tma_operands.padded`` stays 0).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
@@ -203,9 +228,10 @@ from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_vit
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
 from bcosification_tpu_torch.models import resnet
+from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
 from bcosification_tpu_torch.models.densenet import BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
-from bcosification_tpu_torch.modules import BcosConv2d, ReLU
+from bcosification_tpu_torch.modules import BcosConv2d, BcosLinear, ReLU
 from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
@@ -2427,11 +2453,25 @@ VIT_CHECK_SHAPES = [
 ]
 
 
+def vit_backbone(net):
+    """The SimpleViT of a BcosifyNetwork, or ``net`` itself (vit_final)."""
+    return net.model if isinstance(net, BcosifyNetwork) else net
+
+
+def vit_logit_bias(net):
+    """The bias of the logit layer (the wrapper's or the SimpleViT's)."""
+    return net.logit_bias if isinstance(net, BcosifyNetwork) else net.logit_layer.logit_bias
+
+
 def vit_launches(net, batch, size, explain):
     """[(kernel, M, K, N, relu, eps_outside)] of every launch of one forward
-    or one fwd+explain of a B-cosified SimpleViT: K3 (and K2) with the
-    linear norm at each bias-free B-cos linear, in forward order."""
-    m = net.model
+    (also one train step) or one fwd+explain of a B-cos SimpleViT: K3 (and
+    K2) with the linear norm at each bias-free B-cos linear, in forward
+    order (a standard ViT's plain linears launch none); the tokens after the
+    conv stem (3x3, padding 1) of a ViT-C."""
+    m = vit_backbone(net)
+    for conv in m.stem()[::3]:
+        size = (size + 2 * conv.padding[0] - 3) // conv.stride[0] + 1
     rows = batch * (size // m.patch_size[0]) * (size // m.patch_size[1])
     linears = [(m.to_patch_embedding_linear, rows)]
     for enc in m.encoders():
@@ -2439,7 +2479,7 @@ def vit_launches(net, batch, size, explain):
     linears.append((m.linear_head_linear, rows if m.gap_reorder else batch))
     out = []
     for lin, r in linears:
-        if lin.bias is None:
+        if isinstance(lin, BcosLinear) and lin.bias is None:
             k, n = lin.weight.shape
             out.append(("bcos_matmul_fwd", r, k, n, False, True))
             if explain:
@@ -2494,7 +2534,7 @@ def vit_parity(net, x2, tag):
     ln, _, wn = fast_vit.fast_dynamic_linear_weights(cpu, x2.cpu() * (1 + 1e-7 * noise),
                                                      device="cpu")
     cpu_s = time.perf_counter() - t0
-    bias = net.logit_bias
+    bias = vit_logit_bias(net)
     spread = rel(wn, wc)
 
     def pre_rel(a, b):
@@ -2517,44 +2557,48 @@ def vit_parity(net, x2, tag):
     same_sel = bool((sg.cpu() == sc).all() and (sm == sg).all() and (smc == sc).all())
     say(f"vit {tag} parity argmax identical: {same_sel}")
     if not same_sel or any(not val <= bound for val, bound in checks.values()):
-        raise AssertionError(f"ViT-B/16 {tag} parity failed")
+        raise AssertionError(f"ViT {tag} parity failed")
     if not all(torch.isfinite(t).all() for t in (lg, wg)) or wg.shape != x2.shape:
-        raise AssertionError(f"ViT-B/16 {tag} outputs are not finite or mis-shaped")
+        raise AssertionError(f"ViT {tag} outputs are not finite or mis-shaped")
 
 
-def vit_throughput(net, x):
-    """Forward-only, fast-pass and module-path fwd+explain images/s at batch
-    128, bf16, each with its launch counts, host issue time and peak memory."""
+def vit_throughput(net, x, tag="vit"):
+    """Forward-only, fast-pass (where ``fast_vit`` supports the net) and
+    module-path fwd+explain images/s at batch 128, bf16, each with its launch
+    counts, host issue time, peak memory, card busy time and top kernels."""
     def forward():
         with torch.no_grad():
             return net(x)
 
-    calls = (("forward-only", forward, False),
+    calls = [("forward-only", forward, False),
              ("fwd+explain (fast pass)",
               lambda: fast_vit.fast_dynamic_linear_weights(net, x), True),
              ("fwd+explain (module path)",
-              lambda: dynamic_linear_weights(lambda t: net(t, explain=True), x), True))
+              lambda: dynamic_linear_weights(lambda t: net(t, explain=True), x), True)]
+    if not fast_vit.supports(net):
+        del calls[1]
     out = {}
     for what, fn, explain_ in calls:
         fn()
         result, counts = counted(fn)
-        check_counts(f"vit {what}", counts, vit_counts(net, explain_))
+        check_counts(f"{tag} {what}", counts, vit_counts(net, explain_))
         outs = result if isinstance(result, tuple) else (result,)
         if not all(torch.isfinite(v).all() for v in outs if v.is_floating_point()):
-            raise AssertionError(f"ViT-B/16 {what}: outputs are not finite")
+            raise AssertionError(f"{tag} {what}: outputs are not finite")
         del result, outs
         ms, n_calls, host, peak_gb = windowed(fn)
         busy, top = device_profile(fn, 3)
-        say(f"vit throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per batch of "
+        say(f"{tag} throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per batch of "
             f"{BATCH}, one window of {n_calls} calls; the host issues one call in {host:.2f} "
             f"ms; peak memory of one call {peak_gb:.2f} GB; launches {counts}) [{CARD}]")
-        say(f"vit {what}: card busy {busy or 0:.2f} ms per call (torch.profiler); top kernels: "
-            + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
-        out[what] = {"img_s": BATCH / ms * 1e3, "ms": ms, "host_ms": host, "peak_gb": peak_gb}
+        say(f"{tag} {what}: card busy {busy or 0:.2f} ms per call (torch.profiler); top "
+            "kernels: " + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
+        out[what] = {"img_s": BATCH / ms * 1e3, "ms": ms, "host_ms": host, "peak_gb": peak_gb,
+                     "busy_ms": busy}
     return out
 
 
-def vit_serving(net, x):
+def vit_serving(net, x, tag="vit"):
     """The forward and the fwd+explain programs exported, saved to bytes and
     loaded back: at batch 128, bf16, equal to the eager calls (1e-6
     relative, the same launch counts); the loaded fwd+explain's images/s and
@@ -2569,16 +2613,16 @@ def vit_serving(net, x):
     t0 = time.perf_counter()
     fwd, program = serving.load_serialized(blob_fwd), serving.load_serialized(blob)
     seconds["load both"] = time.perf_counter() - t0
-    say("vit serving: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+    say(f"{tag} serving: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
         + f" ({len(blob_fwd) / 1e6:.1f} MB and {len(blob) / 1e6:.1f} MB)")
     (logits, sel, w), counts = counted(lambda: program.call(x))
-    check_counts("vit loaded fwd+explain", counts, vit_counts(net, True))
+    check_counts(f"{tag} loaded fwd+explain", counts, vit_counts(net, True))
     logits_f, counts_f = counted(lambda: fwd.call(x))
-    check_counts("vit loaded forward", counts_f, vit_counts(net, False))
+    check_counts(f"{tag} loaded forward", counts_f, vit_counts(net, False))
     le, se, we = fast_vit.fast_dynamic_linear_weights(net, x)
     with torch.no_grad():
         lf = net(x)
-    bias = net.logit_bias
+    bias = vit_logit_bias(net)
     checks = {
         "W loaded vs eager (rel)": (rel(w.float(), we.float()), 1e-6),
         "pre-logit loaded vs eager fwd+explain (rel)": (rel(logits.double() - bias,
@@ -2587,14 +2631,14 @@ def vit_serving(net, x):
                                                         lf.double() - bias), 1e-6),
     }
     for key, (val, bound) in checks.items():
-        say(f"vit serving {key}: {val:.3e} (bound {bound:.0e})")
+        say(f"{tag} serving {key}: {val:.3e} (bound {bound:.0e})")
     if (not torch.equal(sel, se) or not torch.equal(logits_f.argmax(1), lf.argmax(1))
             or any(not val <= bound for val, bound in checks.values())):
-        raise AssertionError("the loaded ViT-B/16 programs disagree with the eager calls")
+        raise AssertionError(f"the loaded {tag} programs disagree with the eager calls")
     del logits, sel, w, le, se, we
     ms, calls, host, _ = windowed(lambda: program.call(x))
-    say(f"vit serving loaded fwd+explain: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one window "
-        f"of {calls} calls; host {host:.2f} ms) [{CARD}]")
+    say(f"{tag} serving loaded fwd+explain: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
+        f"window of {calls} calls; host {host:.2f} ms) [{CARD}]")
     return {"export_seconds": seconds, "loaded_img_s": BATCH / ms * 1e3}
 
 
@@ -2680,6 +2724,303 @@ def phase_vit(x2, stream_rate, worst, exp_root):
     return keys
 
 
+# --------------------------------------------------------------------------
+# 14: ViT training, and the from-scratch ViTs of vit_final
+# --------------------------------------------------------------------------
+VIT_FINAL_EXPERIMENTS = {"vitc": ("ImageNet", "vit_final", "bcos_vitc_b_patch1_14"),
+                         "bcos vit": ("ImageNet", "vit_final", "bcos_simple_vit_b_patch16_224")}
+# the entry points' configs: a B-cos ViT-C and a standard (3-channel) one
+VIT_FINAL_CLI = ("bcos_vitc_ti_patch1_14", "vitc_ti_patch1_14")
+VIT_TRAIN_BATCH = 64  # vit_bcosification's batch for the big ViT-B
+VIT_TRAIN_WINDOW = 10
+# K3 launches per forward and per train step (3 per encoder, the patch
+# embedding, the head): ViT-B/16, 12 encoders; ViT-C B, 11
+VIT_TRAIN_K3, VITC_K3 = 38, 35
+VIT_STEP_LOSS_BOUND = 1e-5
+VIT_EXPORT_DEPTH = 2  # (c)'s export round trip runs at a cut depth (export time)
+
+
+def recipe_step(net, config, amp, device=None):
+    """(a train state around a copy of ``net`` on ``device``, default its
+    own, the config's train step: its criterion, optimizer, schedule, AGC
+    or clip)."""
+    opt = config["optimizer"]
+    state = steps_lib.create_train_state(net, opt.create, device=device)
+    step = steps_lib.make_train_step(
+        config["criterion"], config["lr_scheduler"].create(opt.lr, steps_per_epoch=1000),
+        use_agc=config.get("use_agc", False),
+        gradient_clip_val=(config.get("trainer") or {}).get("gradient_clip_val"), amp=amp)
+    return state, step
+
+
+def _one_step(net, config, batch, device):
+    """(loss, {name: Adam's first moment}, {name: updated parameter}), both
+    in f64 on the CPU, after one fp32 step of the config's recipe on a copy
+    of ``net`` on ``device``."""
+    state, step = recipe_step(net, config, amp=False, device=device)
+    state, metrics = step(state, {k: v.to(device) for k, v in batch.items()})
+    named = list(state.model.named_parameters())
+    return (float(metrics["loss"]),
+            {n: state.optimizer.state[p]["exp_avg"].double().cpu() for n, p in named},
+            {n: p.detach().double().cpu() for n, p in named})
+
+
+def vit_step_parity(net, config, batch):
+    """One fp32 step of the config's recipe on the GPU against the same step
+    on a CPU copy: {check: (value, bound)} for the loss (1e-5 relative);
+    Adam's first moment (0.1 times the clipped gradient), its worst leaf's
+    distance over the largest leaf's norm, within ten times the CPU's own
+    spread under 1e-7 relative input noise; and the updated parameters. Adam's
+    first update is the step-0 lr times the sign of the gradient: where the
+    first moment exceeds 1e-3 of its leaf's largest, the GPU's parameter
+    change lies within 2e-3 lr of the CPU's, beyond one fp32 spacing of the
+    parameter (the worst element's excess over that spacing, in units of lr)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loss_g, mu_g, p_g = _one_step(net, config, batch, "cuda")
+    cpu = copy.deepcopy(net).to("cpu")
+    loss_c, mu_c, p_c = _one_step(cpu, config, batch, "cpu")
+    noise = torch.randn(batch["image"].shape, generator=torch.Generator().manual_seed(SEED + 30))
+    noisy = {"image": batch["image"].cpu() * (1 + 1e-7 * noise), "label": batch["label"]}
+    _, mu_n, _ = _one_step(cpu, config, noisy, "cpu")
+    top = max(float(m.norm()) for m in mu_c.values())
+
+    def worst(mu):
+        return max(float((mu[n] - m).norm()) for n, m in mu_c.items()) / top
+
+    opt = config["optimizer"]
+    lr = config["lr_scheduler"].create(opt.lr, steps_per_epoch=1000)(0)
+    step_err = 0.0
+    for n, m in mu_c.items():  # both started from net's parameters: compare p_g - p_c
+        signal = m.abs() > 1e-3 * m.abs().max()
+        p32 = p_c[n].abs().float()
+        spacing = (torch.nextafter(p32, torch.full_like(p32, math.inf)) - p32).double()
+        excess = ((p_g[n] - p_c[n]).abs() - spacing)[signal]
+        if excess.numel():
+            step_err = max(step_err, float(excess.max()) / lr)
+    return {"loss": (abs(loss_g - loss_c) / abs(loss_c), VIT_STEP_LOSS_BOUND),
+            "Adam first moment": (worst(mu_g), 10 * worst(mu_n)),
+            "updated parameters": (step_err, 2e-3)}
+
+
+def vit_train_window(tag, net, config, batch, want_k3):
+    """One recipe train step's launches (K3 ``want_k3``, K1 and K2 none),
+    then its ms, img/s, host issue ms and peak memory over VIT_TRAIN_WINDOW
+    steps in a row after a warm-up step (bf16 amp), the card's busy time and
+    top kernels; the losses finite."""
+    state, step = recipe_step(net, config, amp=True)
+    losses = [step(state, batch)[1]["loss"]]
+    (_, metrics), per_step = counted(lambda: step(state, batch))
+    losses.append(metrics["loss"])
+    check_counts(f"{tag} train step", per_step, {**dict.fromkeys(MODEL_KERNELS, 0),
+                                                "bcos_matmul_fwd": want_k3, "stream_add": 0})
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(VIT_TRAIN_WINDOW):
+        t0 = time.perf_counter()
+        losses.append(step(state, batch)[1]["loss"])
+        host.append(1e3 * (time.perf_counter() - t0))
+    end.record()
+    end.synchronize()
+    n = batch["image"].shape[0]
+    ms = start.elapsed_time(end) / VIT_TRAIN_WINDOW
+    out = {"ms": ms, "img_s": n / ms * 1e3, "host_ms": statistics.median(host),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": per_step}
+    busy, top = device_profile(lambda: step(state, batch), 3)
+    out["busy_ms"] = busy
+    losses = [float(v) for v in losses]
+    say(f"{tag} train step: {out['img_s']:.1f} img/s ({ms:.2f} ms per step of {n}, bf16 amp, "
+        f"one window of {VIT_TRAIN_WINDOW} steps; the host issues a step in "
+        f"{out['host_ms']:.2f} ms (median; {min(host):.2f}-{max(host):.2f}); peak memory "
+        f"{out['peak_gb']:.1f} GB; card busy {busy or 0:.2f} ms per step (torch.profiler); "
+        f"launches {per_step}) [{CARD}]")
+    say(f"{tag} train step top kernels: "
+        + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
+    say(f"{tag} train losses: " + ", ".join(f"{v:.6f}" for v in losses))
+    if not all(math.isfinite(v) for v in losses) or not all(
+            math.isfinite(float(p.detach().float().sum())) for p in state.model.parameters()):
+        raise AssertionError(f"{tag}: the losses or parameters are not finite")
+    return out
+
+
+def check_vit_train_kernels(launches, worst):
+    """K3 against its plain version at every distinct shape of ``launches``
+    (the ViT-B/16 train step's and the ViT-C B forward's), both dtypes,
+    phase 3's bounds, with the linear norm (eps_outside)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for name, m, k, n, _, _ in sorted(set(launches)):
+            x, wt, *_ = operands(m, k, n, dtype, gen)
+            got = k3.bcos_matmul_fwd(x, wt, **kw)
+            want = k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)
+            torch.cuda.synchronize()
+            _check(worst, name, " eps_outside", f"vit M={m} K={k} N={n}", dtype, got, want)
+            del x, wt, got, want
+
+
+def _images(n, seed, channels=6):
+    """n AddInverse images (or normalised RGB for 3 channels) of SIZE,
+    float32 on the card, made from ``seed``, and labels."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((n, SIZE, SIZE, 3), device="cuda", generator=gen)
+    x = torch.cat([x, 1.0 - x], dim=-1) if channels == 6 else (x - 0.45) / 0.225
+    return {"image": x, "label": torch.randint(0, 1000, (n,), device="cuda", generator=gen)}
+
+
+def vitc_parity(net, x2):
+    """fp32, 2 images: the logits and W (the module path: autograd; the
+    ViT-C stem has no hand-written pass) on the GPU against the CPU: the
+    pre-logits within 1e-4, W within ten times the CPU's own spread under
+    1e-7 relative input noise, the argmax identical."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lg, sg, wg = dynamic_linear_weights(lambda t: net(t, explain=True), x2)
+    cpu = copy.deepcopy(net).to("cpu")
+    lc, sc, wc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x2.cpu(), device="cpu")
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 32))
+    _, _, wn = dynamic_linear_weights(lambda t: cpu(t, explain=True),
+                                      x2.cpu() * (1 + 1e-7 * noise), device="cpu")
+    bias = vit_logit_bias(net)
+    pre_g, pre_c = lg.double().cpu() - bias, lc.double() - bias
+    checks = {"pre-logit gpu vs cpu (max rel)": (
+                  float((pre_g - pre_c).abs().max() / pre_c.abs().max()), 1e-4),
+              "logit gpu vs cpu (max rel)": (
+                  float((lg.double().cpu() - lc).abs().max() / lc.abs().max()), 1e-4),
+              "W gpu vs cpu": (rel(wg, wc), 10 * rel(wn, wc))}
+    for key, (val, bound) in checks.items():
+        say(f"vitc parity {key}: {val:.3e} (bound {bound:.3e})")
+    same = bool((sg.cpu() == sc).all())
+    say(f"vitc parity argmax identical: {same}; pre-logit RMS "
+        f"{float(pre_c.pow(2).mean().sqrt()):.4g}")
+    if not same or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("ViT-C B parity failed")
+    if not torch.isfinite(wg).all() or wg.shape != x2.shape:
+        raise AssertionError("ViT-C B outputs are not finite or mis-shaped")
+
+
+def vit_final_cli(exp_root):
+    """``train --base_network vit_final --fast_dev_run --amp`` of each of
+    VIT_FINAL_CLI over phase 9's JPEG tree, then ``evaluate --reload last``
+    equal to the logged accuracies, with the launches (K3 at every
+    bias-free B-cos linear of the B-cos ViT-C, none in the standard one)."""
+    out = {}
+    for name in VIT_FINAL_CLI:
+        experiment = ("ImageNet", "vit_final", name)
+        exp = Experiment(*experiment)
+        per_forward = vit_counts(exp.get_model(), False)
+        val_batches = -(-ENTRY_VAL // exp.config["data"]["batch_size"])
+        base = ["--base_network", "vit_final", "--experiment_name", name, "--base_directory",
+                str(exp_root)]
+        t0 = time.perf_counter()
+        _, counts = counted(lambda: train_cli.main(["--dataset", "ImageNet", *base, "--amp",
+                                                   "--fast_dev_run"]))
+        train_s = time.perf_counter() - t0
+        check_counts(f"{name} train --fast_dev_run", counts,
+                     scaled_counts(per_forward, 1 + val_batches))
+        logged = exp.load_metrics()
+        want = (logged["val_acc1"][-1][1], logged["val_acc5"][-1][1])
+        t0 = time.perf_counter()
+        (top1, top5, (_, _, n)), counts_e = counted(
+            lambda: evaluate_cli.main([*base, "--reload", "last"]))
+        eval_s = time.perf_counter() - t0
+        check_counts(f"{name} evaluate", counts_e, scaled_counts(per_forward, val_batches))
+        say(f"vit_final {name}: train --fast_dev_run {train_s:.1f} s (train loss "
+            f"{logged['train_loss'][-1][1]:.6f}, launches {counts}); evaluate --reload last "
+            f"{eval_s:.1f} s: top-1 {top1:.6f}, top-5 {top5:.6f} (logged {want[0]:.6f} / "
+            f"{want[1]:.6f}); launches {counts_e}")
+        if (n != ENTRY_VAL or (top1, top5) != want or exp.available_checkpoints() != [0]
+                or not math.isfinite(logged["train_loss"][-1][1])):
+            raise AssertionError(f"vit_final {name}: the entry points disagree")
+        out[name] = {"train_s": train_s, "eval_s": eval_s}
+    return out
+
+
+def phase_vit_train(x2, stream_rate, worst, exp_root):
+    """Phase 14: ViT-B/16's recipe train step (vit_bcosification), the
+    ViT-C B of vit_final (parity, forward, explanation, train step), the
+    B-cos ViT-B of vit_final (fast pass against the module path, the export
+    round trip at a cut depth), the vit_final entry points, and K3 at every
+    shape of the ViT-B train step and the ViT-C B forward. Returns K3's keys
+    of the kernels line."""
+    exp_a = Experiment(*VIT_EXPERIMENTS["default"])
+    exp_c = Experiment(*VIT_FINAL_EXPERIMENTS["vitc"])
+    vit_b, vitc = exp_a.get_model(), exp_c.get_model()
+    launches_a = vit_launches(vit_b, VIT_TRAIN_BATCH, SIZE, False)
+    launches_c = vit_launches(vitc, BATCH, SIZE, False)
+    if (len(launches_a), len(launches_c)) != (VIT_TRAIN_K3, VITC_K3):
+        raise AssertionError(f"K3 launches listed: {len(launches_a)} and {len(launches_c)}")
+    check_vit_train_kernels(launches_a + launches_c, worst)
+
+    # (a) ViT-B/16, the vit_bcosification recipe
+    batch = _images(VIT_TRAIN_BATCH, SEED + 33)
+    train_a = vit_train_window("vit-b/16", vit_b, exp_a.config, batch, VIT_TRAIN_K3)
+    del batch
+    t0 = time.perf_counter()
+    checks = vit_step_parity(vit_b, exp_a.config, {"image": x2, "label": torch.tensor(
+        [1, 3], device="cuda")})
+    for key, (val, bound) in checks.items():
+        say(f"vit-b/16 train parity fp32 gpu vs cpu, {key}: {val:.3e} (bound {bound:.3e})")
+    say(f"vit-b/16 train parity took {time.perf_counter() - t0:.1f} s")
+    if any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("the ViT-B/16 train step on the GPU disagrees with the CPU")
+    del vit_b
+
+    # (b) ViT-C B of vit_final
+    vitc_parity(vitc, x2)
+    x = _batch128(x2, SEED + 34)
+    rates_c = vit_throughput(vitc, x, tag="vitc")
+    del x
+    batch = _images(BATCH, SEED + 35)
+    train_c = vit_train_window("vitc", vitc, exp_c.config, batch, VITC_K3)
+    del batch
+
+    # (c) the B-cos ViT-B of vit_final: BcosLinear, the logit layer inside
+    experiment = VIT_FINAL_EXPERIMENTS["bcos vit"]
+    model_config = Experiment(*experiment).model_config
+    vit_final_model = importlib.import_module(
+        "bcosification_tpu_torch.experiments.ImageNet.vit_final.model")
+    bcos_vit = vit_final_model.get_model(model_config)
+    vit_parity(bcos_vit, x2, "vit_final bcos_simple_vit_b")
+    del bcos_vit
+    shallow = vit_final_model.get_model(model_config, depth=VIT_EXPORT_DEPTH)
+    served = vit_serving(shallow, _batch128(x2, SEED + 36),
+                         tag=f"vit_final bcos_simple_vit_b depth {VIT_EXPORT_DEPTH}")
+    del shallow
+
+    # (d) the entry points
+    cli = vit_final_cli(exp_root)
+
+    # (e) K3 at every shape of (a) and (b)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    keys = {}
+    for key, what, launches in (("vit_train", "ViT-B/16 train step at batch 64", launches_a),
+                                ("vitc", "ViT-C B forward at batch 128", launches_c)):
+        r = time_shapes(collections.Counter(launches), stream_rate, gen,
+                        tag=key + " ")["bcos_matmul_fwd"]
+        say(f"bcos_matmul_fwd per {what} ({len(launches)} launches): {r['ms']:.4f} ms; bound "
+            f"{1e3 * r['bound_s']:.4f} ms at the data-sheet rate, "
+            f"{1e3 * r['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} GB/s; "
+            f"plain {r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
+        keys.update({f"{key}_launches": len(launches), f"{key}_ms": r["ms"],
+                     f"{key}_bound_ms": 1e3 * r["bound_s"], f"{key}_plain_ms": r["plain_ms"],
+                     f"{key}_library_ms": r["library_ms"]})
+    say(f"vit train summary: ViT-B/16 train step {train_a['img_s']:.1f} img/s (batch "
+        f"{VIT_TRAIN_BATCH}, host {train_a['host_ms']:.2f} ms, busy "
+        f"{train_a['busy_ms'] or 0:.2f} ms of {train_a['ms']:.2f}); ViT-C B forward-only "
+        f"{rates_c['forward-only']['img_s']:.1f} img/s, fwd+explain (module path) "
+        f"{rates_c['fwd+explain (module path)']['img_s']:.1f}, train step "
+        f"{train_c['img_s']:.1f} (batch {BATCH}); export at depth {VIT_EXPORT_DEPTH}: "
+        f"export_forward {served['export_seconds']['export_forward']:.1f} s, export_explain "
+        f"{served['export_seconds']['export_explain']:.1f} s; entry points "
+        + ", ".join(f"{k} {v['train_s']:.1f} + {v['eval_s']:.1f} s" for k, v in cli.items())
+        + f" [{CARD}]")
+    return keys
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2759,15 +3100,24 @@ def main() -> int:
         t0 = time.perf_counter()
         vit = phase_vit(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["13 vit"] = time.perf_counter() - t0
+        if k12.tma_operands.padded:
+            raise AssertionError(f"{k12.tma_operands.padded} ViT-B/16 calls padded their "
+                                 "operands")
+        say("TMA operand padding on the ViT-B/16 paths: 0 calls")
+        t0 = time.perf_counter()
+        vit_train = phase_vit_train(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
+        seconds["14 vit training"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
-        raise AssertionError(f"{k12.tma_operands.padded} ViT-B/16 calls padded their operands")
-    say("TMA operand padding on the ViT-B/16 paths: 0 calls")
+        raise AssertionError(f"{k12.tma_operands.padded} ViT training and vit_final calls "
+                             "padded their operands")
+    say("TMA operand padding on the ViT training and vit_final paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
                    "train_bound_ms": 1e3 * train["bound_s"],
                    "train_library_ms": train["library_ms"]})
     k3_row.update(kd)
+    k3_row.update(vit_train)
     for row in kernels:
         row.update(densenet.get(row["name"], {}))
         row.update(clip.get(row["name"], {}))

@@ -6,7 +6,11 @@ explanation and one KD step), K3's training backward against the CPU (also
 with the linear norm at the KD c_proj's shape), K3's launches per KD step,
 the small SimpleViT on the GPU against the CPU (forward, W of the module
 path and of fast_vit, launch counts), K3 and K2 at a ViT-B linear1 shape,
-and exported explanation programs against the eager calls. Every test here needs a GPU and skips without one.
+exported explanation programs against the eager calls, K3 at the shapes of
+a ViT-B/16 train step and a ViT-C B forward, the ViT-C stem's B-cos conv
+and group norm, and the small vit_final ViTs (one train step and the
+explanation) on the GPU against the CPU. Every test here needs a GPU and
+skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -745,3 +749,130 @@ def test_k3_and_k2_at_a_vit_linear_shape(gpu, dtype, cout):
     want = k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None, relu=False, **kw)
     assert _rel(dx, want) <= tol
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# ViT training and the from-scratch ViTs of vit_final (slice 11)
+# --------------------------------------------------------------------------
+VIT_FINAL_SMALL = dict(dim=32, heads=2, mlp_dim=64, depth=2)
+
+
+def _small_vit_final(gpu, name, seed=0):
+    """The vit_final config ``name`` at VIT_FINAL_SMALL (a ViT-C stem of
+    widths (8, 16), or patch 8; 10 classes; random init from ``seed``) on the
+    GPU, and a batch of 2 images of 32x32 (6 AddInverse channels for a B-cos
+    config, 3 for a standard one) with labels."""
+    from bcosification_tpu_torch.experiments.ImageNet.vit_final import experiment_parameters
+    from bcosification_tpu_torch.experiments.ImageNet.vit_final import model
+
+    config = experiment_parameters.CONFIGS[name]
+    model_config = copy.deepcopy(config["model"])
+    model_config["args"]["num_classes"], model_config["seed"] = 10, seed
+    arch = dict(VIT_FINAL_SMALL, **({"conv_stem": (8, 16)} if "vitc" in name
+                                    else {"patch_size": 8}))
+    net = model.get_model(model_config, device=gpu, **arch)
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    x = torch.rand(2, 32, 32, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1) if name.startswith("bcos_") else (x - 0.45) / 0.225
+    return net, config, {"image": x, "label": torch.tensor([1, 3], device=gpu)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k3_at_the_vit_train_and_vitc_shapes(gpu, dtype):
+    """K3 with the linear norm (eps_outside) against its plain version at
+    every distinct shape of a ViT-B/16 train step at batch 64 (12 544 token
+    rows; the head at 64) and of the ViT-C B forward's patch embedding at
+    batch 128 (K 512)."""
+    from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
+
+    shapes = [(12544, 1536, 768), (12544, 768, 768), (12544, 768, 3072), (12544, 3072, 768),
+              (64, 768, 1000), (25088, 512, 768)]
+    ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
+    for m, k, n in shapes:
+        g = torch.Generator(device=gpu).manual_seed(m + k + n)
+        x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+        wt = (torch.randn(n, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+        reset_launch_counts()
+        y = k3.bcos_matmul_fwd(x, wt, **kw)
+        assert launch_counts()["bcos_matmul_fwd"] == 1
+        assert _rel(y, k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)) <= tol, (m, k, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("explain", [False, True], ids=["train", "explain"])
+@pytest.mark.parametrize("cin,cout,stride", [(6, 8, 2), (8, 16, 2), (16, 16, 1)])
+def test_stem_conv_patch_norm_gradient_matches_cpu(gpu, explain, cin, cout, stride):
+    """The ViT-C stem's 3x3 B-cos conv (padding 1; stride 2 where the width
+    grows) on an NHWC input: the output and the input and weight gradients
+    on the GPU against the CPU (1e-5), the patch norm's windowed sum
+    (avg_pool2d on a contiguous copy) included; then its group norm."""
+    from bcosification_tpu_torch.modules import BcosConv2d, DetachableGNLayerNorm2d
+
+    g = torch.Generator().manual_seed(cin + cout)
+    conv = BcosConv2d(cin, cout, 3, stride=stride, padding=1, generator=g)
+    norm = DetachableGNLayerNorm2d(cout)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5, generator=g)
+    x = torch.randn(2, 32, 32, cin, generator=g)
+    ct = torch.randn(2, 32 // stride, 32 // stride, cout, generator=g)
+    results = []
+    for dev in ("cpu", gpu):
+        c, nm = copy.deepcopy(conv).to(dev), copy.deepcopy(norm).to(dev)
+        xx = x.to(dev).clone().requires_grad_(True)
+        y = nm(c(xx, explain=explain), explain=explain)
+        y.backward(ct.to(dev))
+        results.append((y.detach(), xx.grad, c.weight.grad, nm.weight.grad))
+    for got, want in zip(results[1], results[0]):
+        assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["bcos_vitc_ti_patch1_14", "vitc_ti_patch1_14",
+                                  "bcos_simple_vit_ti_patch16_224"])
+def test_small_vit_final_train_step_matches_cpu(gpu, name):
+    """One fp32 step of the config's recipe on the GPU against the CPU, by
+    chip_smoke.py phase 14's checks (the loss; Adam's first moment within
+    ten times the CPU's spread under 1e-7 relative input noise), and the
+    launches of one step: K3 at each bias-free B-cos linear (3 per encoder,
+    the patch embedding, the head), none in the standard ViT."""
+    from chip_smoke import recipe_step, vit_step_parity
+
+    net, config, batch = _small_vit_final(gpu, name)
+    checks = vit_step_parity(net, config, batch)
+    for key, (val, bound) in checks.items():
+        assert val <= bound, (key, val, bound)
+    state, step = recipe_step(net, config, amp=True)
+    reset_launch_counts()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    k3_launches = 3 * VIT_FINAL_SMALL["depth"] + 2 if name.startswith("bcos_") else 0
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                               "bcos_matmul_fwd": k3_launches, "stream_add": 0}
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.parametrize("name", ["bcos_vitc_ti_patch1_14", "vitc_ti_patch1_14",
+                                  "bcos_simple_vit_ti_patch16_224"])
+def test_small_vit_final_explanation_matches_cpu(gpu, name):
+    """fp32: the logits and W of the module path (autograd) on the GPU
+    against the CPU (1e-5), and for the B-cos ViT the hand-scheduled pass
+    (BcosLinear, the logit layer inside the SimpleViT) against both."""
+    from bcosification_tpu_torch.explain import fast_vit
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+
+    net, _, batch = _small_vit_final(gpu, name, seed=1)
+    x = batch["image"]
+    cpu = copy.deepcopy(net).to("cpu")
+    lg, sg, wg = dynamic_linear_weights(lambda t: net(t, explain=True), x)
+    lc, sc, wc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x.cpu(), device="cpu")
+    assert torch.equal(sg.cpu(), sc)
+    assert _rel(wg, wc) <= 1e-5 and _rel(lg, lc) <= 1e-5
+    assert fast_vit.supports(net) == (name == "bcos_simple_vit_ti_patch16_224")
+    if fast_vit.supports(net):
+        reset_launch_counts()
+        lf, sf, wf = fast_vit.fast_dynamic_linear_weights(net, x)
+        n = 3 * VIT_FINAL_SMALL["depth"] + 2
+        assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n,
+                                   "bcos_matmul_fwd": n, "stream_add": 0}
+        assert torch.equal(sf, sg) and _rel(wf, wg) <= 1e-5 and _rel(wf, wc) <= 1e-5

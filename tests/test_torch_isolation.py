@@ -35,7 +35,9 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "experiments.CC3M.clip_bcosification.experiment_parameters",
              "experiments.CC3M.clip_bcosification.model", "models.vit", "explain.fast_vit",
              "experiments.ImageNet.vit_bcosification.experiment_parameters",
-             "experiments.ImageNet.vit_bcosification.model"):
+             "experiments.ImageNet.vit_bcosification.model",
+             "experiments.ImageNet.vit_final.experiment_parameters",
+             "experiments.ImageNet.vit_final.model"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules

@@ -22,8 +22,9 @@ bcosify/from_jax.py, JAX at the highest matmul precision.
 - the hub's standard SimpleViT state dict (made from a seed, in the
   reference's key layout) through both imports, strict; the model factory
   reading it from $BCOS_HUB_PATH;
-- the grid equal to the JAX package's ``CONFIGS``; the ViT-C, MoE and
-  training refusals; ``evaluate`` against JAX ``evaluate.evaluate``.
+- the grid equal to the JAX package's ``CONFIGS``; the ViT-C KeyError and
+  the MoE refusal, the ViT-C stem, the BcosLinear default and the Trainer
+  taking a ViT config; ``evaluate`` against JAX ``evaluate.evaluate``.
 """
 import contextlib
 import copy
@@ -536,26 +537,35 @@ def test_the_grid_equals_jax():
 
 
 def test_refusals_name_their_slices():
-    """The ViT-C configs fail as in the JAX package (no VIT_CONFIGS entry);
-    the conv stem, the MoE and BcosLinear name the slices that bring them;
-    the Trainer refuses a ViT config, naming the ViT training slice."""
+    """The ViT-C configs of vit_bcosification fail as in the JAX package (no
+    VIT_CONFIGS entry); the MoE names the slice that brings it. What the
+    vit_final slice brought no longer raises: the ViT-C entries build with
+    their stem, SimpleViT() defaults to BcosLinear, and the Trainer takes a
+    ViT config."""
     from bcosification_tpu_torch.experiments.utils.experiment_utils import Experiment
-    from bcosification_tpu_torch.modules import BcosifyLinear
+    from bcosification_tpu_torch.modules import (
+        BcosConv2d,
+        BcosifyLinear,
+        BcosLinear,
+        DetachableGNLayerNorm2d,
+    )
     from bcosification_tpu_torch.training.trainer import _check_ported
 
     with pytest.raises(KeyError, match="vitc_b_patch1_14"):
         jmodel.get_model(model_config(jparams.CONFIGS, "bcos_vitc_b_patch1_14"))
     with pytest.raises(KeyError, match="vitc_b_patch1_14"):
         tmodel.get_model(model_config(tparams.CONFIGS, "bcos_vitc_b_patch1_14"), device="cpu")
-    with pytest.raises(NotImplementedError, match="vit_final"):
-        tvit.vitc_ti_patch1_14(linear_layer=BcosifyLinear)
+    vitc = tvit.vitc_ti_patch1_14(linear_layer=BcosifyLinear, conv2d_layer=BcosConv2d,
+                                  norm2d_layer=DetachableGNLayerNorm2d, num_classes=NUM_CLASSES)
+    assert [type(layer).__name__ for layer in vitc.stem()[:2]] == ["BcosConv2d",
+                                                                  "DetachableGroupNorm2d"]
+    with torch.no_grad():
+        assert vitc(torch.from_numpy(images(1, 13))).shape == (1, NUM_CLASSES)
     with pytest.raises(NotImplementedError, match="MoE slice"):
         tvit.SimpleViT(linear_layer=BcosifyLinear, moe_experts=2, **SMALL)
-    with pytest.raises(NotImplementedError, match="vit_final"):
-        tvit.SimpleViT(**SMALL)
+    assert type(tvit.SimpleViT(**SMALL).to_patch_embedding_linear) is BcosLinear
     exp = Experiment("ImageNet", "vit_bcosification", BASE)
-    with pytest.raises(NotImplementedError, match="ViT training slice"):
-        _check_ported(exp.config, exp.base_network)
+    assert _check_ported(exp.config) is None
 
 
 def test_evaluate_matches_jax(tmp_path, monkeypatch):
