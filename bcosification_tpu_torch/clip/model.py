@@ -26,7 +26,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from bcosification_tpu_torch.modules import PlainLinear, ReLU
+from bcosification_tpu_torch.modules import PlainLinear, PlainReLU
 from bcosification_tpu_torch.modules.bcos_layers import _ConvBase
 from bcosification_tpu_torch.modules.bcosattnpool import (
     AttentionPool2d,
@@ -160,7 +160,7 @@ class ModifiedResNet(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), output_dim: int = 1024,
                  heads: int = 32, input_resolution: int = 224, width: int = 64, *,
                  in_channels: int = 3, conv_layer: Callable = PlainConv2d,
-                 norm_layer: Callable = EvalBatchNorm, act_layer: Callable = ReLU,
+                 norm_layer: Callable = EvalBatchNorm, act_layer: Callable = PlainReLU,
                  attnpool: Optional[str] = "standard",
                  attnpool_linear_layer: Callable = PlainLinear,
                  attnpool_c_proj_layer: Callable = PlainLinear, device=None,

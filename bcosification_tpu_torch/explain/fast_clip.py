@@ -63,7 +63,7 @@ def supports(net) -> bool:
     c_proj."""
     from bcosification_tpu_torch.clip.model import ModifiedResNet
     from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
-    from bcosification_tpu_torch.modules import BcosifyConv2d, BcosifyLinear, ReLU
+    from bcosification_tpu_torch.modules import BcosifyConv2d, BcosifyLinear, PlainReLU
 
     if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, ModifiedResNet):
         return False
@@ -73,7 +73,7 @@ def supports(net) -> bool:
     if plain_b2_layers(m) != 0 or not isinstance(m.conv1, BcosifyConv2d):
         return False
     c_proj = m.attnpool.c_proj
-    return (isinstance(m.relu1, ReLU) and isinstance(c_proj, BcosifyLinear)
+    return (isinstance(m.relu1, PlainReLU) and isinstance(c_proj, BcosifyLinear)
             and c_proj.b == 2 and c_proj.max_out == 1)
 
 

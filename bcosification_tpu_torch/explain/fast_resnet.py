@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.modules import ReLU
+from bcosification_tpu_torch.modules import PlainReLU, ReLU
 from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops import pooling
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain, conv1x1_fwd
@@ -58,8 +58,9 @@ def supports(net) -> bool:
 def plain_b2_layers(m):
     """The number of uncentered BNs of ``m`` minus that of its B-cos convs,
     or None unless every conv is of one type, b=2, max_out 1, ungrouped,
-    undilated and bias-free, and every activation is of one type (ReLU or
-    Identity): the layers the hand-scheduled passes are written for."""
+    undilated and bias-free, and every activation is of one type (ReLU, the
+    CLIP towers' PlainReLU or Identity): the layers the hand-scheduled
+    passes are written for."""
     from bcosification_tpu_torch.modules import BatchNormUncentered2d, BcosConv2d, Identity
 
     convs = [mod for mod in m.modules() if isinstance(mod, BcosConv2d)]
@@ -70,7 +71,7 @@ def plain_b2_layers(m):
             return None
         if c.dilation != (1, 1):
             return None
-    acts = [mod for mod in m.modules() if isinstance(mod, (ReLU, Identity))]
+    acts = [mod for mod in m.modules() if isinstance(mod, (ReLU, PlainReLU, Identity))]
     if len({type(a) for a in acts}) != 1:
         return None
     norms = [mod for mod in m.modules() if isinstance(mod, BatchNormUncentered2d)]

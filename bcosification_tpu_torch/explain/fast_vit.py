@@ -28,12 +28,19 @@ dx = (g |u + b| / n) @ w^T. The rest of the backward:
   (BcosifyNetwork's; a bare SimpleViT has none). The wrapper's logit layer
   divides the cotangent by its temperature; the SimpleViT's has none.
 
+The ViT-C conv stem goes back segment by segment: the activation's
+detached gate (GELU) or nothing (Identity); the group norm with its
+variance detached, c - mean(c) over (H, W, the group's channels) with
+c = g * weight / std; the 3x3 B-cos conv with its scale detached,
+``conv_transpose2d`` of g * |u| / n, as ``fast_densenet`` does for its 3x3s.
+
 Scope (``supports``): a SimpleViT, bare or in a BcosifyNetwork, with B-cos
 linears (BcosifyLinear or BcosLinear, b=2, max_out 1) but a plain bias-free
-to_qkv, the detachable LayerNorm and GELU (or Identity), and no conv stem:
-every config of ImageNet/vit_bcosification that builds and the
-``bcos_simple_vit_*`` configs of ImageNet/vit_final. The ViT-C stem has no
-hand-written transpose yet (its models explain through autograd).
+to_qkv, the detachable LayerNorm and GELU (or Identity), and a conv stem,
+if any, of bias-free b=2 B-cos 3x3 convs with the group norm: every config
+of ImageNet/vit_bcosification that builds and the ``bcos_*`` configs of
+ImageNet/vit_final. The standard baselines (plain linears, the plain
+LayerNorm and GELU) have no hand-written pass.
 """
 from __future__ import annotations
 
@@ -43,13 +50,16 @@ import torch
 import torch.nn.functional as F
 
 from bcosification_tpu_torch.device import resolve_device
+from bcosification_tpu_torch.explain.fast_resnet import _conv_t
 from bcosification_tpu_torch.models.vit import _patchify, _unpatchify, pos_emb_sincos_2d
 from bcosification_tpu_torch.modules import (
+    BcosConv2d,
     BcosLinear,
     DetachableGELU,
     DetachableLayerNorm,
     Identity,
 )
+from bcosification_tpu_torch.modules.norms import DetachableGroupNorm2d
 from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain
 from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
@@ -72,19 +82,28 @@ def supports(net) -> bool:
     from bcosification_tpu_torch.models.vit import SimpleViT
 
     m, _ = _parts(net)
-    if not isinstance(m, SimpleViT) or m.conv_stem:
+    if not isinstance(m, SimpleViT):
         return False
+    stem = m.stem()
+    for conv, norm, act in zip(stem[::3], stem[1::3], stem[2::3]):
+        if not (isinstance(conv, BcosConv2d) and conv.b == 2 and conv.max_out == 1
+                and conv.groups == 1 and conv.bias is None and conv.dilation == (1, 1)
+                and type(norm) is DetachableGroupNorm2d and _detached_act(act)):
+            return False
     for enc in m.encoders():
         linears = (enc.attn.to_out, enc.ff.linear1, enc.ff.linear2)
         if not (all(_bcos_linear(lin) for lin in linears)
                 and all(type(n) is DetachableLayerNorm and n.detachable
                         for n in (enc.attn.norm, enc.ff.norm))
-                and (type(enc.ff.act) is Identity
-                     or (type(enc.ff.act) is DetachableGELU and enc.ff.act.detachable))):
+                and _detached_act(enc.ff.act)):
             return False
     return (_bcos_linear(m.to_patch_embedding_linear) and _bcos_linear(m.linear_head_linear)
             and type(m.linear_head_norm) is DetachableLayerNorm
             and m.linear_head_norm.detachable)
+
+
+def _detached_act(act) -> bool:
+    return type(act) is Identity or (type(act) is DetachableGELU and act.detachable)
 
 
 def _bcos_linear(lin) -> bool:
@@ -159,6 +178,36 @@ def _norm_bwd(ct, norm: DetachableLayerNorm, std, dtype):
     return (c - c.mean(-1, keepdim=True)).to(dtype)
 
 
+class _StemSegment:
+    """One segment of the ViT-C stem (3x3 B-cos conv, group norm,
+    activation): its explanation-mode forward and the transpose of its map."""
+
+    def __init__(self, conv: BcosConv2d, norm: DetachableGroupNorm2d, act, x):
+        self.norm, self.x_shape, self.dtype = norm, x.shape, x.dtype
+        self.stride, self.padding = conv.stride, conv.padding
+        self.w = conv.effective_weight().to(x.dtype)
+        u = ops.conv2d(x, self.w, self.stride, self.padding)
+        n = ops.patch_norms(x, conv.kernel_size, stride=self.stride,
+                            padding=self.padding).to(u.dtype)
+        self.scale = u.abs() / n  # the detached dynamic scale
+        h, self.std = norm.normalize(self.scale * u, explain=True)
+        self.gate = act.gate(h) if isinstance(act, DetachableGELU) else None
+        self.out = h if self.gate is None else self.gate * h
+
+    def backward(self, ct):
+        if self.gate is not None:
+            ct = ct * self.gate
+        n, h, w, c = ct.shape
+        g = self.norm.num_groups
+        cg = ct.float()
+        if self.norm.weight is not None:
+            cg = cg * self.norm.weight
+        cg = cg.reshape(n, h, w, g, c // g) / self.std
+        cg = (cg - cg.mean(dim=(1, 2, 4), keepdim=True)).reshape(n, h, w, c)
+        ct_u = cg.to(self.dtype) * self.scale
+        return _conv_t(ct_u, self.w, self.x_shape, self.stride[0], self.padding[0])
+
+
 class _Encoder:
     """One encoder's explanation-mode forward and the transpose of its map."""
 
@@ -204,6 +253,11 @@ def _fast(net, x, idx):
         mean = torch.tensor(wrapper.mean, dtype=dtype, device=x.device)
         std_in = torch.tensor(wrapper.std, dtype=dtype, device=x.device)
         x = (x - mean) / std_in
+    stem = m.stem()
+    segments = []
+    for conv, norm, act in zip(stem[::3], stem[1::3], stem[2::3]):
+        segments.append(_StemSegment(conv, norm, act, x))
+        x = segments[-1].out
     p1, p2 = m.patch_size
     patch = _Linear(m.to_patch_embedding_linear, _patchify(x, p1, p2))
     t = patch.forward()
@@ -242,4 +296,6 @@ def _fast(net, x, idx):
     for enc in reversed(encoders):
         ct = enc.backward(ct)
     w_in = _unpatchify(patch.backward(ct.reshape(nb, h, w, d)), p1, p2)
+    for segment in reversed(segments):
+        w_in = segment.backward(w_in)
     return logits, sel, (w_in if wrapper is None else w_in / std_in)

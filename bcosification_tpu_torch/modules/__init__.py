@@ -1,5 +1,5 @@
 """Modules of the port: B-cos layers, norms and activations."""
-from bcosification_tpu_torch.modules.activations import DetachableGELU, Identity, ReLU
+from bcosification_tpu_torch.modules.activations import DetachableGELU, Identity, PlainReLU, ReLU
 from bcosification_tpu_torch.modules.bcos_layers import (
     BcosConv2d,
     BcosifyConv2d,
@@ -31,4 +31,5 @@ __all__ = [
     "PlainConv2d",
     "PlainLinear",
     "ReLU",
+    "PlainReLU",
 ]

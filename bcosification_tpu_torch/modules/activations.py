@@ -12,7 +12,9 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["DetachableGELU", "MyGELU", "PlainGELU", "ReLU", "Identity"]
+from bcosification_tpu_torch.ops import guided
+
+__all__ = ["DetachableGELU", "MyGELU", "PlainGELU", "ReLU", "PlainReLU", "Identity"]
 
 
 class DetachableGELU(nn.Module):
@@ -46,6 +48,18 @@ def PlainGELU(**kwargs):
 
 
 class ReLU(nn.Module):
+    """The model path's ReLU, routed through ``ops.guided`` so that guided
+    backprop and DeepLIFT can gate its gradient."""
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        return guided.relu(x)
+
+
+class PlainReLU(nn.Module):
+    """A plain torch.relu, which guided backprop and DeepLIFT leave alone:
+    the CLIP towers' ReLU (the JAX package's CLIP ``_ReLU`` calls
+    jax.nn.relu), so that GB on a CLIP tower equals Grad, as in JAX."""
+
     def forward(self, x, *, train: bool = False, explain: bool = False):
         return torch.relu(x)
 

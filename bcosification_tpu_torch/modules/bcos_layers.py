@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from bcosification_tpu_torch.ops import bcos as ops
+from bcosification_tpu_torch.ops import guided
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import bcos_conv1x1_bn_act
 
 __all__ = ["BcosConv2d", "BcosifyConv2d", "BcosLinear", "BcosifyLinear", "LogitLayer",
@@ -88,13 +89,16 @@ def _epilogue_result(mod, x, w, bias, b, explain, x_sumsq, epilogue):
     if residual is not None:
         out = out + residual
         if relu:
-            out = torch.relu(out)
+            out = guided.relu(out)
     return out
 
 
 def _epilogue_no_residual(mod, x, w, bias, b, explain, x_sumsq, epilogue):
     mult, add, relu = epilogue
-    if _fused_1x1_ok(mod, b, bias):
+    # K1's backward (K2) has the plain ReLU mask built in: under guided
+    # backprop or DeepLIFT the conv runs unfused and its ReLU through
+    # ops.guided, as the JAX package keeps such convs off its Pallas kernel
+    if _fused_1x1_ok(mod, b, bias) and not (guided.guided_mode() or guided.deeplift_mode()):
         # [Cin, Cout] view of the OIHW weight (its transpose is contiguous)
         w2 = w.view(w.shape[0], w.shape[1]).t()
         return bcos_conv1x1_bn_act(x, w2, mult, add, relu=relu, explain=explain,
@@ -108,7 +112,7 @@ def _epilogue_no_residual(mod, x, w, bias, b, explain, x_sumsq, epilogue):
     if add is not None:
         out = out + add.to(out.dtype)
     if relu:
-        out = torch.relu(out)
+        out = guided.relu(out)
     return out
 
 

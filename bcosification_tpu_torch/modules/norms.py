@@ -149,7 +149,9 @@ class DetachableGroupNorm2d(nn.Module):
         self.weight = nn.Parameter(torch.ones(features, device=device)) if use_weight else None
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
-    def forward(self, x, *, train: bool = False, explain: bool = False):
+    def normalize(self, x, *, explain: bool = False):
+        """(the output, the f32 std sqrt(var + eps) [N, 1, 1, G, 1] it
+        divided by)."""
         n, h, w, c = x.shape
         g = self.num_groups
         xg = x.reshape(n, h, w, g, c // g).float()
@@ -157,12 +159,16 @@ class DetachableGroupNorm2d(nn.Module):
         var = (xg - mean).square().mean(dim=(1, 2, 4), keepdim=True)
         if explain:
             var = var.detach()
-        out = ((xg - mean) / torch.sqrt(var + self.eps)).reshape(n, h, w, c).to(x.dtype)
+        std = torch.sqrt(var + self.eps)
+        out = ((xg - mean) / std).reshape(n, h, w, c).to(x.dtype)
         if self.weight is not None:
             out = out * self.weight
         if self.bias is not None:
             out = out + self.bias
-        return out.to(x.dtype)
+        return out.to(x.dtype), std
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        return self.normalize(x, explain=explain)[0]
 
 
 def DetachableGNInstanceNorm2d(features: int, **kwargs):

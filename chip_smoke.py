@@ -164,9 +164,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (bcos_vitc_b_patch1_14: a stem of six 3x3 B-cos convs with the group
    LayerNorm, 11 encoders of BcosLinear, the logit layer inside): fp32 on
    2 images, GPU against CPU (pre-logits and logits 1e-4, W of the module
-   path within ten times the CPU's spread, argmax identical); forward-only
-   and fwd+explain (module path) at batch 128, bf16, K3 35 per forward, and
-   its recipe's train step at batch 128; (c) the B-cos ViT-B of vit_final
+   path within ten times the CPU's spread, argmax identical) and the
+   hand-scheduled pass with the stem's transpose against the module path;
+   the fp32 export_explain of the ViT-C B at depth 2 loaded from bytes, its
+   W against the module path's within that bound (fault C5), and both
+   programs' bf16 round trip at batch 128; forward-only and fwd+explain
+   (module path) at batch 128, bf16, K3 35 per forward, and its recipe's
+   train step at batch 128; (c) the B-cos ViT-B of vit_final
    (bcos_simple_vit_b_patch16_224): phase 13's parity of the fast pass and
    the module path, then the exported forward and explanation at depth 2,
    loaded from bytes and held to the eager calls; (d) ``train --base_network
@@ -174,14 +178,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
    standard vitc_ti_patch1_14 (3 channels, no K3) over phase 9's tree, each
    followed by ``evaluate --reload last`` equal to the logged accuracies;
    (e) K3's time at every shape of (a) and (b) beside its bound, plain
-   version and torch.matmul.
+   version and torch.matmul;
+15. the analyses (interpretability/) on phase 4's calibrated ResNet-50 in
+   bf16 (the images cast from f32): LocalisationAnalyser of the
+   50_3x3_noconfthresh config on 4096 seeded synthetic images (colour
+   blocks, gradients, stripes, noise) labelled by the net's own argmax (a
+   random-init net gets real labels right only by chance, and its logit
+   bias -log(999) keeps sigmoid(logit) below 0.5, hence no confidence
+   threshold), which must fill at least 8 3x3 grids of 672^2: the images
+   drawn, their distinct classes, compute_sorted_confs' seconds, the mean
+   metric and grids/s of Ours; on one grid every explainer (Ours,
+   OursRelative, IxG, Grad, IntGrad of 20 steps, GB, DeepLIFT also in
+   explanation mode, Occlusion 16/8, RISE of 500 masks, LIME of 200
+   samples) with its seconds and launches (Ours: K1 36, K2 37, K3 1; the
+   gradient explainers fault C1's route: K3 34, no K1 or K2; under
+   DeepLIFT no K1); fp32 Ours and GB on that grid, GPU against CPU (W 1e-3,
+   the scores 1e-3); ``localisation.main`` on phase 9's trained resnet_50
+   and ``localisation_sweep`` on Ours and IxG (their files written; the
+   metric may be empty); ``text_localisation.main --random_img_path`` on a
+   synthetic JPEG for phase 11's CLIP-RN50 students, pooled and
+   attn-unpool, and phase 12's KD-trained attn-unpool student (K1 and K2
+   through fast_clip, the .npz and .png; W GPU against CPU and against a
+   float64 CPU pass under the GPU's ReLU gates within ten gated CPU
+   spreads, and for phase 11's students also as phase 11 holds it); Ours
+   on the ViT-B/16 of phase 13 in the -stride=112 mode over two grids (49
+   crops of 224^2 each); each kernel against its plain version (both
+   dtypes) and timed at the grid's shapes (Ours's and the gradient
+   route's) beside its bound.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No bf16 operand
-of a ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16 or ViT-C path needs the
-TMA padding (``tma_operands.padded`` stays 0).
+of a ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C or analysis path
+needs the TMA padding (``tma_operands.padded`` stays 0).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
@@ -203,6 +233,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from bcosification_tpu_torch import evaluate as evaluate_cli
@@ -2872,13 +2903,15 @@ def _images(n, seed, channels=6):
 
 
 def vitc_parity(net, x2):
-    """fp32, 2 images: the logits and W (the module path: autograd; the
-    ViT-C stem has no hand-written pass) on the GPU against the CPU: the
+    """fp32, 2 images: the logits and W of the module path (autograd) on the
+    GPU against the CPU, and of the hand-scheduled pass (explain/fast_vit.py
+    with the stem's transpose) against the module path on the GPU: the
     pre-logits within 1e-4, W within ten times the CPU's own spread under
     1e-7 relative input noise, the argmax identical."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lg, sg, wg = dynamic_linear_weights(lambda t: net(t, explain=True), x2)
+    lf, sf, wf = fast_vit.fast_dynamic_linear_weights(net, x2)
     cpu = copy.deepcopy(net).to("cpu")
     lc, sc, wc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x2.cpu(), device="cpu")
     noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 32))
@@ -2890,16 +2923,52 @@ def vitc_parity(net, x2):
                   float((pre_g - pre_c).abs().max() / pre_c.abs().max()), 1e-4),
               "logit gpu vs cpu (max rel)": (
                   float((lg.double().cpu() - lc).abs().max() / lc.abs().max()), 1e-4),
-              "W gpu vs cpu": (rel(wg, wc), 10 * rel(wn, wc))}
+              "W gpu vs cpu": (rel(wg, wc), 10 * rel(wn, wc)),
+              "W fast pass vs module path (gpu)": (rel(wf, wg), 10 * rel(wn, wc)),
+              "pre-logit fast pass vs module path (max rel)": (
+                  float((lf.double() - lg.double()).abs().max()
+                        / (lg.double() - bias).abs().max()), 1e-4)}
     for key, (val, bound) in checks.items():
         say(f"vitc parity {key}: {val:.3e} (bound {bound:.3e})")
-    same = bool((sg.cpu() == sc).all())
+    same = bool((sg.cpu() == sc).all() and (sf == sg).all())
     say(f"vitc parity argmax identical: {same}; pre-logit RMS "
         f"{float(pre_c.pow(2).mean().sqrt()):.4g}")
     if not same or any(not val <= bound for val, bound in checks.values()):
         raise AssertionError("ViT-C B parity failed")
     if not torch.isfinite(wg).all() or wg.shape != x2.shape:
         raise AssertionError("ViT-C B outputs are not finite or mis-shaped")
+
+
+def vitc_export(model_config, x2):
+    """Fault C5's check: the ViT-C B at VIT_EXPORT_DEPTH, its fp32
+    export_explain (the hand-scheduled pass with the stem's transpose)
+    loaded from bytes: on 2 images its W against the module path's on the
+    GPU within ten times the CPU's own spread under 1e-7 relative input
+    noise, the argmax identical, its launches those of the pass; then the
+    bf16 round trip of both programs at batch 128 (vit_serving)."""
+    vit_final_model = importlib.import_module(
+        "bcosification_tpu_torch.experiments.ImageNet.vit_final.model")
+    shallow = vit_final_model.get_model(model_config, depth=VIT_EXPORT_DEPTH)
+    t0 = time.perf_counter()
+    program = serving.load_serialized(serving.export_explain(shallow, input_size=SIZE))
+    export_s = time.perf_counter() - t0
+    (logits, sel, w), counts = counted(lambda: program.call(x2))
+    check_counts("vitc loaded fp32 fwd+explain", counts, vit_counts(shallow, True))
+    lm, sm, wm = dynamic_linear_weights(lambda t: shallow(t, explain=True), x2)
+    cpu = copy.deepcopy(shallow).to("cpu")
+    _, _, wc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x2.cpu(), device="cpu")
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 39))
+    _, _, wn = dynamic_linear_weights(lambda t: cpu(t, explain=True),
+                                      x2.cpu() * (1 + 1e-7 * noise), device="cpu")
+    err, bound = rel(w, wm), 10 * rel(wn, wc)
+    say(f"vitc depth {VIT_EXPORT_DEPTH} export_explain (fp32, {export_s:.1f} s): loaded W vs the "
+        f"module path (gpu) {err:.3e} (bound {bound:.3e}); argmax identical "
+        f"{bool(torch.equal(sel, sm))}; launches {counts}")
+    if not err <= bound or not torch.equal(sel, sm) or not torch.isfinite(w).all():
+        raise AssertionError("the exported ViT-C explanation disagrees with the module path")
+    served = vit_serving(shallow, _batch128(x2, SEED + 38),
+                         tag=f"vit_final bcos_vitc_b depth {VIT_EXPORT_DEPTH}")
+    return {"export_explain_fp32_s": export_s, **served}
 
 
 def vit_final_cli(exp_root):
@@ -2971,6 +3040,7 @@ def phase_vit_train(x2, stream_rate, worst, exp_root):
 
     # (b) ViT-C B of vit_final
     vitc_parity(vitc, x2)
+    vitc_served = vitc_export(exp_c.model_config, x2)
     x = _batch128(x2, SEED + 34)
     rates_c = vit_throughput(vitc, x, tag="vitc")
     del x
@@ -3015,9 +3085,641 @@ def phase_vit_train(x2, stream_rate, worst, exp_root):
         f"{rates_c['fwd+explain (module path)']['img_s']:.1f}, train step "
         f"{train_c['img_s']:.1f} (batch {BATCH}); export at depth {VIT_EXPORT_DEPTH}: "
         f"export_forward {served['export_seconds']['export_forward']:.1f} s, export_explain "
-        f"{served['export_seconds']['export_explain']:.1f} s; entry points "
+        f"{served['export_seconds']['export_explain']:.1f} s; the ViT-C B at depth "
+        f"{VIT_EXPORT_DEPTH}: export_explain {vitc_served['export_seconds']['export_explain']:.1f}"
+        f" s, loaded fwd+explain {vitc_served['loaded_img_s']:.1f} img/s; entry points "
         + ", ".join(f"{k} {v['train_s']:.1f} + {v['eval_s']:.1f} s" for k, v in cli.items())
         + f" [{CARD}]")
+    return keys
+
+
+# --------------------------------------------------------------------------
+# 15: the analyses
+# --------------------------------------------------------------------------
+LOC_CONFIG = "50_3x3_noconfthresh"
+LOC_IMAGES = 4096  # seeded synthetic images, labelled by the model's own argmax
+LOC_MIN_GRIDS = 8
+LOC_BATCH = 64  # the analyser's forward batch (its default)
+LOC_GRID = 3 * SIZE  # a 3x3 multi-image of 224^2 cells: 672^2
+# per grid: the explanation-mode module path (K1 forward and K2 backward at
+# the 36 fused 1x1 convs, K3 and K2 at the classifier), fault C1's route of
+# the gradient explainers (no K1, no K2, K3 at the 34 stride-1 1x1 convs),
+# and DeepLIFT in explanation mode (no conv on K1: the 33 stride-1 1x1 convs
+# and the classifier on K3 forward and K2 backward, the stride-2
+# downsamples on cuDNN)
+LOC_DEEPLIFT_EXPLAIN_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 34,
+                               "bcos_matmul_fwd": 34, "stream_add": 0}
+LOC_EXPLAINERS = [  # (label, explainer, its options, launches per grid)
+    ("Ours", "Ours", {}, EXPLAIN_COUNTS),
+    ("OursRelative", "OursRelative", {}, EXPLAIN_COUNTS),
+    ("IxG", "IxG", {}, EVAL_GRADIENT_COUNTS),
+    ("Grad", "Grad", {}, EVAL_GRADIENT_COUNTS),
+    ("IntGrad", "IntGrad", {}, scaled_counts(EVAL_GRADIENT_COUNTS, 20)),
+    ("GB", "GB", {}, EVAL_GRADIENT_COUNTS),
+    ("DeepLIFT", "DeepLIFT", {}, EVAL_GRADIENT_COUNTS),
+    ("DeepLIFT explanation mode", "DeepLIFT", {"explanation_mode": True},
+     LOC_DEEPLIFT_EXPLAIN_COUNTS),
+    # the black-box methods: batches of 64 perturbed copies, forward only
+    ("Occlusion", "Occlusion", {}, scaled_counts(  # 83 x 83 windows, and the image
+        EVAL_BATCH_COUNTS, 1 + -(-((LOC_GRID - 16) // 8 + 1) ** 2 // 64))),
+    ("RISE", "Rise", {}, scaled_counts(EVAL_BATCH_COUNTS, -(-500 // 64))),
+    ("LIME", "Lime", {}, scaled_counts(EVAL_BATCH_COUNTS, -(-200 // 64))),
+]
+LOC_SCORE_BOUND = 1e-3  # the grid's scores, fp32 GPU against CPU
+VIT_STRIDE_CONFIG, VIT_STRIDE_GRIDS = "50_3x3_noconfthresh-stride=112", 2
+
+
+class CastInput(torch.nn.Module):
+    """``net`` on inputs cast to ``dtype``: the analyses hand f32 images to
+    the bf16 nets (the input's gradient comes back in f32)."""
+
+    def __init__(self, net, dtype=torch.bfloat16):
+        super().__init__()
+        self.net, self.dtype = net, dtype
+
+    def forward(self, x, *, train=False, explain=False):
+        return self.net(x.to(self.dtype), train=train, explain=explain)
+
+
+class LabelledImages:
+    """The analyser's dataset: RGB uint8 images [n, S, S, 3] on the host as
+    AddInverse f32 [S, S, 6], each labelled by ``labels``."""
+
+    def __init__(self, rgb, labels):
+        self.rgb, self.labels = rgb, labels
+
+    def __len__(self):
+        return len(self.rgb)
+
+    def __getitem__(self, i):
+        a = self.rgb[i].numpy().astype(np.float32) / np.float32(255)
+        return np.concatenate([a, 1.0 - a], axis=-1), int(self.labels[i])
+
+
+def analysis_images(n, seed):
+    """n RGB images [n, SIZE, SIZE, 3] uint8 on the host, made on the card from
+    ``seed``, a quarter of each kind: random colour blocks of 2 to 56 px,
+    colour gradients, stripes of random frequency and angle, noise of random
+    contrast around a random colour."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.rand(shape, device="cuda", generator=gen)
+
+    yy, xx = torch.meshgrid(torch.arange(SIZE, device="cuda") / (SIZE - 1),
+                            torch.arange(SIZE, device="cuda") / (SIZE - 1), indexing="ij")
+    yy, xx = yy[..., None], xx[..., None]
+    out = torch.empty((n, SIZE, SIZE, 3), dtype=torch.uint8, device="cuda")
+    cells = (2, 4, 7, 14, 28, 56)
+    kinds = r(n, 8)
+    for i in range(n):
+        p = kinds[i]
+        if i % 4 == 0:
+            s = cells[int(p[0] * len(cells))]
+            a = r(s, s, 3).repeat_interleave(SIZE // s, 0).repeat_interleave(SIZE // s, 1)
+        elif i % 4 == 1:
+            c = r(3, 3)
+            a = c[0] + yy * (c[1] - c[0]) * p[1] + xx * (c[2] - c[0]) * p[2]
+        elif i % 4 == 2:
+            f, th, c = 2 + 38 * p[1], math.pi * p[2], r(2, 3)
+            t = 0.5 + 0.5 * torch.sin(2 * math.pi * f * (torch.cos(th) * xx + torch.sin(th) * yy))
+            a = c[0] + t * (c[1] - c[0])
+        else:
+            a = 0.5 * r(3) + p[1] * r(SIZE, SIZE, 3)
+        out[i] = (a.clamp(0, 1) * 255).round().to(torch.uint8)
+    return out.cpu()
+
+
+def argmax_labels(model, rgb):
+    """The argmax of ``model`` on the AddInverse images of ``rgb``, in batches
+    of LOC_BATCH as the analyser runs them."""
+    labels = []
+    with torch.no_grad():
+        for i in range(0, len(rgb), LOC_BATCH):
+            a = rgb[i:i + LOC_BATCH].cuda().float() / 255
+            labels.append(model(torch.cat([a, 1.0 - a], dim=-1), train=False).argmax(-1).cpu())
+    return torch.cat(labels).numpy()
+
+
+def loc_dataset(model, n, seed, tag):
+    """LabelledImages of n images from ``seed``, labelled by ``model``'s own
+    argmax: a random-init net classifies real labels right only by chance
+    (and its logit bias -log(999) keeps sigmoid(logit) far below 0.5, hence
+    the _noconfthresh config)."""
+    t0 = time.perf_counter()
+    rgb = analysis_images(n, seed)
+    labels = argmax_labels(model, rgb)
+    counts = np.bincount(labels)
+    say(f"loc {tag}: drew {n} synthetic images in {time.perf_counter() - t0:.1f} s; the "
+        f"model's argmax gives {int((counts > 0).sum())} distinct classes (largest counts "
+        f"{sorted(counts[counts > 0].tolist())[::-1][:12]})")
+    return LabelledImages(rgb, labels)
+
+
+def check_loc_kernels(model, worst):
+    """Each kernel against its plain version at every distinct shape one
+    672^2 grid of 9 copies gives it: K1, K2 and K3 of the explanation-mode
+    module path (Ours; ``main_path_launches``) and K3 on fault C1's route
+    (the gradient explainers; ``train_k3_launches``), both dtypes, phase 3's
+    bounds. Most of these M (254 016, 63 504, 15 876, 3 969) are no multiple
+    of 128 rows. Returns the number of distinct shapes."""
+    shapes = collections.defaultdict(set)  # (M, K, N, relu) -> kernels launched there
+    for name, m, k, n, relu in (main_path_launches(model, 9, LOC_GRID)
+                                + train_k3_launches(model, 9, LOC_GRID)):
+        shapes[(m, k, n, relu)].add(name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for (m, k, n, relu), names in sorted(shapes.items()):
+            x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
+            results = []
+            if "bcos_conv1x1_fwd" in names:
+                results.append(("bcos_conv1x1_fwd", "",
+                                k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
+                                k12.conv1x1_fwd_plain(ref(x), ref(wt), mult, add, relu=relu)))
+            if "bcos_conv1x1_bwd_explain" in names:
+                a = k12.conv1x1_fwd(x, wt, mult, add, relu=True) if relu else None
+                results.append(("bcos_conv1x1_bwd_explain", "",
+                                k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=relu),
+                                k12.conv1x1_bwd_explain_plain(
+                                    ref(x), ref(wt), ref(ct), None if a is None else ref(a),
+                                    mult, relu=relu)))
+            if "bcos_matmul_fwd" in names:
+                results += _k3_results(x, wt, ref)
+            torch.cuda.synchronize()
+            for name, variant, got, want in results:
+                _check(worst, name, variant, f"loc M={m} K={k} N={n}", dtype, got, want)
+            del x, wt, ct, results
+    return len(shapes)
+
+
+def loc_analyser(model, dataset, config_name, save, **overrides):
+    from bcosification_tpu_torch.interpretability.analyses.localisation import (
+        LocalisationAnalyser,
+    )
+    from bcosification_tpu_torch.interpretability.analyses.localisation_configs import configs
+
+    cfg = dict(configs[config_name], batch_size=LOC_BATCH)
+    cfg.update(overrides)
+    return LocalisationAnalyser(model, dataset, save_folder=save, **cfg)
+
+
+def loc_grid(analyser, indices):
+    """The analyser's first 3x3 grid, on the card, and its targets."""
+    from bcosification_tpu_torch.interpretability.analyses.localisation import make_multi_image
+
+    grid, tgts, _ = make_multi_image(9, analyser.dataset, 0, indices)
+    return torch.from_numpy(grid).cuda(), tgts
+
+
+def loc_scores(analyser, atts):
+    """The grid's per-target scores, as ``analysis`` computes them."""
+    from bcosification_tpu_torch.ops.pooling import avg_pool2d
+
+    s = analyser.config["smooth"]
+    a = avg_pool2d(atts.float().sum(-1)[..., None], s, 1, (s - 1) // 2)[..., 0]
+    return analyser._score(a.clamp_min(0).cpu().numpy(), 9, SIZE)
+
+
+def loc_explainers(model, grid, tgts):
+    """Every explainer on one grid (bf16 model): its seconds (one call after
+    a warm-up call; the black-box methods once), its launches, finite maps
+    of the grid's shape."""
+    from bcosification_tpu_torch.interpretability.explanation_methods import get_explainer
+
+    out = {}
+    for label, name, kw, want in LOC_EXPLAINERS:
+        explainer = get_explainer(model, name, **kw)
+        if name in ("Ours", "OursRelative", "IxG", "Grad", "GB", "DeepLIFT"):
+            explainer.attribute_selection(grid, tgts)
+        t0 = time.perf_counter()
+        atts, counts = counted(lambda: explainer.attribute_selection(grid, tgts))
+        seconds = time.perf_counter() - t0
+        say(f"loc explainer {label:26s}: {seconds:8.3f} s per 3x3 grid of 672^2 (9 targets); "
+            f"launches {counts} [{CARD}]")
+        check_counts(f"loc {label}", counts, want)
+        if atts.shape != (9, LOC_GRID, LOC_GRID, 6) or not bool(torch.isfinite(atts).all()):
+            raise AssertionError(f"loc {label}: attributions {tuple(atts.shape)}, not finite")
+        out[label] = seconds
+        del atts
+    return out
+
+
+def loc_parity(net, grid, tgts, analyser):
+    """fp32, one grid: Ours (K1/K2 on the GPU, the plain versions on the CPU)
+    and GB on the GPU against a CPU copy: W within phase 4's 1e-3 (rounding
+    noise alone moves ResNet-50's fp32 W by about 1e-4), the grid's
+    localisation scores within LOC_SCORE_BOUND."""
+    from bcosification_tpu_torch.interpretability.explanation_methods import get_explainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = copy.deepcopy(net).to("cpu")
+    for name in ("Ours", "GB"):
+        got = get_explainer(net, name).attribute_selection(grid, tgts)
+        t0 = time.perf_counter()
+        want = get_explainer(cpu, name, device="cpu").attribute_selection(grid.cpu(), tgts)
+        cpu_s = time.perf_counter() - t0
+        err = rel(got, want)
+        score_err = float(np.abs(loc_scores(analyser, got) - loc_scores(analyser, want)).max())
+        say(f"loc parity {name} fp32 gpu vs cpu: W {err:.3e} (bound 1e-3), scores max |diff| "
+            f"{score_err:.3e} (bound {LOC_SCORE_BOUND:.0e}); the cpu took {cpu_s:.1f} s")
+        if not err <= 1e-3 or not score_err <= LOC_SCORE_BOUND:
+            raise AssertionError(f"loc parity: {name} on the GPU disagrees with the CPU")
+    del cpu
+
+
+def loc_clis(exp_root):
+    """localisation.main on phase 9's trained resnet_50 and the sweep on two
+    explainers: each reaches its end and writes confidences.pkl, the metric
+    array and config.log (the 128 val images of 10 classes of a barely
+    trained random-init net: the metric is empty, as the reference gives
+    it)."""
+    from bcosification_tpu_torch.interpretability.analyses import localisation
+    from bcosification_tpu_torch.interpretability.analyses import localisation_sweep
+
+    root = Path(exp_root) / "localisation_results"
+    args = localisation.argument_parser().parse_args(
+        ["--experiment_name", ENTRY_EXPERIMENT[2], "--analysis_config", LOC_CONFIG,
+         "--smooth", "15", "--explainer_name", "Ours", "--save_root", str(root)])
+    t0 = time.perf_counter()
+    results = localisation.main(args)
+    cli_s = time.perf_counter() - t0
+    out = root / ENTRY_EXPERIMENT[2] / LOC_CONFIG / "Ours"
+    sweep = localisation_sweep.argument_parser().parse_args(
+        ["--experiment_name", ENTRY_EXPERIMENT[2], "--reload", "last", "--explainers", "Ours",
+         "IxG", "--analysis_configs", LOC_CONFIG, "--save_root", str(root / "sweep")])
+    t0 = time.perf_counter()
+    localisation_sweep.main(sweep)
+    sweep_s = time.perf_counter() - t0
+    runs = [out] + [root / "sweep" / ENTRY_EXPERIMENT[2] / LOC_CONFIG / e for e in ("Ours", "IxG")]
+    files = ("confidences.pkl", "localisation_metric.np.npy", "config.log")
+    missing = [str(run / f) for run in runs for f in files if not (run / f).exists()]
+    say(f"loc localisation.main --analysis_config {LOC_CONFIG} --smooth 15 --explainer_name Ours "
+        f"on the trained {ENTRY_EXPERIMENT[2]}: {cli_s:.1f} s, metric of "
+        f"{len(results['localisation_metric'])} classes; localisation_sweep (Ours, IxG) "
+        f"{sweep_s:.1f} s; files written: {not missing}")
+    if missing:
+        raise AssertionError(f"the localisation commands did not write {missing}")
+    return {"cli_s": cli_s, "sweep_s": sweep_s}
+
+
+@contextlib.contextmanager
+def shared_gates(masks, record):
+    """While active, the ReLU gates of the fast CLIP pass (each stem and 3x3
+    segment's output, each block's conv1 output and its output: what its
+    backward reads the gates from) are appended to ``masks`` in the order
+    the pass makes them (record=True), or set to those recorded
+    (record=False): an entry on in the record and off here becomes 1e-30,
+    one off in the record and on here 0. Such entries sit within rounding of
+    their gate's edge, so the values barely move, while W jumps by the
+    entry's whole contribution: two devices' W compare as one function only
+    under the same gates."""
+    seg_fwd, block_fwd, i = fast_clip._seg_fwd, fast_clip._block_fwd, iter(range(1 << 30))
+
+    def gate(z):
+        if record:
+            masks.append(z > 0)
+            return z
+        m = masks[next(i)].to(z.device)
+        return torch.where(m, torch.where(z > 0, z, torch.full_like(z, 1e-30)),
+                           torch.zeros_like(z))
+
+    def seg(u, n, bn, relu):
+        z = seg_fwd(u, n, bn, relu)
+        return gate(z) if relu else z
+
+    def block(blk, a, dtype):
+        out, rec = block_fwd(blk, a, dtype)
+        rec["c1"] = gate(rec["c1"])
+        rec["out"] = out = gate(out)
+        return out, rec
+
+    fast_clip._seg_fwd, fast_clip._block_fwd = seg, block
+    try:
+        yield
+    finally:
+        fast_clip._seg_fwd, fast_clip._block_fwd = seg_fwd, block_fwd
+
+
+@contextlib.contextmanager
+def float64_fast_clip():
+    """While active, the fast CLIP pass runs in float64 on the CPU: K1, K2 and
+    K3 (whose wrappers take f32 and bf16 only) and the two helpers that cast
+    to f32 become their plain float64 formulas. A reference for W free of
+    fp32 rounding."""
+    from bcosification_tpu_torch.explain import fast_resnet
+
+    def norm(x, eps, outside):
+        ssq = (x * x).sum(-1, keepdim=True)
+        return torch.sqrt(ssq) + eps if outside else torch.sqrt(ssq + eps)
+
+    def fwd(x, wt, mult, add, *, relu, eps=k12.CONV_NORM_EPS):
+        u = x @ wt.t()
+        z = (u.abs() / norm(x, eps, False)) * u * mult.to(u.dtype)
+        z = z if add is None else z + add.to(u.dtype)
+        return z.clamp_min(0) if relu else z
+
+    def bwd(x, wt, ct, a, mult, *, relu, eps=k12.CONV_NORM_EPS, eps_outside=False):
+        g = ct if mult is None else ct * mult.to(ct.dtype)
+        g = torch.where(a > 0, g, torch.zeros_like(g)) if relu else g
+        u = x @ wt.t()
+        return (g * (u.abs() / norm(x, eps, eps_outside))) @ wt
+
+    def bcos_matmul(x, wt, *, eps, eps_outside):
+        u = x @ wt.t()
+        return u * (u.abs() / norm(x, eps, eps_outside))
+
+    class BN(fast_resnet._BN):
+        def __init__(self, bn):
+            super().__init__(bn)
+            self.mult = self.gamma / self.std if self.gamma is not None else 1.0 / self.std
+            self.add = self.beta
+            self.sm = torch.sign(self.mult) * torch.sqrt(self.mult.abs())
+
+    def seg_bwd(ct, z, n, bn, relu, identity=None):
+        ct = torch.where(z > 0, ct, torch.zeros_like(ct)) if relu else ct
+        zz = z if identity is None else z - identity
+        zz = zz if bn.beta is None else zz - bn.beta
+        return ct * bn.sm * torch.sqrt(zz.abs() / n)
+
+    saved = [(fast_clip, "conv1x1_fwd", fwd), (fast_clip, "conv1x1_bwd_explain", bwd),
+             (fast_clip, "_BN", BN), (fast_clip, "_seg_bwd", seg_bwd),
+             (k3, "bcos_matmul_fwd", bcos_matmul)]
+    old = [getattr(mod, name) for mod, name, _ in saved]
+    for mod, name, fn in saved:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(saved, old):
+            setattr(mod, name, fn)
+
+
+def gated_text_w(student, image, emb, pool_cosine, seed):
+    """W of text localisation on the GPU against the CPU under the GPU's
+    ReLU gates (``shared_gates``), and the bound: ten times the CPU's own
+    spread under 1e-7 relative input noise, under the same gates; the
+    GPU's W against a float64 CPU pass (``float64_fast_clip``) under the
+    GPU's gates (held to that bound) and under the CPU's, and the CPU's
+    fp32 W against float64 under the CPU's gates (readings). Returns (the
+    CPU's W under its own gates, {reading: (value, bound or None)}, the
+    number of gates that differ between the two devices)."""
+    from bcosification_tpu_torch.interpretability.analyses import text_localisation as tl
+
+    def w(net, x, dev):
+        return tl.compute_attributions(net, emb.to(x.device), x, pool_cosine=pool_cosine,
+                                       device=dev)["dynamic_linear_weights"]
+
+    masks, own = [], []
+    with shared_gates(masks, record=True):
+        w_gpu = w(student, image, None)
+    cpu, x = copy.deepcopy(student).to("cpu"), image.cpu()
+    with shared_gates(own, record=True):
+        w_own = w(cpu, x, "cpu")
+    flips = sum(int((a.cpu() != b).sum()) for a, b in zip(masks, own))
+    with shared_gates(masks, record=False):
+        w_cpu = w(cpu, x, "cpu")
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed))
+    with shared_gates(masks, record=False):
+        w_noisy = w(cpu, x * (1 + 1e-7 * noise), "cpu")
+    cpu64, x64 = copy.deepcopy(cpu).double(), x.double()
+    with float64_fast_clip(), shared_gates(masks, record=False):
+        w64_gpu_gates = w(cpu64, x64, "cpu")
+    with float64_fast_clip(), shared_gates(own, record=False):
+        w64_cpu_gates = w(cpu64, x64, "cpu")
+    bound = 10 * rel(w_noisy, w_cpu)
+    return w_own, {
+        "W gpu vs cpu under the gpu's gates": (rel(w_gpu, w_cpu), bound),
+        "W gpu vs float64 under the gpu's gates": (rel(w_gpu, w64_gpu_gates), bound),
+        "W gpu vs float64 under the cpu's gates": (rel(w_gpu, w64_cpu_gates), None),
+        "W cpu vs float64 under the cpu's gates": (rel(w_own, w64_cpu_gates), None)}, flips
+
+
+def loc_text(students, kd_student):
+    """text_localisation.main with --random_img_path on a synthetic JPEG, for
+    phase 11's CLIP-RN50 students, pooled and attn-unpool, and phase 12's
+    KD-trained attn-unpool student (each saved as its experiment's
+    checkpoint under a fresh experiment root, from which main loads it): the
+    .npz and .png written; its launches (K1 and K2 through fast_clip) and
+    seconds; W on the GPU against a CPU copy, fp32: under the same ReLU
+    gates (``gated_text_w``) within ten times the CPU's spread under 1e-7
+    relative input noise, and, for phase 11's students, also as phase 11
+    holds it (each device's own gates: PyTorch's CUDA convs within ten
+    times that spread, cuDNN's within 1e-3). A gate within rounding of its
+    edge can fall either way on either device and move W by its whole
+    contribution: 13 of the KD-trained student's do on this image, 1.131e-3
+    in all (PERF.md section 7)."""
+    cases = {"pooled": (students["pooled"], False), "unpool": (students["unpool"], True),
+             "unpool KD": (kd_student, True)}
+    old_root, out = settings.EXPERIMENT_ROOT, {}
+    try:
+        for label, (student, unpool) in cases.items():
+            with tempfile.TemporaryDirectory() as tmp:
+                settings.EXPERIMENT_ROOT = tmp
+                out[label] = loc_text_head(label, unpool, student, Path(tmp))
+    finally:
+        settings.EXPERIMENT_ROOT = old_root
+    return out
+
+
+def loc_text_head(label, unpool, student, root):
+    from PIL import Image
+
+    from bcosification_tpu_torch.clip.load import load as clip_load
+    from bcosification_tpu_torch.data.imagenet import imagenet_templates
+    from bcosification_tpu_torch.interpretability.analyses import text_localisation as tl
+
+    experiment = CLIP_EXPERIMENTS["unpool" if unpool else "pooled"]
+    Experiment(*experiment)._ckpt_manager().save({"model": student.state_dict()}, 0,
+                                                 {"val_loss": 0.0})
+    img_path = root / "a_dog.jpg"
+    rgb = analysis_images(1, SEED + 41)[0].numpy()
+    Image.fromarray(np.ascontiguousarray(rgb)).resize((300, 250)).save(img_path, quality=90)
+    save = root / "textloc"
+    args = tl.argument_parser().parse_args(
+        ["--exp_name", experiment[2], "--text_to_localize", "a dog", "--random_img_path",
+         str(img_path), "--save_path", str(save)])
+    t0 = time.perf_counter()
+    results, counts = counted(lambda: tl.main(args))
+    cli_s = time.perf_counter() - t0
+    # one embedding (the text tower: no kernel) and one explanation
+    check_counts(f"loc text {label} main", counts, clip_counts(unpool, True))
+    sub = save / "textloc_expl" / "a_dog" / ("smooth0" + ("_attn_unpool" if unpool else ""))
+    written = all((sub / f"Text_a_dog{ext}").exists() for ext in (".npz", ".png"))
+
+    _, text, _, _ = clip_load("RN50")  # the random-init tower main embedded with
+    emb = tl.embed_phrase(text, "a dog", imagenet_templates)
+    image = torch.from_numpy(tl._load_image(str(img_path))).cuda()
+
+    def call(net=student, x=image, dev=None):
+        return tl.compute_attributions(net, emb.to(x.device), x, pool_cosine=args.pool_cosine,
+                                       device=dev)
+
+    res = call()
+    ms = window_ms(call, 10)
+    busy, top = device_profile(call, 3, top=40)
+    kernel_ms = {name.replace("(anonymous namespace)::", "").split("(")[0]: ms_
+                 for name, ms_ in top if "conv1x1" in name or "bcos_matmul" in name}
+    torch.backends.cudnn.enabled = False
+    try:
+        w_native = call()["dynamic_linear_weights"]
+    finally:
+        torch.backends.cudnn.enabled = True
+    wc, gated, flips = gated_text_w(student, image, emb, args.pool_cosine, SEED + 42)
+    cpu = copy.deepcopy(student).to("cpu")
+    noise = torch.randn(image.shape, generator=torch.Generator().manual_seed(SEED + 42))
+    wn = call(cpu, image.cpu() * (1 + 1e-7 * noise), "cpu")["dynamic_linear_weights"]
+    spread = rel(wn, wc)
+    w = res["dynamic_linear_weights"]
+    own = {"W gpu (torch convs) vs cpu, own gates": (rel(w_native, wc), 10 * spread),
+           "W gpu (cudnn convs) vs cpu, own gates": (rel(w, wc), 1e-3)}
+    checks = {key: val for key, val in gated.items() if val[1] is not None}
+    checks["W main vs call"] = (rel(results["a dog"]["dynamic_linear_weights"], w), 1e-6)
+    if label != "unpool KD":
+        checks.update(own)
+    say(f"loc text {label}: text_localisation.main {cli_s:.1f} s (pool_cosine "
+        f"{args.pool_cosine}; .npz and .png written: {written}; score "
+        f"{results['a dog']['score']:.6f}); launches {counts}; one compute_attributions "
+        f"{ms:.2f} ms (fp32, 224^2; the card busy {(busy or 0):.2f} ms), its kernels per call "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in kernel_ms.items())
+        + f"; W cpu spread under 1e-7 relative input noise {spread:.3e}; ReLU gates that differ "
+        f"between the devices {flips} [{CARD}]")
+    for key, (val, bound) in {**own, **gated, **checks}.items():
+        held = "" if key in checks else (", not held" if bound else "")
+        say(f"loc text {label} {key}: {val:.3e}"
+            + (f" (bound {bound:.3e}{held})" if bound else " (a reading)"))
+    if not written or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError(f"text localisation of the {label} student failed")
+    return {"cli_s": cli_s, "ms": ms}
+
+
+def distinct_targets(logits):
+    """Each cell's target: the class its image ranks highest among those the
+    cells before it have not taken (the ViT's own argmax, kept distinct)."""
+    taken = []
+    for row in logits.float():
+        order = row.argsort(descending=True).tolist()
+        taken.append(next(c for c in order if c not in taken))
+    return taken
+
+
+def loc_vit_striding(seed):
+    """Ours on phase 13's ViT-B/16 (bf16) in the striding mode of
+    -stride=112: each 672^2 grid zero-padded by 112 and cut into 7 x 7 = 49
+    crops of 224^2, each attributed for the 9 targets and folded back; two
+    grids, scored as the analyser scores them, with their seconds. The
+    random-init ViT's argmax falls on a handful of classes (4 over 1024
+    synthetic images), too few for the analyser's sampler, so each cell's
+    target is its image's best class not taken by an earlier cell."""
+    from bcosification_tpu_torch.interpretability.analyses.localisation import make_multi_image
+    from bcosification_tpu_torch.interpretability.explanation_methods import get_explainer
+
+    vit = CastInput(Experiment(*VIT_EXPERIMENTS["default"]).get_model())
+    rgb = analysis_images(9 * VIT_STRIDE_GRIDS, seed)
+    dataset = LabelledImages(rgb, np.zeros(len(rgb), np.int64))
+    explainer = get_explainer(vit, "Ours")
+    with tempfile.TemporaryDirectory() as tmp:
+        analyser = loc_analyser(vit, dataset, VIT_STRIDE_CONFIG, tmp)
+        metric, seconds = [], 0.0
+        for g in range(VIT_STRIDE_GRIDS):
+            cells = torch.from_numpy(np.stack([dataset[9 * g + i][0] for i in range(9)]))
+            with torch.no_grad():
+                dataset.labels[9 * g:9 * g + 9] = distinct_targets(vit(cells.cuda()))
+            grid, tgts, _ = make_multi_image(9, dataset, 9 * g)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            atts = analyser._strided_attributions(explainer, grid, tgts, SIZE, 112)
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            metric.append(loc_scores(analyser, atts[..., None]))
+    metric = np.concatenate(metric)
+    say(f"loc vit-b/16 -stride=112: {VIT_STRIDE_GRIDS} grids of 49 crops of 224^2 (9 targets "
+        f"each) in {seconds:.2f} s, {seconds / VIT_STRIDE_GRIDS / 49 * 1e3:.1f} ms per crop; "
+        f"mean metric {float(metric.mean()):.4f} [{CARD}]")
+    if len(metric) != 9 * VIT_STRIDE_GRIDS or not np.isfinite(metric).all():
+        raise AssertionError(f"the ViT striding mode scored {len(metric)} classes")
+    return seconds
+
+
+def phase_analyses(net, students, stream_rate, worst, exp_root):
+    """Phase 15: the explanation methods and the grid pointing game on the
+    calibrated full-width ResNet-50 of phase 4 (bf16, except the fp32
+    parity): the analyser on LOC_IMAGES seeded synthetic images labelled by
+    the net's own argmax (_noconfthresh), filling at least LOC_MIN_GRIDS
+    3x3 grids of 672^2; every explainer on one grid with its seconds and
+    launches; fp32 Ours and GB on one grid, GPU against CPU; the
+    localisation and sweep commands on phase 9's trained resnet_50; text
+    localisation on phase 11's CLIP-RN50 students and phase 12's KD-trained
+    attn-unpool student; the ViT-B/16 striding
+    mode; each kernel against its plain version and timed at the grid's
+    shapes. Returns the kernels line's keys."""
+    n_shapes = check_loc_kernels(net.model, worst)
+    say(f"loc: K1, K2 and K3 checked at the {n_shapes} distinct shapes of one 672^2 grid of 9 "
+        "copies (Ours and the gradient explainers' route)")
+    model = CastInput(net)
+    dataset = loc_dataset(model, LOC_IMAGES, SEED + 40, "resnet-50")
+    with tempfile.TemporaryDirectory() as tmp:
+        analyser = loc_analyser(model, dataset, LOC_CONFIG, tmp)
+        t0 = time.perf_counter()
+        confidences = analyser.compute_sorted_confs()
+        confs_s = time.perf_counter() - t0
+        indices = analyser.get_sorted_indices(confidences)
+        grids = len(indices) // 9
+        classes = len({int(dataset.labels[i]) for i in indices})
+        say(f"loc analyser: compute_sorted_confs over {len(dataset)} images in {confs_s:.2f} s; "
+            f"the sampler drew {len(indices)} images of {classes} distinct classes: {grids} "
+            f"grids (at most {analyser.config['sample_size']}) [{CARD}]")
+        if grids < LOC_MIN_GRIDS:
+            raise AssertionError(f"the analyser filled {grids} grids, fewer than {LOC_MIN_GRIDS}")
+        t0 = time.perf_counter()
+        metric = analyser.run()["localisation_metric"]
+        run_s = time.perf_counter() - t0
+        n_grids = len(metric) // 9
+        say(f"loc analyser Ours ({LOC_CONFIG}, smooth 15): mean metric "
+            f"{float(metric.mean()):.4f} over {len(metric)} classes of {n_grids} grids in "
+            f"{run_s:.1f} s (the confidences read back): {n_grids / run_s:.2f} grids/s [{CARD}]")
+        if n_grids < LOC_MIN_GRIDS or not np.isfinite(metric).all():
+            raise AssertionError(f"the analyser scored {len(metric)} classes")
+        grid, tgts = loc_grid(analyser, indices)
+        seconds = loc_explainers(model, grid, tgts)
+        loc_parity(net, grid, tgts, analyser)
+        del grid
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} analysis calls padded their operands")
+    clis = loc_clis(exp_root)
+    kd_student = Experiment(*CLIP_EXPERIMENTS["unpool"]).load_trained_model("best_any",
+                                                                           verbose=False)
+    text = loc_text(students, kd_student)
+    del kd_student
+    vit_s = loc_vit_striding(SEED + 43)
+    # each kernel at the grid's shapes: Ours's module path (that of one fast
+    # fwd+explain at batch 9, 672^2) and K3 on the gradient explainers' route
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    ours = time_shapes(collections.Counter(main_path_launches(net.model, 9, LOC_GRID)),
+                       stream_rate, gen, tag="loc ")
+    grad_k3 = time_shapes(collections.Counter(train_k3_launches(net.model, 9, LOC_GRID)),
+                          stream_rate, gen, tag="loc grad ")["bcos_matmul_fwd"]
+    keys = {}
+    for name, r in list(ours.items()) + [("bcos_matmul_fwd grad", grad_k3)]:
+        kernel, what = name.split()[0], "loc_grad" if name.endswith("grad") else "loc"
+        launches = (EVAL_GRADIENT_COUNTS if what == "loc_grad" else EXPLAIN_COUNTS)[kernel]
+        say(f"loc {kernel} per {'gradient explainer' if what == 'loc_grad' else 'Ours'} grid "
+            f"({launches} launches): {r['ms']:.4f} ms; bound {1e3 * r['bound_s']:.4f} ms at the "
+            f"data-sheet rate, {1e3 * r['measured_bound_s']:.4f} ms at the measured "
+            f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
+            f"{r['library_ms']:.4f} ms [{CARD}]")
+        keys.setdefault(kernel, {}).update({
+            f"{what}_launches": launches, f"{what}_ms": r["ms"],
+            f"{what}_bound_ms": 1e3 * r["bound_s"], f"{what}_plain_ms": r["plain_ms"],
+            f"{what}_library_ms": r["library_ms"]})
+    say(f"loc summary: {n_grids} grids, {n_grids / run_s:.2f} grids/s, compute_sorted_confs "
+        f"{confs_s:.2f} s; per grid " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"; localisation.main {clis['cli_s']:.1f} s, sweep {clis['sweep_s']:.1f} s; text "
+        f"localisation pooled {text['pooled']['ms']:.2f} ms, attn-unpool "
+        f"{text['unpool']['ms']:.2f} ms, KD-trained attn-unpool {text['unpool KD']['ms']:.2f} ms "
+        f"per call; ViT-B/16 -stride=112 two grids {vit_s:.1f} s "
+        f"[{CARD}]")
     return keys
 
 
@@ -3078,7 +3780,6 @@ def main() -> int:
         if k12.tma_operands.padded:
             raise AssertionError(f"{k12.tma_operands.padded} ResNet-50 calls padded their operands")
         say("TMA operand padding on the ResNet-50 paths: 0 calls")
-        del net
         t0 = time.perf_counter()
         densenet = phase_densenet(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["10 densenet"] = time.perf_counter() - t0
@@ -3096,7 +3797,6 @@ def main() -> int:
             raise AssertionError(f"{k12.tma_operands.padded} CLIP-RN50 calls padded their "
                                  "operands")
         say("TMA operand padding on the CLIP-RN50 paths (KD included): 0 calls")
-        del students
         t0 = time.perf_counter()
         vit = phase_vit(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["13 vit"] = time.perf_counter() - t0
@@ -3107,10 +3807,17 @@ def main() -> int:
         t0 = time.perf_counter()
         vit_train = phase_vit_train(x2, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["14 vit training"] = time.perf_counter() - t0
+        if k12.tma_operands.padded:
+            raise AssertionError(f"{k12.tma_operands.padded} ViT training and vit_final calls "
+                                 "padded their operands")
+        say("TMA operand padding on the ViT training and vit_final paths: 0 calls")
+        t0 = time.perf_counter()
+        analyses = phase_analyses(net, students, probe["k4_gbs"] * 1e9, worst, exp_root)
+        seconds["15 analyses"] = time.perf_counter() - t0
+        del net, students
     if k12.tma_operands.padded:
-        raise AssertionError(f"{k12.tma_operands.padded} ViT training and vit_final calls "
-                             "padded their operands")
-    say("TMA operand padding on the ViT training and vit_final paths: 0 calls")
+        raise AssertionError(f"{k12.tma_operands.padded} analysis calls padded their operands")
+    say("TMA operand padding on the analyses' paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -3122,6 +3829,7 @@ def main() -> int:
         row.update(densenet.get(row["name"], {}))
         row.update(clip.get(row["name"], {}))
         row.update(vit.get(row["name"], {}))
+        row.update(analyses.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518

@@ -8,9 +8,10 @@ the small SimpleViT on the GPU against the CPU (forward, W of the module
 path and of fast_vit, launch counts), K3 and K2 at a ViT-B linear1 shape,
 exported explanation programs against the eager calls, K3 at the shapes of
 a ViT-B/16 train step and a ViT-C B forward, the ViT-C stem's B-cos conv
-and group norm, and the small vit_final ViTs (one train step and the
-explanation) on the GPU against the CPU. Every test here needs a GPU and
-skips without one.
+and group norm, the small vit_final ViTs (one train step and the
+explanation) on the GPU against the CPU, the guided and DeepLIFT ReLU
+gradients and the explainers on a small-flagship 3x3 grid against the CPU
+with their launches. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -856,8 +857,9 @@ def test_small_vit_final_train_step_matches_cpu(gpu, name):
                                   "bcos_simple_vit_ti_patch16_224"])
 def test_small_vit_final_explanation_matches_cpu(gpu, name):
     """fp32: the logits and W of the module path (autograd) on the GPU
-    against the CPU (1e-5), and for the B-cos ViT the hand-scheduled pass
-    (BcosLinear, the logit layer inside the SimpleViT) against both."""
+    against the CPU (1e-5), and for the B-cos ViT and ViT-C the
+    hand-scheduled pass (BcosLinear, the logit layer inside the SimpleViT,
+    the ViT-C stem's transpose) against both."""
     from bcosification_tpu_torch.explain import fast_vit
     from bcosification_tpu_torch.explain.core import dynamic_linear_weights
 
@@ -868,7 +870,7 @@ def test_small_vit_final_explanation_matches_cpu(gpu, name):
     lc, sc, wc = dynamic_linear_weights(lambda t: cpu(t, explain=True), x.cpu(), device="cpu")
     assert torch.equal(sg.cpu(), sc)
     assert _rel(wg, wc) <= 1e-5 and _rel(lg, lc) <= 1e-5
-    assert fast_vit.supports(net) == (name == "bcos_simple_vit_ti_patch16_224")
+    assert fast_vit.supports(net) == name.startswith("bcos_")
     if fast_vit.supports(net):
         reset_launch_counts()
         lf, sf, wf = fast_vit.fast_dynamic_linear_weights(net, x)
@@ -876,3 +878,54 @@ def test_small_vit_final_explanation_matches_cpu(gpu, name):
         assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n,
                                    "bcos_matmul_fwd": n, "stream_add": 0}
         assert torch.equal(sf, sg) and _rel(wf, wg) <= 1e-5 and _rel(wf, wc) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["guided", "deeplift"])
+def test_guided_relu_gradients_match_cpu(gpu, mode):
+    """ops.guided.relu's guided and DeepLIFT (paired batch, near pairs
+    included) gradients on the card equal the CPU's."""
+    from bcosification_tpu_torch.ops import guided
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2 * 64, 33, generator=g)
+    x[64:80] = x[:16] + 1e-8  # pairs closer than 1e-7: the ordinary mask
+    ct = torch.randn(x.shape, generator=g)
+    ctx = guided.guided_backprop if mode == "guided" else guided.deeplift
+    grads = []
+    for dev in ("cpu", gpu):
+        xx = x.clone().to(dev).requires_grad_(True)
+        with ctx():
+            y = guided.relu(xx)
+        y.backward(ct.to(dev))
+        grads.append(xx.grad)
+    assert torch.equal(grads[1].cpu(), grads[0])
+    assert bool((grads[0] != ct * (x > 0)).any())  # not the plain ReLU's gradient
+
+
+def test_explainers_on_a_small_flagship_grid_match_cpu(gpu):
+    """fp32, a 3x3 grid of 64x64 images on the calibrated small flagship:
+    Ours (K1 at each fused 1x1 forward, K2 there and at the classifier
+    backward), GB and DeepLIFT in explanation mode (no K1) on the GPU
+    against the CPU (1e-5)."""
+    from chip_smoke import FLAGSHIP, calibrate
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
+    from bcosification_tpu_torch.interpretability.explanation_methods import get_explainer
+
+    net = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10, inplanes=8,
+                                 layers=("bottleneck", (1, 1)))
+    g = torch.Generator(device=gpu).manual_seed(0)
+    x = torch.rand(1, 192, 192, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    calibrate(net, x[:, :64, :64])
+    cpu = copy.deepcopy(net).to("cpu")
+    targets = list(range(9))
+    for name, kw, k1, k2 in (("Ours", {}, 6, 7), ("GB", {}, 0, 0),
+                             ("DeepLIFT", {"explanation_mode": True}, 0, None)):
+        reset_launch_counts()
+        got = get_explainer(net, name, **kw).attribute_selection(x, targets)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = get_explainer(cpu, name, device="cpu", **kw).attribute_selection(x.cpu(), targets)
+        assert counts["bcos_conv1x1_fwd"] == k1, (name, counts)
+        assert k2 is None or counts["bcos_conv1x1_bwd_explain"] == k2, (name, counts)
+        assert got.shape == (9, 192, 192, 6) and _rel(got, want) <= 1e-5, name

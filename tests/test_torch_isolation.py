@@ -37,7 +37,13 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "experiments.ImageNet.vit_bcosification.experiment_parameters",
              "experiments.ImageNet.vit_bcosification.model",
              "experiments.ImageNet.vit_final.experiment_parameters",
-             "experiments.ImageNet.vit_final.model"):
+             "experiments.ImageNet.vit_final.model", "ops.guided", "interpretability",
+             "interpretability.explanation_methods",
+             "interpretability.explanation_methods.explainers", "interpretability.analyses",
+             "interpretability.analyses.utils", "interpretability.analyses.localisation_configs",
+             "interpretability.analyses.localisation",
+             "interpretability.analyses.localisation_sweep",
+             "interpretability.analyses.text_localisation"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules

@@ -11,8 +11,9 @@ bcosify/from_jax.py, JAX at the highest matmul precision.
   relative (1e-7 relative input noise moves W by less than 1e-6 here:
   ``test_w_is_well_conditioned``); the hand-scheduled pass
   ``explain/fast_vit.py`` on the B-cos ViT (BcosLinear, the logit layer
-  inside the SimpleViT) against both; the ViT-C's ``export_explain``
-  raising (no hand-written transpose of its stem yet);
+  inside the SimpleViT) and on the B-cos ViT-C (its conv stem's transpose)
+  against both; ``export_explain`` serving both B-cos nets and raising for
+  the standard baselines;
 - the group norms of the stem (``DetachableGNLayerNorm2d`` and its
   relatives) and ``BcosLinear``, each in its forward and its VJP with and
   without ``explain`` (1e-5); the standard stem's ``PlainConv2d``;
@@ -215,28 +216,75 @@ def test_fast_vit_on_bcos_linear_equals_the_module_path(pairs):
     assert calls == {"matmul": n, "bwd": n}
 
 
-def test_export_explain_serves_the_bcos_vit_and_refuses_the_stem(pairs):
-    """export_explain serves the B-cos ViT of vit_final (its loaded program
-    equal to the eager pass, 1e-6); a ViT-C, whose stem has no hand-written
-    transpose, raises ValueError, and so does a standard baseline."""
+def test_fast_vit_on_the_vitc_stem_equals_the_module_path(pairs):
+    """The hand-scheduled pass on the B-cos ViT-C (the conv stem's 3x3 B-cos
+    convs, group norms and activations transposed by hand): the logits and W
+    of the module path and of JAX (1e-5), for the predicted and a given
+    class; the stem's convs take no kernel (3x3), each bias-free B-cos
+    linear one K3 and one K2 call."""
+    from bcosification_tpu_torch.explain import fast_vit
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+    from bcosification_tpu_torch.ops.cuda import bcos_conv1x1, bcos_matmul
+
+    name = "bcos_vitc_ti_patch1_14"
+    net, variables, tnet = pairs[name]
+    assert fast_vit.supports(tnet) and len(tnet.stem()) == 3 * len(ARCHS[name[5:]]["conv_stem"])
+    x = images(name, 2, 6)
+    xt = torch.from_numpy(x)
+    bias = bias_of(tnet)
+    for idx in (None, 3):
+        jl, js, jw = _jax_explain(net, variables, x, None if idx is None else jnp.asarray(idx))
+        ml, ms, mw = dynamic_linear_weights(lambda t: tnet(t, explain=True), xt, idx,
+                                            device="cpu")
+        fl, fs, fw = fast_vit.fast_dynamic_linear_weights(tnet, xt, idx, device="cpu")
+        np.testing.assert_array_equal(fs.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(fs.numpy(), ms.numpy())
+        assert _rel(fw.numpy(), mw.numpy()) <= 1e-5 and _rel(fw.numpy(), jw) <= 1e-5
+        assert _rel(fl.double().numpy() - bias, np.asarray(jl, np.float64) - bias) <= 1e-5
+        assert _rel(fl.double().numpy() - bias, ml.double().numpy() - bias) <= 1e-5
+    calls = {"matmul": 0, "bwd": 0}
+    plain_fwd, plain_bwd = bcos_matmul.bcos_matmul_fwd_plain, bcos_conv1x1.conv1x1_bwd_explain_plain
+
+    def counting(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bcos_matmul, "bcos_matmul_fwd_plain", counting("matmul", plain_fwd))
+        mp.setattr(bcos_conv1x1, "conv1x1_bwd_explain_plain", counting("bwd", plain_bwd))
+        fast_vit.fast_dynamic_linear_weights(tnet, xt, device="cpu")
+    n = 3 * SMALL["depth"] + 2
+    assert calls == {"matmul": n, "bwd": n}
+
+
+def test_export_explain_serves_the_bcos_vits_and_refuses_the_baselines(pairs):
+    """export_explain serves the B-cos ViT and the B-cos ViT-C of vit_final
+    (each loaded program equal to the eager pass and to the module path's W,
+    1e-6); the standard baselines, which no hand-written pass covers,
+    raise ValueError."""
     from bcosification_tpu_torch import serving
     from bcosification_tpu_torch.explain import fast_vit
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
 
-    name = "bcos_simple_vit_ti_patch16_224"
-    tnet = pairs[name][2]
-    program = serving.load_serialized(serving.export_explain(tnet, input_size=SIZE,
-                                                             device="cpu"))
-    xt = torch.from_numpy(images(name, 3, 5))
-    logits, sel, w = program.call(xt)
-    el, es, ew = fast_vit.fast_dynamic_linear_weights(tnet, xt, device="cpu")
-    np.testing.assert_array_equal(sel.numpy(), es.numpy())
-    assert _rel(w.numpy(), ew.numpy()) <= 1e-6
-    assert _rel(logits.double() - bias_of(tnet), el.double() - bias_of(tnet)) <= 1e-6
-    for other in ("bcos_vitc_ti_patch1_14", "vitc_ti_patch1_14", "simple_vit_ti_patch16_224"):
+    for name in ("bcos_simple_vit_ti_patch16_224", "bcos_vitc_ti_patch1_14"):
+        tnet = pairs[name][2]
+        program = serving.load_serialized(serving.export_explain(tnet, input_size=SIZE,
+                                                                 device="cpu"))
+        xt = torch.from_numpy(images(name, 3, 5))
+        logits, sel, w = program.call(xt)
+        el, es, ew = fast_vit.fast_dynamic_linear_weights(tnet, xt, device="cpu")
+        ml, ms, mw = dynamic_linear_weights(lambda t: tnet(t, explain=True), xt, device="cpu")
+        np.testing.assert_array_equal(sel.numpy(), es.numpy())
+        np.testing.assert_array_equal(sel.numpy(), ms.numpy())
+        assert _rel(w.numpy(), ew.numpy()) <= 1e-6, name
+        assert _rel(w.numpy(), mw.numpy()) <= 1e-6, name
+        assert _rel(logits.double() - bias_of(tnet), el.double() - bias_of(tnet)) <= 1e-6
+    for other in ("vitc_ti_patch1_14", "simple_vit_ti_patch16_224"):
         assert not fast_vit.supports(pairs[other][2])
-        channels = 6 if other.startswith("bcos_") else 3
         with pytest.raises(ValueError, match="not supported"):
-            serving.export_explain(pairs[other][2], input_size=SIZE, channels=channels,
+            serving.export_explain(pairs[other][2], input_size=SIZE, channels=3,
                                    device="cpu")
 
 
