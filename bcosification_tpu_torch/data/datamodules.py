@@ -8,9 +8,12 @@
 readers. Batches are dicts of numpy arrays, "image" [N, H, W, C] float32
 and "label"; the trainer moves them to the card.
 
-CC3M's module is in ``data/cc3m.py``. Not ported yet: the VOC module, the
-C++ loader (``native_loader=True`` raises) and the per-process split of a
-multi-process run (``split_by_process`` raises).
+``VOCDataModule`` reads the VOC2007 layout (``VOC_PATH``: ImageSets/Main,
+JPEGImages, Annotations): multilabel targets from the XML annotations and,
+with ``also_annotation``, the boxes rescaled to ``bbox_size``. CC3M's module
+is in ``data/cc3m.py``. Not ported yet: the C++ loader (``native_loader=True``
+raises) and the per-process split of a multi-process run
+(``split_by_process`` raises).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from bcosification_tpu_torch.data.categories import (
     FASHION_MNIST_CATEGORIES,
     IMAGENET_CATEGORIES,
     STL10_CATEGORIES,
+    VOC_CATEGORIES,
 )
 from bcosification_tpu_torch.data.loader import DataLoader, default_collate
 from bcosification_tpu_torch.data.sampler import RASampler
@@ -37,6 +41,7 @@ __all__ = [
     "ClassificationDataModule",
     "ImageNetDataModule",
     "CIFAR10DataModule",
+    "VOCDataModule",
     "ImageFolder",
 ]
 
@@ -344,3 +349,111 @@ class STL10DataModule(_ArrayDataModule):
     NUM_EVAL_EXAMPLES = 8_000
     CATEGORIES = STL10_CATEGORIES
     READER = staticmethod(_stl10)
+
+
+class _VOCDataset:
+    """VOC multilabel dataset with XML annotation parse
+    (datamodules.py:283-460).
+
+    With ``also_annotation=True`` each item is (image, target, bbs) where
+    bbs = [[class_idx, xmin, ymin, xmax, ymax], ...] with box coordinates
+    rescaled to the ``bbox_size`` output resolution and clamped — exactly
+    the reference's box path (ref datamodules.py:404-425, which hardcodes
+    224), used by box-based localisation evaluation.
+    """
+
+    def __init__(
+        self,
+        root: str,
+        image_set: str,
+        transform=None,
+        also_annotation: bool = False,
+        bbox_size: int = 224,
+    ):
+        from xml.etree.ElementTree import parse as ET_parse
+
+        self.root = Path(root)
+        self.transform = transform
+        self.also_annotation = also_annotation
+        self.bbox_size = bbox_size
+        split_file = (
+            self.root / "ImageSets" / "Main" / f"{image_set}.txt"
+        )
+        with open(split_file) as f:
+            ids = [line.strip() for line in f if line.strip()]
+        self.images = [self.root / "JPEGImages" / f"{i}.jpg" for i in ids]
+        self.annotations = [self.root / "Annotations" / f"{i}.xml" for i in ids]
+        self._parse = ET_parse
+        self.cat_to_idx = {c: i for i, c in enumerate(VOC_CATEGORIES)}
+
+    def __len__(self):
+        return len(self.images)
+
+    def _parse_objects(self, ann_path):
+        """(target multilabel vector, [(name, bndbox-element)], (width, height))."""
+        root = self._parse(ann_path).getroot()
+        label = np.zeros(len(VOC_CATEGORIES), np.float32)
+        objects = []
+        for obj in root.iter("object"):
+            name = obj.find("name").text
+            if name in self.cat_to_idx:
+                label[self.cat_to_idx[name]] = 1.0
+                objects.append((name, obj.find("bndbox")))
+        size = root.find("size")
+        width = int(size.find("width").text) if size is not None else None
+        height = int(size.find("height").text) if size is not None else None
+        return label, objects, (width, height)
+
+    def _target(self, ann_path) -> np.ndarray:
+        return self._parse_objects(ann_path)[0]
+
+    def _bboxes(self, objects, width, height):
+        """[[class_idx, xmin, ymin, xmax, ymax]] rescaled to bbox_size
+        (ref datamodules.py:404-425: int() truncation, clamp to [0, S-1])."""
+        S = self.bbox_size
+        wscale, hscale = S / width, S / height
+        bbs = []
+        for name, box in objects:
+            xmin, xmax = int(box.find("xmin").text), int(box.find("xmax").text)
+            ymin, ymax = int(box.find("ymin").text), int(box.find("ymax").text)
+            bbs.append([
+                self.cat_to_idx[name],
+                int(min(max(xmin * wscale, 0), S - 1)),
+                int(min(max(ymin * hscale, 0), S - 1)),
+                int(min(max(xmax * wscale, 0), S - 1)),
+                int(min(max(ymax * hscale, 0), S - 1)),
+            ])
+        return bbs
+
+    def __getitem__(self, i):
+        from PIL import Image
+
+        with Image.open(self.images[i]) as img:
+            img = img.convert("RGB")
+            size = img.size  # (width, height) before transform
+            if self.transform is not None:
+                img = self.transform(img)
+        image = np.asarray(img, np.float32)
+        label, objects, (width, height) = self._parse_objects(self.annotations[i])
+        if self.also_annotation:
+            width, height = width or size[0], height or size[1]
+            return image, label, self._bboxes(objects, width, height)
+        return image, label
+
+
+class VOCDataModule(ClassificationDataModule):
+    NUM_CLASSES = 20
+    CATEGORIES = VOC_CATEGORIES
+
+    def setup(self, stage: Optional[str] = None):
+        root = self.config.get("data_root") or settings.VOC_PATH
+        assert root, "Set VOC_PATH"
+        also_annotation = bool(self.config.get("also_annotation", False))
+        if stage in (None, "fit", "train"):
+            self.train_dataset = _VOCDataset(
+                root, "trainval", self.config["train_transform"]
+            )
+        self.eval_dataset = _VOCDataset(
+            root, "val", self.config["test_transform"],
+            also_annotation=also_annotation,
+        )

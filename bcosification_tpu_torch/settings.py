@@ -7,8 +7,12 @@ meaning and defaults, as ``bcosification_tpu/settings.py``.
   metrics (``<root>/<dataset>/<base_network>/<experiment_name>``);
 - ``BCOS_CACHE_DIR``: the decoded-image cache (``data/caching.py``);
 - ``DATA_ROOT``: CIFAR10/100, FashionMNIST and STL10;
-- the others name inputs of slices that are not ported yet (VOC, CC3M,
-  CLIP, the B-cos hub).
+- ``VOC_PATH``: the VOC2007 tree of ``VOCDataModule``;
+- ``CC3M_PATH``: the CC3M tar shards (``data/cc3m.py``);
+- ``CLIP_WEIGHTS_PATH``: an OpenAI CLIP checkpoint (``clip/load.py``);
+- ``BCOS_HUB_PATH``: the standard ViT weights of ``vit_bcosification``;
+- ``CLIP_BPE_PATH`` and ``IMAGENET_RN50_ZEROSHOT_WEIGHTS_PATH``: as in the
+  JAX package.
 
 ``TORCHVISION_WEIGHTS_DIR`` is read where the weights are loaded
 (``experiments/ImageNet/bcosification/model.py``).

@@ -124,9 +124,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of one attn-unpool KD step beside its bound, plain version and
    torch.matmul; a synthetic CC3M tree (data/synthetic.py: 332 train shards,
    4 of them distinct, and 2 val shards of 70 JPEG + caption pairs) with
-   CC3M_PATH at it: the CC3M train loader alone (img/s), ``train --dataset
-   CC3M ... _sigLip_kd_CC3M_bcosification --fast_dev_run`` in process and
-   once more resuming; then ``train --fast_dev_run`` of the ImageNet KD
+   CC3M_PATH at it: the CC3M train loader alone (img/s), Trainer.fit of the
+   CC3M KD Experiment for 5 steps from the calibrated pooled student (a
+   conversion-time student contracts to ~0 in eval mode, and phase 16 reads
+   this experiment), then ``train --dataset CC3M
+   ... _sigLip_kd_CC3M_bcosification --fast_dev_run`` in process twice, each
+   resuming; then ``train --fast_dev_run`` of the ImageNet KD
    config over phase 9's JPEG tree, resuming from the fit, whose epoch
    metrics hold ``zeroshot_ImageNet_acc1`` (the per-epoch zero-shot, K3 in
    its encode);
@@ -204,7 +207,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    on the ViT-B/16 of phase 13 in the -stride=112 mode over two grids (49
    crops of 224^2 each); each kernel against its plain version (both
    dtypes) and timed at the grid's shapes (Ours's and the gradient
-   route's) beside its bound.
+   route's) beside its bound;
+16. the CLIP benchmark harness (bcosification_tpu_torch/clip_benchmark, the
+   port of the top-level clip_benchmark package) through its CLI in process
+   (``cli.main([...])``, batch 64, fp32 images, so every encode runs K3's
+   fp32 route) on phase 12's KD-trained CLIP-RN50 experiments (pooled,
+   attn-unpool and the CC3M one) over seeded wds trees of 256^2 JPEGs:
+   zero-shot classification (1024 images, the 1000 ImageNet classes x 80
+   templates; the classifier built once with --save_clf, its tokenizer and
+   text-tower seconds apart, and loaded with --load_clfs by the other runs)
+   for bcos_clip pooled and attn-unpool, bcos_clip_cc3m and standard_clip
+   RN50 (the vanilla tower, no K3); the linear probe
+   on a separable 10-class colour set (2048 train, --val_proportion 0.2 and
+   so the 7 + 4 x 3 weight-decay sweep, 1024 test; lp_acc1 >= 0.9), then
+   again with --skip_load from the cached features; retrieval (512 images, 5
+   captions each); caption selection (256 instances of 4 captions);
+   captioning with bcos_captioner (a saved random head); text2concept_clip
+   after fit_aligner and save_aligner; ``build`` over the ten JSONs. Per run:
+   the JSON's keys (JAX's) and finite values, K3's launches per encode (36
+   pooled, 37 attn-unpool; K1, K2 none), images/s, load seconds, encode
+   seconds and host ms per batch. The zero-shot logits of 8 images and the
+   probe head at weight decay 1e-4, GPU against CPU fp32, within ten CPU
+   spreads under 1e-7 relative input noise; K3 against its plain version in
+   fp32 at every distinct shape of one harness encode, and timed per
+   attn-unpool fp32 encode beside its bound (67 TFLOP/s fp32 outside the
+   tensor cores), plain version and torch.matmul.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
@@ -278,6 +305,7 @@ FLAGSHIP = {
 }
 BATCH, SIZE, SEED = 128, 224, 0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SOURCES = {
     "bcos_conv1x1_fwd": ("bcosification_tpu_torch/ops/cuda/csrc/bcos_conv1x1_fwd.cu",
@@ -461,10 +489,10 @@ def main_path_launches(model, batch, size):
                        ("bcos_conv1x1_bwd_explain", m, k, n, False)]
 
 
-def bound_terms(name, m, k, n, relu):
-    """(FLOPs, bytes) of the least work one launch must do in bf16: each
-    input read once, each output written once."""
-    e = 2  # bytes per bf16 element
+def bound_terms(name, m, k, n, relu, dtype=torch.bfloat16):
+    """(FLOPs, bytes) of the least work one launch must do with operands of
+    ``dtype``: each input read once, each output written once."""
+    e = torch.finfo(dtype).bits // 8  # bytes per operand element
     if name == "bcos_conv1x1_fwd":
         flops, nbytes = 2 * m * k * n, e * (m * k + n * k + m * n) + 8 * n
     elif name == "bcos_conv1x1_bwd_explain":
@@ -476,23 +504,26 @@ def bound_terms(name, m, k, n, relu):
     return flops, nbytes
 
 
-def time_shapes(per_shape, stream_rate, gen, tag=""):
+def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
     """{kernel: row} over ``per_shape`` {(kernel, M, K, N, relu[,
     eps_outside]): launches}:
-    each distinct shape timed in bf16 as the median of 10 samples of 10
-    launches in a row (the plain version 3 samples of 3), weighted by its
-    launches. A row sums ms, plain_ms, library_ms (torch.matmul), the bound
-    at the data-sheet rate (bound_s, split into flop_s and byte_s by what
-    binds) and at ``stream_rate`` (bytes/s, K4's measured rate on this card)."""
+    each distinct shape timed in ``dtype`` (bf16, or fp32 with TF32 off) as
+    the median of 10 samples of 10 launches in a row (the plain version 3
+    samples of 3), weighted by its launches. A row sums ms, plain_ms,
+    library_ms (torch.matmul), the bound at the data-sheet rates (bound_s,
+    split into flop_s and byte_s by what binds; fp32 FLOPs at the 67 TFLOP/s
+    outside the tensor cores) and at ``stream_rate`` (bytes/s, K4's measured
+    rate on this card)."""
+    peak_flops = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     rows = {}
     for (name, m, k, n, relu, *linear), count in sorted(per_shape.items()):
-        x, wt, mult, add, ct = operands(m, k, n, torch.bfloat16, gen)
+        x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
         kern, plain, lib = kernel_calls(name, x, wt, mult, add, ct, relu, any(linear))
         t_k = stream_bandwidth.event_ms(kern, 10)
         t_p = stream_bandwidth.event_ms(plain, 3, warmup=1, burst=3)
         t_l = stream_bandwidth.event_ms(lib, 10)
-        flops, nbytes = bound_terms(name, m, k, n, relu)
-        f_s, b_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        flops, nbytes = bound_terms(name, m, k, n, relu, dtype)
+        f_s, b_s = flops / peak_flops, nbytes / PEAK_BYTES
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_s=0.0,
                                        byte_s=0.0, bound_s=0.0, measured_bound_s=0.0))
         r["ms"] += count * t_k
@@ -2112,6 +2143,7 @@ CC3M_EXPERIMENT = ("CC3M", "clip_bcosification",
                    "resnet_50_clip_b2_noBias_randomResizedCrop_sigLip_kd_CC3M_bcosification")
 KD_BATCH, KD_STEPS, KD_WINDOW = 64, 20, 10
 CC3M_DISTINCT, CC3M_PAIRS, CC3M_LOADER_BATCHES = 4, 70, 10
+CC3M_SEED_STEPS = 5  # the CC3M Experiment's first epoch, from the calibrated student
 # one fp32 KD step, GPU against CPU: the loss within 1e-5 relative, every
 # student gradient within ten times the CPU's own spread under 1e-7 relative
 # input noise (as phases 9-11 hold full-depth gradients and W)
@@ -2391,10 +2423,13 @@ def synthetic_cc3m():
                 os.environ["CC3M_PATH"] = old[1]
 
 
-def kd_cc3m(exp_root):
+def kd_cc3m(exp_root, student, batch):
     """Phase 12 (g): the CC3M train loader alone (image mode, as fit_kd reads
-    it), then ``train`` of the CC3M KD config with --fast_dev_run, twice (the
-    second resumes)."""
+    it); Trainer.fit of the CC3M KD Experiment for one epoch of
+    CC3M_SEED_STEPS steps on one repeated batch from the calibrated pooled
+    ``student`` (a conversion-time student contracts to ~0 in eval mode, and
+    phase 16 reads this experiment's features); then ``train`` of the CC3M
+    KD config with --fast_dev_run, twice (each resumes)."""
     with synthetic_cc3m():
         dm = Experiment(*CC3M_EXPERIMENT).get_datamodule()
         dm.setup("fit")
@@ -2416,7 +2451,9 @@ def kd_cc3m(exp_root):
             f"host with {os.cpu_count()} CPUs) [{CARD}]")
         # one train step and one val batch per run; no zero-shot data here
         with without_zeroshot():
-            for checkpoints in ([0], [0, 1]):
+            Trainer(Experiment(*CC3M_EXPERIMENT), {"amp": True}).fit(
+                student, RepeatedBatch(batch, CC3M_SEED_STEPS), max_epochs=1)
+            for checkpoints in ([0, 1], [0, 1, 2]):
                 kd_cli(CC3M_EXPERIMENT, exp_root, scaled_counts(kd_counts(False), 2),
                        checkpoints, "cc3m")
     return n / loader_s
@@ -2446,7 +2483,7 @@ def phase_kd(students, x2, stream_rate, worst, exp_root):
         f"{row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms at the data-sheet rate, "
         f"{1e3 * row['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} GB/s; "
         f"plain {row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f} ms [{CARD}]")
-    loader_img_s = kd_cc3m(exp_root)
+    loader_img_s = kd_cc3m(exp_root, students["pooled"], batch)
     # the ImageNet KD config from the command, resuming from kd_fit's
     # checkpoints; with IMAGENET_PATH set its epoch ends with the zero-shot
     # over the val split (2 batches of 64), K3 in its encode
@@ -3723,6 +3760,420 @@ def phase_analyses(net, students, stream_rate, worst, exp_root):
     return keys
 
 
+# --------------------------------------------------------------------------
+# 16: the CLIP benchmark harness
+# --------------------------------------------------------------------------
+BENCH_BATCH = 64  # the CLI's default --batch_size
+BENCH_JPEG = 256  # side of the synthetic JPEGs
+BENCH_CLS = 1024  # zero-shot test images over the 1000 ImageNet classes
+BENCH_LP_CLASSES, BENCH_LP_TRAIN, BENCH_LP_TEST, BENCH_LP_VAL = 10, 2048, 1024, 0.2
+BENCH_RET, BENCH_RET_CAPS = 512, 5  # retrieval images, captions per image
+BENCH_SEL, BENCH_SEL_CAPS = 256, 4  # caption-selection instances, captions per instance
+BENCH_PARITY_IMAGES = 8
+BENCH_LP_WD = 1e-4  # the fixed weight decay of the probe head's GPU-vs-CPU parity
+BENCH_LP_MIN_ACC1 = 0.9
+# the dataset names pick the builder's reader and collate: flickr30k and
+# sugar_crepe keep each image's caption list (image_captions_collate)
+BENCH_DATASETS = {"cls": "wds/imagenet1k", "lp": "wds/colours", "ret": "wds/flickr30k",
+                  "sel": "wds/sugar_crepe"}
+# each task's metric keys and each result file's keys, as the JAX CLI writes them
+BENCH_KEYS = {
+    "zeroshot_classification": {"acc1", "acc5", "mean_per_class_recall"},
+    "linear_probe": {"lp_acc1", "lp_acc5", "lp_mean_per_class_recall", "weight_decay",
+                     "epochs", "seed", "fewshot_k", "normalized"},
+    "zeroshot_retrieval": {f"{d}_retrieval_recall@5" for d in ("image", "text")},
+    "image_caption_selection": {"image_acc", "text_acc", "acc"},
+    "captioning": {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr",
+                   "SPICE"},
+}
+BENCH_RESULT_KEYS = {"dataset", "model", "pretrained", "task", "metrics", "language"}
+
+
+def _smooth_jpeg(rng, base=None, noise=0.0):
+    """JPEG bytes of a BENCH_JPEG^2 image: an 8x8 field of random colours (or
+    ``base`` plus gaussian ``noise``) upscaled bilinearly."""
+    import io
+
+    from PIL import Image
+
+    cells = rng.random((8, 8, 3)) * 255 if base is None else (
+        np.asarray(base, np.float64) * 255 + noise * rng.standard_normal((8, 8, 3)))
+    img = Image.fromarray(np.clip(cells, 0, 255).astype(np.uint8)).resize(
+        (BENCH_JPEG, BENCH_JPEG), Image.BILINEAR)
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _write_shard(path, samples):
+    """One tar of samples {ext: bytes}, keyed by their position."""
+    import io
+    import tarfile
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with tarfile.open(path, "w") as tf:
+        for i, sample in enumerate(samples):
+            for ext, data in sample.items():
+                info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def write_bench_trees(root):
+    """The four seeded clip-benchmark wds trees under ``root``
+    (<name>/<split>/0.tar + classnames.txt + the templates): zero-shot
+    classification (BENCH_CLS test JPEGs, the 1000 ImageNet classes and the
+    80 OpenAI templates), the separable linear-probe set (BENCH_LP_CLASSES
+    classes, each a distinct colour field plus noise), retrieval
+    (BENCH_RET images, BENCH_RET_CAPS captions each) and caption selection
+    (BENCH_SEL instances of one image and BENCH_SEL_CAPS captions, the
+    right one first). Returns {key: dataset root}."""
+    import colorsys
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(SEED + 40)
+    roots = {key: Path(root) / name.split("/")[-1] for key, name in BENCH_DATASETS.items()}
+    colours = [colorsys.hsv_to_rgb(c / BENCH_LP_CLASSES, 0.8, 0.8)
+               for c in range(BENCH_LP_CLASSES)]
+    jobs = {"cls": [None] * BENCH_CLS,
+            "lp_train": [c % BENCH_LP_CLASSES for c in range(BENCH_LP_TRAIN)],
+            "lp_test": [c % BENCH_LP_CLASSES for c in range(BENCH_LP_TEST)],
+            "ret": [None] * BENCH_RET, "sel": [None] * BENCH_SEL}
+    seeds = {key: rng.integers(0, 2**31, len(v)) for key, v in jobs.items()}
+
+    def encode(args):
+        seed, cls = args
+        r = np.random.default_rng(seed)
+        return _smooth_jpeg(r) if cls is None else _smooth_jpeg(r, colours[cls], noise=25.0)
+
+    with ThreadPoolExecutor(8) as pool:
+        jpegs = {key: list(pool.map(encode, zip(seeds[key], v))) for key, v in jobs.items()}
+    words = [c.replace("/", " ") for c in imagenet_classes]
+    for key in ("cls", "lp"):
+        names = imagenet_classes if key == "cls" else [f"colour {c}" for c in
+                                                       range(BENCH_LP_CLASSES)]
+        (roots[key]).mkdir(parents=True, exist_ok=True)
+        (roots[key] / "classnames.txt").write_text("\n".join(names) + "\n")
+        (roots[key] / "zeroshot_classification_templates.txt").write_text(
+            "\n".join(imagenet_templates) + "\n")
+    labels = rng.integers(0, len(imagenet_classes), BENCH_CLS)
+    _write_shard(roots["cls"] / "test" / "0.tar", [
+        {"jpg": j, "cls": str(int(c)).encode()} for j, c in zip(jpegs["cls"], labels)])
+    for split in ("train", "test"):
+        _write_shard(roots["lp"] / split / "0.tar", [
+            {"jpg": j, "cls": str(c).encode()}
+            for j, c in zip(jpegs[f"lp_{split}"], jobs[f"lp_{split}"])])
+
+    def captions(n):
+        return [f"a photo of a {words[i]} next to a {words[(i * 7 + 3) % len(words)]}."
+                for i in rng.integers(0, len(words), n)]
+
+    _write_shard(roots["ret"] / "test" / "0.tar", [
+        {"jpg": j, "txt": "\n".join(captions(BENCH_RET_CAPS)).encode()} for j in jpegs["ret"]])
+    _write_shard(roots["sel"] / "test" / "0.tar", [
+        {"jpg": j, "txt": "\n".join(captions(BENCH_SEL_CAPS)).encode()} for j in jpegs["sel"]])
+    return roots
+
+
+class BenchRecord:
+    """Per CLI run: its seconds, the seconds in load_clip, the images and
+    synchronised seconds of the image encodes, the tokenizer's host seconds
+    and the text tower's synchronised seconds, the classifier build's
+    seconds, the bundle and its transform (while ``bench_instruments``
+    lasts)."""
+
+    def __init__(self):
+        self.runs = []
+
+    def new(self, tag):
+        self.runs.append(types.SimpleNamespace(
+            tag=tag, load_s=0.0, images=0, batches=0, encode_s=0.0, tokenize_s=0.0,
+            text_s=0.0, classifier_s=0.0, bundle=None, transform=None))
+        return self.runs[-1]
+
+
+def _synced(fn, run, images_attr=None):
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        if images_attr:
+            run.encode_s += time.perf_counter() - t0
+            run.images += args[0].shape[0]
+            run.batches += 1
+        else:
+            run.text_s += time.perf_counter() - t0
+        return out
+    return call
+
+
+@contextlib.contextmanager
+def bench_instruments(record):
+    """While it lasts, the CLI's ``load_clip`` times itself and wraps the
+    bundle it returns (image encode and text tower synchronised, the
+    tokenizer on the host), and the zero-shot classifier build is timed,
+    into ``record``'s newest run."""
+    from bcosification_tpu_torch.clip_benchmark import cli as bench_cli
+    from bcosification_tpu_torch.clip_benchmark.metrics import zeroshot_classification as zs
+
+    load_fn, clf_fn = bench_cli.load_clip, zs.zero_shot_classifier
+
+    def load_clip(*args, **kwargs):
+        run = record.runs[-1]
+        t0 = time.perf_counter()
+        bundle, transform, tok = load_fn(*args, **kwargs)
+        run.load_s = time.perf_counter() - t0
+        bundle.encode_image = _synced(bundle.encode_image, run, images_attr=True)
+        if bundle.text_model is not None:
+            bundle.text_model = _synced(bundle.text_model, run)
+        tokenizer = bundle.tokenizer
+
+        def tokenize_timed(texts):
+            t1 = time.perf_counter()
+            out = tokenizer(texts)
+            run.tokenize_s += time.perf_counter() - t1
+            return out
+
+        bundle.tokenizer = tokenize_timed
+        run.bundle, run.transform = bundle, transform
+        return bundle, transform, tok
+
+    def classifier(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = clf_fn(*args, **kwargs)
+        record.runs[-1].classifier_s = time.perf_counter() - t0
+        return out
+
+    bench_cli.load_clip, zs.zero_shot_classifier = load_clip, classifier
+    try:
+        yield record
+    finally:
+        bench_cli.load_clip, zs.zero_shot_classifier = load_fn, clf_fn
+
+
+def bench_run(record, tag, argv, k3_per_batch, device=None):
+    """One ``cli eval`` in process: its launches (K3 ``k3_per_batch`` per
+    encode, K1, K2 and K4 none), its result JSON (JAX's keys, no NaN),
+    images/s (the images over the run's seconds less the load and the
+    zero-shot classifier build) and the
+    host ms per batch (the run less the load, the classifier build, the
+    encodes and the text tower). Returns (the run's record, its result)."""
+    from bcosification_tpu_torch.clip_benchmark import cli as bench_cli
+
+    run = record.new(tag)
+    out = argv[argv.index("--output") + 1]
+    t0 = time.perf_counter()
+    _, counts = counted(lambda: bench_cli.main(["eval"] + argv, device=device))
+    run.seconds = time.perf_counter() - t0
+    result = json.loads(Path(out).read_text())
+    task = result["task"]
+    check_counts(f"bench {tag}", counts, {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                                          "bcos_matmul_fwd": k3_per_batch * run.batches,
+                                          "stream_add": 0})
+    bad = [k for k, v in result["metrics"].items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if set(result) != BENCH_RESULT_KEYS or set(result["metrics"]) != BENCH_KEYS[task] or bad:
+        raise AssertionError(f"bench {tag}: result {result} (keys or non-finite {bad})")
+    work = run.seconds - run.load_s - run.classifier_s
+    host = work - run.encode_s - (0.0 if run.classifier_s else run.text_s)
+    run.img_s = run.images / work if run.images else 0.0
+    say(f"bench {tag}: {task} {json.dumps(result['metrics'])}; {run.seconds:.2f} s "
+        f"(load_clip {run.load_s:.2f} s); {run.images} images in {run.batches} encodes of "
+        f"{BENCH_BATCH}: {run.img_s:.1f} img/s end to end, encode {run.encode_s:.2f} s "
+        f"(synchronised), host {1e3 * host / max(run.batches, 1):.1f} ms per batch (decode, "
+        f"metric), text tower {run.text_s:.2f} s, tokenizer {run.tokenize_s:.2f} s; launches "
+        f"{counts} [{CARD}]")
+    return run, result
+
+
+def bench_parity_logits(bundle, classifier, images):
+    """fp32 zero-shot logits of ``images`` (the first BENCH_PARITY_IMAGES of
+    the classification set) GPU against the port's CPU path: within ten
+    times the CPU's own spread under 1e-7 relative input noise."""
+    from bcosification_tpu_torch.training.zeroshot import zeroshot_predict_logits
+
+    x = torch.from_numpy(images)
+    w = torch.from_numpy(np.asarray(classifier, np.float32))
+    cpu = copy.deepcopy(bundle.image_model).to("cpu")
+    with torch.no_grad():
+        got = zeroshot_predict_logits(bundle.image_model(x.to(bundle.device)),
+                                      w.to(bundle.device)).cpu()
+        want = zeroshot_predict_logits(cpu(x), w)
+        noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED + 41))
+        spread = rel(zeroshot_predict_logits(cpu(x * (1 + 1e-7 * noise)), w), want)
+    err = rel(got, want)
+    say(f"bench zero-shot logits of {len(x)} images, fp32 gpu vs cpu: {err:.3e} (bound "
+        f"{10 * spread:.3e}, ten cpu spreads under 1e-7 relative input noise); argmax equal: "
+        f"{bool((got.argmax(-1) == want.argmax(-1)).all())}")
+    if not err <= 10 * spread or not bool(torch.isfinite(got).all()):
+        raise AssertionError("the zero-shot logits on the GPU disagree with the CPU")
+
+
+def bench_parity_probe(feature_root):
+    """The linear-probe head (train_linear_head at BENCH_LP_WD on the cached
+    train features) on the GPU against the CPU: within ten times the CPU's
+    own spread under 1e-7 relative input noise on the features."""
+    from bcosification_tpu_torch.clip_benchmark.metrics import linear_probe
+
+    (path,) = Path(feature_root).glob("*_train_x.npy")
+    x, y = np.load(path), np.load(str(path).replace("_x.npy", "_y.npy"))
+    kw = dict(num_classes=int(y.max()) + 1, lr=0.1, epochs=10, batch_size=BENCH_BATCH,
+              weight_decay=BENCH_LP_WD, seed=SEED)
+    t0 = time.perf_counter()
+    wg, bg = linear_probe.train_linear_head(x, y, device="cuda", **kw)
+    gpu_s = time.perf_counter() - t0
+    wc, bc = linear_probe.train_linear_head(x, y, device="cpu", **kw)
+    noise = np.random.default_rng(SEED + 42).standard_normal(x.shape).astype(np.float32)
+    wn, bn = linear_probe.train_linear_head(x * (1 + np.float32(1e-7) * noise), y,
+                                            device="cpu", **kw)
+
+    def flat(w, b):
+        return torch.cat([w.flatten().cpu(), b.cpu()])
+
+    err, spread = rel(flat(wg, bg), flat(wc, bc)), rel(flat(wn, bn), flat(wc, bc))
+    say(f"bench probe head ({x.shape[0]} x {x.shape[1]} features, wd {BENCH_LP_WD}, 10 epochs; "
+        f"{gpu_s:.2f} s on the gpu): gpu vs cpu {err:.3e} (bound {10 * spread:.3e}, ten cpu "
+        "spreads under 1e-7 relative feature noise)")
+    if not err <= 10 * spread:
+        raise AssertionError("the probe head trained on the GPU disagrees with the CPU")
+
+
+def check_bench_kernels(nets, worst):
+    """K3 against its plain version at every distinct shape of one harness
+    encode (fp32, batch BENCH_BATCH, pooled and attn-unpool; the c_proj with
+    the linear norm, eps_outside), phase 3's fp32 bound."""
+    shapes = sorted({key for net in nets for key in clip_launches(net, BENCH_BATCH, SIZE, False)})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    for name, m, k, n, _, *linear in shapes:
+        x, wt, *_ = operands(m, k, n, torch.float32, gen)
+        kw = dict(eps=LINEAR_NORM_EPS if any(linear) else 1e-6, eps_outside=any(linear))
+        got = k3.bcos_matmul_fwd(x, wt, **kw)
+        want = k3.bcos_matmul_fwd_plain(x, wt, **kw)
+        torch.cuda.synchronize()
+        _check(worst, name, " eps_outside" if any(linear) else "",
+               f"bench M={m} K={k} N={n}", torch.float32, got, want)
+        del x, wt, got, want
+    return len(shapes)
+
+
+def phase_bench(stream_rate, worst, exp_root):
+    """Phase 16: the clip_benchmark CLI of the port on the card (see the
+    module docstring). Returns the harness keys of K3's row of the kernels
+    line."""
+    from bcosification_tpu_torch.clip_benchmark import cli as bench_cli
+    from bcosification_tpu_torch.clip_benchmark.datasets.builder import build_dataset
+    from bcosification_tpu_torch.clip_benchmark.models import load_clip
+    from bcosification_tpu_torch.models import captioner
+
+    pooled, unpool = CLIP_EXPERIMENTS["pooled"][2], CLIP_EXPERIMENTS["unpool"][2]
+    record = BenchRecord()
+    with tempfile.TemporaryDirectory() as tmp, bench_instruments(record):
+        t0 = time.perf_counter()
+        roots = write_bench_trees(tmp)
+        say(f"bench: wrote the seeded wds trees ({BENCH_CLS} + {BENCH_LP_TRAIN + BENCH_LP_TEST} + "
+            f"{BENCH_RET} + {BENCH_SEL} JPEGs of {BENCH_JPEG}^2) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        clf, features = f"{tmp}/clf.npy", f"{tmp}/features"
+
+        def argv(key, tag, *extra):
+            return ["--dataset", BENCH_DATASETS[key], "--dataset_root", f"{tmp}/{{dataset}}",
+                    "--output", f"{tmp}/{tag}.json", "--batch_size", str(BENCH_BATCH),
+                    "--feature_root", features, *extra]
+
+        k3_pooled, k3_unpool = (clip_counts(u, False)["bcos_matmul_fwd"] for u in (False, True))
+        cls_runs = [("cls pooled", ["--model_type", "bcos_clip", "--model", pooled,
+                                    "--save_clf", clf], k3_pooled),
+                    ("cls attn-unpool", ["--model_type", "bcos_clip", "--model", unpool,
+                                         "--load_clfs", clf], k3_unpool),
+                    ("cls cc3m", ["--model_type", "bcos_clip_cc3m", "--model",
+                                  CC3M_EXPERIMENT[2], "--load_clfs", clf], k3_pooled),
+                    # the vanilla tower (random init from SEED): no B-cos layer
+                    ("cls standard_clip", ["--model_type", "standard_clip", "--model", "RN50",
+                                           "--pretrained", "none", "--load_clfs", clf], 0)]
+        results = {}
+        for tag, extra, k3_per in cls_runs:
+            results[tag] = bench_run(record, tag, argv("cls", tag, *extra), k3_per)
+        build = record.runs[0]
+        say(f"bench zero-shot classifier: {len(imagenet_classes)} classes x "
+            f"{len(imagenet_templates)} templates = "
+            f"{len(imagenet_classes) * len(imagenet_templates)} prompts in "
+            f"{build.classifier_s:.2f} s: tokenizer {build.tokenize_s:.2f} s (host), fp32 text "
+            f"tower {build.text_s:.2f} s (synchronised) [{CARD}]")
+        cls_set = build_dataset(BENCH_DATASETS["cls"], root=str(roots["cls"]),
+                                transform=build.transform)
+        bench_parity_logits(build.bundle, np.load(clf),
+                            np.stack([cls_set[i][0] for i in range(BENCH_PARITY_IMAGES)]))
+        lp = ["--task", "linear_probe", "--model_type", "bcos_clip", "--model", pooled,
+              "--val_proportion", str(BENCH_LP_VAL)]
+        results["lp"] = bench_run(record, "lp", argv("lp", "lp", *lp), k3_pooled)
+        results["lp cached"] = bench_run(record, "lp --skip_load",
+                                         argv("lp", "lp_cached", *lp, "--skip_load"), k3_pooled)
+        # the cached route has no validation loader (as in the JAX CLI): its
+        # head trains on the train split alone at weight decay 0
+        for tag in ("lp", "lp cached"):
+            acc = results[tag][1]["metrics"]["lp_acc1"]
+            if not acc >= BENCH_LP_MIN_ACC1:
+                raise AssertionError(f"bench {tag}: lp_acc1 {acc} < {BENCH_LP_MIN_ACC1}")
+        bench_parity_probe(features)
+        model = ["--model_type", "bcos_clip", "--model", pooled]
+        results["ret"] = bench_run(record, "ret", argv("ret", "ret", *model), k3_pooled)
+        results["sel"] = bench_run(record, "sel", argv("sel", "sel", *model), k3_pooled)
+        embed_dim = build.bundle.image_model.model.attnpool.c_proj.weight.shape[-1]
+        head = captioner.save_captioner(captioner.GreedyCaptioner(embed_dim, 49408),
+                                        f"{tmp}/head.npz")
+        results["cap"] = bench_run(record, "cap", argv(
+            "ret", "cap", "--task", "captioning", "--model_type", "bcos_captioner", "--model",
+            pooled, "--pretrained", str(head)), k3_pooled)
+        # text2concept: fit the aligner on the probe's train images, save it,
+        # then classify through it from the command
+        t0 = time.perf_counter()
+        t2c_bundle, transform, _ = load_clip("text2concept_clip", pooled, "", device="cuda")
+        ds = build_dataset(BENCH_DATASETS["lp"], root=str(roots["lp"]), transform=transform,
+                           split="train")
+        from bcosification_tpu_torch.data.loader import DataLoader
+
+        aligner = t2c_bundle.text2concept.fit_aligner(DataLoader(ds, BENCH_BATCH, num_workers=4))
+        aligner_path = aligner.save_aligner(f"{tmp}/aligner.npz")
+        say(f"bench text2concept: fit_aligner over {len(ds)} images ({aligner.W.shape}) and "
+            f"save_aligner in {time.perf_counter() - t0:.1f} s")
+        results["t2c"] = bench_run(record, "cls text2concept", argv(
+            "cls", "t2c", "--model_type", "text2concept_clip", "--model", pooled,
+            "--pretrained", str(aligner_path), "--load_clfs", clf), k3_pooled)
+        files = [str(Path(tmp) / f"{t}.json") for t in
+                 ("cls pooled", "cls attn-unpool", "cls cc3m", "cls standard_clip", "lp",
+                  "lp_cached", "ret", "sel", "cap", "t2c")]
+        bench_cli.main(["build", *files, "--output", f"{tmp}/benchmark.csv"])
+        import csv
+
+        with open(f"{tmp}/benchmark.csv") as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != len(files):
+            raise AssertionError(f"build merged {len(rows)} of {len(files)} results")
+        say(f"bench build: {len(rows)} results merged into one CSV of {len(rows[0])} columns")
+        nets = [record.runs[0].bundle.image_model, record.runs[1].bundle.image_model]
+        n_shapes = check_bench_kernels(nets, worst)
+        say(f"bench: K3 checked in fp32 at the {n_shapes} distinct shapes of one harness encode "
+            f"at batch {BENCH_BATCH}")
+        per_shape = collections.Counter(clip_launches(nets[1], BENCH_BATCH, SIZE, False))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+        row = time_shapes(per_shape, stream_rate, gen, tag="bench fp32 ",
+                          dtype=torch.float32)["bcos_matmul_fwd"]
+        launches = sum(per_shape.values())
+        say(f"bench bcos_matmul_fwd per attn-unpool fp32 encode at batch {BENCH_BATCH} "
+            f"({launches} launches): {row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms "
+            f"at the data-sheet rates (67 TFLOP/s fp32, 3350 GB/s), "
+            f"{1e3 * row['measured_bound_s']:.4f} ms at the measured "
+            f"{stream_rate / 1e9:.1f} GB/s; plain {row['plain_ms']:.4f} ms, torch.matmul "
+            f"{row['library_ms']:.4f} ms [{CARD}]")
+        say("bench summary: " + "; ".join(f"{r.tag} {r.img_s:.1f} img/s" for r in record.runs
+                                          if r.images) + f" [{CARD}]")
+        del nets, record
+    return {"bench_launches": launches, "bench_ms": row["ms"],
+            "bench_bound_ms": 1e3 * row["bound_s"], "bench_plain_ms": row["plain_ms"],
+            "bench_library_ms": row["library_ms"], "bench_dtype": "float32"}
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3815,9 +4266,16 @@ def main() -> int:
         analyses = phase_analyses(net, students, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["15 analyses"] = time.perf_counter() - t0
         del net, students
+        if k12.tma_operands.padded:
+            raise AssertionError(f"{k12.tma_operands.padded} analysis calls padded their "
+                                 "operands")
+        t0 = time.perf_counter()
+        bench = phase_bench(probe["k4_gbs"] * 1e9, worst, exp_root)
+        seconds["16 clip benchmark"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
-        raise AssertionError(f"{k12.tma_operands.padded} analysis calls padded their operands")
-    say("TMA operand padding on the analyses' paths: 0 calls")
+        raise AssertionError(f"{k12.tma_operands.padded} clip benchmark calls padded their "
+                             "operands")
+    say("TMA operand padding on the analyses' and the clip benchmark's paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -3825,6 +4283,7 @@ def main() -> int:
                    "train_library_ms": train["library_ms"]})
     k3_row.update(kd)
     k3_row.update(vit_train)
+    k3_row.update(bench)
     for row in kernels:
         row.update(densenet.get(row["name"], {}))
         row.update(clip.get(row["name"], {}))

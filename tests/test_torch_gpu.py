@@ -11,7 +11,9 @@ a ViT-B/16 train step and a ViT-C B forward, the ViT-C stem's B-cos conv
 and group norm, the small vit_final ViTs (one train step and the
 explanation) on the GPU against the CPU, the guided and DeepLIFT ReLU
 gradients and the explainers on a small-flagship 3x3 grid against the CPU
-with their launches. Every test here needs a GPU and skips without one.
+with their launches, K3 in fp32 at every shape of one clip_benchmark encode
+of the full-width CLIP-RN50 at batch 64, and one harness bundle encode's
+launches. Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -929,3 +931,63 @@ def test_explainers_on_a_small_flagship_grid_match_cpu(gpu):
         assert counts["bcos_conv1x1_fwd"] == k1, (name, counts)
         assert k2 is None or counts["bcos_conv1x1_bwd_explain"] == k2, (name, counts)
         assert got.shape == (9, 192, 192, 6) and _rel(got, want) <= 1e-5, name
+
+
+# (M, K, N, eps_outside) of every distinct K3 launch of one clip_benchmark
+# encode of the full-width CLIP-RN50 at batch 64, 224x224, pooled and
+# attn-unpool (M = 64 x 56^2, 28^2, 14^2, 7^2; the unpooled c_proj at 7^2)
+HARNESS_SHAPES = [
+    (200704, 64, 64, False), (200704, 64, 256, False), (200704, 256, 64, False),
+    (200704, 256, 128, False), (50176, 128, 512, False), (50176, 256, 512, False),
+    (50176, 512, 128, False), (50176, 512, 256, False), (12544, 256, 1024, False),
+    (12544, 512, 1024, False), (12544, 1024, 256, False), (12544, 1024, 512, False),
+    (3136, 512, 2048, False), (3136, 1024, 2048, False), (3136, 2048, 512, False),
+    (3136, 2048, 1024, True),
+]
+
+
+@pytest.mark.parametrize("m,k,n,eps_outside", HARNESS_SHAPES)
+def test_k3_fp32_at_the_harness_encode_shapes(gpu, m, k, n, eps_outside):
+    """The harness feeds float32 images, so every encode runs K3's fp32
+    route: against its plain version at each shape (phase 3's fp32 bound:
+    max |diff| <= 1e-5 max |ref|)."""
+    g = torch.Generator(device=gpu).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=gpu, generator=g)
+    wt = torch.randn(n, k, device=gpu, generator=g) / k ** 0.5
+    from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
+
+    eps = LINEAR_NORM_EPS if eps_outside else 1e-6
+    reset_launch_counts()
+    got = k3.bcos_matmul_fwd(x, wt, eps=eps, eps_outside=eps_outside)
+    assert launch_counts()["bcos_matmul_fwd"] == 1 and got.dtype == torch.float32
+    want = k3.bcos_matmul_fwd_plain(x, wt, eps=eps, eps_outside=eps_outside)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("unpool", [False, True], ids=["pooled", "unpool"])
+def test_harness_bundle_encode_launches(gpu, unpool, tmp_path, monkeypatch):
+    """One encode of a bcos_clip bundle (the full-width CLIP-RN50 of the
+    clip_bcosification experiment at its conversion-time init, fp32 images)
+    launches K3 at each of the 36 bias-free 1x1 convs, and at the unpooled
+    c_proj: 36 pooled, 37 attn-unpool; K1, K2 none."""
+    import warnings
+
+    import numpy as np
+
+    from bcosification_tpu_torch import settings
+    from bcosification_tpu_torch.clip_benchmark.models import load_clip
+
+    monkeypatch.setattr(settings, "EXPERIMENT_ROOT", str(tmp_path))
+    name = "resnet_50_clip_b2_noBias_randomResizedCrop_sigLip_ImageNet_bcosification"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # no CLIP checkpoint here: random init
+        bundle, transform, _ = load_clip("bcos_clip", name + ("_attnUnpool" if unpool else ""),
+                                         "", device=gpu)
+    images = np.random.default_rng(0).random((2, 224, 224, 6)).astype(np.float32)
+    reset_launch_counts()
+    feats = bundle.encode_image(bundle.images(images))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                               "bcos_matmul_fwd": 36 + unpool, "stream_add": 0}
+    assert feats.dtype == torch.float32 and feats.shape[0] == 2
+

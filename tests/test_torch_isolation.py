@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-and its entry points refuse to fall back to the CPU when no GPU is present."""
+"""The PyTorch port stands alone: it imports neither JAX (nor flax or optax)
+nor the JAX package (nor its top-level ``clip_benchmark``), and its entry
+points refuse to fall back to the CPU when no GPU is present."""
 import os
 import subprocess
 import sys
@@ -43,11 +44,27 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "interpretability.analyses.utils", "interpretability.analyses.localisation_configs",
              "interpretability.analyses.localisation",
              "interpretability.analyses.localisation_sweep",
-             "interpretability.analyses.text_localisation"):
+             "interpretability.analyses.text_localisation", "models.captioner",
+             "clip_benchmark", "clip_benchmark.cli", "clip_benchmark.datasets.builder",
+             "clip_benchmark.models", "clip_benchmark.models.text2concept",
+             "clip_benchmark.models.torch_adapter", "clip_benchmark.models.open_clip",
+             "clip_benchmark.models.japanese_clip", "clip_benchmark.models.nllb_clip",
+             "clip_benchmark.metrics.zeroshot_classification",
+             "clip_benchmark.metrics.linear_probe", "clip_benchmark.metrics.zeroshot_retrieval",
+             "clip_benchmark.metrics.image_caption_selection",
+             "clip_benchmark.metrics.captioning", "clip_benchmark.metrics.meteor",
+             "clip_benchmark.probe_benchmark.common",
+             "clip_benchmark.probe_benchmark.scaling_experiments",
+             "clip_benchmark.probe_benchmark.laion5b_fewshot_experiments",
+             "clip_benchmark.probe_benchmark.build_df_scaling_experiments",
+             "clip_benchmark.probe_benchmark.generate_table",
+             "clip_benchmark.probe_benchmark.process_vtab", "clip_benchmark.webdataset_builder",
+             "clip_benchmark.model_collection"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "bcosification_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "bcosification_tpu",
+                                    "clip_benchmark"))
 print("FOREIGN", bad)
 assert not bad, bad
 """
@@ -149,3 +166,30 @@ def test_train_and_evaluate_raise_without_gpu(tmp_path, monkeypatch):
     with pytest.raises(AssertionError, match="IMAGENET_PATH"):
         evaluate.run_evaluation(evaluate.get_parser().parse_args(
             ["--experiment_name", "resnet_18", "--reload", "fresh", "--no-cuda"]))
+
+
+def test_clip_benchmark_cli_raises_without_gpu(tmp_path):
+    """The port's clip_benchmark CLI runs on the card: without a GPU and
+    without a device, ``main`` (eval), ``run`` and ``load_clip`` raise before
+    anything is loaded or written; ``build`` (CSV only) needs no device."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from bcosification_tpu_torch.clip_benchmark import cli
+    from bcosification_tpu_torch.clip_benchmark.models import load_clip
+
+    out = tmp_path / "r.json"
+    args = ["eval", "--dataset", "dummy", "--model_type", "standard_clip", "--pretrained",
+            "none", "--output", str(out)]
+    with pytest.raises(RuntimeError, match="GPU"):
+        cli.main(args)
+    _, parsed = cli.get_parser_args(args)
+    with pytest.raises(RuntimeError, match="GPU"):
+        cli.run(parsed)
+    with pytest.raises(RuntimeError, match="GPU"):
+        load_clip("standard_clip", "RN50", "none")
+    assert not out.exists()
+    (tmp_path / "a.json").write_text('{"dataset": "d", "model": "m", "pretrained": "p", '
+                                     '"task": "t", "language": "en", "metrics": {"acc1": 1.0}}')
+    cli.main(["build", str(tmp_path / "a.json"), "--output", str(tmp_path / "b.csv")])
+    assert (tmp_path / "b.csv").exists()
+
