@@ -16,13 +16,16 @@ with the dynamic scale |u|/n detached and u recomputed:
 
     dx = ((ct * mult * [a > 0]) * |x @ w| / n) @ w^T
 
-In bf16 both run on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``,
-whose tile loads need rows of whole 16-byte units and 16-byte aligned data:
-a bf16 Cin off the grid of 8 is zero-padded in x and w (and K2's dx sliced
-back), and a misaligned operand gets an aligned copy, before the launch
+In bf16 both run on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``;
+in fp32 K2 runs the 3xTF32 route of ``csrc/bcos_tf32.cuh`` on the same
+engine and K1 the FMA tile loop of ``csrc/bcos_gemm.cuh``. TMA tile loads
+need rows of whole 16-byte units and 16-byte aligned data: a Cin off the
+grid (8 bf16, 4 fp32) is zero-padded in x and w (and K2's dx sliced back),
+and a misaligned operand gets an aligned copy, before the launch
 (``tma_operands``, counted in ``tma_operands.padded``). K2 in bf16 with
-Cout above ``FUSED_MAX_COUT`` writes g to a scratch that the wrapper
-allocates and runs dx = g @ w as a second launch (one op call, one count).
+Cout above ``FUSED_MAX_COUT``, and in fp32 always, writes g to a scratch
+that the wrapper allocates and runs dx = g @ w as a second launch (one op
+call, one count; ``bwd_scratch``).
 
 Each kernel has a wrapper that checks its operands and a plain PyTorch
 version with the same signature. The wrapper calls a ``torch.library``
@@ -58,7 +61,7 @@ CONV_NORM_EPS = 1e-6
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
-_BWD_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)
+_BWD_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P)
 _INT32_MAX = 2**31 - 1
 # bf16 K2 keeps g [rows, Cout] in shared memory up to this Cout; beyond it,
 # g goes through a scratch [M, round_up(Cout, 8)] (csrc/bcos_conv1x1_bwd.cu)
@@ -103,16 +106,15 @@ def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
 
 
 def tma_operands(x2: torch.Tensor, wt: torch.Tensor):
-    """(x2, wt) as the bf16 kernels' TMA loads need them: rows of a multiple
-    of 8 elements (16 bytes) and 16-byte aligned data. A Cin off that grid
-    is zero-padded in both (zeros change neither x2 @ wt^T nor the row sum
-    of squares); a misaligned operand gets an aligned contiguous copy. The
-    shape and the pointers decide, before any launch; each call that
-    changes an operand adds one to ``tma_operands.padded``. fp32 operands
-    pass unchanged (their kernels do not load by TMA)."""
-    if x2.dtype != torch.bfloat16:
-        return x2, wt
-    pad = -x2.shape[1] % 8
+    """(x2, wt) as the kernels' TMA loads need them: rows of whole 16-byte
+    units (a multiple of 8 bf16 or 4 fp32 elements) and 16-byte aligned
+    data. Every K3 and K2 launch loads by TMA in both dtypes (fp32 on the
+    3xTF32 route), K1 in bf16 (its fp32 route reads with plain loads). A Cin
+    off that grid is zero-padded in both (zeros change neither x2 @ wt^T
+    nor the row sum of squares); a misaligned operand gets an aligned
+    contiguous copy. The shape and the pointers decide, before any launch;
+    each call that changes an operand adds one to ``tma_operands.padded``."""
+    pad = -x2.shape[1] % (16 // x2.element_size())
     x_new, wt_new = x2, wt
     if pad:
         x_new = torch.nn.functional.pad(x2, (0, pad))
@@ -127,6 +129,48 @@ def tma_operands(x2: torch.Tensor, wt: torch.Tensor):
 
 
 tma_operands.padded = 0
+
+
+# the fp32 route's tiles (csrc/bcos_tf32.cuh): 128 x 128 outputs, 32-deep stages
+TF32_TILE, TF32_DEPTH = 128, 32
+MIN_SPLIT_STAGES, MAX_SPLITS = 4, 16
+
+
+def tf32_splits(m: int, k: int, n: int, sms: int) -> int:
+    """K splits of one fp32-route GEMM ([m, n] out of a k-deep contraction)
+    on a card of ``sms`` SMs: 1 where its 128 x 128 tiles fill at least half
+    the SMs, else as many as fill them with at least MIN_SPLIT_STAGES
+    stages each (at most MAX_SPLITS). At one 224^2 image (M = 49 to 196) a
+    128 x 128 tiling leaves most SMs idle while each block walks a 64-stage
+    chain (PERF.md)."""
+    tiles = -(-m // TF32_TILE) * -(-n // TF32_TILE)
+    stages = -(-k // TF32_DEPTH)
+    if 2 * tiles > sms:
+        return 1
+    splits = min(stages // MIN_SPLIT_STAGES, sms // tiles, MAX_SPLITS)
+    if splits < 2:
+        return 1
+    chunk = -(-stages // splits)
+    return -(-stages // chunk)  # no split left without stages
+
+
+def split_floats(m: int, n: int, splits: int) -> int:
+    """Floats of split-K's partial sums ([splits, round_up(m, 128),
+    round_up(n, 4)]) and row squares ([splits, round_up(m, 128)])."""
+    if splits == 1:
+        return 0
+    return splits * -(-m // TF32_TILE) * TF32_TILE * ((n + 3) // 4 * 4 + 1)
+
+
+_SMS = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (cached)."""
+    index = torch.device(device).index or 0
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def check_device(name: str, x: torch.Tensor) -> None:
@@ -172,7 +216,8 @@ def _conv1x1_fwd_op(x2: Tensor, wt: Tensor, mult: Tensor, add: Optional[Tensor],
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_fwd", x2.numel(), wt.numel(), m * n)
-    x2, wt = tma_operands(x2, wt)
+    if x2.dtype == torch.bfloat16:
+        x2, wt = tma_operands(x2, wt)
     k = x2.shape[1]
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     fn = _build.function("bcos_conv1x1_fwd", _FWD_ARGS)
@@ -241,17 +286,36 @@ def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
     x2, wt = tma_operands(x2, wt)
     k = x2.shape[1]
     dx = torch.empty((m, k), dtype=x2.dtype, device=x2.device)
-    g = None
-    if x2.dtype == torch.bfloat16 and n > FUSED_MAX_COUT:
-        g = torch.empty((m, (n + 7) // 8 * 8), dtype=x2.dtype, device=x2.device)
+    splits = (1, 1)
+    if x2.dtype == torch.float32:
+        sms = sm_count(x2.device)
+        splits = (tf32_splits(m, k, n, sms), tf32_splits(m, n, k, sms))
+    g = bwd_scratch(m, k, n, x2.dtype, x2.device, splits)
     fn = _build.function("bcos_conv1x1_bwd_explain", _BWD_ARGS)
     with torch.cuda.device(x2.device):
         code = fn(_DTYPE_CODE[x2.dtype], _ptr(x2), _ptr(wt), _ptr(ct), _ptr(a), _ptr(mult),
-                  _ptr(dx), _ptr(g), m, k, n, eps, int(eps_outside), int(relu),
+                  _ptr(dx), _ptr(g), m, k, n, eps, int(eps_outside), int(relu), *splits,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("bcos_conv1x1_bwd_explain", code)
     conv1x1_bwd_explain.launches += 1
     return dx if k == cin else dx[:, :cin].contiguous()
+
+
+def bwd_scratch(m: int, k: int, n: int, dtype: torch.dtype, device,
+                splits=(1, 1)) -> Optional[Tensor]:
+    """K2's scratch for x [m, k] (k on the TMA grid) and Cout n: bf16 above
+    FUSED_MAX_COUT, g [m, round_up(n, 8)]; fp32 always, g [m, np], wt's tf32
+    hi and lo as [n, k] and transposed [k, np] (np = round_up(n, 4)), and
+    the partial sums of the g and dx GEMMs in ``splits`` K splits
+    (``csrc/bcos_conv1x1_bwd.cu``); else None."""
+    if dtype == torch.float32:
+        np_ = (n + 3) // 4 * 4
+        part = max(split_floats(m, n, splits[0]), split_floats(m, k, splits[1]))
+        return torch.empty(m * np_ + 2 * n * k + 2 * k * np_ + part, dtype=dtype,
+                           device=device)
+    if n > FUSED_MAX_COUT:
+        return torch.empty((m, (n + 7) // 8 * 8), dtype=dtype, device=device)
+    return None
 
 
 @_conv1x1_bwd_op.register_kernel("cpu")

@@ -11,9 +11,12 @@ It carries every bias-free, stride-1 1x1 b=2 conv that ``ops.bcos.bcos_conv2d``
 dispatches to it: in eval mode the GAP-reorder classifier, in training (where
 the batch-statistics BN has no affine to fold into K1) also conv1 and conv3
 of every bottleneck and the stride-1 downsample. In bf16 it
-runs on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``, whose tile
-loads need rows of whole 16-byte units and 16-byte aligned data: a bf16 K
-off the grid of 8 is zero-padded in x and wt, and a misaligned operand
+runs on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``, in fp32 (every
+encode of the clip_benchmark harness) on the 3xTF32 route of
+``csrc/bcos_tf32.cuh`` over the same engine, with wt split into tf32 hi and
+lo in a scratch the wrapper allocates (``fwd_scratch``). The tile loads
+need rows of whole 16-byte units and 16-byte aligned data: a K off the grid
+(8 bf16, 4 fp32) is zero-padded in x and wt, and a misaligned operand
 copied, before the launch (``bcos_conv1x1.tma_operands``).
 
 The backward is the JAX ``_bwd`` (``bcos_matmul.py:123-146``), which the
@@ -44,13 +47,17 @@ from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import (
     check_int32,
     check_operands,
     conv1x1_bwd_explain,
+    sm_count,
+    split_floats,
+    tf32_splits,
     tma_operands,
 )
 
-__all__ = ["bcos_matmul", "bcos_matmul_bwd", "bcos_matmul_fwd", "bcos_matmul_fwd_plain"]
+__all__ = ["bcos_matmul", "bcos_matmul_bwd", "bcos_matmul_fwd", "bcos_matmul_fwd_plain",
+           "tf32_split"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = (_I, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+_ARGS = (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)
 
 
 def bcos_matmul_fwd_plain(x, wt, *, eps: float, eps_outside: bool):
@@ -79,13 +86,45 @@ def _bcos_matmul_fwd_op(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) ->
     x, wt = tma_operands(x, wt)
     k = x.shape[1]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    splits = tf32_splits(m, k, n, sm_count(x.device)) if x.dtype == torch.float32 else 1
+    scratch = fwd_scratch(m, k, n, x.dtype, x.device, splits)
     fn = _build.function("bcos_matmul_fwd", _ARGS)
     with torch.cuda.device(x.device):
-        code = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), wt.data_ptr(), y.data_ptr(), m, k, n,
-                  eps, int(eps_outside), torch.cuda.current_stream().cuda_stream)
+        code = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), wt.data_ptr(), y.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), m, k, n, eps,
+                  int(eps_outside), splits, torch.cuda.current_stream().cuda_stream)
     _build.check("bcos_matmul_fwd", code)
     bcos_matmul_fwd.launches += 1
     return y
+
+
+def tf32_split(a: Tensor):
+    """(hi, lo) of an f32 tensor as the fp32 route splits its operands
+    (``split_weight`` and the consumers' registers in ``csrc/bcos_tf32.cuh``):
+    hi = a rounded to the nearest tf32, ties away from zero (cvt.rna: the low
+    13 mantissa bits clear), lo = a - hi rounded the same way. The plain
+    version of the split: hi + lo is a within ~2^-22 |a|, and the three
+    products hi hi + hi lo + lo hi carry about fp32's accuracy."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        finite = (bits & 0x7F800000) != 0x7F800000
+        # the magnitude bits rounded half away from zero; the sign bit stays
+        rounded = (bits + 0x1000) & ~0x1FFF
+        return torch.where(finite, rounded, bits).view(torch.float32)
+
+    a = a.float()
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def fwd_scratch(m: int, k: int, n: int, dtype: torch.dtype, device, splits: int = 1):
+    """K3's scratch for x [m, k] and wt [n, k]: fp32, wt's tf32 hi and lo (2 n
+    k floats) and the partial sums of ``splits`` K splits
+    (``csrc/bcos_matmul_fwd.cu``); bf16 needs none."""
+    if dtype == torch.float32:
+        return torch.empty(2 * n * k + split_floats(m, n, splits), dtype=dtype, device=device)
+    return None
 
 
 @_bcos_matmul_fwd_op.register_kernel("cpu")

@@ -50,178 +50,20 @@
 // TMA needs 16-byte row strides: bf16 Cin must be a multiple of 8 (the
 // wrapper zero-pads x and wt otherwise).
 //
-// fp32 keeps the FMA design: a block owns 16 pixels and all of Cout (g in
-// shared memory), walks Cout in 64-wide chunks with the tile loop of
-// bcos_gemm.cuh, then Cin. It exists so the kernel can be held tightly
-// against its plain version; the model runs in bf16.
+// fp32 (text localisation runs K2 in fp32) takes the split design at every
+// Cout on the 3xTF32 route of bcos_tf32.cuh: a small launch splits wt into
+// hi and lo and their transposes, launch 1 writes g in f32 to the scratch
+// [M, round_up(Cout, 4)] with the same mainloop as K3 and K2's epilogue,
+// launch 2 runs the mainloop as a plain GEMM, dx = g w, on the transposed
+// hi and lo (tf32 wgmma reads B K-major only). At one 224^2 image (M = 49
+// to 3136) the deep layers' launches run split-K (their 128 x 128 tiles
+// would leave most SMs idle behind chains of up to 64 stages), with their
+// partial sums in the scratch too. TMA needs 16-byte rows here too: fp32
+// Cin must be a multiple of 4 (the wrapper zero-pads x and wt otherwise).
 #include "bcos_engine.cuh"
-#include "bcos_gemm.cuh"
+#include "bcos_tf32.cuh"
 
 namespace {
-
-using namespace bcos;
-
-// ---------------------------------------------------------------- fp32
-constexpr int kRowsF32 = 16;  // rows of an fp32 block
-
-// A [16 x 64] f32 accumulator spread over the block: thread t owns row
-// t / 16 and the columns t % 16 + 16 j.
-struct RowMma {
-  float c[4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = 0.f;
-  }
-  // C += A[16 x K] * B[64 x K]^T (both [row][k] with leading dim ld)
-  __device__ __forceinline__ void nt(const float* A, const float* B, int ld, int K) {
-    const int r = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int k = 0; k < K; ++k) {
-      const float a = A[r * ld + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = fmaf(a, B[(tx + 16 * j) * ld + k], c[j]);
-    }
-  }
-  // C += A[16 x K] * B[K x 64] (A [row][k] with lda, B [k][col] with ldb)
-  __device__ __forceinline__ void nn(const float* A, int lda, const float* B, int ldb, int K) {
-    const int r = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int k = 0; k < K; ++k) {
-      const float a = A[r * lda + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = fmaf(a, B[k * ldb + tx + 16 * j], c[j]);
-    }
-  }
-  __device__ __forceinline__ void store(float* C, int ldc) const {
-    const int r = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) C[r * ldc + tx + 16 * j] = c[j];
-  }
-};
-
-__host__ __device__ constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Shared-memory layout of one fp32 block: a scratch region (the x and wt
-// tiles of phase 1, then the f32 accumulator tile, then the wt tiles of
-// phase 2), the g tile [R x ldg], and the rows' sums of squares.
-struct Layout {
-  static constexpr int R = kRowsF32;
-  static constexpr int kTiles = (R + 64) * LDK * 4;
-  static constexpr int kAcc = R * LDC * 4;
-  static constexpr int kW = 64 * LDG * 4;
-  static constexpr int kScratch =
-      align128(kTiles > kAcc ? (kTiles > kW ? kTiles : kW) : (kAcc > kW ? kAcc : kW));
-  __host__ __device__ static int ldg(int N) { return (N + 63) / 64 * 64 + 8; }
-  __host__ __device__ static int g_offset() { return kScratch; }
-  __host__ __device__ static int ssq_offset(int N) {
-    return kScratch + align128(R * ldg(N) * 4);
-  }
-  __host__ __device__ static int bytes(int N) { return ssq_offset(N) + R * 4; }
-};
-
-__global__ void __launch_bounds__(kThreads)
-    conv1x1_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                       const float* __restrict__ ct, const float* __restrict__ a,
-                       const float* __restrict__ mult, float* __restrict__ dx, int M, int K, int N,
-                       float eps, int eps_outside, int relu) {
-  using L = Layout;
-  constexpr int R = L::R;
-  constexpr int TPR = kThreads / R;  // threads per row in the row-norm sum
-  constexpr int EPT = BK / TPR;      // elements per thread of one x tile row
-  extern __shared__ __align__(1024) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + R * LDK;
-  float* Cs = reinterpret_cast<float*>(smem);
-  float* Ws = reinterpret_cast<float*>(smem);
-  float* Gs = reinterpret_cast<float*>(smem + L::g_offset());
-  float* ssq_s = reinterpret_cast<float*>(smem + L::ssq_offset(N));
-  const int ldg = L::ldg(N);
-  const int row0 = blockIdx.x * R;
-
-  // ---- phase 1: g = ct * mult * [a > 0] * |u| / n, chunk by chunk of Cout
-  RowMma acc;
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    acc.zero();
-    float part = 0.f;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      for (int idx = threadIdx.x; idx < R * BK; idx += kThreads) {
-        const int r = idx / BK, c = idx % BK;
-        const int gr = row0 + r, gk = k0 + c;
-        As[r * LDK + c] = (gr < M && gk < K) ? x[(long long)gr * K + gk] : 0.f;
-      }
-      load_k_tile(Bs, wt, N, n0, K, k0, K);
-      __syncthreads();
-      if (n0 == 0) {
-        const int r = threadIdx.x / TPR, c0 = (threadIdx.x % TPR) * EPT;
-#pragma unroll
-        for (int j = 0; j < EPT; ++j) {
-          const float v = As[r * LDK + c0 + j];
-          part += v * v;
-        }
-      }
-      acc.nt(As, Bs, LDK, BK);
-      __syncthreads();
-    }
-    if (n0 == 0) {
-#pragma unroll
-      for (int off = 1; off < TPR; off *= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (threadIdx.x % TPR == 0) ssq_s[threadIdx.x / TPR] = part;
-    }
-    acc.store(Cs, LDC);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * BN; idx += kThreads) {
-      const int r = idx / BN, c = idx % BN;
-      const int gr = row0 + r, gn = n0 + c;
-      float g = 0.f;
-      if (gr < M && gn < N) {
-        const long long off = (long long)gr * N + gn;
-        const float u = Cs[r * LDC + c];
-        const float n = eps_outside ? sqrtf(ssq_s[r]) + eps : sqrtf(ssq_s[r] + eps);
-        g = ct[off];
-        if (mult != nullptr) g *= mult[gn];
-        if (relu && !(a[off] > 0.f)) g = 0.f;
-        g = g * (fabsf(u) / n);
-      }
-      Gs[r * ldg + gn] = g;  // zero past N: phase 2 reads whole chunks
-    }
-    __syncthreads();
-  }
-
-  // ---- phase 2: dx = g @ wt, chunk by chunk of Cin
-  for (int kc = 0; kc < K; kc += 64) {
-    acc.zero();
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      load_64x64(Ws, wt, N, n0, K, kc, K);  // Ws[n][k] = wt[n0 + n][kc + k]
-      __syncthreads();
-      acc.nn(Gs + n0, ldg, Ws, LDG, BN);
-      __syncthreads();
-    }
-    acc.store(Cs, LDC);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < R * 64; idx += kThreads) {
-      const int r = idx / 64, c = idx % 64;
-      const int gr = row0 + r, gk = kc + c;
-      if (gr < M && gk < K) dx[(long long)gr * K + gk] = Cs[r * LDC + c];
-    }
-    __syncthreads();
-  }
-}
-
-int launch_f32(const void* x, const void* wt, const void* ct, const void* a, const void* mult,
-               void* dx, int M, int K, int N, float eps, int eps_outside, int relu,
-               cudaStream_t s) {
-  const int bytes = Layout::bytes(N);
-  if (bytes > engine::kSmemLimit) return (int)cudaErrorInvalidValue;  // Cout too large
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(conv1x1_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           engine::kSmemLimit);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((M + kRowsF32 - 1) / kRowsF32);
-  conv1x1_bwd_kernel<<<grid, kThreads, bytes, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<const float*>(ct),
-      static_cast<const float*>(a), static_cast<const float*>(mult), static_cast<float*>(dx), M,
-      K, N, eps, eps_outside, relu);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------- bf16
 using bf16 = __nv_bfloat16;
@@ -466,20 +308,56 @@ int launch_bf16(const void* x, const void* wt, const void* ct, const void* a, co
                                (K + engine::kChunk - 1) / engine::kChunk * row_tiles, 0, s);
 }
 
+// fp32: scratch = [g: M x Np | wt hi, lo: 2 x N x K | their transposes
+// [K, Np]: 2 x K x Np | the partial sums of split-K] floats, Np =
+// round_up(N, 4); launch 1 runs in splits_g K splits, launch 2 in splits_dx.
+int launch_f32(const float* x, const float* wt, const float* ct, const float* a,
+               const float* mult, float* dx, float* scratch, int M, int K, int N, float eps,
+               int eps_outside, int relu, int splits_g, int splits_dx, cudaStream_t s) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int np = (N + 3) / 4 * 4;
+  float* g = scratch;
+  float* whi = g + (long long)M * np;
+  float* wlo = whi + (long long)N * K;
+  float* thi = wlo + (long long)N * K;
+  float* tlo = thi + (long long)K * np;
+  int err = tf32::launch_split(wt, whi, wlo, thi, tlo, N, K, np, s);
+  if (err != 0) return err;
+  const auto aligned = [](const void* q, int n) { return reinterpret_cast<uintptr_t>(q) % n == 0; };
+  const int pairs = N % 2 == 0 && aligned(ct, 8) && (a == nullptr || aligned(a, 8));
+  float* part = tlo + (long long)K * np;
+  tf32::Args pg{g, ct, a, mult, M, K, N, np, eps, eps_outside, relu, 1, pairs};
+  pg.splits = splits_g;
+  err = tf32::launch<tf32::kGrad>(x, K, whi, wlo, K, pg, part, s);
+  if (err != 0) return err;
+  tf32::Args pd{dx, nullptr, nullptr, nullptr, M, N, K, K, 0.f, 0, 0, 1, 0};
+  pd.splits = splits_dx;
+  return tf32::launch<tf32::kStore>(g, np, thi, tlo, np, pd, part, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (Cin a multiple of 8, 16-byte aligned
-// operands). a may be null when relu == 0; mult may be null (taken as 1).
-// g: a bf16 scratch [M, round_up(Cout, 8)] when dtype is bf16 and Cout >
-// 1024 (the split path), else unused. Returns a CUDA error code (0 after a
-// good launch).
+// dtype: 0 = float32, 1 = bfloat16 (Cin a multiple of 8 (bf16) or 4 (fp32),
+// 16-byte aligned x, wt and dx). a may be null when relu == 0; mult may be
+// null (taken as 1). g: scratch, 16-byte aligned: bf16, a bf16 [M,
+// round_up(Cout, 8)] when Cout > 1024 (the split path), else unused; fp32,
+// M round_up(Cout, 4) + 2 Cout Cin + 2 Cin round_up(Cout, 4) floats and the
+// larger split-K region of the two launches (see launch_f32). splits_g,
+// splits_dx: fp32 only, the K splits of the g and dx GEMMs (1: none).
+// Returns a CUDA error code (0 after a good launch).
 extern "C" int bcos_conv1x1_bwd_explain(int dtype, const void* x, const void* wt,
                                         const void* ct, const void* a, const void* mult,
                                         void* dx, void* g, int M, int K, int N, float eps,
-                                        int eps_outside, int relu, void* stream) {
+                                        int eps_outside, int relu, int splits_g, int splits_dx,
+                                        void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (relu && a == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_f32(x, wt, ct, a, mult, dx, M, K, N, eps, eps_outside, relu, s);
+  if (dtype == 0)
+    return launch_f32(static_cast<const float*>(x), static_cast<const float*>(wt),
+                      static_cast<const float*>(ct), static_cast<const float*>(a),
+                      static_cast<const float*>(mult), static_cast<float*>(dx),
+                      static_cast<float*>(g), M, K, N, eps, eps_outside, relu, splits_g,
+                      splits_dx, s);
   if (dtype == 1)
     return launch_bf16(x, wt, ct, a, mult, dx, g, M, K, N, eps, eps_outside, relu, s);
   return (int)cudaErrorInvalidValue;

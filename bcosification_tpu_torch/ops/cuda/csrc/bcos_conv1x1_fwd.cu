@@ -35,9 +35,9 @@
 // TMA needs 16-byte row strides: bf16 Cin must be a multiple of 8 (the
 // wrapper zero-pads x and wt otherwise).
 //
-// fp32 keeps the FMA tile loop of bcos_gemm.cuh (64 x 64 tiles), so the
-// kernel can be held tightly against its plain version; the model runs in
-// bf16.
+// fp32 (text localisation, the fp32 GPU-vs-CPU checks) still runs the FMA
+// tile loop of bcos_gemm.cuh (64 x 64 tiles) on the CUDA cores; it is the
+// next fp32 route to move to the 3xTF32 route of bcos_tf32.cuh (PERF.md).
 #include "bcos_engine.cuh"
 #include "bcos_gemm.cuh"
 

@@ -1,4 +1,6 @@
-// The bf16 GEMM engine of K1, K2 and K3 on Hopper, built on hopper.cuh.
+// The GEMM engine of K1, K2 and K3 on Hopper, built on hopper.cuh: their
+// bf16 routes here, and the ring under the fp32 route of K2 and K3
+// (bcos_tf32.cuh, 3xTF32, whose stages hold four f32 B boxes: Smem::b_boxes).
 //
 // A block owns R = 64 or 128 rows (pixels) and has R / 64 consumer
 // warpgroups, each of which owns 64 of the rows, and one producer warp, one
@@ -41,7 +43,6 @@ using bf16 = __nv_bfloat16;
 using hopper::kBoxBytes;
 
 constexpr int kChunk = 128;                // output columns of one wgmma chain
-constexpr int kBTileBytes = 2 * kBoxBytes; // the B tile of a stage
 constexpr int kMaxStages = 6;
 constexpr int kSmemLimit = 232448;         // dynamic shared memory of one block (227 KB)
 constexpr int kSmemHalf = 115712;          // of each of two blocks on one SM (228 KB, 1 KB each reserved)
@@ -59,7 +60,9 @@ __host__ __device__ constexpr int block_threads(int rows) { return 2 * rows + 32
 struct Smem {
   int rows, stages, extra, outs;
   int out_elem = 2;  // bytes per element of the staged outputs: 2 (bf16) or 4 (f32)
-  __host__ __device__ constexpr int stage_bytes() const { return kBTileBytes + rows * 128; }
+  int b_boxes = 2;   // boxes of a stage's B tile: 2, or 4 for the fp32 route's hi and lo
+  __host__ __device__ constexpr int b_bytes() const { return b_boxes * kBoxBytes; }
+  __host__ __device__ constexpr int stage_bytes() const { return b_bytes() + rows * 128; }
   __host__ __device__ constexpr int out_offset(int buffer = 0) const {
     return stages * stage_bytes() + buffer * rows * kChunk * out_elem;
   }
@@ -98,10 +101,10 @@ struct Ring {
   unsigned char* base;
   uint64_t* full;
   uint64_t* empty;
-  int stages, stage_bytes, stage;
+  int stages, stage_bytes, b_bytes, stage;
   uint32_t phase;
   __device__ __forceinline__ unsigned char* b(int s) const { return base + s * stage_bytes; }
-  __device__ __forceinline__ unsigned char* a(int s) const { return b(s) + kBTileBytes; }
+  __device__ __forceinline__ unsigned char* a(int s) const { return b(s) + b_bytes; }
   __device__ __forceinline__ void advance() {
     if (++stage == stages) {
       stage = 0;
@@ -125,7 +128,7 @@ __device__ __forceinline__ unsigned char* aligned_base(unsigned char* smem) {
 // Initialises the ring's barriers (thread 0) and synchronises the block.
 __device__ __forceinline__ Ring make_ring(unsigned char* base, const Smem& L) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bar_offset());
-  Ring ring{base, bars, bars + kMaxStages, L.stages, L.stage_bytes(), 0, 0};
+  Ring ring{base, bars, bars + kMaxStages, L.stages, L.stage_bytes(), L.b_bytes(), 0, 0};
   if (threadIdx.x == 0) {
     for (int s = 0; s < L.stages; ++s) {
       hopper::mbar_init(&ring.full[s], 1);

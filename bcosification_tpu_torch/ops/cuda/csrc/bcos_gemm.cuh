@@ -1,18 +1,21 @@
-// Shared block machinery of the plain fp32 B-cos GEMM tile loop of K1, K2
-// and K3. (Their bf16 paths run on the TMA + wgmma engine of
-// bcos_engine.cuh.) It exists so the kernels can be held tightly against
-// their plain versions; the model runs in bf16.
+// The plain fp32 B-cos GEMM tile loop of K1's fp32 route. (K1's bf16 route
+// runs on the TMA + wgmma engine of bcos_engine.cuh; K2 and K3 take fp32 on
+// the 3xTF32 route of bcos_tf32.cuh.) K1 runs fp32 in text localisation and
+// in the fp32 GPU-vs-CPU checks of whole nets; this loop is the next fp32
+// route to move to the tensor cores (ROADMAP B): it runs on the CUDA cores
+// at ~10 TFLOP/s, bound by its synchronous loads and shared-memory reads,
+// against 67 TFLOP/s fp32 and 495 tf32.
 //
-// Every kernel here is a GEMM whose operands are both contiguous along the
-// contraction axis: x [M, K] row-major and wt [N, K] row-major (a 1x1 conv's
-// OIHW weight viewed as [Cout, Cin]). A block of 256 threads owns a 64x64
-// tile of u = x @ wt^T, walks K in steps of 32 through shared memory, and
-// sums each row's sum of squares in f32 from the same x tiles it feeds the
-// product with, so the patch norm costs no extra read of x.
+// The GEMM's operands are both contiguous along the contraction axis: x
+// [M, K] row-major and wt [N, K] row-major (a 1x1 conv's OIHW weight viewed
+// as [Cout, Cin]). A block of 256 threads owns a 64x64 tile of u = x @
+// wt^T, walks K in steps of 32 through shared memory, and sums each row's
+// sum of squares in f32 from the same x tiles it feeds the product with, so
+// the patch norm costs no extra read of x.
 //
 // The tile product is plain FMA on the CUDA cores, a 4x4 micro-tile per
 // thread; the accumulator goes to a float tile in shared memory, from which
-// the fused epilogues read.
+// the fused epilogue reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,7 +28,6 @@ constexpr int BN = 64;        // output channels per block / per u chunk
 constexpr int BK = 32;        // contraction step
 constexpr int LDK = BK + 8;   // smem leading dim of the K-major tiles
 constexpr int LDC = BN + 4;   // smem leading dim of the float accumulator tile
-constexpr int LDG = BN + 8;   // smem leading dim of the [64 x 64] operand tiles of fp32 K2
 
 // dst[r][c] = src[(row0 + r) * ld + k0 + c] for a [64 x 32] tile, zero outside
 // [rows) x [K). Consecutive threads read consecutive k: coalesced.
@@ -41,23 +43,6 @@ __device__ __forceinline__ void load_k_tile(float* dst, const float* __restrict_
     float v = 0.f;
     if (gr < rows && gk < K) v = src[(long long)gr * ld + gk];
     dst[r * LDK + c] = v;
-  }
-}
-
-// dst[r][c] = src[(row0 + r) * ld + col0 + c] for a [64 x 64] tile, zero
-// outside [rows) x [cols).
-__device__ __forceinline__ void load_64x64(float* dst, const float* __restrict__ src, int rows,
-                                           int row0, int cols, int col0, int ld) {
-#pragma unroll
-  for (int i = 0; i < (64 * 64) / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / 64;
-    const int c = idx % 64;
-    const int gr = row0 + r;
-    const int gc = col0 + c;
-    float v = 0.f;
-    if (gr < rows && gc < cols) v = src[(long long)gr * ld + gc];
-    dst[r * LDG + c] = v;
   }
 }
 
@@ -101,21 +86,6 @@ struct BlockMma {
       for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * ld + k];
 #pragma unroll
       for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * ld + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-    }
-  }
-  // C += A[64 x K] * B[K x 64]; A [row][k] with lda, B [k][col] with ldb.
-  __device__ __forceinline__ void nn(const float* A, int lda, const float* B, int ldb, int K) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = B[k * ldb + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll

@@ -1,14 +1,16 @@
-// Hopper (sm_90a) primitives of the bf16 GEMM engine of K1, K2 and K3: TMA tile
-// loads and stores, mbarriers, wgmma descriptors and wgmma itself, fences
-// and named barriers. Every piece of inline PTX of the engine sits behind one of these
-// small functions, so that tests/cuda_emu/hopper.cuh can give each a C++
-// version with the same meaning and run the kernels on the CPU.
+// Hopper (sm_90a) primitives of the GEMM engine of K1, K2 and K3: TMA tile
+// loads and stores, mbarriers, wgmma descriptors and wgmma itself (bf16, and
+// tf32 with A from registers for the fp32 route), the tf32 rounding, fences
+// and named barriers. Every piece of inline PTX of the engine sits behind
+// one of these small functions, so that tests/cuda_emu/hopper.cuh can give
+// each a C++ version with the same meaning and run the kernels on the CPU.
 //
 // The one tile format. Every tile is built from TMA boxes of 64 rows of 128
-// bytes with the 128-byte swizzle: 64 bf16 columns, or 32 f32 columns (f32
-// only for outputs). Box row r lands at r * 128 from the box's base, its
-// 16-byte chunk c at chunk c ^ (r % 8). A box's base must be 1024-byte
-// aligned (the swizzle reads address bits 7-9). wgmma reads bf16 tiles
+// bytes with the 128-byte swizzle: 64 bf16 columns, or 32 f32 columns. Box
+// row r lands at r * 128 from the box's base, its 16-byte chunk c at chunk
+// c ^ (r % 8). A box's base must be 1024-byte
+// aligned (the swizzle reads address bits 7-9). wgmma reads bf16 tiles, and
+// K-major f32 tiles as tf32 (a k8 step is 32 bytes, as a bf16 k16 step),
 // through a descriptor (desc_sw128):
 // - K-major (rows of the operand along the box's rows, the contraction along
 //   its 64 columns): rows 8 apart are SBO = 1024 bytes apart; the k16 step s
@@ -189,6 +191,48 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
+// The f32 of x rounded to the nearest tf32 (ties away from zero): the low 13
+// mantissa bits clear, as a b32 that wgmma reads as tf32.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[8 x 128], tf32 in (the tensor cores read the
+// top 19 bits of each b32), f32 accumulators in the layout of
+// wgmma_m64n128k16. A comes from registers: with g = 16 (t / 32) +
+// (t % 32) / 4 and q = t % 4 for thread t of the warpgroup, a[0] holds
+// (row g, column q), a[1] (g + 8, q), a[2] (g, q + 4), a[3] (g + 8, q + 4).
+// B is K-major (tf32 has no transpose): its k8 step is 32 bytes of a
+// 128-byte swizzled row, as a k16 step of bf16. scale_d = 0 ignores d.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63""}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // orders this thread's generic-proxy shared-memory writes before later

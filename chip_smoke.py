@@ -16,7 +16,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and at the measured memory rate), its plain version and torch.matmul on
    the same GEMM, and each kernel's time per call beside its earlier
    record (PREVIOUS_MS); K3 is checked with both eps_outside values, also
-   at five shapes of the train step (TRAIN_CHECK_SHAPES);
+   at five shapes of the train step (TRAIN_CHECK_SHAPES); K1, K2 and K3 in
+   fp32 at ragged shapes (FP32_RAGGED_SHAPES: M = 49 and 3149, N = 1000 and
+   N % 4 != 0, K % 4 != 0, a misaligned x; tma_operands pads or realigns
+   K2's and K3's operands there, counted, then its count restarts at 0);
 4. parity: the full-width B-cosified ResNet-50 (224x224, gamma-calibrated),
    fp32, 2 images: the fast forward + explanation on the GPU (kernels)
    against the same call on the CPU (plain versions; W within 1e-3, the
@@ -207,7 +210,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    on the ViT-B/16 of phase 13 in the -stride=112 mode over two grids (49
    crops of 224^2 each); each kernel against its plain version (both
    dtypes) and timed at the grid's shapes (Ours's and the gradient
-   route's) beside its bound;
+   route's) beside its bound; K1, K2 and K3 in fp32 at every shape of one
+   text localisation of the attn-unpool student (against their plain
+   versions, then timed per text localisation with the card's busy time,
+   beside their bounds at 67 TFLOP/s fp32 and in 3xTF32 at 495 TFLOP/s,
+   their plain versions and torch.matmul);
 16. the CLIP benchmark harness (bcosification_tpu_torch/clip_benchmark, the
    port of the top-level clip_benchmark package) through its CLI in process
    (``cli.main([...])``, batch 64, fp32 images, so every encode runs K3's
@@ -230,15 +237,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    probe head at weight decay 1e-4, GPU against CPU fp32, within ten CPU
    spreads under 1e-7 relative input noise; K3 against its plain version in
    fp32 at every distinct shape of one harness encode, and timed per
-   attn-unpool fp32 encode beside its bound (67 TFLOP/s fp32 outside the
-   tensor cores), plain version and torch.matmul.
+   attn-unpool fp32 encode beside its bounds (67 TFLOP/s fp32 outside the
+   tensor cores; the 3xTF32 route's three tf32 products at 495 TFLOP/s),
+   plain version and torch.matmul, with tma_operands' count (0).
+
+``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
+the fp32 routes' rows of phases 15 and 16 (random-init students, seeded
+operands), the text localisation's rows four times (split-K, 128 x 128
+tiles alone, tiles, split-K), so that two trees' kernels, or the two
+tilings, can be timed in one call.
 
 Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
-is the images of one window of about 1.7 s over its time. No bf16 operand
-of a ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C or analysis path
-needs the TMA padding (``tma_operands.padded`` stays 0).
+is the images of one window of about 1.7 s over its time. No operand of a
+ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C, analysis or harness
+path, bf16 or fp32, needs the TMA padding (``tma_operands.padded`` stays 0
+after phase 3).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
@@ -343,6 +358,19 @@ TRAIN_CHECK_SHAPES = [
     ("train layer4.conv3", 3136, 512, 2048),
     ("train classifier", 3136, 2048, 1000),
 ]
+# fp32 shapes off the TMA grid and the tiles (label, M, K, N, relu,
+# misaligned x): M = 49 (layer4 of one 224^2 image) and 3136 + 13, N = 1000
+# and N % 4 != 0, K % 4 != 0 and a deep K, one x 4 bytes off the 16-byte
+# grid. tma_operands pads or realigns K2's and K3's operands there (one K2
+# and two K3 calls per such shape); K1's FMA loop takes them as they are
+FP32_RAGGED_SHAPES = [
+    ("ragged m49 k30 n1000", 49, 30, 1000, True, False),
+    ("ragged m3149 k64 n130", 3149, 64, 130, False, False),
+    ("ragged m49 k2046 n61", 49, 2046, 61, True, False),
+    ("ragged m3149 k1022 n1001", 3149, 1022, 1001, False, False),
+    ("misaligned m49 k64 n1000", 49, 64, 1000, True, True),
+]
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense tf32 (data sheet); 3xTF32 does 3 tf32 products
 # each kernel's earlier ms per fwd+explain call (PERF.md; NVIDIA H100 80GB
 # HBM3, 700.00 W), timed by the same method as time_kernels
 PREVIOUS_MS = {"bcos_conv1x1_fwd": ("PR 3", 5.32), "bcos_conv1x1_bwd_explain": ("PR 3", 7.61),
@@ -457,6 +485,29 @@ def check_kernels():
             for name, variant, got, want in results:
                 _check(worst, name, variant, label, dtype, got, want)
             del x, wt, results
+    padded = k12.tma_operands.padded
+    for label, m, k, n, relu, misaligned in FP32_RAGGED_SHAPES:
+        x, wt, mult, add, ct = operands(m, k, n, torch.float32, gen)
+        if misaligned:  # the same values at a data pointer 4 bytes off the grid
+            x = torch.empty(m * k + 1, device="cuda")[1:].view(m, k).copy_(x)
+        a = k12.conv1x1_fwd(x, wt, mult, add, relu=True)
+        results = [("bcos_conv1x1_fwd", "", k12.conv1x1_fwd(x, wt, mult, add, relu=relu),
+                    k12.conv1x1_fwd_plain(x, wt, mult, add, relu=relu)),
+                   ("bcos_conv1x1_bwd_explain", "",
+                    k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=relu),
+                    k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mult, relu=relu))]
+        results += _k3_results(x, wt, lambda t: t)
+        torch.cuda.synchronize()
+        for name, variant, got, want in results:
+            _check(worst, name, variant, label, torch.float32, got, want)
+        del x, wt, ct, a, results
+    padded = k12.tma_operands.padded - padded
+    want = 3 * sum(k % 4 != 0 or mis for _, _, k, _, _, mis in FP32_RAGGED_SHAPES)
+    say(f"check fp32 ragged shapes: tma_operands padded or realigned {padded} calls "
+        f"(expected {want})")
+    if padded != want:
+        raise AssertionError(f"the fp32 ragged checks padded {padded} calls, expected {want}")
+    k12.tma_operands.padded = 0  # the main paths' count starts here
     return worst
 
 
@@ -513,7 +564,8 @@ def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
     library_ms (torch.matmul), the bound at the data-sheet rates (bound_s,
     split into flop_s and byte_s by what binds; fp32 FLOPs at the 67 TFLOP/s
     outside the tensor cores) and at ``stream_rate`` (bytes/s, K4's measured
-    rate on this card)."""
+    rate on this card), and the FLOPs (``tf32x3_ms``: their bound on the
+    fp32 route's tensor cores)."""
     peak_flops = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     rows = {}
     for (name, m, k, n, relu, *linear), count in sorted(per_shape.items()):
@@ -525,8 +577,10 @@ def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
         flops, nbytes = bound_terms(name, m, k, n, relu, dtype)
         f_s, b_s = flops / peak_flops, nbytes / PEAK_BYTES
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_s=0.0,
-                                       byte_s=0.0, bound_s=0.0, measured_bound_s=0.0))
+                                       byte_s=0.0, bound_s=0.0, measured_bound_s=0.0,
+                                       flops=0.0))
         r["ms"] += count * t_k
+        r["flops"] += count * flops
         r["plain_ms"] += count * t_p
         r["library_ms"] += count * t_l
         r["bound_s"] += count * max(f_s, b_s)
@@ -540,6 +594,12 @@ def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
             f"plain {t_p:.4f}, torch.matmul {t_l:.4f}) [{CARD}]")
         del x, wt, ct
     return rows
+
+
+def tf32x3_ms(row):
+    """The least ms of a row's fp32 work on the 3xTF32 route: three tf32
+    products per f32 product at the 495 TFLOP/s data-sheet rate."""
+    return 3 * row["flops"] / PEAK_TF32_FLOPS * 1e3
 
 
 def time_kernels(model, worst, counts, stream_rate):
@@ -3597,7 +3657,8 @@ def loc_text_head(label, unpool, student, root):
     ms = window_ms(call, 10)
     busy, top = device_profile(call, 3, top=40)
     kernel_ms = {name.replace("(anonymous namespace)::", "").split("(")[0]: ms_
-                 for name, ms_ in top if "conv1x1" in name or "bcos_matmul" in name}
+                 for name, ms_ in top
+                 if any(key in name for key in ("conv1x1", "bcos_matmul", "tf32::"))}
     torch.backends.cudnn.enabled = False
     try:
         w_native = call()["dynamic_linear_weights"]
@@ -3629,6 +3690,48 @@ def loc_text_head(label, unpool, student, root):
     if not written or any(not val <= bound for val, bound in checks.values()):
         raise AssertionError(f"text localisation of the {label} student failed")
     return {"cli_s": cli_s, "ms": ms}
+
+
+def loc_text_kernels(student, stream_rate, worst):
+    """K1, K2 and K3 in fp32 at every shape of one text localisation of the
+    attn-unpool ``student`` (one 224^2 image: K1 and K2 at the 36 1x1s, K3
+    and K2 at the c_proj; ``clip_launches``): each against its plain version
+    (phase 3's fp32 bound), then timed per call (``time_shapes``) beside its
+    bound at 67 TFLOP/s fp32 and on the 3xTF32 route's tensor cores
+    (``tf32x3_ms``), its plain version and torch.matmul. Returns the
+    kernels line's keys."""
+    per_shape = collections.Counter(clip_launches(student, 1, SIZE, True))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    calls = collections.defaultdict(list)  # kernel -> its calls of one text localisation
+    for (name, m, k, n, relu, *linear), count in sorted(per_shape.items()):
+        x, wt, mult, add, ct = operands(m, k, n, torch.float32, gen)
+        kern, plain, _ = kernel_calls(name, x, wt, mult, add, ct, relu, any(linear))
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        _check(worst, name, " eps_outside" if any(linear) else "",
+               f"loc text M={m} K={k} N={n}", torch.float32, got, want)
+        calls[name] += [kern] * count
+        del got, want
+    rows = time_shapes(per_shape, stream_rate, gen, tag="loc text fp32 ", dtype=torch.float32)
+    keys = {}
+    for name, r in sorted(rows.items()):
+        launches = sum(c for key, c in per_shape.items() if key[0] == name)
+        # the card's own time for the same calls (torch.profiler): what is
+        # left of the call time is the host's issue
+        busy, _ = device_profile(lambda: [f() for f in calls[name]], 3)
+        say(f"loc text fp32 {name} per text localisation (attn-unpool, {launches} calls): "
+            f"{r['ms']:.4f} ms (the card busy {busy or 0:.4f} ms of it); bound "
+            f"{1e3 * r['bound_s']:.4f} ms at the data-sheet rates (67 TFLOP/s fp32, 3350 GB/s), "
+            f"{tf32x3_ms(r):.4f} ms in 3xTF32 at 495 TFLOP/s; plain {r['plain_ms']:.4f} ms, "
+            f"torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
+        keys[name] = {"loc_text_fp32_launches": launches, "loc_text_fp32_ms": r["ms"],
+                      "loc_text_fp32_bound_ms": 1e3 * r["bound_s"],
+                      "loc_text_fp32_bound_3xtf32_ms": tf32x3_ms(r),
+                      "loc_text_fp32_plain_ms": r["plain_ms"],
+                      "loc_text_fp32_library_ms": r["library_ms"],
+                      "loc_text_fp32_busy_ms": busy}
+    del calls
+    return keys
 
 
 def distinct_targets(logits):
@@ -3729,6 +3832,7 @@ def phase_analyses(net, students, stream_rate, worst, exp_root):
                                                                            verbose=False)
     text = loc_text(students, kd_student)
     del kd_student
+    text_keys = loc_text_kernels(students["unpool"], stream_rate, worst)
     vit_s = loc_vit_striding(SEED + 43)
     # each kernel at the grid's shapes: Ours's module path (that of one fast
     # fwd+explain at batch 9, 672^2) and K3 on the gradient explainers' route
@@ -3750,6 +3854,8 @@ def phase_analyses(net, students, stream_rate, worst, exp_root):
             f"{what}_launches": launches, f"{what}_ms": r["ms"],
             f"{what}_bound_ms": 1e3 * r["bound_s"], f"{what}_plain_ms": r["plain_ms"],
             f"{what}_library_ms": r["library_ms"]})
+    for kernel, row in text_keys.items():
+        keys.setdefault(kernel, {}).update(row)
     say(f"loc summary: {n_grids} grids, {n_grids / run_s:.2f} grids/s, compute_sorted_confs "
         f"{confs_s:.2f} s; per grid " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
         + f"; localisation.main {clis['cli_s']:.1f} s, sweep {clis['sweep_s']:.1f} s; text "
@@ -4161,17 +4267,54 @@ def phase_bench(stream_rate, worst, exp_root):
                           dtype=torch.float32)["bcos_matmul_fwd"]
         launches = sum(per_shape.values())
         say(f"bench bcos_matmul_fwd per attn-unpool fp32 encode at batch {BENCH_BATCH} "
-            f"({launches} launches): {row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms "
-            f"at the data-sheet rates (67 TFLOP/s fp32, 3350 GB/s), "
+            f"({launches} launches, {row['flops'] / 1e9:.1f} GFLOP): {row['ms']:.4f} ms; bound "
+            f"{1e3 * row['bound_s']:.4f} ms at the data-sheet rates (67 TFLOP/s fp32, 3350 "
+            f"GB/s), {tf32x3_ms(row):.4f} ms in 3xTF32 at 495 TFLOP/s, "
             f"{1e3 * row['measured_bound_s']:.4f} ms at the measured "
             f"{stream_rate / 1e9:.1f} GB/s; plain {row['plain_ms']:.4f} ms, torch.matmul "
-            f"{row['library_ms']:.4f} ms [{CARD}]")
+            f"{row['library_ms']:.4f} ms; tma_operands padded {k12.tma_operands.padded} "
+            f"calls [{CARD}]")
         say("bench summary: " + "; ".join(f"{r.tag} {r.img_s:.1f} img/s" for r in record.runs
                                           if r.images) + f" [{CARD}]")
         del nets, record
     return {"bench_launches": launches, "bench_ms": row["ms"],
-            "bench_bound_ms": 1e3 * row["bound_s"], "bench_plain_ms": row["plain_ms"],
+            "bench_bound_ms": 1e3 * row["bound_s"], "bench_bound_3xtf32_ms": tf32x3_ms(row),
+            "bench_plain_ms": row["plain_ms"],
             "bench_library_ms": row["library_ms"], "bench_dtype": "float32"}
+
+
+def fp32_routes() -> int:
+    """``chip_smoke.py --fp32-routes``: only the fp32 routes' rows of phases
+    15 and 16 (K1, K2 and K3 per text localisation, with split-K and with
+    128 x 128 tiles alone in turns; K3 per attn-unpool harness encode;
+    random-init students, ``time_shapes`` on seeded operands), for
+    comparing two trees' kernels, or the two tilings, in one call."""
+    phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, probe = phase_probe()
+    rate = probe["k4_gbs"] * 1e9
+    student = Experiment(*CLIP_EXPERIMENTS["unpool"]).get_model()
+    worst = {name: 0.0 for name in MODEL_KERNELS}
+    # split-K against 128 x 128 tiles alone (the policy set to 1 split),
+    # in turns
+    splits = k12.tf32_splits
+    for policy in ("split-K", "tiles", "tiles", "split-K"):
+        say(f"fp32 routes with {policy}:")
+        k12.tf32_splits = k3.tf32_splits = splits if policy == "split-K" else (lambda *_: 1)
+        try:
+            loc_text_kernels(student, rate, worst)
+        finally:
+            k12.tf32_splits = k3.tf32_splits = splits
+    per_shape = collections.Counter(clip_launches(student, BENCH_BATCH, SIZE, False))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    row = time_shapes(per_shape, rate, gen, tag="bench fp32 ", dtype=torch.float32)
+    row = row["bcos_matmul_fwd"]
+    say(f"fp32 routes: bcos_matmul_fwd per attn-unpool fp32 encode ({sum(per_shape.values())} "
+        f"launches): {row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms (67 TFLOP/s), "
+        f"{tf32x3_ms(row):.4f} ms (3xTF32); plain {row['plain_ms']:.4f} ms, torch.matmul "
+        f"{row['library_ms']:.4f} ms [{CARD}]")
+    return 0
 
 
 def main() -> int:
@@ -4180,6 +4323,9 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 2
     CARD = card_line()
+    if sys.argv[1:] == ["--fp32-routes"]:
+        say(CARD)
+        return fp32_routes()
     say(f"device: {CARD} ({torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda})")
     seconds = {}

@@ -52,6 +52,8 @@ struct Idx { unsigned x, y, z; };
 inline thread_local Idx threadIdx, blockIdx, gridDim;
 inline std::barrier<>* g_bar = nullptr;
 inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_bars;
+inline std::vector<std::unique_ptr<std::barrier<>>> g_warpgroup_bars;  // 128 threads each
+inline void emu_warpgroup_sync() { g_warpgroup_bars[threadIdx.x / 128]->arrive_and_wait(); }
 inline float g_xchg[1024];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
@@ -102,6 +104,10 @@ void emu_launch(dim3 grid, unsigned nthreads, int, cudaStream_t, K kernel, A... 
       g_warp_bars.clear();
       for (unsigned w = 0; w < (nthreads + 31) / 32; ++w)
         g_warp_bars.push_back(std::make_unique<std::barrier<>>(32));
+      g_warpgroup_bars.clear();
+      for (unsigned w = 0; w < (nthreads + 127) / 128; ++w)
+        g_warpgroup_bars.push_back(
+            std::make_unique<std::barrier<>>((std::ptrdiff_t)std::min(128u, nthreads - 128 * w)));
       std::vector<std::thread> ts;
       for (unsigned t = 0; t < nthreads; ++t)
         ts.emplace_back([=] {

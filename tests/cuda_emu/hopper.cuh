@@ -13,6 +13,14 @@
 // - wgmma m64n128k16: each thread computes its own 64 accumulators in the PTX
 //   layout, reading A and B through the decoded descriptors (K-major, or
 //   MN-major for B with the transpose bit), in f32.
+// - wgmma m64n128k8 tf32: A from the registers of the whole warpgroup (each
+//   thread publishes its fragment, in the PTX layout, then the warpgroup
+//   meets), B K-major through the decoded descriptor; both read as the
+//   tensor cores read tf32, the low 13 mantissa bits of each f32 dropped,
+//   so a kernel that skipped the hi/lo split would lose accuracy here too;
+//   each k8 step's sum is added to the accumulator rounding toward zero, as
+//   the tensor cores add (a long chain in one accumulator drifts here too).
+//   tf32_rna rounds to nearest, ties away from zero, as cvt.rna does.
 // - fences and commit/wait (wgmma and bulk groups): no-ops
 //   (the copies and products are synchronous here).
 #pragma once
@@ -178,6 +186,55 @@ inline void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, i
       s += desc_elem(desc_a, row, k, false) * desc_elem(desc_b, col, k, TransB != 0);
     d[q] = s;
   }
+}
+
+inline uint32_t tf32_rna(float x) {
+  uint32_t b;
+  std::memcpy(&b, &x, 4);
+  if ((b & 0x7f800000u) != 0x7f800000u) b += 0x1000u;  // the magnitude, half away from zero
+  return b & 0xffffe000u;
+}
+
+// an f32 as the tensor cores read it as tf32: the top 19 bits
+inline float tf32_read(uint32_t b) {
+  b &= 0xffffe000u;
+  float f;
+  std::memcpy(&f, &b, 4);
+  return f;
+}
+
+inline uint32_t g_tf32_a[1024][4];  // each thread's A fragment during a tf32 wgmma
+
+inline void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                 int scale_d) {
+  if ((desc_b >> 62) != 1) emu_fail("wgmma descriptor: not the 128-byte swizzle");
+  const uint32_t start = (uint32_t)(desc_b & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc_b >> 32) & 0x3FFF) << 4;
+  const int t = threadIdx.x % 128, wg0 = threadIdx.x - t;
+  std::memcpy(g_tf32_a[threadIdx.x], a, sizeof(a));
+  emu_warpgroup_sync();
+  for (int q = 0; q < 64; ++q) {
+    const int j = q / 4, h = (q / 2) % 2, c = q % 2;
+    const int row = 16 * (t / 32) + (t % 32) / 4 + 8 * h, col = 8 * j + 2 * (t % 4) + c;
+    double s = 0.0;
+    for (int k = 0; k < 8; ++k) {
+      // A (row, k) lies in register (row % 16) / 8 + 2 (k / 4) of thread
+      // 32 (row / 16) + 4 (row % 8) + k % 4
+      const int holder = wg0 + 32 * (row / 16) + 4 * (row % 8) + k % 4;
+      const float av = tf32_read(g_tf32_a[holder][(row % 16) / 8 + 2 * (k / 4)]);
+      const uint32_t addr = start + (col / 8) * sbo + (col % 8) * 128 + k * 4;
+      if (addr + 4 > sizeof(g_dyn_smem)) emu_fail("wgmma operand beyond shared memory");
+      uint32_t bb;
+      std::memcpy(&bb, g_dyn_smem + swizzle128(addr), 4);
+      s += (double)av * tf32_read(bb);
+    }
+    // the tensor cores add into the accumulator rounding toward zero
+    const double exact = (scale_d ? d[q] : 0.0) + s;
+    float r = (float)exact;
+    if (std::fabs((double)r) > std::fabs(exact)) r = std::nextafter(r, 0.f);
+    d[q] = r;
+  }
+  emu_warpgroup_sync();  // no thread republishes before all have read
 }
 
 inline void fence_proxy_async() {}

@@ -31,6 +31,7 @@ EMU = Path(__file__).resolve().parent / "cuda_emu"
 SHAPES = {torch.float32: [(37, 24, 10), (130, 200, 70), (5, 300, 129)],
           torch.bfloat16: [(37, 24, 10), (130, 200, 70), (5, 296, 129)]}
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5}  # max |diff| / max |ref|
+EMU_SMS = 2  # the stand-in's SM count (cuda_runtime.h), which the fp32 route's K splits read
 
 
 def compile_emulated(sources, work: Path, defines=()) -> ctypes.CDLL:
@@ -39,17 +40,21 @@ def compile_emulated(sources, work: Path, defines=()) -> ctypes.CDLL:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA stand-in")
-    for header in [*_build.CSRC.glob("*.cuh"), *EMU.glob("*.cuh")]:  # the stand-ins last
+    def rewritten(path):
+        text = re.sub(r"(\w+(?:<[\w:]+>)?)<<<(.*?)>>>\(",
+                      lambda m: f"emu_launch({m.group(2)}, {m.group(1)}, ",
+                      path.read_text(), flags=re.S)
+        return re.sub(r"extern __shared__ __align__\(\d+\) unsigned char smem\[\];",
+                      "unsigned char* smem = g_dyn_smem;", text)
+
+    for header in _build.CSRC.glob("*.cuh"):
+        (work / header.name).write_text(rewritten(header))
+    for header in EMU.glob("*.cuh"):  # the stand-ins last
         shutil.copy(header, work / header.name)
     outs = []
     for src in sources:
-        text = re.sub(r"(\w+(?:<[\w:]+>)?)<<<(.*?)>>>\(",
-                      lambda m: f"emu_launch({m.group(2)}, {m.group(1)}, ",
-                      src.read_text(), flags=re.S)
-        text = re.sub(r"extern __shared__ __align__\(\d+\) unsigned char smem\[\];",
-                      "unsigned char* smem = g_dyn_smem;", text)
         out = work / (src.stem + ".cpp")
-        out.write_text(text)
+        out.write_text(rewritten(src))
         outs.append(str(out))
     lib = work / "libbcos_kernels_emu.so"
     cmd = [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", f"-I{EMU}",
@@ -96,19 +101,40 @@ CASES = [pytest.param(m, k, n, dtype, id=f"{m}-{k}-{n}-{name}")
 
 
 def _k2(emulated, x, wt, ct, a, mult, relu, eps_outside):
-    """dx from the emulated K2, with the scratch g that the wrapper gives
-    the bf16 split path (Cout > k12.FUSED_MAX_COUT)."""
+    """dx from the emulated K2, with the operands padded and the scratch
+    allocated as the wrapper does (``tma_operands``, ``bwd_scratch``; the
+    scratch filled with NaN, so a read of what no launch wrote shows)."""
+    cin = x.shape[1]
+    x, wt = k12.tma_operands(x, wt)
     m, k = x.shape
     n = wt.shape[0]
     dx = torch.empty(m, k, dtype=x.dtype)
-    g = None
-    if x.dtype == torch.bfloat16 and n > k12.FUSED_MAX_COUT:
-        g = torch.full((m, (n + 7) // 8 * 8), float("nan"), dtype=x.dtype)
+    splits = (k12.tf32_splits(m, k, n, EMU_SMS), k12.tf32_splits(m, n, k, EMU_SMS))
+    g = k12.bwd_scratch(m, k, n, x.dtype, x.device, splits)
+    if g is not None:
+        g.fill_(float("nan"))
     code = emulated.bcos_conv1x1_bwd_explain(
         k12._DTYPE_CODE[x.dtype], _ptr(x), _ptr(wt), _ptr(ct), _ptr(a) if relu else None,
-        _ptr(mult), _ptr(dx), _ptr(g), m, k, n, 1e-6, eps_outside, relu, None)
+        _ptr(mult), _ptr(dx), _ptr(g), m, k, n, 1e-6, eps_outside, relu, *splits, None)
     assert code == 0
-    return dx
+    return dx[:, :cin]
+
+
+def _k3(emulated, x, wt, eps_outside):
+    """y from the emulated K3, the operands padded and the scratch allocated
+    as the wrapper does (``tma_operands``, ``fwd_scratch``)."""
+    x, wt = k12.tma_operands(x, wt)
+    m, k = x.shape
+    n = wt.shape[0]
+    y = torch.empty(m, n)
+    splits = k12.tf32_splits(m, k, n, EMU_SMS)
+    scratch = k3.fwd_scratch(m, k, n, x.dtype, x.device, splits)
+    if scratch is not None:
+        scratch.fill_(float("nan"))
+    code = emulated.bcos_matmul_fwd(k12._DTYPE_CODE[x.dtype], _ptr(x), _ptr(wt), _ptr(y),
+                                    _ptr(scratch), m, k, n, 1e-6, eps_outside, splits, None)
+    assert code == 0
+    return y
 
 
 @pytest.mark.parametrize("m,k,n,dtype", CASES)
@@ -182,10 +208,7 @@ def test_k1_bf16_tma_store(emulated):
 def test_k3_bcos_matmul(emulated, dtype, m, k, n):
     x, wt, _, _, _ = _operands(m, k, n, dtype, 2)
     for eps_outside in (0, 1):
-        y = torch.empty(m, n)
-        code = emulated.bcos_matmul_fwd(k12._DTYPE_CODE[dtype], _ptr(x), _ptr(wt), _ptr(y),
-                                        m, k, n, 1e-6, eps_outside, None)
-        assert code == 0
+        y = _k3(emulated, x, wt, eps_outside)
         _assert_close(y, k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6,
                                                   eps_outside=bool(eps_outside)), dtype)
 
@@ -203,3 +226,28 @@ def test_k3_bcos_matmul(emulated, dtype, m, k, n):
                          ids=["ragged-chunk", "register-store", "many-tiles", "train-n64-k64"])
 def test_k3_bf16_engine(emulated, m, k, n):
     test_k3_bcos_matmul(emulated, torch.bfloat16, m, k, n)
+
+
+# The fp32 route of K3 and K2 (3xTF32 wgmma, csrc/bcos_tf32.cuh) at ragged
+# shapes: M = 49 (layer4 of one 224^2 image) and 3136 + 13 (layer1 + a
+# ragged row block), N = 1000 (y by TMA) and N % 4 != 0 (y from the
+# registers; g's scratch rows padded to 4), K % 4 != 0 (zero-padded by
+# tma_operands) and a deep K (64 stages); K3 with both eps_outside values,
+# K2 with the mask and mult and without (``_check_k2``). The stand-in reads
+# tf32 as the tensor cores do, so a single tf32 pass would miss these
+# bounds by ~100x (tests/test_torch_kernels.py holds the scheme itself).
+# On the stand-in's two SMs a launch of one 128 x 128 tile runs split-K:
+# K3 and K2's g at m49-k2046-n61 (2 splits of 32 stages), K2's dx at
+# m49-k100-n1030 (2 splits over Cout = 1030).
+FP32_ROUTE_SHAPES = [(49, 30, 1000), (3149, 64, 130), (49, 2046, 61), (49, 100, 1030)]
+FP32_ROUTE_IDS = ["m49-k30-n1000", "m3149-k64-n130", "m49-k2046-n61", "m49-k100-n1030"]
+
+
+@pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
+def test_k3_fp32_route(emulated, m, k, n):
+    test_k3_bcos_matmul(emulated, torch.float32, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
+def test_k2_fp32_route(emulated, m, k, n):
+    _check_k2(emulated, torch.float32, m, k, n)

@@ -12,8 +12,10 @@ and group norm, the small vit_final ViTs (one train step and the
 explanation) on the GPU against the CPU, the guided and DeepLIFT ReLU
 gradients and the explainers on a small-flagship 3x3 grid against the CPU
 with their launches, K3 in fp32 at every shape of one clip_benchmark encode
-of the full-width CLIP-RN50 at batch 64, and one harness bundle encode's
-launches. Every test here needs a GPU and skips without one.
+of the full-width CLIP-RN50 at batch 64, one harness bundle encode's
+launches, K2 in fp32 at every shape of one text localisation, and the fp32
+route of K1, K2 and K3 at ragged shapes (Cin off the TMA grid, a
+misaligned operand). Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -991,3 +993,78 @@ def test_harness_bundle_encode_launches(gpu, unpool, tmp_path, monkeypatch):
                                "bcos_matmul_fwd": 36 + unpool, "stream_add": 0}
     assert feats.dtype == torch.float32 and feats.shape[0] == 2
 
+
+
+# (M, Cin, Cout, relu, eps_outside) of every distinct K2 call of one text
+# localisation of the full-width attn-unpool CLIP-RN50 student at one 224^2
+# image (fp32): conv1s with the BN's mult and the ReLU mask, conv3s and
+# downsamples with the mult, the c_proj with the linear norm
+TEXT_LOC_SHAPES = [
+    (3136, 64, 64, True, False), (3136, 64, 256, False, False), (3136, 256, 64, True, False),
+    (3136, 256, 128, True, False), (784, 128, 512, False, False),
+    (784, 256, 512, False, False), (784, 512, 128, True, False), (784, 512, 256, True, False),
+    (196, 256, 1024, False, False), (196, 512, 1024, False, False),
+    (196, 1024, 256, True, False), (196, 1024, 512, True, False), (49, 512, 2048, False, False),
+    (49, 1024, 2048, False, False), (49, 2048, 512, True, False), (49, 2048, 1024, False, True),
+]
+
+
+@pytest.mark.parametrize("m,cin,cout,relu,eps_outside", TEXT_LOC_SHAPES)
+def test_k2_fp32_at_the_text_localisation_shapes(gpu, m, cin, cout, relu, eps_outside):
+    """Text localisation runs K2's fp32 route (3xTF32 on the tensor cores):
+    against its plain version at each shape (phase 3's fp32 bound), one
+    counted call each."""
+    from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
+
+    g = torch.Generator(device=gpu).manual_seed(m + cin + cout)
+    x = torch.randn(m, cin, device=gpu, generator=g)
+    wt = torch.randn(cout, cin, device=gpu, generator=g) / cin ** 0.5
+    mult = None if eps_outside else torch.rand(cout, device=gpu, generator=g) + 0.5
+    ct = torch.randn(m, cout, device=gpu, generator=g)
+    a = k12.conv1x1_fwd(x, wt, mult, None, relu=True) if relu else None
+    kw = dict(relu=relu, eps=LINEAR_NORM_EPS if eps_outside else 1e-6, eps_outside=eps_outside)
+    reset_launch_counts()
+    got = k12.conv1x1_bwd_explain(x, wt, ct, a, mult, **kw)
+    assert launch_counts()["bcos_conv1x1_bwd_explain"] == 1
+    want = k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mult, **kw)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+# fp32 shapes off the TMA grid and the tiles (M, Cin, Cout, misaligned x):
+# M = 49 and 3136 + 13, Cout = 1000 and Cout % 4 != 0, Cin % 4 != 0 and a
+# deep Cin, one x 4 bytes off the 16-byte grid
+FP32_RAGGED_SHAPES = [(49, 30, 1000, False), (3149, 64, 130, False), (49, 2046, 61, False),
+                      (3149, 1022, 1001, False), (49, 64, 1000, True)]
+
+
+@pytest.mark.parametrize("m,cin,cout,misaligned", FP32_RAGGED_SHAPES)
+def test_fp32_route_at_ragged_shapes(gpu, m, cin, cout, misaligned):
+    """K1, K2 (mult and mask, and the bare linear) and K3 (both
+    eps_outside) in fp32 against their plain versions within phase 3's
+    bound; tma_operands pads or realigns K2's and K3's operands where Cin is
+    off the grid of 4 or x misaligned (3 calls), K1's FMA loop takes them as
+    they are."""
+    g = torch.Generator(device=gpu).manual_seed(m + cin + cout)
+    x = torch.randn(m, cin, device=gpu, generator=g)
+    if misaligned:
+        x = torch.empty(m * cin + 1, device=gpu)[1:].view(m, cin).copy_(x)
+    wt = torch.randn(cout, cin, device=gpu, generator=g) / cin ** 0.5
+    mult = torch.rand(cout, device=gpu, generator=g) + 0.5
+    ct = torch.randn(m, cout, device=gpu, generator=g)
+
+    def close(got, want):
+        return float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+    before = k12.tma_operands.padded
+    a = k12.conv1x1_fwd(x, wt, mult, None, relu=True)
+    assert close(a, k12.conv1x1_fwd_plain(x, wt, mult, None, relu=True))
+    for relu, mu, eps_outside in ((True, mult, False), (False, None, True)):
+        dx = k12.conv1x1_bwd_explain(x, wt, ct, a, mu, relu=relu, eps_outside=eps_outside)
+        assert dx.shape == x.shape and dx.is_contiguous()
+        assert close(dx, k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mu, relu=relu,
+                                                       eps_outside=eps_outside))
+    for eps_outside in (False, True):
+        y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside)
+        assert close(y, k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6, eps_outside=eps_outside))
+    torch.cuda.synchronize()
+    assert k12.tma_operands.padded - before == (4 if cin % 4 or misaligned else 0)
