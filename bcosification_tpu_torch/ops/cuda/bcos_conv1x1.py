@@ -17,15 +17,16 @@ with the dynamic scale |u|/n detached and u recomputed:
     dx = ((ct * mult * [a > 0]) * |x @ w| / n) @ w^T
 
 In bf16 both run on the TMA + wgmma engine of ``csrc/bcos_engine.cuh``;
-in fp32 K2 runs the 3xTF32 route of ``csrc/bcos_tf32.cuh`` on the same
-engine and K1 the FMA tile loop of ``csrc/bcos_gemm.cuh``. TMA tile loads
-need rows of whole 16-byte units and 16-byte aligned data: a Cin off the
-grid (8 bf16, 4 fp32) is zero-padded in x and w (and K2's dx sliced back),
-and a misaligned operand gets an aligned copy, before the launch
-(``tma_operands``, counted in ``tma_operands.padded``). K2 in bf16 with
-Cout above ``FUSED_MAX_COUT``, and in fp32 always, writes g to a scratch
-that the wrapper allocates and runs dx = g @ w as a second launch (one op
-call, one count; ``bwd_scratch``).
+in fp32 both run the 3xTF32 route of ``csrc/bcos_tf32.cuh`` on the same
+engine, with w split into tf32 hi and lo in a scratch that the wrapper
+allocates (``fwd_scratch``, ``bwd_scratch``) and, at small M, K split
+(``tf32_splits``). TMA tile loads need rows of whole 16-byte units and
+16-byte aligned data: a Cin off the grid (8 bf16, 4 fp32) is zero-padded
+in x and w (and K2's dx sliced back), and a misaligned operand gets an
+aligned copy, before the launch (``tma_operands``, counted in
+``tma_operands.padded``). K2 in bf16 with Cout above ``FUSED_MAX_COUT``,
+and in fp32 always, writes g to a scratch and runs dx = g @ w as a second
+launch (one op call, one count).
 
 Each kernel has a wrapper that checks its operands and a plain PyTorch
 version with the same signature. The wrapper calls a ``torch.library``
@@ -34,7 +35,10 @@ whose CPU implementation is the plain version and whose CUDA
 implementation launches the kernel and counts the launch
 (``conv1x1_fwd.launches``, ``conv1x1_bwd_explain.launches``); a CUDA
 tensor reaches the kernel or an exception. Each op has a shape function
-(``register_fake``), so ``torch.export`` traces through it. Operands are
+(``register_fake``), so ``torch.export`` traces through it. Outside
+tracing, a wrapper given a CUDA tensor calls its op's CUDA implementation
+directly (``eager_cuda``): the dispatcher's Python layers cost about as
+much host time as the rest of a small call. Operands are
 [M, Cin] activations (NHWC flattened), the weight as wt [Cout, Cin] (a 1x1
 OIHW weight viewed as a matrix), and f32 mult/add.
 """
@@ -60,7 +64,7 @@ __all__ = [
 CONV_NORM_EPS = 1e-6
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = (_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+_FWD_ARGS = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P)
 _BWD_ARGS = (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P)
 _INT32_MAX = 2**31 - 1
 # bf16 K2 keeps g [rows, Cout] in shared memory up to this Cout; beyond it,
@@ -70,6 +74,25 @@ FUSED_MAX_COUT = 1024
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def eager_cuda(x: Tensor) -> bool:
+    """Whether x is a plain CUDA tensor outside tracing (torch.export,
+    torch.compile): then a wrapper calls its op's CUDA implementation
+    itself and skips the custom op's autograd and backend layers in
+    Python. Under tracing the op stays in the graph; on the CPU it runs the
+    plain version."""
+    return type(x) is Tensor and x.is_cuda and not torch.compiler.is_compiling()
+
+
+def launch(name: str, argtypes, device: torch.device, *args) -> None:
+    """Call the C launcher ``name`` with ``args`` and the raw handle of
+    ``device``'s current stream, with ``device`` current, and raise on the
+    CUDA error code it returns."""
+    with torch.cuda._DeviceGuard(device.index):
+        code = _build.function(name, argtypes)(
+            *args, torch._C._cuda_getCurrentRawStream(device.index))
+    _build.check(name, code)
 
 
 def check_int32(name: str, *sizes) -> None:
@@ -108,12 +131,12 @@ def check_operands(name: str, x2: torch.Tensor, wt: torch.Tensor, *,
 def tma_operands(x2: torch.Tensor, wt: torch.Tensor):
     """(x2, wt) as the kernels' TMA loads need them: rows of whole 16-byte
     units (a multiple of 8 bf16 or 4 fp32 elements) and 16-byte aligned
-    data. Every K3 and K2 launch loads by TMA in both dtypes (fp32 on the
-    3xTF32 route), K1 in bf16 (its fp32 route reads with plain loads). A Cin
-    off that grid is zero-padded in both (zeros change neither x2 @ wt^T
-    nor the row sum of squares); a misaligned operand gets an aligned
-    contiguous copy. The shape and the pointers decide, before any launch;
-    each call that changes an operand adds one to ``tma_operands.padded``."""
+    data. Every K1, K2 and K3 launch loads by TMA in both dtypes (fp32 on
+    the 3xTF32 route). A Cin off that grid is zero-padded in both (zeros
+    change neither x2 @ wt^T nor the row sum of squares); a misaligned
+    operand gets an aligned contiguous copy. The shape and the pointers
+    decide, before any launch; each call that changes an operand adds one
+    to ``tma_operands.padded``."""
     pad = -x2.shape[1] % (16 // x2.element_size())
     x_new, wt_new = x2, wt
     if pad:
@@ -152,6 +175,16 @@ def tf32_splits(m: int, k: int, n: int, sms: int) -> int:
         return 1
     chunk = -(-stages // splits)
     return -(-stages // chunk)  # no split left without stages
+
+
+def fwd_scratch(m: int, k: int, n: int, dtype: torch.dtype, device, splits: int = 1):
+    """K1's and K3's scratch for x [m, k] and wt [n, k]: fp32, wt's tf32 hi
+    and lo (2 n k floats) and the partial sums of ``splits`` K splits
+    (``csrc/bcos_conv1x1_fwd.cu``, ``csrc/bcos_matmul_fwd.cu``); bf16 needs
+    none."""
+    if dtype == torch.float32:
+        return torch.empty(2 * n * k + split_floats(m, n, splits), dtype=dtype, device=device)
+    return None
 
 
 def split_floats(m: int, n: int, splits: int) -> int:
@@ -207,27 +240,30 @@ def conv1x1_fwd(x2, wt, mult, add, *, relu: bool, eps: float = CONV_NORM_EPS):
     if mult is None:
         raise ValueError("conv1x1_fwd: mult is required")
     check_device("conv1x1_fwd", x2)
+    if eager_cuda(x2):
+        return _conv1x1_fwd_cuda(x2, wt, mult, add, relu, eps)
     return torch.ops.bcos_torch.conv1x1_fwd(x2, wt, mult, add, relu, eps)
 
 
-@torch.library.custom_op("bcos_torch::conv1x1_fwd", mutates_args=(), device_types="cuda")
-def _conv1x1_fwd_op(x2: Tensor, wt: Tensor, mult: Tensor, add: Optional[Tensor], relu: bool,
-                    eps: float) -> Tensor:
+def _conv1x1_fwd_cuda(x2: Tensor, wt: Tensor, mult: Tensor, add: Optional[Tensor], relu: bool,
+                      eps: float) -> Tensor:
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_fwd", x2.numel(), wt.numel(), m * n)
-    if x2.dtype == torch.bfloat16:
-        x2, wt = tma_operands(x2, wt)
+    x2, wt = tma_operands(x2, wt)
     k = x2.shape[1]
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    fn = _build.function("bcos_conv1x1_fwd", _FWD_ARGS)
-    with torch.cuda.device(x2.device):
-        code = fn(_DTYPE_CODE[x2.dtype], _ptr(x2), _ptr(wt), _ptr(mult), _ptr(add),
-                  _ptr(out), m, k, n, eps, int(relu),
-                  torch.cuda.current_stream().cuda_stream)
-    _build.check("bcos_conv1x1_fwd", code)
+    splits = tf32_splits(m, k, n, sm_count(x2.device)) if x2.dtype == torch.float32 else 1
+    scratch = fwd_scratch(m, k, n, x2.dtype, x2.device, splits)
+    launch("bcos_conv1x1_fwd", _FWD_ARGS, x2.device, _DTYPE_CODE[x2.dtype], _ptr(x2),
+           _ptr(wt), _ptr(mult), _ptr(add), _ptr(out), _ptr(scratch), m, k, n, eps, int(relu),
+           splits)
     conv1x1_fwd.launches += 1
     return out
+
+
+_conv1x1_fwd_op = torch.library.custom_op("bcos_torch::conv1x1_fwd", mutates_args=(),
+                                          device_types="cuda")(_conv1x1_fwd_cuda)
 
 
 @_conv1x1_fwd_op.register_kernel("cpu")
@@ -270,15 +306,15 @@ def conv1x1_bwd_explain(x2, wt, ct, a, mult, *, relu: bool,
     if ct is None or (relu and a is None):
         raise ValueError("conv1x1_bwd_explain: ct, and a when relu, are required")
     check_device("conv1x1_bwd_explain", x2)
-    return torch.ops.bcos_torch.conv1x1_bwd_explain(x2, wt, ct, a if relu else None, mult,
-                                                    relu, eps, eps_outside)
+    args = (x2, wt, ct, a if relu else None, mult, relu, eps, eps_outside)
+    if eager_cuda(x2):
+        return _conv1x1_bwd_cuda(*args)
+    return torch.ops.bcos_torch.conv1x1_bwd_explain(*args)
 
 
-@torch.library.custom_op("bcos_torch::conv1x1_bwd_explain", mutates_args=(),
-                         device_types="cuda")
-def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
-                    mult: Optional[Tensor], relu: bool, eps: float,
-                    eps_outside: bool) -> Tensor:
+def _conv1x1_bwd_cuda(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
+                      mult: Optional[Tensor], relu: bool, eps: float,
+                      eps_outside: bool) -> Tensor:
     m, k = x2.shape
     n = wt.shape[0]
     check_int32("conv1x1_bwd_explain", x2.numel(), wt.numel(), m * n)
@@ -291,14 +327,15 @@ def _conv1x1_bwd_op(x2: Tensor, wt: Tensor, ct: Tensor, a: Optional[Tensor],
         sms = sm_count(x2.device)
         splits = (tf32_splits(m, k, n, sms), tf32_splits(m, n, k, sms))
     g = bwd_scratch(m, k, n, x2.dtype, x2.device, splits)
-    fn = _build.function("bcos_conv1x1_bwd_explain", _BWD_ARGS)
-    with torch.cuda.device(x2.device):
-        code = fn(_DTYPE_CODE[x2.dtype], _ptr(x2), _ptr(wt), _ptr(ct), _ptr(a), _ptr(mult),
-                  _ptr(dx), _ptr(g), m, k, n, eps, int(eps_outside), int(relu), *splits,
-                  torch.cuda.current_stream().cuda_stream)
-    _build.check("bcos_conv1x1_bwd_explain", code)
+    launch("bcos_conv1x1_bwd_explain", _BWD_ARGS, x2.device, _DTYPE_CODE[x2.dtype], _ptr(x2),
+           _ptr(wt), _ptr(ct), _ptr(a), _ptr(mult), _ptr(dx), _ptr(g), m, k, n, eps,
+           int(eps_outside), int(relu), *splits)
     conv1x1_bwd_explain.launches += 1
     return dx if k == cin else dx[:, :cin].contiguous()
+
+
+_conv1x1_bwd_op = torch.library.custom_op("bcos_torch::conv1x1_bwd_explain", mutates_args=(),
+                                          device_types="cuda")(_conv1x1_bwd_cuda)
 
 
 def bwd_scratch(m: int, k: int, n: int, dtype: torch.dtype, device,

@@ -40,15 +40,16 @@ import ctypes
 import torch
 from torch import Tensor
 
-from bcosification_tpu_torch.ops.cuda import _build
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import (
     _DTYPE_CODE,
     check_device,
     check_int32,
     check_operands,
     conv1x1_bwd_explain,
+    eager_cuda,
+    fwd_scratch,
+    launch,
     sm_count,
-    split_floats,
     tf32_splits,
     tma_operands,
 )
@@ -72,14 +73,16 @@ def bcos_matmul_fwd_plain(x, wt, *, eps: float, eps_outside: bool):
 def bcos_matmul_fwd(x, wt, *, eps: float, eps_outside: bool):
     """K3 on x [M, K], wt [N, K] (same dtype) -> f32 [M, N], through the
     custom op ``torch.ops.bcos_torch.bcos_matmul_fwd`` (CPU: the plain
-    version; CUDA: the kernel, counted in ``bcos_matmul_fwd.launches``)."""
+    version; CUDA: the kernel, counted in ``bcos_matmul_fwd.launches``,
+    called directly outside tracing: ``bcos_conv1x1.eager_cuda``)."""
     check_operands("bcos_matmul_fwd", x, wt)
     check_device("bcos_matmul_fwd", x)
+    if eager_cuda(x):
+        return _bcos_matmul_fwd_cuda(x, wt, eps, eps_outside)
     return torch.ops.bcos_torch.bcos_matmul_fwd(x, wt, eps, eps_outside)
 
 
-@torch.library.custom_op("bcos_torch::bcos_matmul_fwd", mutates_args=(), device_types="cuda")
-def _bcos_matmul_fwd_op(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) -> Tensor:
+def _bcos_matmul_fwd_cuda(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) -> Tensor:
     m, k = x.shape
     n = wt.shape[0]
     check_int32("bcos_matmul_fwd", x.numel(), wt.numel(), m * n)
@@ -88,14 +91,15 @@ def _bcos_matmul_fwd_op(x: Tensor, wt: Tensor, eps: float, eps_outside: bool) ->
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     splits = tf32_splits(m, k, n, sm_count(x.device)) if x.dtype == torch.float32 else 1
     scratch = fwd_scratch(m, k, n, x.dtype, x.device, splits)
-    fn = _build.function("bcos_matmul_fwd", _ARGS)
-    with torch.cuda.device(x.device):
-        code = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), wt.data_ptr(), y.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(), m, k, n, eps,
-                  int(eps_outside), splits, torch.cuda.current_stream().cuda_stream)
-    _build.check("bcos_matmul_fwd", code)
+    launch("bcos_matmul_fwd", _ARGS, x.device, _DTYPE_CODE[x.dtype], x.data_ptr(),
+           wt.data_ptr(), y.data_ptr(), None if scratch is None else scratch.data_ptr(), m, k, n,
+           eps, int(eps_outside), splits)
     bcos_matmul_fwd.launches += 1
     return y
+
+
+_bcos_matmul_fwd_op = torch.library.custom_op("bcos_torch::bcos_matmul_fwd", mutates_args=(),
+                                              device_types="cuda")(_bcos_matmul_fwd_cuda)
 
 
 def tf32_split(a: Tensor):
@@ -116,15 +120,6 @@ def tf32_split(a: Tensor):
     a = a.float()
     hi = rna(a)
     return hi, rna(a - hi)
-
-
-def fwd_scratch(m: int, k: int, n: int, dtype: torch.dtype, device, splits: int = 1):
-    """K3's scratch for x [m, k] and wt [n, k]: fp32, wt's tf32 hi and lo (2 n
-    k floats) and the partial sums of ``splits`` K splits
-    (``csrc/bcos_matmul_fwd.cu``); bf16 needs none."""
-    if dtype == torch.float32:
-        return torch.empty(2 * n * k + split_floats(m, n, splits), dtype=dtype, device=device)
-    return None
 
 
 @_bcos_matmul_fwd_op.register_kernel("cpu")

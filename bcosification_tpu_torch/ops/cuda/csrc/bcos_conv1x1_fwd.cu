@@ -35,48 +35,27 @@
 // TMA needs 16-byte row strides: bf16 Cin must be a multiple of 8 (the
 // wrapper zero-pads x and wt otherwise).
 //
-// fp32 (text localisation, the fp32 GPU-vs-CPU checks) still runs the FMA
-// tile loop of bcos_gemm.cuh (64 x 64 tiles) on the CUDA cores; it is the
-// next fp32 route to move to the 3xTF32 route of bcos_tf32.cuh (PERF.md).
-#include "bcos_engine.cuh"
-#include "bcos_gemm.cuh"
+// fp32 design: the 3xTF32 route of bcos_tf32.cuh that K2 and K3 share, with
+// K1's epilogue (kAffine). fp32 is the dtype of every ResNet-50 eval and
+// validation batch (the data modules hand out f32 images), of the fp32
+// localisation grids and of text localisation. What bounds it: 3 x 2 M N K
+// tf32 operations at 495 TFLOP/s (at an eval batch of 64 224^2 images,
+// 271 GFLOP over the 36 1x1s: 1.64 ms; the bytes take 1.27 ms). wt is split
+// once per call into tf32 hi and lo (split_weight, into the wrapper's
+// scratch); x is split in the consumers' registers, which also sum its row
+// squares, so the row norm costs no second read of x; the three products
+// run on the tensor cores, each 32-deep stage summed from zero and added to
+// the chain on the CUDA cores (the tensor cores add rounding toward zero).
+// mult and add are read in the epilogue, beside the accumulators, and z
+// leaves once, by TMA stores where Cout is a multiple of 4 (else from the
+// registers). At one 224^2 image (M = 49 to 3136) the wrapper asks for K
+// splits where the 128 x 128 tiles would leave most SMs idle; splitk_reduce
+// then sums the splits in order and runs the same epilogue. TMA needs
+// 16-byte rows: fp32 Cin must be a multiple of 4 (the wrapper zero-pads x
+// and wt otherwise, and copies a misaligned operand).
+#include "bcos_tf32.cuh"
 
 namespace {
-
-using namespace bcos;
-
-__global__ void __launch_bounds__(kThreads)
-    conv1x1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                       const float* __restrict__ mult, const float* __restrict__ add,
-                       float* __restrict__ out, int M, int K, int N, float eps, int relu) {
-  constexpr int kTileBytes = 2 * BM * LDK * (int)sizeof(float);
-  constexpr int kAccBytes = BM * LDC * (int)sizeof(float);
-  constexpr int kRegion = kTileBytes > kAccBytes ? kTileBytes : kAccBytes;
-  __shared__ __align__(128) unsigned char smem[kRegion];
-  __shared__ float ssq_s[BM];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + BM * LDK;
-  float* Cs = reinterpret_cast<float*>(smem);  // reused once the K loop is done
-
-  const int col0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * BM;
-  BlockMma acc;
-  gemm_nt_tile(acc, As, Bs, ssq_s, true, x, wt, M, K, N, row0, col0);
-  acc.store(Cs, LDC);
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
-    const int r = idx / BN, c = idx % BN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr >= M || gc >= N) continue;
-    const float u = Cs[r * LDC + c];
-    const float n = sqrtf(ssq_s[r] + eps);
-    float z = (fabsf(u) / n) * u * mult[gc];
-    if (add != nullptr) z += add[gc];
-    if (relu) z = fmaxf(z, 0.f);
-    out[(long long)gr * N + gc] = z;
-  }
-}
 
 struct FwdArgs {
   const float* mult;
@@ -173,20 +152,39 @@ int launch_bf16(const void* x, const void* wt, const void* mult, const void* add
   return (int)cudaGetLastError();
 }
 
+// fp32: wt split into scratch[0 : N K] (hi) and scratch[N K : 2 N K] (lo),
+// then the 3xTF32 GEMM with K1's epilogue in `splits` K splits (their
+// partial sums in the rest of the scratch).
+int launch_f32(const float* x, const float* wt, const float* mult, const float* add, float* out,
+               float* scratch, int M, int K, int N, float eps, int relu, int splits,
+               cudaStream_t s) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  float* whi = scratch;
+  float* wlo = whi + (long long)N * K;
+  int err = tf32::launch_split(wt, whi, wlo, nullptr, nullptr, N, K, 0, s);
+  if (err != 0) return err;
+  tf32::Args p{out, nullptr, nullptr, mult, M, K, N, N, eps, 0, relu, N % 4 == 0, 0};
+  p.splits = splits;
+  p.add = add;
+  return tf32::launch<tf32::kAffine>(x, K, whi, wlo, K, p, wlo + (long long)N * K, s);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (Cin a multiple of 8, 16-byte aligned
-// x and wt). Returns a CUDA error code (0 after a good launch).
+// dtype: 0 = float32, 1 = bfloat16 (of x, wt and out; Cin a multiple of 8
+// (bf16) or 4 (fp32), 16-byte aligned x and wt); mult [N] f32, add [N] f32
+// or null. fp32 only: splits, the K splits of the GEMM (1: none); scratch,
+// 16-byte aligned, 2 N K floats for the split weight, then with splits > 1
+// splits round_up(M, 128) (round_up(N, 4) + 1) for the partial sums.
+// Returns a CUDA error code (0 after a good launch).
 extern "C" int bcos_conv1x1_fwd(int dtype, const void* x, const void* wt, const void* mult,
-                                const void* add, void* out, int M, int K, int N, float eps,
-                                int relu, void* stream) {
+                                const void* add, void* out, void* scratch, int M, int K, int N,
+                                float eps, int relu, int splits, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_bf16(x, wt, mult, add, out, M, K, N, eps, relu, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + bcos::BN - 1) / bcos::BN, (M + bcos::BM - 1) / bcos::BM);
-  conv1x1_fwd_kernel<<<grid, bcos::kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt),
-      static_cast<const float*>(mult), static_cast<const float*>(add), static_cast<float*>(out),
-      M, K, N, eps, relu);
-  return (int)cudaGetLastError();
+  return launch_f32(static_cast<const float*>(x), static_cast<const float*>(wt),
+                    static_cast<const float*>(mult), static_cast<const float*>(add),
+                    static_cast<float*>(out), static_cast<float*>(scratch), M, K, N, eps, relu,
+                    splits, s);
 }

@@ -1,9 +1,11 @@
-// The fp32 route of K2 and K3 on Hopper: 3xTF32 wgmma on the TMA ring of
-// bcos_engine.cuh.
+// The fp32 route of K1, K2 and K3 on Hopper: 3xTF32 wgmma on the TMA ring
+// of bcos_engine.cuh.
 //
 // fp32 is not a test-only route: the CLIP benchmark harness feeds fp32
-// images, so every harness encode runs K3 in fp32, and text localisation
-// runs K2 in fp32. Both are held to 1e-5 of max |ref| against their plain
+// images, so every harness encode runs K3 in fp32; text localisation runs
+// K1 and K2 in fp32; the data modules hand out f32 images, so every
+// ResNet-50 eval batch, validation batch and localisation grid runs K1 in
+// fp32. All three are held to 1e-5 of max |ref| against their plain
 // versions (f32 products, TF32 off) and to the CPU through whole nets, so
 // one tf32 pass (~3e-4) is not enough. An f32 product a b is taken as
 //
@@ -39,8 +41,10 @@
 // the chain's sum on the CUDA cores (see mma_chain). A block of 9 warps
 // puts 3 on one of the SM's four register files, so a thread gets at most
 // 168 registers: the 64 + 64 sums and the 32 split A registers spill 20-40
-// bytes. Three epilogues share the mainloop: K3's y = u |u| / n, K2's g =
-// ct mult [a > 0] |u| / n, and K2's dx = g w as it stands.
+// bytes. Four epilogues share the mainloop: K3's y = u |u| / n, K1's z =
+// (|u| / n) u mult + add (then the ReLU), K2's g = ct mult [a > 0] |u| / n,
+// and K2's dx = g w as it stands. The per-column vectors (mult, add, ct, a)
+// are read in the epilogue, not held in registers under the mainloop.
 //
 // Split-K: where the 128 x 128 tiles fill less than half the SMs (one
 // 224^2 image: M = 49 to 196, chains of up to 64 stages on 4 to 16 blocks)
@@ -56,7 +60,7 @@ namespace tf32 {
 
 using namespace engine;
 
-enum Epilogue { kBcos = 0, kGrad = 1, kStore = 2 };
+enum Epilogue { kBcos = 0, kGrad = 1, kStore = 2, kAffine = 3 };
 
 constexpr int kRows = 128;
 constexpr int kDepth = 32;  // the contraction of one stage: a box row of 32 f32
@@ -107,7 +111,7 @@ struct Args {
   float* out;        // [M, N] with row stride ld: y, g or dx
   const float* ct;   // kGrad: the cotangent [M, N]
   const float* act;  // kGrad with relu: the layer's output [M, N]
-  const float* mult; // kGrad: [N], or null (1)
+  const float* mult; // kGrad: [N], or null (1); kAffine: [N]
   int M, K, N, ld;
   float eps;
   int eps_outside, relu;
@@ -120,16 +124,29 @@ struct Args {
   int splits = 1, mp = 0, ldp = 0;
   float* part = nullptr;
   float* part_ssq = nullptr;
+  const float* add = nullptr;  // kAffine: [N], or null (0)
 };
 
 // The epilogue of one element from its u and its row's norm n (kGrad also
-// takes the element's ct, a and mult).
+// takes the element's ct, a and mult; kAffine its column's mult and, in
+// ct's place, its add).
 template <int kEpi>
 __device__ __forceinline__ float finish(const Args& p, float u, float n, float ct, float a,
                                         float mult) {
   if (kEpi == kBcos) return u * (fabsf(u) / n);
   if (kEpi == kGrad) return (p.relu && !(a > 0.f)) ? 0.f : ct * mult * (fabsf(u) / n);
+  if (kEpi == kAffine) {
+    const float z = (fabsf(u) / n) * u * mult + ct;
+    return p.relu ? fmaxf(z, 0.f) : z;
+  }
   return u;
+}
+
+// The per-column vector v at columns col and col + 1 (clamped to the last
+// column: what lies beyond N is never stored), or `fill` where v is null.
+__device__ __forceinline__ float2 column_pair(const float* v, int col, int cols, float fill) {
+  if (v == nullptr) return make_float2(fill, fill);
+  return make_float2(__ldg(v + min(col, cols - 1)), __ldg(v + min(col + 1, cols - 1)));
 }
 
 // Producer (one thread): the next stage holds the hi and lo B boxes at
@@ -282,6 +299,10 @@ __global__ void __launch_bounds__(block_threads(kRows), 1)
           if (p.mult != nullptr)
             m = make_float2(__ldg(p.mult + min(gc, p.N - 1)), __ldg(p.mult + min(gc + 1, p.N - 1)));
         }
+        if (kEpi == kAffine) {  // ct carries the add
+          m = column_pair(p.mult, gc, p.N, 1.f);
+          ct = column_pair(p.add, gc, p.N, 0.f);
+        }
         v0 = finish<kEpi>(p, v0, n, ct.x, a.x, m.x);
         v1 = finish<kEpi>(p, v1, n, ct.y, a.y, m.y);
       }
@@ -316,6 +337,10 @@ __global__ void __launch_bounds__(256) splitk_reduce(Args p) {
       ct = p.ct[e];
       if (p.relu) a = p.act[e];
       if (p.mult != nullptr) m = p.mult[col];
+    }
+    if (kEpi == kAffine) {  // ct carries the add
+      m = p.mult[col];
+      if (p.add != nullptr) ct = p.add[col];
     }
     p.out[(long long)row * p.ld + col] = finish<kEpi>(p, u, n, ct, a, m);
   }

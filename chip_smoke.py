@@ -18,8 +18,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    record (PREVIOUS_MS); K3 is checked with both eps_outside values, also
    at five shapes of the train step (TRAIN_CHECK_SHAPES); K1, K2 and K3 in
    fp32 at ragged shapes (FP32_RAGGED_SHAPES: M = 49 and 3149, N = 1000 and
-   N % 4 != 0, K % 4 != 0, a misaligned x; tma_operands pads or realigns
-   K2's and K3's operands there, counted, then its count restarts at 0);
+   N % 4 != 0, K % 4 != 0, a misaligned x, split-K at M = 49; tma_operands
+   pads or realigns every kernel's operands there, counted, then its count
+   restarts at 0);
 4. parity: the full-width B-cosified ResNet-50 (224x224, gamma-calibrated),
    fp32, 2 images: the fast forward + explanation on the GPU (kernels)
    against the same call on the CPU (plain versions; W within 1e-3, the
@@ -211,10 +212,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    crops of 224^2 each); each kernel against its plain version (both
    dtypes) and timed at the grid's shapes (Ours's and the gradient
    route's) beside its bound; K1, K2 and K3 in fp32 at every shape of one
-   text localisation of the attn-unpool student (against their plain
-   versions, then timed per text localisation with the card's busy time,
-   beside their bounds at 67 TFLOP/s fp32 and in 3xTF32 at 495 TFLOP/s,
-   their plain versions and torch.matmul);
+   text localisation of the attn-unpool student, K1 at every shape of one
+   ResNet-50 eval batch (64 images of 224^2) and K1 and K2 at every shape
+   of one fp32 Ours grid (against their plain versions, then timed per
+   call of the path with the card's busy time and the host's time per
+   launch, beside their bounds at 67 TFLOP/s fp32 and in 3xTF32 at 495
+   TFLOP/s, their plain versions and torch.matmul); the dtype of the
+   activations that reached K1 in phase 9's validation and evaluate runs
+   and in the localisation commands;
 16. the CLIP benchmark harness (bcosification_tpu_torch/clip_benchmark, the
    port of the top-level clip_benchmark package) through its CLI in process
    (``cli.main([...])``, batch 64, fp32 images, so every encode runs K3's
@@ -242,7 +247,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain version and torch.matmul, with tma_operands' count (0).
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
-the fp32 routes' rows of phases 15 and 16 (random-init students, seeded
+the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
 operands), the text localisation's rows four times (split-K, 128 x 128
 tiles alone, tiles, split-K), so that two trees' kernels, or the two
 tilings, can be timed in one call.
@@ -361,8 +366,9 @@ TRAIN_CHECK_SHAPES = [
 # fp32 shapes off the TMA grid and the tiles (label, M, K, N, relu,
 # misaligned x): M = 49 (layer4 of one 224^2 image) and 3136 + 13, N = 1000
 # and N % 4 != 0, K % 4 != 0 and a deep K, one x 4 bytes off the 16-byte
-# grid. tma_operands pads or realigns K2's and K3's operands there (one K2
-# and two K3 calls per such shape); K1's FMA loop takes them as they are
+# grid. tma_operands pads or realigns the operands there (two K1, one K2
+# and two K3 calls per such shape). On an H100's 132 SMs K1, K2's g and K3
+# run split-K at M = 49 (16 splits at K = 2046)
 FP32_RAGGED_SHAPES = [
     ("ragged m49 k30 n1000", 49, 30, 1000, True, False),
     ("ragged m3149 k64 n130", 3149, 64, 130, False, False),
@@ -502,7 +508,7 @@ def check_kernels():
             _check(worst, name, variant, label, torch.float32, got, want)
         del x, wt, ct, a, results
     padded = k12.tma_operands.padded - padded
-    want = 3 * sum(k % 4 != 0 or mis for _, _, k, _, _, mis in FP32_RAGGED_SHAPES)
+    want = 5 * sum(k % 4 != 0 or mis for _, _, k, _, _, mis in FP32_RAGGED_SHAPES)
     say(f"check fp32 ragged shapes: tma_operands padded or realigned {padded} calls "
         f"(expected {want})")
     if padded != want:
@@ -1285,6 +1291,7 @@ def phase_train(net, stream_rate):
 # --------------------------------------------------------------------------
 ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL = 10, 704, 128  # 11 train batches of 64, 2 val
 ENTRY_EXPERIMENT = ("ImageNet", "bcosification", "resnet_50")
+EVAL_BATCH = 64  # the resnet_50 experiment's batch, also of evaluate and validation
 # per eval batch of the ResNet-50: K1 on every 1x1 conv of the trunk, K3 on
 # the classifier
 EVAL_BATCH_COUNTS = {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 0,
@@ -1293,6 +1300,27 @@ EVAL_BATCH_COUNTS = {"bcos_conv1x1_fwd": 36, "bcos_conv1x1_bwd_explain": 0,
 # the 34 stride-1 1x1 convs; the 36 eligible convs run unfused
 EVAL_GRADIENT_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
                         "bcos_matmul_fwd": 34, "stream_add": 0}
+
+
+K1_DTYPES = collections.defaultdict(collections.Counter)  # path -> {dtype: K1 calls}
+
+
+@contextlib.contextmanager
+def k1_dtypes(path):
+    """While active, counts the dtype of each activation that reaches K1
+    (``_Conv1x1BnAct``, the autograd function of every fused 1x1) under
+    ``path`` in K1_DTYPES; the launch counters are untouched."""
+    forward = k12._Conv1x1BnAct.forward
+
+    def recording(ctx, x2, *args):
+        K1_DTYPES[path][str(x2.dtype)[6:]] += 1
+        return forward(ctx, x2, *args)
+
+    k12._Conv1x1BnAct.forward = staticmethod(recording)
+    try:
+        yield
+    finally:
+        k12._Conv1x1BnAct.forward = staticmethod(forward)
 
 
 def scaled_counts(counts, k, plus=None):
@@ -1432,7 +1460,8 @@ def _entry_runs(net, x2, step_img_s, exp_root):
     reset_launch_counts()
     t0 = time.perf_counter()
     trainer = Trainer(exp, {"amp": True})
-    state = trainer.fit(model, data, max_epochs=1)
+    with k1_dtypes("Trainer.fit validation (amp)"):
+        state = trainer.fit(model, data, max_epochs=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = launch_counts()
@@ -1488,8 +1517,9 @@ def cli_round_trip(experiment, exp_root, eval_counts, train_step_k3, reloads, ta
     for reload in reloads:
         reset_launch_counts()
         t0 = time.perf_counter()
-        top1, top5, (c1, c5, n) = evaluate_cli.main(
-            ["--experiment_name", experiment[2], "--reload", reload, *base])
+        with k1_dtypes(f"{experiment[2]} evaluate"):
+            top1, top5, (c1, c5, n) = evaluate_cli.main(
+                ["--experiment_name", experiment[2], "--reload", reload, *base])
         torch.cuda.synchronize()
         counts = launch_counts()
         say(f"{tag} evaluate --reload {reload}: top-1 {top1:.6f} ({c1}/{n}), top-5 {top5:.6f} "
@@ -3440,14 +3470,16 @@ def loc_clis(exp_root):
         ["--experiment_name", ENTRY_EXPERIMENT[2], "--analysis_config", LOC_CONFIG,
          "--smooth", "15", "--explainer_name", "Ours", "--save_root", str(root)])
     t0 = time.perf_counter()
-    results = localisation.main(args)
+    with k1_dtypes("localisation.main"):
+        results = localisation.main(args)
     cli_s = time.perf_counter() - t0
     out = root / ENTRY_EXPERIMENT[2] / LOC_CONFIG / "Ours"
     sweep = localisation_sweep.argument_parser().parse_args(
         ["--experiment_name", ENTRY_EXPERIMENT[2], "--reload", "last", "--explainers", "Ours",
          "IxG", "--analysis_configs", LOC_CONFIG, "--save_root", str(root / "sweep")])
     t0 = time.perf_counter()
-    localisation_sweep.main(sweep)
+    with k1_dtypes("localisation_sweep"):
+        localisation_sweep.main(sweep)
     sweep_s = time.perf_counter() - t0
     runs = [out] + [root / "sweep" / ENTRY_EXPERIMENT[2] / LOC_CONFIG / e for e in ("Ours", "IxG")]
     files = ("confidences.pkl", "localisation_metric.np.npy", "config.log")
@@ -3692,45 +3724,79 @@ def loc_text_head(label, unpool, student, root):
     return {"cli_s": cli_s, "ms": ms}
 
 
-def loc_text_kernels(student, stream_rate, worst):
-    """K1, K2 and K3 in fp32 at every shape of one text localisation of the
-    attn-unpool ``student`` (one 224^2 image: K1 and K2 at the 36 1x1s, K3
-    and K2 at the c_proj; ``clip_launches``): each against its plain version
-    (phase 3's fp32 bound), then timed per call (``time_shapes``) beside its
-    bound at 67 TFLOP/s fp32 and on the 3xTF32 route's tensor cores
-    (``tf32x3_ms``), its plain version and torch.matmul. Returns the
-    kernels line's keys."""
-    per_shape = collections.Counter(clip_launches(student, 1, SIZE, True))
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
-    calls = collections.defaultdict(list)  # kernel -> its calls of one text localisation
+def fp32_rows(what, per_shape, stream_rate, worst, seed):
+    """The fp32 routes at every shape of one call of a path: each kernel
+    against its plain version (phase 3's fp32 bound), then timed per call of
+    the path (``time_shapes``) beside its bound at 67 TFLOP/s fp32 and on
+    the 3xTF32 route's tensor cores (``tf32x3_ms``), its plain version and
+    torch.matmul, with the card's busy time for the same calls
+    (torch.profiler) and the host's time per launch, (call - card) / calls.
+    ``what`` names the path; ``per_shape`` {(kernel, M, K, N, relu[,
+    eps_outside]): launches}. Returns {kernel: row} with the row's numbers
+    and its launches."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    calls = collections.defaultdict(list)  # kernel -> its calls of one path call
     for (name, m, k, n, relu, *linear), count in sorted(per_shape.items()):
         x, wt, mult, add, ct = operands(m, k, n, torch.float32, gen)
         kern, plain, _ = kernel_calls(name, x, wt, mult, add, ct, relu, any(linear))
         got, want = kern(), plain()
         torch.cuda.synchronize()
         _check(worst, name, " eps_outside" if any(linear) else "",
-               f"loc text M={m} K={k} N={n}", torch.float32, got, want)
+               f"{what} M={m} K={k} N={n}", torch.float32, got, want)
         calls[name] += [kern] * count
         del got, want
-    rows = time_shapes(per_shape, stream_rate, gen, tag="loc text fp32 ", dtype=torch.float32)
-    keys = {}
+    rows = time_shapes(per_shape, stream_rate, gen, tag=f"{what} fp32 ", dtype=torch.float32)
     for name, r in sorted(rows.items()):
-        launches = sum(c for key, c in per_shape.items() if key[0] == name)
-        # the card's own time for the same calls (torch.profiler): what is
-        # left of the call time is the host's issue
+        r["launches"] = sum(c for key, c in per_shape.items() if key[0] == name)
         busy, _ = device_profile(lambda: [f() for f in calls[name]], 3)
-        say(f"loc text fp32 {name} per text localisation (attn-unpool, {launches} calls): "
-            f"{r['ms']:.4f} ms (the card busy {busy or 0:.4f} ms of it); bound "
+        r["busy_ms"] = busy
+        host_us = 1e3 * (r["ms"] - (busy or 0)) / r["launches"]
+        say(f"{what} fp32 {name} per {what} ({r['launches']} calls): {r['ms']:.4f} ms (the card "
+            f"busy {busy or 0:.4f} ms of it; the host {host_us:.1f} us per call); bound "
             f"{1e3 * r['bound_s']:.4f} ms at the data-sheet rates (67 TFLOP/s fp32, 3350 GB/s), "
             f"{tf32x3_ms(r):.4f} ms in 3xTF32 at 495 TFLOP/s; plain {r['plain_ms']:.4f} ms, "
             f"torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
-        keys[name] = {"loc_text_fp32_launches": launches, "loc_text_fp32_ms": r["ms"],
-                      "loc_text_fp32_bound_ms": 1e3 * r["bound_s"],
-                      "loc_text_fp32_bound_3xtf32_ms": tf32x3_ms(r),
-                      "loc_text_fp32_plain_ms": r["plain_ms"],
-                      "loc_text_fp32_library_ms": r["library_ms"],
-                      "loc_text_fp32_busy_ms": busy}
     del calls
+    return rows
+
+
+def fp32_keys(prefix, rows):
+    """The kernels line's keys of ``fp32_rows``' rows, under ``prefix``."""
+    return {name: {f"{prefix}_launches": r["launches"], f"{prefix}_ms": r["ms"],
+                   f"{prefix}_bound_ms": 1e3 * r["bound_s"],
+                   f"{prefix}_bound_3xtf32_ms": tf32x3_ms(r),
+                   f"{prefix}_plain_ms": r["plain_ms"], f"{prefix}_library_ms": r["library_ms"],
+                   f"{prefix}_busy_ms": r["busy_ms"]}
+            for name, r in rows.items()}
+
+
+def loc_text_kernels(student, stream_rate, worst):
+    """K1, K2 and K3 in fp32 at every shape of one text localisation of the
+    attn-unpool ``student`` (one 224^2 image: K1 and K2 at the 36 1x1s, K3
+    and K2 at the c_proj; ``clip_launches``; ``fp32_rows``). Returns the
+    kernels line's keys."""
+    per_shape = collections.Counter(clip_launches(student, 1, SIZE, True))
+    return fp32_keys("loc_text_fp32",
+                     fp32_rows("text localisation", per_shape, stream_rate, worst, SEED + 45))
+
+
+def resnet_fp32_kernels(model, stream_rate, worst):
+    """K1 in fp32 per ResNet-50 eval batch (EVAL_BATCH images of 224^2: the
+    36 1x1s of every ``evaluate`` and validation batch, fed float32 images)
+    and K1 and K2 in fp32 per Ours grid (9 copies of 672^2 through the
+    explanation-mode module path, as the fp32 localisation runs it:
+    ``main_path_launches``), each through ``fp32_rows``. Returns the
+    kernels line's keys."""
+    evals = collections.Counter(
+        launch for launch in main_path_launches(model, EVAL_BATCH, SIZE)
+        if launch[0] == "bcos_conv1x1_fwd")
+    grid = collections.Counter(
+        launch for launch in main_path_launches(model, 9, LOC_GRID)
+        if launch[0] != "bcos_matmul_fwd")
+    keys = fp32_keys("eval_fp32", fp32_rows("eval batch", evals, stream_rate, worst, SEED + 46))
+    for name, row in fp32_keys("loc_fp32", fp32_rows("Ours grid", grid, stream_rate, worst,
+                                                     SEED + 47)).items():
+        keys.setdefault(name, {}).update(row)
     return keys
 
 
@@ -3833,6 +3899,7 @@ def phase_analyses(net, students, stream_rate, worst, exp_root):
     text = loc_text(students, kd_student)
     del kd_student
     text_keys = loc_text_kernels(students["unpool"], stream_rate, worst)
+    resnet_keys = resnet_fp32_kernels(net.model, stream_rate, worst)
     vit_s = loc_vit_striding(SEED + 43)
     # each kernel at the grid's shapes: Ours's module path (that of one fast
     # fwd+explain at batch 9, 672^2) and K3 on the gradient explainers' route
@@ -3854,8 +3921,10 @@ def phase_analyses(net, students, stream_rate, worst, exp_root):
             f"{what}_launches": launches, f"{what}_ms": r["ms"],
             f"{what}_bound_ms": 1e3 * r["bound_s"], f"{what}_plain_ms": r["plain_ms"],
             f"{what}_library_ms": r["library_ms"]})
-    for kernel, row in text_keys.items():
+    for kernel, row in list(text_keys.items()) + list(resnet_keys.items()):
         keys.setdefault(kernel, {}).update(row)
+    say("K1's activations by dtype per path: " + "; ".join(
+        f"{path} {dict(seen)}" for path, seen in K1_DTYPES.items()))
     say(f"loc summary: {n_grids} grids, {n_grids / run_s:.2f} grids/s, compute_sorted_confs "
         f"{confs_s:.2f} s; per grid " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
         + f"; localisation.main {clis['cli_s']:.1f} s, sweep {clis['sweep_s']:.1f} s; text "
@@ -4283,12 +4352,32 @@ def phase_bench(stream_rate, worst, exp_root):
             "bench_library_ms": row["library_ms"], "bench_dtype": "float32"}
 
 
+def text_localisation_call(student):
+    """One fp32 text localisation (``compute_attributions`` of the
+    attn-unpool ``student`` on one seeded 224^2 image and text direction,
+    the student calibrated on that image): ms per call over 10 calls in a
+    row, and the card's busy ms of one call."""
+    from bcosification_tpu_torch.interpretability.analyses import text_localisation as tl
+
+    rgb = analysis_images(1, SEED + 41).cuda().float() / 255
+    image = torch.cat([rgb, 1.0 - rgb], dim=-1)
+    calibrate(student, image)
+    emb = _text_direction(student.model.attnpool.c_proj.features, SEED + 42, "cuda")
+
+    def call():
+        return tl.compute_attributions(student, emb, image, pool_cosine=2)
+
+    return window_ms(call, 10), device_profile(call, 3)[0]
+
+
 def fp32_routes() -> int:
     """``chip_smoke.py --fp32-routes``: only the fp32 routes' rows of phases
     15 and 16 (K1, K2 and K3 per text localisation, with split-K and with
-    128 x 128 tiles alone in turns; K3 per attn-unpool harness encode;
-    random-init students, ``time_shapes`` on seeded operands), for
-    comparing two trees' kernels, or the two tilings, in one call."""
+    128 x 128 tiles alone in turns; one whole text localisation call; K1
+    per ResNet-50 eval batch, K1 and K2 per Ours grid; K3 per attn-unpool
+    harness encode; random-init nets,
+    ``time_shapes`` on seeded operands), for comparing two trees' kernels,
+    or the two tilings, in one call."""
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4306,6 +4395,11 @@ def fp32_routes() -> int:
             loc_text_kernels(student, rate, worst)
         finally:
             k12.tf32_splits = k3.tf32_splits = splits
+    call_ms, busy = text_localisation_call(student)
+    say(f"fp32 routes: one text localisation call (attn-unpool, 224^2): {call_ms:.2f} ms, the "
+        f"card busy {busy or 0:.2f} ms of it [{CARD}]")
+    say("fp32 routes of the ResNet-50 (split-K):")
+    resnet_fp32_kernels(build_bcosified_resnet(FLAGSHIP, seed=SEED).model, rate, worst)
     per_shape = collections.Counter(clip_launches(student, BENCH_BATCH, SIZE, False))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
     row = time_shapes(per_shape, rate, gen, tag="bench fp32 ", dtype=torch.float32)

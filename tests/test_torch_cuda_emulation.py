@@ -120,6 +120,25 @@ def _k2(emulated, x, wt, ct, a, mult, relu, eps_outside):
     return dx[:, :cin]
 
 
+def _k1(emulated, x, wt, mult, add, relu):
+    """z from the emulated K1, the operands padded and the scratch allocated
+    as the wrapper does (``tma_operands``, ``fwd_scratch``, ``tf32_splits``;
+    the scratch filled with NaN, so a read of what no launch wrote shows)."""
+    x, wt = k12.tma_operands(x, wt)
+    m, k = x.shape
+    n = wt.shape[0]
+    out = torch.empty(m, n, dtype=x.dtype)
+    splits = k12.tf32_splits(m, k, n, EMU_SMS) if x.dtype == torch.float32 else 1
+    scratch = k12.fwd_scratch(m, k, n, x.dtype, x.device, splits)
+    if scratch is not None:
+        scratch.fill_(float("nan"))
+    code = emulated.bcos_conv1x1_fwd(k12._DTYPE_CODE[x.dtype], _ptr(x), _ptr(wt), _ptr(mult),
+                                     _ptr(add), _ptr(out), _ptr(scratch), m, k, n, 1e-6, relu,
+                                     splits, None)
+    assert code == 0
+    return out
+
+
 def _k3(emulated, x, wt, eps_outside):
     """y from the emulated K3, the operands padded and the scratch allocated
     as the wrapper does (``tma_operands``, ``fwd_scratch``)."""
@@ -141,10 +160,7 @@ def _k3(emulated, x, wt, eps_outside):
 def test_k1_forward(emulated, dtype, m, k, n):
     x, wt, mult, add, _ = _operands(m, k, n, dtype, 0)
     for relu, a in ((1, add), (0, None)):
-        out = torch.empty(m, n, dtype=dtype)
-        code = emulated.bcos_conv1x1_fwd(k12._DTYPE_CODE[dtype], _ptr(x), _ptr(wt), _ptr(mult),
-                                         _ptr(a), _ptr(out), m, k, n, 1e-6, relu, None)
-        assert code == 0
+        out = _k1(emulated, x, wt, mult, a, relu)
         _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, a, relu=bool(relu)), dtype)
 
 
@@ -228,16 +244,17 @@ def test_k3_bf16_engine(emulated, m, k, n):
     test_k3_bcos_matmul(emulated, torch.bfloat16, m, k, n)
 
 
-# The fp32 route of K3 and K2 (3xTF32 wgmma, csrc/bcos_tf32.cuh) at ragged
+# The fp32 route of K1, K2 and K3 (3xTF32 wgmma, csrc/bcos_tf32.cuh) at ragged
 # shapes: M = 49 (layer4 of one 224^2 image) and 3136 + 13 (layer1 + a
 # ragged row block), N = 1000 (y by TMA) and N % 4 != 0 (y from the
 # registers; g's scratch rows padded to 4), K % 4 != 0 (zero-padded by
-# tma_operands) and a deep K (64 stages); K3 with both eps_outside values,
-# K2 with the mask and mult and without (``_check_k2``). The stand-in reads
+# tma_operands) and a deep K (64 stages); K1 with the ReLU on and off, the
+# add present and None; K3 with both eps_outside values, K2 with the mask
+# and mult and without (``_check_k2``). The stand-in reads
 # tf32 as the tensor cores do, so a single tf32 pass would miss these
 # bounds by ~100x (tests/test_torch_kernels.py holds the scheme itself).
 # On the stand-in's two SMs a launch of one 128 x 128 tile runs split-K:
-# K3 and K2's g at m49-k2046-n61 (2 splits of 32 stages), K2's dx at
+# K1, K3 and K2's g at m49-k2046-n61 (2 splits of 32 stages), K2's dx at
 # m49-k100-n1030 (2 splits over Cout = 1030).
 FP32_ROUTE_SHAPES = [(49, 30, 1000), (3149, 64, 130), (49, 2046, 61), (49, 100, 1030)]
 FP32_ROUTE_IDS = ["m49-k30-n1000", "m3149-k64-n130", "m49-k2046-n61", "m49-k100-n1030"]
@@ -251,3 +268,27 @@ def test_k3_fp32_route(emulated, m, k, n):
 @pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
 def test_k2_fp32_route(emulated, m, k, n):
     _check_k2(emulated, torch.float32, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
+def test_k1_fp32_route(emulated, m, k, n):
+    x, wt, mult, add, _ = _operands(m, k, n, torch.float32, 3)
+    for relu, a in ((1, add), (0, None), (1, None), (0, add)):
+        out = _k1(emulated, x, wt, mult, a, relu)
+        _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, a, relu=bool(relu)),
+                      torch.float32)
+
+
+# K1 in fp32 on operands the TMA cannot take as they are: Cin = 22 (not a
+# multiple of 4) on an x 4 bytes off the 16-byte grid. The wrapper's
+# tma_operands zero-pads x and wt to Cin = 24 in aligned storage, counted
+# once, and the result equals the plain version on the unpadded operands.
+def test_k1_fp32_cin_off_the_tma_grid(emulated):
+    m, k, n = 37, 22, 10
+    x, wt, mult, add, _ = _operands(m, k, n, torch.float32, 4)
+    x = torch.empty(m * k + 1)[1:].view(m, k).copy_(x)
+    assert x.data_ptr() % 16
+    before = k12.tma_operands.padded
+    out = _k1(emulated, x, wt, mult, add, 1)
+    assert k12.tma_operands.padded == before + 1
+    _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True), torch.float32)

@@ -13,9 +13,10 @@ explanation) on the GPU against the CPU, the guided and DeepLIFT ReLU
 gradients and the explainers on a small-flagship 3x3 grid against the CPU
 with their launches, K3 in fp32 at every shape of one clip_benchmark encode
 of the full-width CLIP-RN50 at batch 64, one harness bundle encode's
-launches, K2 in fp32 at every shape of one text localisation, and the fp32
-route of K1, K2 and K3 at ragged shapes (Cin off the TMA grid, a
-misaligned operand). Every test here needs a GPU and skips without one.
+launches, K2 in fp32 at every shape of one text localisation, K1 in fp32
+at every shape of one text localisation and of one ResNet-50 eval batch,
+and the fp32 route of K1, K2 and K3 at ragged shapes (Cin off the TMA
+grid, a misaligned operand). Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -91,6 +92,30 @@ def test_each_launch_is_counted(gpu):
                     relu=False)
     assert launch_counts() == {"bcos_conv1x1_fwd": 1, "bcos_conv1x1_bwd_explain": 0,
                                "bcos_matmul_fwd": 0, "stream_add": 0}
+
+
+def test_eager_and_dispatcher_routes_agree(gpu):
+    """Outside tracing the wrappers call each op's CUDA implementation
+    themselves (bcos_conv1x1.eager_cuda); torch.ops reaches the same
+    implementation through the dispatcher, as a traced program does. Both
+    launch and count the kernel and give the same bits (fp32, split-K)."""
+    g = torch.Generator(device=gpu).manual_seed(3)
+    m, cin, cout = 196, 1024, 256
+    x = torch.randn(m, cin, device=gpu, generator=g)
+    wt = torch.randn(cout, cin, device=gpu, generator=g) / cin ** 0.5
+    mult = torch.rand(cout, device=gpu, generator=g) + 0.5
+    add = torch.randn(cout, device=gpu, generator=g)
+    ct = torch.randn(m, cout, device=gpu, generator=g)
+    ops = torch.ops.bcos_torch
+    reset_launch_counts()
+    a = k12.conv1x1_fwd(x, wt, mult, add, relu=True)
+    assert torch.equal(a, ops.conv1x1_fwd(x, wt, mult, add, True, 1e-6))
+    dx = k12.conv1x1_bwd_explain(x, wt, ct, a, mult, relu=True)
+    assert torch.equal(dx, ops.conv1x1_bwd_explain(x, wt, ct, a, mult, True, 1e-6, False))
+    y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False)
+    assert torch.equal(y, ops.bcos_matmul_fwd(x, wt, 1e-6, False))
+    assert launch_counts() == {"bcos_conv1x1_fwd": 2, "bcos_conv1x1_bwd_explain": 2,
+                               "bcos_matmul_fwd": 2, "stream_add": 0}
 
 
 def _off_grid_operands(gpu, offset):
@@ -1030,6 +1055,38 @@ def test_k2_fp32_at_the_text_localisation_shapes(gpu, m, cin, cout, relu, eps_ou
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
 
 
+# (M, Cin, Cout, relu) of every distinct K1 call of one ResNet-50 eval batch
+# (64 images of 224^2; evaluate and every validation batch run it in fp32)
+EVAL_BATCH_SHAPES = [
+    (3136, 512, 2048, False), (3136, 1024, 2048, False), (3136, 2048, 512, True),
+    (12544, 256, 1024, False), (12544, 512, 1024, False), (12544, 1024, 256, True),
+    (12544, 1024, 512, True), (50176, 128, 512, False), (50176, 256, 512, False),
+    (50176, 512, 128, True), (50176, 512, 256, True), (200704, 64, 64, True),
+    (200704, 64, 256, False), (200704, 256, 64, True), (200704, 256, 128, True),
+]
+
+
+@pytest.mark.parametrize("m,cin,cout,relu", [shape[:4] for shape in TEXT_LOC_SHAPES
+                                              if not shape[4]] + EVAL_BATCH_SHAPES)
+def test_k1_fp32_at_the_text_localisation_and_eval_shapes(gpu, m, cin, cout, relu):
+    """K1's fp32 route (3xTF32 on the tensor cores; split-K at one image's
+    small M) against its plain version within phase 3's bound, with the
+    BN's add and without: one counted call each, no operand padded."""
+    g = torch.Generator(device=gpu).manual_seed(m + cin + cout)
+    x = torch.randn(m, cin, device=gpu, generator=g)
+    wt = torch.randn(cout, cin, device=gpu, generator=g) / cin ** 0.5
+    mult = torch.rand(cout, device=gpu, generator=g) + 0.5
+    add = 0.1 * torch.randn(cout, device=gpu, generator=g)
+    before = k12.tma_operands.padded
+    for a in (add, None):
+        reset_launch_counts()
+        got = k12.conv1x1_fwd(x, wt, mult, a, relu=relu)
+        assert launch_counts()["bcos_conv1x1_fwd"] == 1 and got.dtype == torch.float32
+        want = k12.conv1x1_fwd_plain(x, wt, mult, a, relu=relu)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert k12.tma_operands.padded == before
+
+
 # fp32 shapes off the TMA grid and the tiles (M, Cin, Cout, misaligned x):
 # M = 49 and 3136 + 13, Cout = 1000 and Cout % 4 != 0, Cin % 4 != 0 and a
 # deep Cin, one x 4 bytes off the 16-byte grid
@@ -1041,9 +1098,9 @@ FP32_RAGGED_SHAPES = [(49, 30, 1000, False), (3149, 64, 130, False), (49, 2046, 
 def test_fp32_route_at_ragged_shapes(gpu, m, cin, cout, misaligned):
     """K1, K2 (mult and mask, and the bare linear) and K3 (both
     eps_outside) in fp32 against their plain versions within phase 3's
-    bound; tma_operands pads or realigns K2's and K3's operands where Cin is
-    off the grid of 4 or x misaligned (3 calls), K1's FMA loop takes them as
-    they are."""
+    bound; tma_operands pads or realigns the operands of all five calls
+    where Cin is off the grid of 4 or x misaligned (K1's 3xTF32 route loads
+    by TMA too)."""
     g = torch.Generator(device=gpu).manual_seed(m + cin + cout)
     x = torch.randn(m, cin, device=gpu, generator=g)
     if misaligned:
@@ -1067,4 +1124,4 @@ def test_fp32_route_at_ragged_shapes(gpu, m, cin, cout, misaligned):
         y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=eps_outside)
         assert close(y, k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6, eps_outside=eps_outside))
     torch.cuda.synchronize()
-    assert k12.tma_operands.padded - before == (4 if cin % 4 or misaligned else 0)
+    assert k12.tma_operands.padded - before == (5 if cin % 4 or misaligned else 0)

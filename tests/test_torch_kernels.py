@@ -205,6 +205,18 @@ def test_tma_operands_pad_and_realign(cin):
     y = tmm.bcos_matmul_fwd_plain(xp, wtp, eps=1e-6, eps_outside=False)
     torch.testing.assert_close(y, tmm.bcos_matmul_fwd_plain(x, wt, eps=1e-6, eps_outside=False),
                                rtol=1e-6, atol=0)
+    # an fp32 K1 operand off the grid of 4 (Cin + 1, K1's 3xTF32 route loads
+    # by TMA too): zero-padded, counted, and K1's result unchanged by it
+    xf1 = torch.randn(m, cin + 1, generator=g)
+    wf1 = torch.randn(cout, cin + 1, generator=g) / cin ** 0.5
+    before = tconv.tma_operands.padded
+    xp, wtp = tconv.tma_operands(xf1, wf1)
+    assert tconv.tma_operands.padded == before + 1
+    assert xp.shape[1] == cin + 4 and wtp.shape[1] == cin + 4
+    assert torch.equal(xp[:, :cin + 1], xf1) and not xp[:, cin + 1:].any()
+    torch.testing.assert_close(tconv.conv1x1_fwd_plain(xp, wtp, mult, add, relu=True),
+                               tconv.conv1x1_fwd_plain(xf1, wf1, mult, add, relu=True),
+                               rtol=1e-6, atol=1e-7)
     # aligned operands on the grid (bf16, and fp32 with Cin a multiple of 4)
     # pass unchanged and uncounted
     before = tconv.tma_operands.padded
@@ -355,4 +367,29 @@ def test_3xtf32_scheme_matches_jax(k):
         u = mm(xt, wt.t())
         g = torch.where(live, _t(ct) * _t(mult), 0.0) * (u.abs() / n_x)
         errs[name] = rel(mm(g, wt), np.asarray(want_dx).reshape(m, k))
+    assert errs["3xtf32"] <= 1e-5 < errs["1xtf32"], errs
+
+
+# K1's fp32 route in the same scheme: z = (|u| / n) u mult + add, then the
+# ReLU, against the JAX fused conv (explain=False, its jnp path in f32) at
+# the same depths, with the BN's mult and add as chip_smoke.py draws them
+@pytest.mark.parametrize("k", [64, 512, 2048])
+def test_3xtf32_k1_scheme_matches_jax(k):
+    rng = np.random.default_rng(k + 1)
+    m, n = 128, 96
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    mult = (rng.random(n) + 0.5).astype(np.float32)
+    add = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    want = jconv.bcos_conv1x1_bn_act(jnp.asarray(x.reshape(1, m, 1, k)), jnp.asarray(w), None,
+                                     jnp.asarray(mult), jnp.asarray(add), relu=True,
+                                     explain=False)
+    want = np.asarray(want).reshape(m, n)
+    xt, wt = _t(x), _t(w.T)
+    n_x = torch.sqrt((xt * xt).sum(-1, keepdim=True) + 1e-6)
+    errs = {}
+    for name, mm in (("3xtf32", _mm_3xtf32), ("1xtf32", _mm_1xtf32)):
+        u = mm(xt, wt.t())
+        z = torch.clamp_min((u.abs() / n_x) * u * _t(mult) + _t(add), 0.0)
+        errs[name] = float(np.abs(z.numpy() - want).max() / np.abs(want).max())
     assert errs["3xtf32"] <= 1e-5 < errs["1xtf32"], errs
