@@ -10,15 +10,14 @@ biased 3x3 stem conv (``PlainConv2d``).
 The net is initialised on the device from a ``torch.Generator`` seeded
 with the config's "seed" (0 when it has none); it does not reproduce the
 JAX package's random init (the tests carry JAX weights over with
-``bcosify/from_jax.py``).
+``bcosify/from_jax.py``). Under ``utils.init_mode.abstract_init`` it is
+built on the meta device, shapes only.
 """
 from __future__ import annotations
 
 from functools import partial
 
-import torch
 
-from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.models import vit as vit_lib
 from bcosification_tpu_torch.modules import (
     BcosConv2d,
@@ -29,6 +28,7 @@ from bcosification_tpu_torch.modules import (
     PlainLinear,
 )
 from bcosification_tpu_torch.modules.activations import PlainGELU
+from bcosification_tpu_torch.utils.init_mode import build_device, build_generator
 
 __all__ = ["get_model"]
 
@@ -39,7 +39,7 @@ def get_model(model_config, device=None, **arch):
     """The SimpleViT of ``model_config`` in eval mode on ``device`` (default
     the GPU; ``"cpu"`` when asked). ``arch`` overrides fields of the arch's
     entry (e.g. ``depth``)."""
-    dev = resolve_device(device)
+    dev = build_device(device)
     args = dict(model_config["args"])
     act = args.pop("act_layer", "identity")
     args["act_layer"] = ACTS[act] if isinstance(act, str) else act
@@ -55,6 +55,6 @@ def get_model(model_config, device=None, **arch):
     seed = model_config.get("seed", 0) or 0
     factory = getattr(vit_lib, model_config["name"])
     net = factory(with_logit_layer=is_bcos, logit_bias=model_config.get("logit_bias"),
-                  device=dev, generator=torch.Generator(device=dev).manual_seed(int(seed)),
+                  device=dev, generator=build_generator(dev, seed),
                   **args, **arch)
     return net.eval().requires_grad_(False)

@@ -6,7 +6,7 @@ W(x) = d logit[selected] / d x comes from one backward pass.
 Completeness: for bias-free B-cos nets, (x * W(x)).sum() is the logit.
 
 ``explain`` and ``make_explain_fn`` give the prediction, W(x), the
-contribution map and the colour explanation (``gradient_to_image``); B-cosified
+contribution map and the colour explanation (``gradient_to_image``); the
 ResNets take the hand-scheduled pass of ``explain/fast_resnet.py``.
 """
 from __future__ import annotations
@@ -121,12 +121,13 @@ def make_explain_fn(model, smooth: int = 15, alpha_percentile: float = 99.5,
     dynamic_linear_weights, contribution_map, logits and (``with_image``)
     the RGBA explanation of each image.
 
-    ``fast``: "auto" routes B-cosified ResNets through the hand-scheduled
-    pass (``fast_resnet.supports``); True forces it (raises if unsupported);
-    False always differentiates the module forward. Other nets, the
-    DenseNet and the ViT among them, differentiate the module forward, as
-    in the JAX package (their own passes, ``fast_densenet`` and
-    ``fast_vit``, serve ``serving.export_explain``).
+    ``fast``: "auto" routes the ResNets that ``fast_resnet.supports`` (the
+    B-cosified ones and the model zoo's) through its hand-scheduled pass;
+    True forces it (raises if unsupported); False always differentiates the
+    module forward. Other nets, the DenseNets and the ViTs among them,
+    differentiate the module forward, as in the JAX package (their own
+    passes, ``fast_densenet`` and ``fast_vit``, serve
+    ``serving.export_explain``).
 
     Unlike the JAX package, which caches its jitted functions per model,
     nothing is cached: the function is a closure that costs nothing to build,

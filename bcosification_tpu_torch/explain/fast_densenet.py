@@ -27,27 +27,44 @@ its act2 for the backward; its input is a channel prefix of its block's
 output, so only the block outputs are kept, and act1's output is
 recomputed from them.
 
+The from-scratch zoo's DenseNets (``DetachablePositionNorm2d`` before every
+conv but conv0 and after it, Identity, the logit layer inside) take the same
+schedule with the position norm in place of each BN: K3 forward at every
+1x1 conv and K2 backward with the bare cotangent (the norm's backward,
+c - mean_C(c) with c = g * weight / std, is no per-channel affine, so it
+runs between conv2's transpose and K2); each norm's input is recomputed
+from the block outputs, as act1's output is for the BN nets.
+
 Scope (``supports``): BcosifyNetwork(BcosDenseNet) with b=2, max_out=1,
 bias-free convs, uncentered BN, ReLU or Identity, the avg-pool stem and the
-GAP-reorder classifier: the densenet recipes of ImageNet/bcosification.
+GAP-reorder classifier: the densenet recipes of ImageNet/bcosification;
+and a BcosDenseNet, bare or wrapped, of the zoo's layers
+(``fast_resnet.position_norm_layers``) with the GAP-reorder classifier and
+the avg-pool stem or ``small_inputs``: every DenseNet entry of the zoo.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.explain.fast_resnet import (
     _BN,
+    _Conv,
     _conv_t,
     _flat,
+    _norm_bwd,
+    _normalize,
     _seg_bwd,
     _seg_fwd,
+    _selected_cotangent,
     _weight,
     _wt,
+    logit_layers,
+    parts,
     plain_b2_layers,
+    position_norm_layers,
 )
 from bcosification_tpu_torch.modules import ReLU
 from bcosification_tpu_torch.ops import bcos as ops
@@ -59,14 +76,15 @@ __all__ = ["supports", "fast_dynamic_linear_weights"]
 
 
 def supports(net) -> bool:
-    """True if ``net`` is a BcosifyNetwork(BcosDenseNet) this pass handles."""
-    from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
+    """True if ``net`` is a BcosDenseNet this pass handles (see above)."""
     from bcosification_tpu_torch.models.densenet import BcosDenseNet
 
-    if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, BcosDenseNet):
+    m, wrapper = parts(net)
+    if not isinstance(m, BcosDenseNet) or not m.gap_reorder:
         return False
-    m = net.model
-    if m.small_inputs or m.stem_pool != "avg" or not m.gap_reorder or m.with_logit_layer:
+    if position_norm_layers(m):
+        return m.small_inputs or m.stem_pool == "avg"
+    if wrapper is None or m.small_inputs or m.stem_pool != "avg" or m.with_logit_layer:
         return False
     return plain_b2_layers(m) == 0  # one BN before each conv but conv0, plus norm5
 
@@ -74,7 +92,7 @@ def supports(net) -> bool:
 def fast_dynamic_linear_weights(
     net, x: torch.Tensor, idx=None, *, device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(logits, selected_idx, W) for x [N, H, W, 6]: what
+    """(logits, selected_idx, W) for x [N, H, W, C]: what
     ``dynamic_linear_weights(lambda t: net(t, explain=True), x, idx)``
     gives, when ``supports(net)``. Runs on ``device`` (default the GPU;
     raises without one unless device="cpu")."""
@@ -82,7 +100,82 @@ def fast_dynamic_linear_weights(
     if not supports(net):
         raise ValueError("fast DenseNet explain pass: unsupported model (see supports())")
     with torch.no_grad():
-        return _fast(net, x.to(dev), idx)
+        fast = _fast_pn if position_norm_layers(parts(net)[0]) else _fast
+        return fast(net, x.to(dev), idx)
+
+
+def _pn_layer_fwd(layer, a):
+    """One dense layer of a position-norm net: its new features, and the
+    record of its backward (norm1's input is a prefix of the block output)."""
+    h1, _ = layer.norm1.normalize(a, explain=True)
+    y1 = _Conv(layer.conv1, h1).forward()
+    h2, std2 = layer.norm2.normalize(y1, explain=True)
+    conv2 = _Conv(layer.conv2, h2)
+    return conv2.forward(), {"c_in": a.shape[-1], "std2": std2, "conv2": conv2}
+
+
+def _pn_layer_bwd(layer, rec, a, ct):
+    """Cotangent of a dense layer's input ``a`` from ``ct``, that of its
+    output cat([a, new]); norm1's output recomputed from ``a``."""
+    c_in, conv2 = rec["c_in"], rec["conv2"]
+    ct_y1 = _norm_bwd(conv2.backward(ct[..., c_in:]), layer.norm2, rec["std2"], a.dtype)
+    h1, std1 = layer.norm1.normalize(a, explain=True)
+    ct_h1 = _Conv(layer.conv1, h1).backward(ct_y1)
+    return ct[..., :c_in] + _norm_bwd(ct_h1, layer.norm1, std1, a.dtype)
+
+
+def _pn_norm_conv(norm, conv, a):
+    """norm -> 1x1 conv (K3): (the output, the norm's std, the conv)."""
+    h, std = norm.normalize(a, explain=True)
+    c = _Conv(conv, h)
+    return c.forward(), std, c
+
+
+def _fast_pn(net, x, idx):
+    m, wrapper = parts(net)
+    xn, std_in = _normalize(wrapper, x)
+
+    # ---------------- forward (explanation-mode values) ----------------
+    stem = _Conv(m.conv0, xn)
+    a = stem.forward()
+    if not m.small_inputs:
+        z_stem, std0 = m.norm0.normalize(a, explain=True)
+        a = pooling.avg_pool2d(z_stem, 3, 2, 1)
+    blocks = []  # per block: (its output, the layers' records, the transition's)
+    for i in range(len(m.block_config)):
+        recs = []
+        for layer in m.dense_layers(i):
+            new, rec = _pn_layer_fwd(layer, a)
+            a = torch.cat([a, new], dim=-1)
+            recs.append(rec)
+        trans, tr = m.transition(i), None
+        if trans is not None:
+            y, std_t, conv_t = _pn_norm_conv(trans.norm, trans.conv, a)
+            tr = {"y_shape": y.shape, "std": std_t, "conv": conv_t}
+        blocks.append((a, recs, tr))
+        if tr is not None:
+            a = pooling.avg_pool2d(y, 2, 2)
+    y_fc, std5, fc = _pn_norm_conv(m.norm5, m.classifier, a)
+    logits = pooling.global_avg_pool(y_fc)
+    for layer in logit_layers(net):
+        logits = layer(logits)
+
+    # ---------------- backward (explicit linear transpose) ----------------
+    sel, ct = _selected_cotangent(net, logits, idx)
+    nb, h, w_, _ = y_fc.shape
+    ct = fc.backward((ct / (h * w_)).to(x.dtype)[:, None, None, :].expand(nb, h, w_, -1))
+    ct = _norm_bwd(ct, m.norm5, std5, x.dtype)
+    for i in reversed(range(len(blocks))):
+        out, recs, tr = blocks[i]
+        if tr is not None:  # ct is that of the pooled transition output
+            ct = tr["conv"].backward(_pool_t(ct, tr["y_shape"], 2, 2, 0))
+            ct = _norm_bwd(ct, m.transition(i).norm, tr["std"], x.dtype)
+        for layer, rec in zip(reversed(m.dense_layers(i)), reversed(recs)):
+            ct = _pn_layer_bwd(layer, rec, out[..., :rec["c_in"]], ct)
+    if not m.small_inputs:
+        ct = _norm_bwd(_pool_t(ct, z_stem.shape, 3, 2, 1), m.norm0, std0, x.dtype)
+    w = stem.backward(ct)
+    return logits, sel, (w if std_in is None else w / std_in)
 
 
 def _bn_act(a, bn: _BN, relu: bool):
@@ -147,9 +240,7 @@ def _fast(net, x, idx):
     relu = isinstance(m.act0, ReLU)
 
     # ---------------- forward (explanation-mode values) ----------------
-    mean = torch.tensor(net.mean, dtype=dtype, device=x.device)
-    std_in = torch.tensor(net.std, dtype=dtype, device=x.device)
-    xn = (x - mean) / std_in
+    xn, std_in = _normalize(net, x)
 
     w_stem = _weight(m.conv0, dtype)
     bn_stem = _BN(m.norm0)
@@ -180,18 +271,11 @@ def _fast(net, x, idx):
     y_fc = bcos_matmul_fwd(_flat(a5), wt_fc, eps=ops.CONV_NORM_EPS, eps_outside=False)
     nb, h, w_, _ = a5.shape
     logits = y_fc.view(nb, h * w_, -1).mean(1).to(dtype)
-    if net.logit_temperature is not None:
-        logits = logits / net.logit_temperature
-    logits = logits + net.logit_bias
+    for layer in logit_layers(net):
+        logits = layer(logits)
 
     # ---------------- backward (explicit linear transpose) ----------------
-    if idx is None:
-        sel = logits.argmax(dim=1)
-    else:
-        sel = torch.as_tensor(idx, device=x.device).expand(nb)
-    ct = F.one_hot(sel, logits.shape[-1]).to(logits.dtype)
-    if net.logit_temperature is not None:
-        ct = ct / net.logit_temperature
+    sel, ct = _selected_cotangent(net, logits, idx)
     ct_fc = (ct / (h * w_)).to(dtype)[:, None, :].expand(nb, h * w_, ct.shape[-1])
     ct_a5 = conv1x1_bwd_explain(_flat(a5), wt_fc, _flat(ct_fc), None, None, relu=False)
     ct = _bn_act_bwd(ct_a5.view(a5.shape), a5, bn5, relu)

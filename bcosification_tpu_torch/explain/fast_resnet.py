@@ -1,10 +1,14 @@
-"""Hand-scheduled explanation pass for B-cosified ResNets (counterpart of
+"""Hand-scheduled explanation pass for B-cos ResNets (counterpart of
 ``bcosification_tpu/explain/fast_resnet.py``), the main path's explanation.
 
 It computes what ``explain.core.dynamic_linear_weights`` computes on the
 module forward (logits and W(x) = d logit[selected] / d x of the
 explanation-mode model) with an explicitly written linear backward and no
-autograd. Every 1x1 segment runs the hand-written kernels:
+autograd, so that ``torch.export`` traces it (``serving.export_explain``).
+
+**Uncentered-BN nets** (the B-cosified ResNets, and a zoo ResNet rebuilt
+with the released BN flavour). Every 1x1 segment runs the hand-written
+kernels:
 
 - forward: K1 (``bcos_conv1x1_fwd``) for conv1, conv3 and the downsample of
   each bottleneck, K3 (``bcos_matmul_fwd``) for the GAP-reorder classifier;
@@ -20,10 +24,22 @@ activation-sized residual is kept. Their transposes are
 ``F.conv_transpose2d`` with the output padding that the forward's input
 size fixes.
 
-Scope (``supports``): BcosifyNetwork(BcosResNet) with b=2, max_out=1,
-bias-free convs, uncentered BN, ReLU or Identity, avg stem pool and
-GAP-reorder classifier, bottleneck or basic blocks: the flagship and its
-resnet18 sibling. Basic blocks have no 1x1 convs but the downsample.
+**Position-norm nets** (the from-scratch B-cos zoo: ``DetachablePositionNorm2d``
+after every conv, Identity activations, the logit layer inside). Every
+stride-1 1x1 conv (conv1 and conv3 of each bottleneck, a stride-1
+downsample, the classifier) runs K3 forward and K2 backward with the bare
+cotangent (mult 1, no mask), as K3's explanation backward does; the other
+convs (the stem, the 3x3s, grouped in ResNeXt, a stride-2 downsample) run
+on cuDNN and keep their dynamic scale for the backward. The norm is a
+LayerNorm over each pixel's channels with its variance detached, so its
+backward is linear: c - mean_C(c) with c = g * weight / std.
+
+Scope (``supports``): a BcosResNet, bare or in a BcosifyNetwork, with b=2,
+max_out 1, bias-free undilated convs of one type and the GAP-reorder
+classifier; either uncentered BN after each conv but the classifier, ReLU or
+Identity, ungrouped convs and the avg-pool stem (the flagship, its resnet18
+sibling, the BN-flavoured zoo nets), or the position norm, Identity, and an
+avg-pool or no stem pool (every ResNet entry of the zoo).
 """
 from __future__ import annotations
 
@@ -33,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.modules import PlainReLU, ReLU
+from bcosification_tpu_torch.modules import DetachablePositionNorm2d, PlainReLU, ReLU
 from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops import pooling
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain, conv1x1_fwd
@@ -42,17 +58,49 @@ from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
 __all__ = ["supports", "fast_dynamic_linear_weights"]
 
 
-def supports(net) -> bool:
-    """True if ``net`` is a BcosifyNetwork(BcosResNet) this pass handles."""
+def parts(net):
+    """(the backbone, the BcosifyNetwork around it or None)."""
     from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
+
+    if isinstance(net, BcosifyNetwork):
+        return net.model, net
+    return net, None
+
+
+def logit_layers(net):
+    """The logit layers after the classifier, in forward order."""
+    m, wrapper = parts(net)
+    return [owner.logit_layer for owner in (m, wrapper)
+            if owner is not None and owner.with_logit_layer]
+
+
+def supports(net) -> bool:
+    """True if ``net`` is a BcosResNet (bare or in a BcosifyNetwork) this
+    pass handles."""
     from bcosification_tpu_torch.models.resnet import BcosResNet
 
-    if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, BcosResNet):
+    m, _ = parts(net)
+    if not isinstance(m, BcosResNet) or not m.gap_reorder:
         return False
-    m = net.model
-    if m.stem_pool != "avg" or not m.gap_reorder or m.with_logit_layer:
+    if position_norm_layers(m):
+        return m.small_inputs or m.stem_pool != "max"
+    if m.small_inputs or m.stem_pool != "avg" or m.groups != 1:
         return False
     return plain_b2_layers(m) == -1  # one BN per conv but the fc
+
+
+def _b2_convs(m):
+    """``m``'s B-cos convs if they are all of one type, b=2, max_out 1,
+    undilated and bias-free; else None."""
+    from bcosification_tpu_torch.modules import BcosConv2d
+
+    convs = [mod for mod in m.modules() if isinstance(mod, BcosConv2d)]
+    if len({(type(c), c.normalize_weights) for c in convs}) != 1:
+        return None
+    if any(c.b != 2 or c.max_out != 1 or c.bias is not None or c.dilation != (1, 1)
+           for c in convs):
+        return None
+    return convs
 
 
 def plain_b2_layers(m):
@@ -61,21 +109,38 @@ def plain_b2_layers(m):
     undilated and bias-free, and every activation is of one type (ReLU, the
     CLIP towers' PlainReLU or Identity): the layers the hand-scheduled
     passes are written for."""
-    from bcosification_tpu_torch.modules import BatchNormUncentered2d, BcosConv2d, Identity
+    from bcosification_tpu_torch.modules import BatchNormUncentered2d, Identity
 
-    convs = [mod for mod in m.modules() if isinstance(mod, BcosConv2d)]
-    if len({(type(c), c.normalize_weights) for c in convs}) != 1:
+    convs = _b2_convs(m)
+    if convs is None or any(c.groups != 1 for c in convs):
         return None
-    for c in convs:
-        if c.b != 2 or c.max_out != 1 or c.groups != 1 or c.bias is not None:
-            return None
-        if c.dilation != (1, 1):
-            return None
     acts = [mod for mod in m.modules() if isinstance(mod, (ReLU, PlainReLU, Identity))]
     if len({type(a) for a in acts}) != 1:
         return None
     norms = [mod for mod in m.modules() if isinstance(mod, BatchNormUncentered2d)]
     return len(norms) - len(convs)
+
+
+def position_norm_layers(m) -> bool:
+    """True if ``m`` is a net of the from-scratch zoo's layers: b=2 B-cos
+    convs (``_b2_convs``), DetachablePositionNorm2d its only norm and
+    Identity its only activation."""
+    from bcosification_tpu_torch.modules import (
+        BatchNormUncentered2d,
+        DetachableGELU,
+        DetachableLayerNorm,
+        Identity,
+    )
+    from bcosification_tpu_torch.modules.norms import DetachableGroupNorm2d
+
+    if _b2_convs(m) is None:
+        return False
+    mods = list(m.modules())
+    norms = [mod for mod in mods if isinstance(
+        mod, (BatchNormUncentered2d, DetachableLayerNorm, DetachableGroupNorm2d))]
+    acts = [mod for mod in mods if isinstance(mod, (ReLU, PlainReLU, DetachableGELU, Identity))]
+    return (bool(norms) and all(type(n) is DetachablePositionNorm2d for n in norms)
+            and all(type(a) is Identity for a in acts))
 
 
 def _weight(conv, dtype) -> torch.Tensor:
@@ -209,10 +274,87 @@ def _block_bwd(rec, ct_a, relu):
     return ct_in
 
 
+def _norm_bwd(ct, norm, std, dtype):
+    """A LayerNorm's (or position norm's) input cotangent, its variance
+    detached: c - mean(c) over the last axis with c = ct * weight / std, in
+    f32, cast to the input's dtype."""
+    c = ct.float()
+    if norm.weight is not None:
+        c = c * norm.weight
+    c = c / std
+    return (c - c.mean(-1, keepdim=True)).to(dtype)
+
+
+class _Conv:
+    """One B-cos conv's explanation-mode forward and the transpose of its
+    map. A stride-1 1x1 conv runs K3 forward and K2 backward (the bare
+    cotangent), recomputing u; any other keeps its detached dynamic scale
+    and is transposed by ``_conv_t``."""
+
+    def __init__(self, conv, x: torch.Tensor):
+        self.x, self.dtype = x, x.dtype
+        self.w = _weight(conv, x.dtype)
+        self.stride, self.padding, self.groups = conv.stride[0], conv.padding[0], conv.groups
+        self.matmul = (conv.kernel_size == (1, 1) and conv.stride == (1, 1)
+                       and conv.padding == (0, 0) and conv.groups == 1)
+        if self.matmul:
+            self.wt = self.w.reshape(self.w.shape[0], self.w.shape[1]).contiguous()
+
+    def forward(self) -> torch.Tensor:
+        """The output in x's dtype, as ``ops.bcos_conv2d`` gives it."""
+        x = self.x
+        if self.matmul:
+            y = bcos_matmul_fwd(_flat(x), self.wt, eps=ops.CONV_NORM_EPS, eps_outside=False)
+            return y.view(x.shape[:3] + (-1,)).to(self.dtype)
+        u = ops.conv2d(x, self.w, self.stride, self.padding, 1, self.groups)
+        n = ops.patch_norms(x, self.w.shape[2:], stride=self.stride, padding=self.padding,
+                            groups=self.groups).to(u.dtype)
+        if self.groups > 1:  # each group's norm over its output channels
+            g = ops._per_group(u, self.groups)
+            self.scale = (g.abs() / n[..., None]).reshape(u.shape)
+        else:
+            self.scale = u.abs() / n
+        return self.scale * u
+
+    def backward(self, ct: torch.Tensor) -> torch.Tensor:
+        """The input's cotangent from the output's ``ct``."""
+        if self.matmul:
+            dx = conv1x1_bwd_explain(_flat(self.x), self.wt, _flat(ct.to(self.dtype)), None,
+                                     None, relu=False)
+            return dx.view(self.x.shape)
+        return _conv_t(ct * self.scale, self.w, self.x.shape, self.stride, self.padding,
+                       self.groups)
+
+
+class _ConvNorm:
+    """conv -> position norm (Identity activation): forward and transpose."""
+
+    def __init__(self, conv, norm, x: torch.Tensor):
+        self.conv, self.norm = _Conv(conv, x), norm
+        y = self.conv.forward()
+        self.out, self.std = norm.normalize(y, explain=True)
+
+    def backward(self, ct: torch.Tensor) -> torch.Tensor:
+        return self.conv.backward(_norm_bwd(ct, self.norm, self.std, self.conv.dtype))
+
+
+def _pn_block_fwd(blk, a: torch.Tensor):
+    """One residual block of a position-norm net: (out, its segments in
+    forward order, the downsample's segment or None)."""
+    names = ((1, 2, 3) if hasattr(blk, "conv3") else (1, 2))
+    segs, h = [], a
+    for k in names:
+        segs.append(_ConvNorm(getattr(blk, f"conv{k}"), getattr(blk, f"bn{k}"), h))
+        h = segs[-1].out
+    ds = (_ConvNorm(blk.downsample_conv, blk.downsample_norm, a)
+          if hasattr(blk, "downsample_conv") else None)
+    return h + (a if ds is None else ds.out), segs, ds
+
+
 def fast_dynamic_linear_weights(
     net, x: torch.Tensor, idx=None, *, device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(logits, selected_idx, W) for x [N, H, W, 6]: what
+    """(logits, selected_idx, W) for x [N, H, W, C]: what
     ``dynamic_linear_weights(lambda t: net(t, explain=True), x, idx)``
     gives, when ``supports(net)``. Runs on ``device`` (default the GPU;
     raises without one unless device="cpu")."""
@@ -220,18 +362,79 @@ def fast_dynamic_linear_weights(
     if not supports(net):
         raise ValueError("fast explain pass: unsupported model (see supports())")
     with torch.no_grad():
-        return _fast(net, x.to(dev), idx)
+        m, _ = parts(net)
+        fast = _fast_pn if position_norm_layers(m) else _fast
+        return fast(net, x.to(dev), idx)
+
+
+def _normalize(wrapper, x):
+    """(the BcosifyNetwork's Normalize of x, its std), or (x, None) bare."""
+    if wrapper is None:
+        return x, None
+    mean = torch.tensor(wrapper.mean, dtype=x.dtype, device=x.device)
+    std_in = torch.tensor(wrapper.std, dtype=x.dtype, device=x.device)
+    return (x - mean) / std_in, std_in
+
+
+def _selected_cotangent(net, logits, idx):
+    """(selected class per image, the one-hot cotangent of the classifier's
+    pooled output: through the logit layers' temperatures)."""
+    if idx is None:
+        sel = logits.argmax(dim=1)
+    else:
+        sel = torch.as_tensor(idx, device=logits.device).expand(logits.shape[0])
+    ct = F.one_hot(sel, logits.shape[-1]).to(logits.dtype)
+    for layer in logit_layers(net):
+        if layer.logit_temperature is not None:
+            ct = ct / layer.logit_temperature
+    return sel, ct
+
+
+def _fast_pn(net, x, idx):
+    """The pass of a position-norm net (see the module's docstring)."""
+    m, wrapper = parts(net)
+    xn, std_in = _normalize(wrapper, x)
+
+    # ---------------- forward (explanation-mode values) ----------------
+    stem = _ConvNorm(m.conv1, m.bn1, xn)
+    a = stem.out
+    pooled = not m.small_inputs and m.stem_pool == "avg"
+    if pooled:
+        a = pooling.avg_pool2d(a, 3, 2, 1)
+    blocks = []
+    for blk in m.blocks():
+        a, segs, ds = _pn_block_fwd(blk, a)
+        blocks.append((segs, ds))
+    fc = _Conv(m.fc, a)
+    logits = pooling.global_avg_pool(fc.forward())
+    for layer in logit_layers(net):
+        logits = layer(logits)
+
+    # ---------------- backward (explicit linear transpose) ----------------
+    sel, ct = _selected_cotangent(net, logits, idx)
+    nb, h, w_, _ = a.shape
+    ct = fc.backward((ct / (h * w_)).to(x.dtype)[:, None, None, :].expand(nb, h, w_, -1))
+    for segs, ds in reversed(blocks):
+        ct_h = ct
+        for seg in reversed(segs):
+            ct_h = seg.backward(ct_h)
+        ct = ct_h + (ct if ds is None else ds.backward(ct))
+    if pooled:
+        c = stem.out.shape[-1]
+        pool_w = torch.full((c, 1, 3, 3), 1.0 / 9.0, dtype=ct.dtype, device=ct.device)
+        ct = _conv_t(ct, pool_w, stem.out.shape, 2, 1, groups=c)
+    w = stem.backward(ct)
+    return logits, sel, (w if std_in is None else w / std_in)
 
 
 def _fast(net, x, idx):
-    m = net.model
+    """The pass of an uncentered-BN net (see the module's docstring)."""
+    m, wrapper = parts(net)
     dtype = x.dtype
     relu = isinstance(m.act, ReLU)
 
     # ---------------- forward (explanation-mode values) ----------------
-    mean = torch.tensor(net.mean, dtype=dtype, device=x.device)
-    std_in = torch.tensor(net.std, dtype=dtype, device=x.device)
-    xn = (x - mean) / std_in
+    xn, std_in = _normalize(wrapper, x)
 
     w_stem = _weight(m.conv1, dtype)
     bn_stem = _BN(m.bn1)
@@ -249,18 +452,11 @@ def _fast(net, x, idx):
     y_fc = bcos_matmul_fwd(_flat(a), wt_fc, eps=ops.CONV_NORM_EPS, eps_outside=False)
     nb, h, w_, _ = a.shape
     logits = y_fc.view(nb, h * w_, -1).mean(1).to(dtype)
-    if net.logit_temperature is not None:
-        logits = logits / net.logit_temperature
-    logits = logits + net.logit_bias
+    for layer in logit_layers(net):
+        logits = layer(logits)
 
     # ---------------- backward (explicit linear transpose) ----------------
-    if idx is None:
-        sel = logits.argmax(dim=1)
-    else:
-        sel = torch.as_tensor(idx, device=x.device).expand(nb)
-    ct = F.one_hot(sel, logits.shape[-1]).to(logits.dtype)
-    if net.logit_temperature is not None:
-        ct = ct / net.logit_temperature
+    sel, ct = _selected_cotangent(net, logits, idx)
     ct_fc = (ct / (h * w_)).to(dtype)[:, None, :].expand(nb, h * w_, ct.shape[-1])
     ct_a = conv1x1_bwd_explain(_flat(a), wt_fc, _flat(ct_fc), None, None, relu=False)
     ct_a = ct_a.view(a.shape)
@@ -273,5 +469,5 @@ def _fast(net, x, idx):
     pool_w = torch.full((c, 1, 3, 3), 1.0 / 9.0, dtype=dtype, device=x.device)
     ct_zstem = _conv_t(ct_a, pool_w, z_stem.shape, 2, 1, groups=c)
     ct_u0 = _seg_bwd(ct_zstem, z_stem, n_stem, bn_stem, relu)
-    w = _conv_t(ct_u0, w_stem, xn.shape, 2, 3) / std_in
-    return logits, sel, w
+    w = _conv_t(ct_u0, w_stem, xn.shape, 2, 3)
+    return logits, sel, (w if std_in is None else w / std_in)

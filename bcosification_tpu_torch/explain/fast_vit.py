@@ -47,10 +47,16 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain.fast_resnet import _conv_t
+from bcosification_tpu_torch.explain.fast_resnet import (
+    _conv_t,
+    _norm_bwd,
+    _normalize,
+    _selected_cotangent,
+    logit_layers,
+    parts,
+)
 from bcosification_tpu_torch.models.vit import _patchify, _unpatchify, pos_emb_sincos_2d
 from bcosification_tpu_torch.modules import (
     BcosConv2d,
@@ -67,21 +73,12 @@ from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
 __all__ = ["supports", "fast_dynamic_linear_weights"]
 
 
-def _parts(net):
-    """(the SimpleViT, the BcosifyNetwork around it or None)."""
-    from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
-
-    if isinstance(net, BcosifyNetwork):
-        return net.model, net
-    return net, None
-
-
 def supports(net) -> bool:
     """True if ``net`` is a SimpleViT (bare or in a BcosifyNetwork) this
     pass handles."""
     from bcosification_tpu_torch.models.vit import SimpleViT
 
-    m, _ = _parts(net)
+    m, _ = parts(net)
     if not isinstance(m, SimpleViT):
         return False
     stem = m.stem()
@@ -108,13 +105,6 @@ def _detached_act(act) -> bool:
 
 def _bcos_linear(lin) -> bool:
     return isinstance(lin, BcosLinear) and lin.b == 2 and lin.max_out == 1
-
-
-def _logit_layers(net):
-    """The logit layers after the head, in forward order."""
-    m, wrapper = _parts(net)
-    return [owner.logit_layer for owner in (m, wrapper)
-            if owner is not None and owner.with_logit_layer]
 
 
 def fast_dynamic_linear_weights(
@@ -166,16 +156,6 @@ class _Linear:
         else:
             dx = (ct * self.scale).to(self.a.dtype) @ self.w.t()
         return dx.view(*self.lead, -1)
-
-
-def _norm_bwd(ct, norm: DetachableLayerNorm, std, dtype):
-    """A LayerNorm's input cotangent, its variance detached: c - mean(c)
-    with c = ct * weight / std, in f32, cast to the input's dtype."""
-    c = ct.float()
-    if norm.weight is not None:
-        c = c * norm.weight
-    c = c / std
-    return (c - c.mean(-1, keepdim=True)).to(dtype)
 
 
 class _StemSegment:
@@ -245,14 +225,10 @@ class _Encoder:
 
 
 def _fast(net, x, idx):
-    m, wrapper = _parts(net)
-    dtype = x.dtype
+    m, wrapper = parts(net)
 
     # ---------------- forward (explanation-mode values) ----------------
-    if wrapper is not None:
-        mean = torch.tensor(wrapper.mean, dtype=dtype, device=x.device)
-        std_in = torch.tensor(wrapper.std, dtype=dtype, device=x.device)
-        x = (x - mean) / std_in
+    x, std_in = _normalize(wrapper, x)
     stem = m.stem()
     segments = []
     for conv, norm, act in zip(stem[::3], stem[1::3], stem[2::3]):
@@ -274,19 +250,11 @@ def _fast(net, x, idx):
     logits = head.forward()
     if m.gap_reorder:
         logits = logits.mean(dim=1)
-    logit_layers = _logit_layers(net)
-    for layer in logit_layers:
+    for layer in logit_layers(net):
         logits = layer(logits)
 
     # ---------------- backward (explicit linear transpose) ----------------
-    if idx is None:
-        sel = logits.argmax(dim=1)
-    else:
-        sel = torch.as_tensor(idx, device=x.device).expand(nb)
-    ct = F.one_hot(sel, logits.shape[-1]).to(logits.dtype)
-    for layer in logit_layers:
-        if layer.logit_temperature is not None:
-            ct = ct / layer.logit_temperature
+    sel, ct = _selected_cotangent(net, logits, idx)
     n_tok = h * w
     if m.gap_reorder:  # the mean over the head's tokens
         ct = (ct / n_tok)[:, None, :].expand(nb, n_tok, ct.shape[-1])
@@ -298,4 +266,4 @@ def _fast(net, x, idx):
     w_in = _unpatchify(patch.backward(ct.reshape(nb, h, w, d)), p1, p2)
     for segment in reversed(segments):
         w_in = segment.backward(w_in)
-    return logits, sel, (w_in if wrapper is None else w_in / std_in)
+    return logits, sel, (w_in if std_in is None else w_in / std_in)

@@ -1,7 +1,10 @@
 """B-cos DenseNet (counterpart of ``bcosification_tpu/models/densenet.py``), NHWC.
 
-The bcosified torchvision DenseNet: a 7x7/s2 stem with an avg-pool stem
-pool (the recipe's standard change ``features[3]``), dense blocks of
+The from-scratch B-cos DenseNet of the model zoo (the defaults: BcosConv2d,
+the bias-free DetachablePositionNorm2d, Identity; the zoo adds the
+LogitLayer) and the bcosified torchvision DenseNet: a 7x7/s2 stem with an
+avg-pool stem pool (the recipe's standard change ``features[3]``; "max" is
+torchvision's own), dense blocks of
 pre-activation layers (norm1 -> act1 -> 1x1 conv1 -> norm2 -> act2 -> 3x3
 conv2, the new features concatenated on the last axis), transitions
 (norm -> act -> 1x1 conv -> 2x2 avg-pool), norm5 + act5 (torchvision's
@@ -25,7 +28,12 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from bcosification_tpu_torch.modules import Identity, LogitLayer
+from bcosification_tpu_torch.models.resnet import (
+    DEFAULT_ACT_LAYER,
+    DEFAULT_CONV_LAYER,
+    DEFAULT_NORM_LAYER,
+)
+from bcosification_tpu_torch.modules import LogitLayer
 from bcosification_tpu_torch.ops import pooling
 
 __all__ = ["BcosDenseNet", "DENSENET_CONFIGS", "densenet121", "densenet161",
@@ -66,13 +74,15 @@ class _Transition(nn.Module):
 
 
 class BcosDenseNet(nn.Module):
-    """``stem_pool``: "avg" (the bcosified recipe) or None; the JAX
-    package's "max" (the plain torchvision stem) is not ported.
-    ``small_inputs``: a 3x3 conv0 and no stem norm, activation or pool."""
+    """``stem_pool``: "avg" (the bcosified recipe and the zoo), "max" (the
+    plain torchvision stem) or None. ``small_inputs``: a 3x3 conv0 and no
+    stem norm, activation or pool."""
 
     def __init__(self, growth_rate: int = 32, block_config: Sequence[int] = (6, 12, 24, 16),
                  num_init_features: int = 64, bn_size: int = 4, num_classes: int = 1000, *,
-                 norm_layer: Callable, conv_layer: Callable, act_layer: Callable = Identity,
+                 norm_layer: Callable = DEFAULT_NORM_LAYER,
+                 conv_layer: Callable = DEFAULT_CONV_LAYER,
+                 act_layer: Callable = DEFAULT_ACT_LAYER,
                  fc_layer: Optional[Callable] = None, in_channels: int = 6,
                  stem_pool: Optional[str] = "avg", small_inputs: bool = False,
                  gap_reorder: bool = True, with_logit_layer: bool = False,
@@ -80,8 +90,8 @@ class BcosDenseNet(nn.Module):
                  logit_temperature: Optional[float] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if stem_pool not in ("avg", None):
-            raise ValueError(f"stem_pool {stem_pool!r} is not ported")
+        if stem_pool not in ("avg", "max", None):
+            raise ValueError(f"stem_pool must be 'avg', 'max' or None, got {stem_pool!r}")
         self.growth_rate, self.block_config = growth_rate, tuple(block_config)
         self.num_init_features, self.bn_size = num_init_features, bn_size
         self.num_classes, self.stem_pool, self.small_inputs = num_classes, stem_pool, small_inputs
@@ -128,6 +138,8 @@ class BcosDenseNet(nn.Module):
             x = self.act0(self.norm0(x, **f), **f)
             if self.stem_pool == "avg":
                 x = pooling.avg_pool2d(x, 3, 2, 1)
+            elif self.stem_pool == "max":
+                x = pooling.max_pool2d(x, 3, 2, 1)
         for i in range(len(self.block_config)):
             for layer in self.dense_layers(i):
                 x = layer(x, **f)

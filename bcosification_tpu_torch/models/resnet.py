@@ -1,4 +1,11 @@
-"""B-cos ResNet (counterpart of ``bcosification_tpu/models/resnet.py``), NHWC.
+"""B-cos ResNet / ResNeXt (counterpart of ``bcosification_tpu/models/resnet.py``), NHWC.
+
+One class covers both of the JAX package's variants: the from-scratch B-cos
+ResNet of the model zoo (the defaults: BcosConv2d, the bias-free
+DetachablePositionNorm2d, Identity activations, the in-model LogitLayer;
+``groups``/``width_per_group`` give ResNeXt and the wide ResNet) and the
+bcosified torchvision ResNet (``bcosify/engine.py``: BcosifyConv2d,
+uncentered BN, ReLU, inside a BcosifyNetwork).
 
 Sub-module names mirror the JAX package's (conv1, bn1, layer{i}_{j} with
 conv1..conv3, bn1..bn3, downsample_conv, downsample_norm, fc), so the JAX
@@ -25,14 +32,24 @@ from torch import nn
 from bcosification_tpu_torch.modules import (
     BatchNormUncentered2d,
     BcosConv2d,
+    DetachablePositionNorm2d,
     Identity,
     LogitLayer,
+    NoBias,
     ReLU,
 )
 from bcosification_tpu_torch.modules.bcos_layers import _fused_1x1_ok
+from bcosification_tpu_torch.modules.stochastic_depth import StochasticDepth
 from bcosification_tpu_torch.ops import pooling
 
-__all__ = ["BasicBlock", "Bottleneck", "BcosResNet", "resnet18", "resnet50"]
+__all__ = ["BasicBlock", "Bottleneck", "BcosResNet", "resnet18", "resnet34", "resnet50",
+           "resnet101", "resnet152", "resnext50_32x4d", "wide_resnet50_2",
+           "DEFAULT_NORM_LAYER", "DEFAULT_CONV_LAYER", "DEFAULT_ACT_LAYER"]
+
+# the from-scratch B-cos zoo's layers (the JAX package's defaults)
+DEFAULT_NORM_LAYER = NoBias(DetachablePositionNorm2d)
+DEFAULT_CONV_LAYER = BcosConv2d
+DEFAULT_ACT_LAYER = Identity
 
 
 def _needs_grad(x, *modules) -> bool:
@@ -86,44 +103,58 @@ class _Block(nn.Module):
             return x
         return _conv_bn_act(self.downsample_conv, self.downsample_norm, None, x, f)
 
+    def _tail(self, conv, norm, out, identity, f):
+        """conv -> norm -> + identity -> act_out; with stochastic depth the
+        dropped branch is added to the identity before act_out."""
+        if not hasattr(self, "sd"):
+            return _conv_bn_act(conv, norm, None, out, f, residual=identity,
+                                post_act=self.act_out)
+        out = self.sd(_conv_bn_act(conv, norm, None, out, f), **f)
+        return self.act_out(out + identity, **f)
+
 
 class BasicBlock(_Block):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, *, norm_layer, conv_layer, act_layer, **kw):
+                 has_downsample: bool = False, *, groups: int = 1, base_width: int = 64,
+                 stochastic_depth_prob: float = 0.0, norm_layer, conv_layer, act_layer, **kw):
         super().__init__()
         dev = kw.get("device")
-        self.conv1 = conv_layer(inplanes, planes, 3, stride=stride, padding=1, **kw)
+        self.conv1 = conv_layer(inplanes, planes, 3, stride=stride, padding=1, groups=groups,
+                                **kw)
         self.bn1 = norm_layer(planes, device=dev)
         self.act1 = act_layer()
         self._downsample(inplanes, planes, stride, has_downsample, conv_layer, norm_layer, kw)
         self.conv2 = conv_layer(planes, planes, 3, padding=1, **kw)
         self.bn2 = norm_layer(planes, device=dev)
         self.act_out = act_layer()
+        if stochastic_depth_prob:
+            self.sd = StochasticDepth(stochastic_depth_prob, "row")
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
         out = _conv_bn_act(self.conv1, self.bn1, self.act1, x, f)
         identity = self._identity(x, f)
-        return _conv_bn_act(self.conv2, self.bn2, None, out, f, residual=identity,
-                            post_act=self.act_out)
+        return self._tail(self.conv2, self.bn2, out, identity, f)
 
 
 class Bottleneck(_Block):
-    """ResNet V1.5: the stride sits on the 3x3."""
+    """ResNet V1.5: the stride sits on the 3x3, which is grouped in ResNeXt
+    (width = planes * width_per_group / 64 * groups)."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, *, norm_layer, conv_layer, act_layer, **kw):
+                 has_downsample: bool = False, *, groups: int = 1, base_width: int = 64,
+                 stochastic_depth_prob: float = 0.0, norm_layer, conv_layer, act_layer, **kw):
         super().__init__()
         dev = kw.get("device")
-        width = planes
+        width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = conv_layer(inplanes, width, 1, **kw)
         self.bn1 = norm_layer(width, device=dev)
         self.act1 = act_layer()
-        self.conv2 = conv_layer(width, width, 3, stride=stride, padding=1, **kw)
+        self.conv2 = conv_layer(width, width, 3, stride=stride, padding=1, groups=groups, **kw)
         self.bn2 = norm_layer(width, device=dev)
         self.act2 = act_layer()
         self._downsample(inplanes, planes * 4, stride, has_downsample, conv_layer,
@@ -131,46 +162,61 @@ class Bottleneck(_Block):
         self.conv3 = conv_layer(width, planes * 4, 1, **kw)
         self.bn3 = norm_layer(planes * 4, device=dev)
         self.act_out = act_layer()
+        if stochastic_depth_prob:
+            self.sd = StochasticDepth(stochastic_depth_prob, "row")
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
         out = _conv_bn_act(self.conv1, self.bn1, self.act1, x, f)
         out = _conv_bn_act(self.conv2, self.bn2, self.act2, out, f)
         identity = self._identity(x, f)
-        return _conv_bn_act(self.conv3, self.bn3, None, out, f, residual=identity,
-                            post_act=self.act_out)
+        return self._tail(self.conv3, self.bn3, out, identity, f)
 
 
 _BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
 
 
 class BcosResNet(nn.Module):
-    """The bcosified torchvision ResNet: 7x7/s2 stem, avg-pool stem pool,
-    four stages, the classifier as a 1x1 B-cos conv before the global
-    average pool (``gap_reorder``), optional built-in LogitLayer. Grouped
-    and wide variants (ResNeXt, wide_resnet) are not ported yet."""
+    """7x7/s2 stem (``small_inputs``: 3x3/s1, no pool), the stem pool
+    ("avg", "max" or None), four stages, the classifier as a 1x1 conv
+    before the global average pool (``gap_reorder``; after it otherwise),
+    optional built-in LogitLayer (bias -log(num_classes - 1) unless
+    ``logit_bias``). ``stochastic_depth_prob`` grows linearly from 0 at the
+    first block to its value at the last."""
 
     def __init__(self, block: str = "basic", layers: Sequence[int] = (2, 2, 2, 2), *,
-                 num_classes: int = 1000, norm_layer: Callable, conv_layer: Callable,
-                 act_layer: Callable = Identity, fc_layer: Optional[Callable] = None,
-                 inplanes: int = 64, in_channels: int = 6, stem_pool: Optional[str] = "avg",
+                 num_classes: int = 1000, groups: int = 1, width_per_group: int = 64,
+                 norm_layer: Callable = DEFAULT_NORM_LAYER,
+                 conv_layer: Callable = DEFAULT_CONV_LAYER,
+                 act_layer: Callable = DEFAULT_ACT_LAYER, fc_layer: Optional[Callable] = None,
+                 inplanes: int = 64, in_channels: int = 6, small_inputs: bool = False,
+                 stem_pool: Optional[str] = "avg", stochastic_depth_prob: float = 0.0,
                  gap_reorder: bool = True, with_logit_layer: bool = True,
                  logit_bias: Optional[float] = None,
                  logit_temperature: Optional[float] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if stem_pool not in ("avg", "max", None):
+            raise ValueError(f"stem_pool must be 'avg', 'max' or None, got {stem_pool!r}")
         self.block, self.layers, self.num_classes = block, tuple(layers), num_classes
+        self.groups, self.width_per_group = groups, width_per_group
         self.inplanes, self.stem_pool, self.gap_reorder = inplanes, stem_pool, gap_reorder
-        self.with_logit_layer = with_logit_layer
+        self.small_inputs, self.with_logit_layer = small_inputs, with_logit_layer
         kw = dict(device=device, generator=generator)
-        self.conv1 = conv_layer(in_channels, inplanes, 7, stride=2, padding=3, **kw)
+        if small_inputs:
+            self.conv1 = conv_layer(in_channels, inplanes, 3, padding=1, **kw)
+        else:
+            self.conv1 = conv_layer(in_channels, inplanes, 7, stride=2, padding=3, **kw)
         self.bn1 = norm_layer(inplanes, device=device)
         self.act = act_layer()
         block_cls = _BLOCKS[block]
-        for stage, j, planes, stride, has_ds in self.block_cfgs():
-            cin = self.block_in(stage, j)
+        cfgs = self.block_cfgs()
+        for i, (stage, j, planes, stride, has_ds) in enumerate(cfgs):
+            sd = (stochastic_depth_prob * i / max(len(cfgs) - 1, 1)
+                  if stochastic_depth_prob else 0.0)
             setattr(self, f"layer{stage + 1}_{j}", block_cls(
-                cin, planes, stride, has_ds, norm_layer=norm_layer,
+                self.block_in(stage, j), planes, stride, has_ds, groups=groups,
+                base_width=width_per_group, stochastic_depth_prob=sd, norm_layer=norm_layer,
                 conv_layer=conv_layer, act_layer=act_layer, **kw,
             ))
         num_features = self.block_in(len(self.layers), 0)
@@ -206,10 +252,10 @@ class BcosResNet(nn.Module):
     def forward(self, x, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
         x = self.act(self.bn1(self.conv1(x, **f), **f), **f)
-        if self.stem_pool == "avg":
+        if not self.small_inputs and self.stem_pool == "avg":
             x = pooling.avg_pool2d(x, 3, 2, 1)
-        elif self.stem_pool is not None:
-            raise ValueError(f"stem_pool {self.stem_pool!r} is not ported")
+        elif not self.small_inputs and self.stem_pool == "max":
+            x = pooling.max_pool2d(x, 3, 2, 1)
         for blk in self.blocks():
             x = blk(x, **f)
         if self.gap_reorder:
@@ -221,12 +267,17 @@ class BcosResNet(nn.Module):
         return x
 
 
-def _entry(block, layers):
+def _entry(block, layers, **defaults):
     def factory(**kwargs):
-        return BcosResNet(block, layers, **kwargs)
+        return BcosResNet(block, layers, **{**defaults, **kwargs})
 
     return factory
 
 
 resnet18 = _entry("basic", (2, 2, 2, 2))
+resnet34 = _entry("basic", (3, 4, 6, 3))
 resnet50 = _entry("bottleneck", (3, 4, 6, 3))
+resnet101 = _entry("bottleneck", (3, 4, 23, 3))
+resnet152 = _entry("bottleneck", (3, 8, 36, 3))
+resnext50_32x4d = _entry("bottleneck", (3, 4, 6, 3), groups=32, width_per_group=4)
+wide_resnet50_2 = _entry("bottleneck", (3, 4, 6, 3), width_per_group=128)

@@ -13,6 +13,7 @@ from bcosification_tpu_torch.modules.norms import (
     BatchNormUncentered2d,
     DetachableGNLayerNorm2d,
     DetachableLayerNorm,
+    DetachablePositionNorm2d,
     NoBias,
 )
 
@@ -25,6 +26,7 @@ __all__ = [
     "DetachableGELU",
     "DetachableGNLayerNorm2d",
     "DetachableLayerNorm",
+    "DetachablePositionNorm2d",
     "Identity",
     "LogitLayer",
     "NoBias",

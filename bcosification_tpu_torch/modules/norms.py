@@ -14,7 +14,9 @@ Channels are the last axis (NHWC).
   in place. With ``explain`` the std is detached as well.
 
 ``DetachableLayerNorm`` normalises the last axis and detaches its variance
-under ``explain``. ``DetachableGroupNorm2d`` normalises each group of
+under ``explain``; ``DetachablePositionNorm2d``, the from-scratch CNN zoo's
+norm, is the same LayerNorm over the channels of each pixel of an NHWC
+image. ``DetachableGroupNorm2d`` normalises each group of
 channels of an NHWC image over (H, W, the group's channels), centered, in
 f32, and detaches only its variance under ``explain``;
 ``DetachableGNLayerNorm2d`` is its one-group case (the ViT-C stem's norm),
@@ -35,6 +37,7 @@ __all__ = [
     "DetachableGNLayerNorm2d",
     "DetachableGroupNorm2d",
     "DetachableLayerNorm",
+    "DetachablePositionNorm2d",
     "NoBias",
     "PlainLayerNorm",
     "Unaffine",
@@ -125,6 +128,17 @@ class DetachableLayerNorm(nn.Module):
         return out.to(x.dtype), std
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
+        return self.normalize(x, explain=explain)[0]
+
+
+class DetachablePositionNorm2d(DetachableLayerNorm):
+    """Centered position norm: the LayerNorm over the channel axis of each
+    pixel of an NHWC image (mean and population variance in f32, eps inside
+    the sqrt, the variance detached under ``explain``)."""
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        if x.dim() != 4:
+            raise ValueError(f"expected an NHWC image, got shape {tuple(x.shape)}")
         return self.normalize(x, explain=explain)[0]
 
 

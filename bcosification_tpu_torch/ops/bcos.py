@@ -115,24 +115,37 @@ def patch_norms(
     x_sumsq: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-patch L2 norms sqrt(||x_patch||^2 + eps) of an NHWC input,
-    [N, Ho, Wo, 1] f32: the channel sum of squares summed over each conv
-    window (zero padding). ``x_sumsq`` is an optional ``channel_sumsq(x)``."""
-    if groups != 1:
-        raise NotImplementedError("patch_norms: grouped convs are not ported yet")
-    ssq = channel_sumsq(x) if x_sumsq is None else x_sumsq.float()
+    [N, Ho, Wo, groups] f32: the sum of squares over each group's channels,
+    summed over each conv window (zero padding); a grouped conv's output
+    channel takes its group's norm. ``x_sumsq`` is an optional
+    ``channel_sumsq(x)`` (groups == 1 only)."""
+    if groups == 1:
+        ssq = channel_sumsq(x) if x_sumsq is None else x_sumsq.float()
+    elif x_sumsq is not None:
+        raise ValueError("patch_norms: the x_sumsq hint is for ungrouped convs only")
+    else:
+        xf = x.float()
+        ssq = (xf * xf).reshape(*x.shape[:3], groups, x.shape[-1] // groups).sum(-1)
     kh, kw = _pair(kernel_size)
     ph, pw = _pair(padding)
-    # [N, 1, H, W] with contiguous strides, not the permuted view: PyTorch
-    # takes that view (C = 1) for channels_last, and its CUDA avg_pool2d
-    # backward is wrong for channels_last inputs (ops/pooling.py, PERF.md)
-    s = ssq.reshape(ssq.shape[0], 1, ssq.shape[1], ssq.shape[2])
+    # [N, G, H, W] with contiguous strides, not the permuted view: PyTorch
+    # takes that view for channels_last (with G = 1 it even counts as
+    # contiguous, hence the reshape), and its CUDA avg_pool2d backward is
+    # wrong for channels_last inputs (ops/pooling.py, PERF.md)
+    n, h, w_, g = ssq.shape
+    s = ssq.reshape(n, 1, h, w_) if g == 1 else nchw(ssq).contiguous()
     if _pair(dilation) == (1, 1) and 2 * ph <= kh and 2 * pw <= kw:
         s = F.avg_pool2d(s, (kh, kw), _pair(stride), (ph, pw), divisor_override=1)
     else:
-        ones = torch.ones((1, 1, kh, kw), dtype=s.dtype, device=s.device)
+        ones = torch.ones((groups, 1, kh, kw), dtype=s.dtype, device=s.device)
         s = F.conv2d(s, ones, stride=_pair(stride), padding=(ph, pw),
-                     dilation=_pair(dilation))
+                     dilation=_pair(dilation), groups=groups)
     return torch.sqrt(nhwc(s) + eps)
+
+
+def _per_group(out: torch.Tensor, groups: int) -> torch.Tensor:
+    """[..., O] -> [..., groups, O / groups]: each group's output channels."""
+    return out.reshape(*out.shape[:-1], groups, out.shape[-1] // groups)
 
 
 def dynamic_scale(out: torch.Tensor, norm: torch.Tensor, b, *, explain: bool = False):
@@ -201,6 +214,10 @@ def bcos_conv2d(
         return out
     norm = patch_norms(x, w.shape[2:], stride=stride, padding=padding, dilation=dilation,
                        groups=groups, x_sumsq=x_sumsq).to(out.dtype)
+    if groups > 1:  # each group's norm over that group's output channels
+        grouped = _per_group(out, groups)
+        y = dynamic_scale(grouped, norm[..., None], b, explain=explain) * grouped
+        return y.reshape(out.shape)
     return dynamic_scale(out, norm, b, explain=explain) * out
 
 

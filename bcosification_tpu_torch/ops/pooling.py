@@ -7,7 +7,7 @@ import torch.nn.functional as F
 
 from bcosification_tpu_torch.ops.bcos import IntOrPair, _pair, nchw, nhwc
 
-__all__ = ["avg_pool2d", "global_avg_pool"]
+__all__ = ["avg_pool2d", "max_pool2d", "global_avg_pool"]
 
 
 def avg_pool2d(x: torch.Tensor, kernel_size: IntOrPair, stride: IntOrPair = None,
@@ -19,6 +19,14 @@ def avg_pool2d(x: torch.Tensor, kernel_size: IntOrPair, stride: IntOrPair = None
     # (torch 2.11 on an H100: relative error ~1 against the CPU; PERF.md).
     y = F.avg_pool2d(nchw(x).contiguous(), _pair(kernel_size), _pair(stride),
                      _pair(padding), count_include_pad=count_include_pad)
+    return nhwc(y).contiguous()
+
+
+def max_pool2d(x: torch.Tensor, kernel_size: IntOrPair, stride: IntOrPair = None,
+               padding: IntOrPair = 0) -> torch.Tensor:
+    """F.max_pool2d on NHWC (the padding never wins: -inf)."""
+    stride = kernel_size if stride is None else stride
+    y = F.max_pool2d(nchw(x).contiguous(), _pair(kernel_size), _pair(stride), _pair(padding))
     return nhwc(y).contiguous()
 
 

@@ -246,6 +246,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tensor cores; the 3xTF32 route's three tf32 products at 495 TFLOP/s),
    plain version and torch.matmul, with tma_operands' count (0).
 
+17. the B-cos v2 model zoo (models/pretrained.py): ``load_model`` of
+   resnet50, densenet121 and simple_vit_l_patch16_224 (the from-scratch
+   nets: BcosConv2d, the bias-free position norm, Identity, the logit layer
+   inside; ViT-L/16: dim 1024, 14 encoders, 16 heads, mlp 4096) at full
+   width, random init from SEED with no calibration (the norms renormalise
+   every layer): K3 and K2 against their plain versions at eleven of their
+   shapes in both dtypes (phase 3's bounds; K2 with the bare cotangent, the
+   ViT's with the linear norm); per net, fp32 parity on 2 images of the
+   hand-scheduled pass (fast_resnet's and fast_densenet's position-norm
+   schedules, fast_vit), GPU against CPU (W within ten CPU spreads under
+   1e-7 relative input noise, the CNNs with PyTorch's own CUDA convs, and
+   within 1e-3 with cuDNN's; pre-logits 1e-4; the argmax identical) and the
+   generic autograd W against it, with the pre-logit RMS; forward-only and
+   fwd+explain images/s at batch 128, bf16 (ResNet-50 also through
+   autograd), with their launch counts (K3 and K2 at every stride-1 1x1
+   B-cos conv and bias-free B-cos linear, no K1); each kernel's time at
+   every shape one fwd+explain gave it, beside its bound, plain version and
+   torch.matmul; the export_explain round trip at a cut depth (one block
+   per stage, two dense layers per block, two encoders) against the eager
+   pass; then load_model of the ResNet-50 and the DenseNet-121 from npz
+   files of the JAX export format written to a temporary BCOS_WEIGHTS_DIR,
+   and convert_release_checkpoint of seeded reference-layout .pth files of
+   resnet50 in both released flavours: the position-norm one equal to its
+   source, the uncentered-BN one rebuilt with BatchNormUncentered2d, its
+   forward on K1 at the 36 1x1s, its fast pass on K1, K2 and K3.
+
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
 operands), the text localisation's rows four times (split-K, 128 x 128
@@ -297,19 +323,27 @@ from bcosification_tpu_torch.training import kd as kd_lib
 from bcosification_tpu_torch.training import steps as steps_lib
 from bcosification_tpu_torch.training import zeroshot
 from bcosification_tpu_torch.training.trainer import Trainer
+from bcosification_tpu_torch.bcosify import release_import
 from bcosification_tpu_torch.bcosify.clip_import import build_clip_teacher_visual, build_clip_text
 from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet, build_bcosified_resnet
 from bcosification_tpu_torch.clip.model import ModifiedResNet, clip_rn50_config
 from bcosification_tpu_torch.clip.tokenizer import tokenize
 from bcosification_tpu_torch.data.imagenet import imagenet_classes, imagenet_templates
-from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_vit
+from bcosification_tpu_torch.bcosify.from_jax import to_jax_variables
+from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_resnet, fast_vit
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
-from bcosification_tpu_torch.models import resnet
+from bcosification_tpu_torch.models import pretrained, resnet
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
 from bcosification_tpu_torch.models.densenet import BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
-from bcosification_tpu_torch.modules import BcosConv2d, BcosLinear, ReLU
+from bcosification_tpu_torch.modules import (
+    BatchNormUncentered2d,
+    BcosConv2d,
+    BcosLinear,
+    NoBias,
+    ReLU,
+)
 from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
@@ -4352,6 +4386,362 @@ def phase_bench(stream_rate, worst, exp_root):
             "bench_library_ms": row["library_ms"], "bench_dtype": "float32"}
 
 
+# --------------------------------------------------------------------------
+# 17: the B-cos v2 model zoo (models/pretrained.py)
+# --------------------------------------------------------------------------
+# entry point -> its hand-scheduled explanation pass
+ZOO = {"resnet50": fast_resnet, "densenet121": fast_densenet,
+       "simple_vit_l_patch16_224": fast_vit}
+ZOO_TAGS = {"resnet50": "zoo_resnet50", "densenet121": "zoo_densenet121",
+            "simple_vit_l_patch16_224": "zoo_vit_l16"}
+VIT_L_ROWS = BATCH * (SIZE // 16) ** 2  # 25088 token rows at batch 128
+# (label, M, K, N, eps_outside) at batch 128, 224x224, as the zoo calls K3
+# and K2 (K2 with the bare cotangent: the position norm's or LayerNorm's
+# backward runs before it): the ResNet-50's layer1 conv1, conv3 and
+# stride-1 downsample, a layer4 conv3 and the classifier; the DenseNet-121's
+# first conv1 and transition 3; ViT-L/16's linears and head
+ZOO_CHECK_SHAPES = [
+    ("zoo resnet50 layer1.conv1", 401408, 64, 64, False),
+    ("zoo resnet50 layer1.conv3", 401408, 64, 256, False),
+    ("zoo resnet50 layer2.conv1", 401408, 256, 128, False),
+    ("zoo resnet50 layer4.conv3", 6272, 512, 2048, False),
+    ("zoo resnet50 fc", 6272, 2048, 1000, False),
+    ("zoo densenet121 b1.l1.conv1", 401408, 64, 128, False),
+    ("zoo densenet121 transition3", 25088, 1024, 512, False),
+    ("zoo vit_l patch embedding", VIT_L_ROWS, 1536, 1024, True),
+    ("zoo vit_l linear1", VIT_L_ROWS, 1024, 4096, True),
+    ("zoo vit_l linear2", VIT_L_ROWS, 4096, 1024, True),
+    ("zoo vit_l head", BATCH, 1024, 1000, True),
+]
+ZOO_EXPORT_BATCH = 8
+
+
+def check_zoo_kernels(worst):
+    """K3 and K2 against their plain versions at ZOO_CHECK_SHAPES, in both
+    dtypes with phase 3's bounds, as the zoo calls them."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for label, m, k, n, eps_outside in ZOO_CHECK_SHAPES:
+            x, wt, _, _, ct = operands(m, k, n, dtype, gen)
+            kw = dict(eps=LINEAR_NORM_EPS if eps_outside else 1e-6, eps_outside=eps_outside)
+            variant = " eps_outside" if eps_outside else ""
+            results = [
+                ("bcos_matmul_fwd", variant, k3.bcos_matmul_fwd(x, wt, **kw),
+                 k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)),
+                ("bcos_conv1x1_bwd_explain", variant,
+                 k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False, **kw),
+                 k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None,
+                                               relu=False, **kw)),
+            ]
+            torch.cuda.synchronize()
+            for name, variant_, got, want in results:
+                _check(worst, name, variant_, label, dtype, got, want)
+            del x, wt, ct, results
+
+
+def zoo_counts(net, explain):
+    """The launches of one forward (or fwd+explain) of a zoo net: K3 (and K2)
+    at every stride-1 1x1 B-cos conv and bias-free B-cos linear; no K1."""
+    n = sum(1 for mod in net.modules()
+            if (isinstance(mod, BcosConv2d) and mod.kernel_size == (1, 1)
+                and mod.stride == (1, 1) and mod.groups == 1 and mod.bias is None)
+            or (isinstance(mod, BcosLinear) and mod.bias is None and mod.max_out == 1))
+    return {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n if explain else 0,
+            "bcos_matmul_fwd": n, "stream_add": 0}
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """[(kernel, M, K, N, relu, eps_outside)] of every K3 and K2 launch made
+    inside the context (the wrappers' direct CUDA calls, recorded)."""
+    seen = []
+    fwd, bwd = k3._bcos_matmul_fwd_cuda, k12._conv1x1_bwd_cuda
+
+    def rec_fwd(x, wt, eps, eps_outside):
+        seen.append(("bcos_matmul_fwd", x.shape[0], x.shape[1], wt.shape[0], False,
+                     bool(eps_outside)))
+        return fwd(x, wt, eps, eps_outside)
+
+    def rec_bwd(x2, wt, ct, a, mult, relu, eps, eps_outside):
+        seen.append(("bcos_conv1x1_bwd_explain", x2.shape[0], x2.shape[1], wt.shape[0],
+                     bool(relu), bool(eps_outside)))
+        return bwd(x2, wt, ct, a, mult, relu, eps, eps_outside)
+
+    k3._bcos_matmul_fwd_cuda, k12._conv1x1_bwd_cuda = rec_fwd, rec_bwd
+    try:
+        yield seen
+    finally:
+        k3._bcos_matmul_fwd_cuda, k12._conv1x1_bwd_cuda = fwd, bwd
+
+
+def zoo_parity(name, net, x2):
+    """fp32, 2 images: the fast pass's logits and W on the GPU against the
+    CPU, and the generic autograd W on the GPU against the fast pass: W
+    within ten times the CPU's own spread under 1e-7 relative input noise
+    (for the CNNs with PyTorch's own CUDA convs in place of cuDNN's; with
+    cuDNN's within phase 4's 1e-3), the pre-logits within 1e-4, the argmax
+    identical. Returns the pre-logit RMS."""
+    fast = ZOO[name]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lg, sg, wg = fast.fast_dynamic_linear_weights(net, x2)
+    lm, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x2)
+    w_native = None
+    if fast is not fast_vit:
+        torch.backends.cudnn.enabled = False
+        try:
+            _, _, w_native = fast.fast_dynamic_linear_weights(net, x2)
+        finally:
+            torch.backends.cudnn.enabled = True
+    cpu = copy.deepcopy(net).to("cpu")
+    t0 = time.perf_counter()
+    lc, sc, wc = fast.fast_dynamic_linear_weights(cpu, x2.cpu(), device="cpu")
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 61))
+    _, _, wn = fast.fast_dynamic_linear_weights(cpu, x2.cpu() * (1 + 1e-7 * noise),
+                                                device="cpu")
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    spread = rel(wn, wc)
+    bias = net.logit_layer.logit_bias
+
+    def pre_rel(a, b):
+        a, b = a.double().cpu() - bias, b.double().cpu() - bias
+        return float((a - b).abs().max() / b.abs().max())
+
+    checks = {"W gpu vs cpu" + (" (cudnn convs)" if w_native is not None else ""):
+              (rel(wg, wc), 1e-3 if w_native is not None else 10 * spread),
+              "W module path vs fast pass (gpu)": (rel(wm, wg), 10 * spread),
+              "pre-logit gpu vs cpu (max rel)": (pre_rel(lg, lc), 1e-4),
+              "pre-logit module path vs fast pass (gpu, max rel)": (pre_rel(lm, lg), 1e-4)}
+    if w_native is not None:
+        checks["W gpu vs cpu (torch convs)"] = (rel(w_native, wc), 10 * spread)
+    rms = float((lc.double() - bias).pow(2).mean().sqrt())
+    say(f"zoo {name} parity: pre-logit RMS {rms:.4g} on the probe (a vanishing net shows "
+        f"here); W on the cpu under 1e-7 relative input noise: {spread:.3e}; the cpu passes "
+        f"took {cpu_s:.1f} s")
+    for key, (val, bound) in checks.items():
+        say(f"zoo {name} parity {key}: {val:.3e} (bound {bound:.3e})"
+            + (f" = {val / spread:.2f} x the spread" if spread else ""))
+    same = bool((sg.cpu() == sc).all() and (sm == sg).all())
+    say(f"zoo {name} parity argmax identical: {same}")
+    if not same or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError(f"zoo {name} parity failed")
+    if not all(torch.isfinite(t).all() for t in (lg, wg)) or wg.shape != x2.shape:
+        raise AssertionError(f"zoo {name} outputs are not finite or mis-shaped")
+    return rms
+
+
+def zoo_throughput(name, net, x):
+    """Forward-only and fwd+explain (fast pass; ResNet-50 also autograd)
+    images/s at batch 128, bf16, each with its launch counts (K3 and K2 of
+    every call recorded), host issue time, peak memory, the card's busy
+    time and its top kernels."""
+    fast = ZOO[name]
+
+    def forward():
+        with torch.no_grad():
+            return net(x)
+
+    calls = [("forward-only", forward, False),
+             ("fwd+explain (fast pass)", lambda: fast.fast_dynamic_linear_weights(net, x), True)]
+    if name == "resnet50":
+        calls.append(("fwd+explain (autograd)", lambda: dynamic_linear_weights(
+            lambda t: net(t, explain=True), x), True))
+    out, launches = {}, []
+    for what, fn, explain_ in calls:
+        fn()
+        with recorded_launches() as seen:
+            result, counts = counted(fn)
+        check_counts(f"zoo {name} {what}", counts, zoo_counts(net, explain_))
+        outs = result if isinstance(result, tuple) else (result,)
+        if not all(torch.isfinite(v).all() for v in outs if v.is_floating_point()):
+            raise AssertionError(f"zoo {name} {what}: outputs are not finite")
+        if what == "fwd+explain (fast pass)":
+            launches = list(seen)
+        del result, outs
+        ms, n_calls, host, peak_gb = windowed(fn)
+        busy, top = device_profile(fn, 3)
+        say(f"zoo {name} throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per batch "
+            f"of {BATCH}, one window of {n_calls} calls; the host issues one call in {host:.2f} "
+            f"ms; peak memory of one call {peak_gb:.2f} GB; launches {counts}) [{CARD}]")
+        say(f"zoo {name} {what}: card busy {busy or 0:.2f} ms per call (torch.profiler); top "
+            "kernels: " + "; ".join(f"{k[:60]} {t:.2f} ms" for k, t in top))
+        out[what] = BATCH / ms * 1e3
+    return out, launches
+
+
+def zoo_export(name, x2):
+    """export_explain of the entry's net at a cut depth (ResNet-50 one block
+    per stage, DenseNet-121 two layers per block, ViT-L two encoders; random
+    init from SEED) in bf16, loaded from bytes: at batch ZOO_EXPORT_BATCH its
+    W and logits equal to the eager pass's (1e-6 relative), the argmax and
+    the launches identical. Returns the export seconds."""
+    fast = ZOO[name]
+    if name == "resnet50":
+        net = resnet.BcosResNet("bottleneck", (1, 1, 1, 1), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(SEED))
+        net = net.eval().requires_grad_(False)
+    elif name == "densenet121":
+        net = BcosDenseNet(block_config=(2, 2, 2, 2), with_logit_layer=True, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+        net = net.eval().requires_grad_(False)
+    else:
+        net = pretrained.load_model(name, pretrained=False, depth=VIT_EXPORT_DEPTH, seed=SEED)
+    t0 = time.perf_counter()
+    program = serving.load_serialized(serving.export_explain(net, input_size=SIZE,
+                                                             dtype=torch.bfloat16))
+    export_s = time.perf_counter() - t0
+    x = _batch128(x2, SEED + 62)[:ZOO_EXPORT_BATCH]
+    (logits, sel, w), counts = counted(lambda: program.call(x))
+    (le, se, we), counts_e = counted(lambda: fast.fast_dynamic_linear_weights(net, x))
+    bias = net.logit_layer.logit_bias
+    checks = {"W loaded vs eager (rel)": (rel(w.float(), we.float()), 1e-6),
+              "pre-logit loaded vs eager (rel)": (rel(logits.double() - bias,
+                                                      le.double() - bias), 1e-6)}
+    say(f"zoo {name} serving (cut depth): export_explain and load {export_s:.1f} s; launches "
+        f"{counts} (eager {counts_e}); " + ", ".join(
+            f"{key} {val:.3e} (bound {bound:.0e})" for key, (val, bound) in checks.items()))
+    if (not torch.equal(sel, se) or counts != counts_e
+            or any(not val <= bound for val, bound in checks.values())):
+        raise AssertionError(f"the loaded zoo {name} program disagrees with the eager pass")
+    return export_s
+
+
+def zoo_weight_paths(nets, x2):
+    """load_model(name) from an npz of the JAX export format that this
+    phase writes to a temporary BCOS_WEIGHTS_DIR (the ResNet-50 and the
+    DenseNet-121: the same weights and logits); convert_release_checkpoint
+    of seeded reference-layout .pth files of resnet50 in both released
+    flavours: the position-norm one gives the same logits as its source;
+    the BN one (running statistics) rebuilds the net with uncentered BN,
+    whose forward folds every 1x1 but the classifier into K1 and whose
+    fast pass runs K1, K2 and K3."""
+    old = os.environ.get("BCOS_WEIGHTS_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            os.environ["BCOS_WEIGHTS_DIR"] = tmp
+            for name in ("resnet50", "densenet121"):
+                net = nets[name]
+                flat = {}
+                for collection, tree in to_jax_variables(net).items():
+                    stack = [((collection,), tree)]
+                    while stack:
+                        path, node = stack.pop()
+                        for key, value in node.items():
+                            if isinstance(value, dict):
+                                stack.append((path + (key,), value))
+                            else:
+                                flat["/".join(path + (key,))] = value
+                t0 = time.perf_counter()
+                np.savez(Path(tmp) / f"{name}.npz", **flat)
+                loaded = pretrained.load_model(name, seed=SEED + 1)
+                load_s = time.perf_counter() - t0
+                same = all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                             net.state_dict().values()))
+                with torch.no_grad():
+                    err = rel(loaded(x2), net(x2))
+                say(f"zoo {name}: load_model from $BCOS_WEIGHTS_DIR/{name}.npz in {load_s:.1f} s "
+                    f"(npz written and read): weights identical: {same}, logits rel {err:.3e}")
+                same = same and err <= 1e-6
+                if not same:
+                    raise AssertionError(f"load_model({name!r}) did not load the npz")
+                del loaded
+        finally:
+            if old is None:
+                os.environ.pop("BCOS_WEIGHTS_DIR", None)
+            else:
+                os.environ["BCOS_WEIGHTS_DIR"] = old
+        net = nets["resnet50"]
+        bnu = pretrained.load_model("resnet50", pretrained=False, seed=SEED + 2,
+                                    norm_layer=NoBias(BatchNormUncentered2d))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+        for mod in bnu.modules():
+            if isinstance(mod, BatchNormUncentered2d):
+                mod.running_var.copy_(torch.rand(mod.running_var.shape, device="cuda",
+                                                 generator=gen) + 0.5)
+        for flavour, source in (("position norm", net), ("uncentered BN", bnu)):
+            sd = release_import.release_state_dict(source, "resnet50")
+            for key in [k for k in sd if k.endswith("running_var")]:
+                sd[key[:-len("var")] + "mean"] = torch.randn(sd[key].shape)
+            path = Path(tmp) / "resnet_50-release.pth"
+            torch.save(sd, path)
+            t0 = time.perf_counter()
+            model, _ = release_import.convert_release_checkpoint("resnet50", path,
+                                                                 return_model=True)
+            convert_s = time.perf_counter() - t0
+            with torch.no_grad():
+                got, counts = counted(lambda: model(x2))
+                want = source(x2)
+            k1 = sum(1 for n, mod in model.named_modules()
+                     if isinstance(mod, BcosConv2d) and mod.kernel_size == (1, 1) and n != "fc")
+            bn = flavour == "uncentered BN"
+            expected = ({"bcos_conv1x1_fwd": k1, "bcos_conv1x1_bwd_explain": 0,
+                         "bcos_matmul_fwd": 1, "stream_add": 0} if bn
+                        else zoo_counts(model, False))
+            err = rel(got, want)
+            say(f"zoo resnet50 release checkpoint ({flavour}, {len(sd)} tensors): converted "
+                f"from .pth in {convert_s:.1f} s; norms "
+                f"{type(model.bn1).__name__}; forward launches {counts}; logits against the "
+                f"source's: rel {err:.3e} (bound 1e-6)")
+            check_counts(f"zoo release {flavour} forward", counts, expected)
+            if not err <= 1e-6 or isinstance(model.bn1, BatchNormUncentered2d) != bn:
+                raise AssertionError(f"the {flavour} release checkpoint did not convert")
+            if bn:
+                (lf, _, wf), counts = counted(
+                    lambda: fast_resnet.fast_dynamic_linear_weights(model, x2))
+                say(f"zoo resnet50 release checkpoint (uncentered BN): fast pass launches "
+                    f"{counts}; W finite: {bool(torch.isfinite(wf).all())}")
+                check_counts("zoo release uncentered BN fast pass", counts,
+                             {"bcos_conv1x1_fwd": k1, "bcos_conv1x1_bwd_explain": k1 + 1,
+                              "bcos_matmul_fwd": 1, "stream_add": 0})
+                if not (torch.isfinite(lf).all() and torch.isfinite(wf).all()):
+                    raise AssertionError("the BN-flavoured zoo ResNet-50's W is not finite")
+            del model
+
+
+def phase_zoo(x2, stream_rate, worst):
+    """Phase 17: the B-cos v2 model zoo at full width: load_model of
+    resnet50, densenet121 and simple_vit_l_patch16_224 (random init from
+    SEED, no calibration: the position norm and the LayerNorm renormalise
+    every layer). Returns the zoo keys of K2's and K3's rows of the kernels
+    line."""
+    check_zoo_kernels(worst)
+    nets, keys, summary = {}, {}, []
+    for name in ZOO:
+        t0 = time.perf_counter()
+        net = pretrained.load_model(name, pretrained=False, seed=SEED)
+        build_s = time.perf_counter() - t0
+        say(f"zoo {name}: built on the card in {build_s:.1f} s ({sum(p.numel() for p in net.parameters()) / 1e6:.1f} M "
+            f"parameters; launches per forward {zoo_counts(net, False)})")
+        rms = zoo_parity(name, net, x2)
+        rates, launches = zoo_throughput(name, net, _batch128(x2, SEED + 64))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+        rows = time_shapes(collections.Counter(launches), stream_rate, gen,
+                           tag=f"zoo {name} ")
+        export_s = zoo_export(name, x2)
+        counts = zoo_counts(net, True)
+        tag = ZOO_TAGS[name]
+        for kernel, r in rows.items():
+            what = "explanation" if kernel == "bcos_conv1x1_bwd_explain" else "forward"
+            say(f"zoo {kernel} per {name} {what} ({counts[kernel]} launches): {r['ms']:.4f} ms; "
+                f"bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate "
+                f"({'FLOPs' if r['flop_s'] >= r['byte_s'] else 'bytes'}), "
+                f"{1e3 * r['measured_bound_s']:.4f} ms at the measured "
+                f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
+                f"{r['library_ms']:.4f} ms [{CARD}]")
+            keys.setdefault(kernel, {}).update({
+                f"{tag}_launches": counts[kernel], f"{tag}_ms": r["ms"],
+                f"{tag}_bound_ms": 1e3 * r["bound_s"], f"{tag}_plain_ms": r["plain_ms"],
+                f"{tag}_library_ms": r["library_ms"]})
+        summary.append(f"{name}: pre-logit RMS {rms:.3g}, " + ", ".join(
+            f"{what} {v:.1f} img/s" for what, v in rates.items()) + f", export {export_s:.1f} s")
+        nets[name] = net
+    zoo_weight_paths(nets, x2)
+    say("zoo summary: " + "; ".join(summary) + f" [{CARD}]")
+    return keys
+
+
 def text_localisation_call(student):
     """One fp32 text localisation (``compute_attributions`` of the
     attn-unpool ``student`` on one seeded 224^2 image and text direction,
@@ -4516,6 +4906,12 @@ def main() -> int:
         raise AssertionError(f"{k12.tma_operands.padded} clip benchmark calls padded their "
                              "operands")
     say("TMA operand padding on the analyses' and the clip benchmark's paths: 0 calls")
+    t0 = time.perf_counter()
+    zoo = phase_zoo(x2, probe["k4_gbs"] * 1e9, worst)
+    seconds["17 model zoo"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} model zoo calls padded their operands")
+    say("TMA operand padding on the model zoo's paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -4529,6 +4925,7 @@ def main() -> int:
         row.update(clip.get(row["name"], {}))
         row.update(vit.get(row["name"], {}))
         row.update(analyses.get(row["name"], {}))
+        row.update(zoo.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518

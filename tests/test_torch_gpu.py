@@ -1125,3 +1125,141 @@ def test_fp32_route_at_ragged_shapes(gpu, m, cin, cout, misaligned):
         assert close(y, k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6, eps_outside=eps_outside))
     torch.cuda.synchronize()
     assert k12.tma_operands.padded - before == (5 if cin % 4 or misaligned else 0)
+
+
+# --------------------------------------------------------------------------
+# the B-cos v2 model zoo (models/pretrained.py)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("explain", [False, True], ids=["eval", "explain"])
+def test_position_norm_gpu_matches_cpu(gpu, explain):
+    """DetachablePositionNorm2d on the card against the CPU: fp32 forward and
+    input gradient (1e-5); under bf16 inputs its statistics stay in f32 (the
+    output is the f32 norm of the bf16 input, rounded once)."""
+    from bcosification_tpu_torch.modules import DetachablePositionNorm2d, NoBias
+
+    g = torch.Generator(device=gpu).manual_seed(3)
+    x = 3 * torch.randn(4, 14, 14, 96, device=gpu, generator=g) + 1
+    ct = torch.randn(x.shape, device=gpu, generator=g)
+    norm = NoBias(DetachablePositionNorm2d)(96, device=gpu)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.2 * torch.randn(96, device=gpu, generator=g))
+    cpu = copy.deepcopy(norm).to("cpu")
+    outs = []
+    for mod, t, c in ((norm, x, ct), (cpu, x.cpu(), ct.cpu())):
+        t = t.clone().requires_grad_(True)
+        y = mod(t, explain=explain)
+        (gx,) = torch.autograd.grad(y, t, c)
+        outs.append((y.detach(), gx))
+    (yg, gg), (yc, gc) = outs
+    assert _rel(yg, yc) <= 1e-5 and _rel(gg, gc) <= 1e-5
+    xb = x.to(torch.bfloat16)
+    yb = norm(xb, explain=explain)
+    assert yb.dtype == torch.bfloat16
+    assert torch.equal(yb, norm(xb.float(), explain=explain).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("groups,stride", [(4, 1), (32, 2)])
+def test_grouped_bcos_conv_gpu_matches_cpu(gpu, groups, stride):
+    """Grouped patch norms and the grouped 3x3 B-cos conv (ResNeXt's) on the
+    card against the CPU, forward and input gradient with and without
+    explain (1e-5)."""
+    from bcosification_tpu_torch.ops import bcos as ops
+
+    g = torch.Generator(device=gpu).manual_seed(groups)
+    x = torch.randn(2, 28, 28, 128, device=gpu, generator=g)
+    w = torch.randn(128, 128 // groups, 3, 3, device=gpu, generator=g)
+    n_g = ops.patch_norms(x, 3, stride=stride, padding=1, groups=groups)
+    n_c = ops.patch_norms(x.cpu(), 3, stride=stride, padding=1, groups=groups)
+    assert n_g.shape[-1] == groups and _rel(n_g, n_c) <= 1e-5
+    for explain in (False, True):
+        outs = []
+        for t, wt in ((x, w), (x.cpu(), w.cpu())):
+            t = t.clone().requires_grad_(True)
+            y = ops.bcos_conv2d(t, wt, stride=stride, padding=1, groups=groups,
+                                explain=explain)
+            (gx,) = torch.autograd.grad(y, t, torch.ones_like(y))
+            outs.append((y.detach(), gx))
+        (yg, gg), (yc, gc) = outs
+        assert _rel(yg, yc) <= 1e-5 and _rel(gg, gc) <= 1e-5
+
+
+# (M, K, N, eps_outside) at 1/8 of batch 128: the zoo ResNet-50's layer1
+# conv1 and conv3 (K3 forward, K2 with the bare cotangent: the position
+# norm's backward runs before it), ViT-L/16's linear1 and linear2
+ZOO_SHAPES = [(401408 // 8, 256, 64, False), (401408 // 8, 64, 256, False),
+              (25088 // 8, 1024, 4096, True), (25088 // 8, 4096, 1024, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n,eps_outside", ZOO_SHAPES)
+def test_k3_and_k2_at_the_zoo_shapes(gpu, dtype, m, k, n, eps_outside):
+    from bcosification_tpu_torch.ops.bcos import CONV_NORM_EPS, LINEAR_NORM_EPS
+
+    g = torch.Generator(device=gpu).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(n, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+    ct = torch.randn(m, n, device=gpu, generator=g).to(dtype)
+    ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    kw = dict(eps=LINEAR_NORM_EPS if eps_outside else CONV_NORM_EPS, eps_outside=eps_outside)
+    y = k3.bcos_matmul_fwd(x, wt, **kw)
+    assert _rel(y, k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)) <= tol
+    dx = k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False, **kw)
+    want = k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None, relu=False, **kw)
+    assert _rel(dx, want) <= tol
+    torch.cuda.synchronize()
+
+
+def test_meta_build_of_vit_l_allocates_nothing(gpu):
+    """load_model of the ViT-L/16 under abstract_init: every tensor on the
+    meta device, no byte of the card allocated; the converted model then
+    lands on the card."""
+    from bcosification_tpu_torch.models.pretrained import load_model
+    from bcosification_tpu_torch.utils.init_mode import abstract_init
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with abstract_init():
+        net = load_model("simple_vit_l_patch16_224", pretrained=False, device=gpu)
+    assert torch.cuda.memory_allocated() == before
+    assert all(t.device.type == "meta" for t in net.state_dict().values())
+    assert sum(t.numel() for t in net.state_dict().values()) > 1.7e8
+
+
+@pytest.mark.parametrize("name", ["resnext50_32x4d", "densenet121"])
+def test_small_zoo_gpu_matches_cpu(gpu, name):
+    """A small zoo net (its class and presets) in fp32: the fast pass on the
+    card (K3 and K2 at every stride-1 1x1, no K1) against the CPU and
+    against the generic autograd W (1e-5), and the forward's launches."""
+    from bcosification_tpu_torch.explain import fast_densenet, fast_resnet
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+    from bcosification_tpu_torch.models import densenet, pretrained, resnet
+
+    if name == "densenet121":
+        build = pretrained._cnn(densenet.BcosDenseNet, growth_rate=8, block_config=(2, 2),
+                                num_init_features=16, bn_size=2, num_classes=10,
+                                with_logit_layer=True, stem_pool="avg")
+        fast = fast_densenet
+    else:
+        build = pretrained._cnn(resnet.BcosResNet, block="bottleneck", layers=(1, 1),
+                                inplanes=16, groups=8, width_per_group=16, num_classes=10)
+        fast = fast_resnet
+    net, cpu = build(device=gpu), build(device="cpu")
+    n_1x1 = sum(1 for mod in net.modules() if getattr(mod, "kernel_size", None) == (1, 1)
+                and getattr(mod, "stride", None) == (1, 1))
+    g = torch.Generator(device=gpu).manual_seed(1)
+    x = torch.rand(2, 64, 64, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    reset_launch_counts()
+    logits, sel, w = fast.fast_dynamic_linear_weights(net, x)
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n_1x1,
+                               "bcos_matmul_fwd": n_1x1, "stream_add": 0}
+    reset_launch_counts()
+    with torch.no_grad():
+        out = net(x)
+    assert launch_counts()["bcos_matmul_fwd"] == n_1x1
+    lc, sc, wc = fast.fast_dynamic_linear_weights(cpu, x.cpu(), device="cpu")
+    _, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x)
+    assert torch.equal(sel.cpu(), sc) and torch.equal(sm, sel)
+    assert _rel(w, wc) <= 1e-5 and _rel(wm, w) <= 1e-5
+    assert _rel(logits, lc) <= 1e-5 and _rel(out, lc) <= 1e-5

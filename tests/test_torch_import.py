@@ -6,8 +6,10 @@
   agree to 1e-5 (relative), with BnUncV2 and with BnUnc2d;
 - the import's strictness: a missing, extra or mis-shaped entry raises;
 - ``models/pretrained.py``: npz files in the JAX export format under
-  $BCOS_WEIGHTS_DIR (plain and sha-stamped names) resolve, and the port's
-  outputs equal the JAX outputs on the same weights (1e-5).
+  $BCOS_WEIGHTS_DIR (plain and sha-stamped names) resolve for the zoo's
+  "resnet50" (built small in both packages), and the port's outputs equal
+  the JAX outputs on the same weights (1e-5); the registry's names equal
+  the JAX package's but VGG and ConvNeXt.
 
 BN gammas are calibrated first (ROADMAP "Parity method"): a random b=2 net
 contracts its output to ~1e-20, which would make every comparison empty.
@@ -19,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from chip_smoke import calibrate
-from torch_port_helpers import logit_bias, small_pair
+from torch_port_helpers import logit_bias
 
 torch.set_num_threads(1)
 NUM_CLASSES, INPLANES, SIZE = 10, 8, 32
@@ -204,24 +206,41 @@ def test_import_is_strict(case):
 # --------------------------------------------------------------------------
 # models/pretrained.py: local npz files
 # --------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def flagship():
-    return small_pair("resnet50", LAYERS["resnet50"], SIZE, seed=5)
+@pytest.fixture
+def flagship(monkeypatch):
+    """Both packages' zoo entry "resnet50" (the from-scratch B-cos ResNet-50)
+    built small for the test: its class with the bottleneck blocks of
+    LAYERS["resnet50"], width INPLANES and NUM_CLASSES."""
+    from bcosification_tpu.models import pretrained as jax_pretrained
+    from bcosification_tpu.models import resnet as jresnet
+    from bcosification_tpu_torch.models import pretrained
+    from bcosification_tpu_torch.models import resnet as tresnet
+
+    block, layers = LAYERS["resnet50"]
+    kw = dict(block=block, layers=layers, inplanes=INPLANES, num_classes=NUM_CLASSES)
+    monkeypatch.setitem(jax_pretrained._REGISTRY, "resnet50", lambda **extra: jax_pretrained._init(
+        jresnet.BcosResNet(**kw, **extra), (SIZE, SIZE, 6)))
+    monkeypatch.setitem(pretrained._REGISTRY, "resnet50", pretrained._cnn(tresnet.BcosResNet, **kw))
+    return jax_pretrained
 
 
 @pytest.mark.parametrize("sha_suffix", [False, True], ids=["plain", "sha-stamped"])
 def test_npz_resolves_and_matches_jax(flagship, tmp_path, monkeypatch, sha_suffix):
+    """An npz of the JAX export format under $BCOS_WEIGHTS_DIR: the port's
+    load_model("resnet50") and the JAX package's give the same logits."""
     from scripts.import_torch_checkpoint import write_npz
-    from bcosification_tpu.bcosify.torch_import import variables_from_npz
+    from test_torch_vit_final import randomized
     from bcosification_tpu_torch.models import pretrained
 
-    net, variables, _, x = flagship
-    path = write_npz(variables, tmp_path, "resnet_50", sha_suffix=sha_suffix)
+    jax_pretrained = flagship
+    net, variables = jax_pretrained.load_model("resnet50", pretrained=False)
+    path = write_npz(randomized(variables, 5), tmp_path, "resnet50", sha_suffix=sha_suffix)
     monkeypatch.setenv("BCOS_WEIGHTS_DIR", str(tmp_path))
-    assert pretrained.resolve_weights("resnet_50") == path
-    tnet = pretrained.load_model("resnet_50", num_classes=NUM_CLASSES, inplanes=INPLANES,
-                                 layers=LAYERS["resnet50"], device="cpu")
-    jax_vars = variables_from_npz(path, variables)
+    assert pretrained.resolve_weights("resnet50") == path
+    tnet = pretrained.load_model("resnet50", device="cpu")
+    _, jax_vars = jax_pretrained.load_model("resnet50")
+    x = np.random.default_rng(6).random((2, SIZE, SIZE, 3)).astype(np.float32)
+    x = np.concatenate([x, 1.0 - x], axis=-1)
     want = np.asarray(net.apply(jax_vars, jnp.asarray(x), train=False), np.float64)
     with torch.no_grad():
         got = tnet(torch.from_numpy(x)).numpy().astype(np.float64)
@@ -235,44 +254,51 @@ def test_newest_sha_stamped_npz_wins(flagship, tmp_path, monkeypatch):
 
     from bcosification_tpu_torch.models import pretrained
 
-    old, new = tmp_path / "resnet_50-0123abcd.npz", tmp_path / "resnet_50-feedbeef99.npz"
+    old, new = tmp_path / "resnet50-0123abcd.npz", tmp_path / "resnet50-feedbeef99.npz"
     for i, p in enumerate((old, new)):
         np.savez(p, a=np.zeros(1))
         os.utime(p, (1000 + i, 1000 + i))
-    (tmp_path / "resnet_50-notahash.npz").write_bytes(b"")
+    (tmp_path / "resnet50-notahash.npz").write_bytes(b"")
     monkeypatch.setenv("BCOS_WEIGHTS_DIR", str(tmp_path))
     with pytest.warns(UserWarning, match="newest"):
-        assert pretrained.resolve_weights("resnet_50") == new
+        assert pretrained.resolve_weights("resnet50") == new
 
 
-def test_unresolved_weights_warn_and_keep_random_init(tmp_path, monkeypatch):
+def test_unresolved_weights_warn_and_keep_random_init(flagship, tmp_path, monkeypatch):
+    """No npz: the seeded random init, and a warning naming the release URL;
+    the download switch raises (no network path)."""
     from bcosification_tpu_torch.models import pretrained
 
-    kw = dict(num_classes=NUM_CLASSES, inplanes=INPLANES, layers=LAYERS["resnet50"],
-              device="cpu")
     monkeypatch.delenv("BCOS_WEIGHTS_DIR", raising=False)
     monkeypatch.delenv("BCOS_ALLOW_DOWNLOAD", raising=False)
-    with pytest.warns(UserWarning, match="random init"):
-        net = pretrained.load_model("resnet_50", **kw)
-    fresh = pretrained.load_model("resnet_50", pretrained=False, **kw)
+    with pytest.warns(UserWarning, match="random init. Released reference weights: https://"):
+        net = pretrained.load_model("resnet50", device="cpu")
+    fresh = pretrained.load_model("resnet50", pretrained=False, device="cpu")
     for a, b in zip(net.state_dict().values(), fresh.state_dict().values()):
         assert torch.equal(a, b)
     monkeypatch.setenv("BCOS_WEIGHTS_DIR", str(tmp_path))
     monkeypatch.setenv("BCOS_ALLOW_DOWNLOAD", "1")
     with pytest.raises(RuntimeError, match="no network path"):
-        pretrained.load_model("resnet_50", **kw)
+        pretrained.load_model("resnet50", device="cpu")
 
 
 def test_registry_names():
+    """The port builds every JAX entry point but the 15 VGG and ConvNeXt
+    names, which raise naming ROADMAP A4b; the names the port used to add
+    (resnet_50, ...) are unknown in both packages."""
     from bcosification_tpu.models import pretrained as jax_pretrained
     from bcosification_tpu_torch.models import pretrained
 
-    assert pretrained.list_available() == ["resnet_18", "resnet_18_V1", "resnet_50",
-                                           "resnet_50_V1"]
-    # every JAX entry point is either built by the port or named as not ported
-    assert set(jax_pretrained.list_available()) <= set(pretrained.NOT_PORTED)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pretrained.load_model("densenet121")
-    with pytest.raises(ValueError, match="Unknown entrypoint"):
-        pretrained.load_model("no_such_model")
-
+    not_ported = set(pretrained.NOT_PORTED)
+    assert len(not_ported) == 15 and not_ported <= set(jax_pretrained.list_available())
+    assert all(n.startswith(("vgg", "convnext")) for n in not_ported)
+    assert pretrained.list_available() == sorted(set(jax_pretrained.list_available())
+                                                 - not_ported)
+    assert len(pretrained.list_available()) == 30
+    for name in sorted(not_ported):
+        with pytest.raises(NotImplementedError, match="A4b"):
+            pretrained.load_model(name)
+    for load in (pretrained.load_model, jax_pretrained.load_model):
+        for name in ("resnet_50", "resnet_18_V1", "no_such_model"):
+            with pytest.raises(ValueError, match="Unknown entrypoint"):
+                load(name)

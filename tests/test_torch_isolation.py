@@ -59,7 +59,9 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "clip_benchmark.probe_benchmark.build_df_scaling_experiments",
              "clip_benchmark.probe_benchmark.generate_table",
              "clip_benchmark.probe_benchmark.process_vtab", "clip_benchmark.webdataset_builder",
-             "clip_benchmark.model_collection"):
+             "clip_benchmark.model_collection", "models.pretrained", "modules.containers",
+             "modules.stochastic_depth", "utils", "utils.init_mode",
+             "bcosify.release_import"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
@@ -193,3 +195,38 @@ def test_clip_benchmark_cli_raises_without_gpu(tmp_path):
     cli.main(["build", str(tmp_path / "a.json"), "--output", str(tmp_path / "b.csv")])
     assert (tmp_path / "b.csv").exists()
 
+
+
+def test_zoo_entry_points_raise_without_gpu():
+    """The model zoo's load_model and release import build on the card
+    unless asked for the CPU; a shape-only build (abstract_init) needs no
+    device."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from bcosification_tpu_torch.bcosify.release_import import (
+        convert_release_checkpoint,
+        release_state_dict,
+    )
+    from bcosification_tpu_torch.explain import fast_resnet
+    from bcosification_tpu_torch.models.pretrained import load_model
+    from bcosification_tpu_torch.utils.init_mode import abstract_init
+
+    for name in ("resnet18", "densenet121", "vitc_ti_patch1_14",
+                 "standard_simple_vit_ti_patch16_224"):
+        with pytest.raises(RuntimeError, match="GPU"):
+            load_model(name, pretrained=False)
+    with abstract_init():
+        meta = load_model("resnet18", pretrained=False)
+    assert next(meta.parameters()).device.type == "meta"
+    net = load_model("resnet18", pretrained=False, device="cpu", inplanes=8, num_classes=10)
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 32, 32, 6)).astype(np.float32))
+    with pytest.raises(RuntimeError, match="GPU"):
+        fast_resnet.fast_dynamic_linear_weights(net, x)
+    sd = release_state_dict(net, "resnet18")
+    with pytest.raises(RuntimeError, match="GPU"):
+        convert_release_checkpoint("resnet18", sd, return_model=True, inplanes=8,
+                                   num_classes=10)
+    model, _ = convert_release_checkpoint("resnet18", sd, return_model=True, device="cpu",
+                                          inplanes=8, num_classes=10)
+    with torch.no_grad():
+        assert torch.equal(model(x), net(x))
