@@ -16,16 +16,20 @@ Layouts: B-cos convs and linears live under ``<module>.linear.weight`` in
 the reference (the ViT patch embedding's under
 ``to_patch_embedding.linear.linear.weight``), plain ones under
 ``<module>.weight``. Conv weights are OIHW on both sides; linear weights
-are (out, in) in the reference and (in, out) in the port. The port's
-module names are the JAX package's scopes, so the scope translators are
-the JAX package's.
+are (out, in) in the reference and (in, out) in the port; ConvNeXt's
+``layer_scale`` is (C, 1, 1) in the reference and (C,) in the port. The
+port's module names are the JAX package's scopes, so the scope translators
+are the JAX package's. VGG's (the reference's Sequential counts every
+module: pools, and an Identity in place of each norm of a norm-free VGG)
+and ConvNeXt's (one Sequential slot per stage, one more per downsampling)
+take what they need from the port's model: whether the VGG has norms, and
+which ConvNeXt stages downsample.
 
 A checkpoint with BatchNorm running statistics under an entry point whose
 default norm has none (the released zoo trained both position-norm and
-uncentered-BN flavours under one architecture name) rebuilds the CNN with
-the bias-free ``BatchNormUncentered2d`` (and the other way round): that
-ResNet folds its norms into K1 at every 1x1 conv. ``vgg`` and ``convnext``
-are not ported (ROADMAP A4b).
+uncentered-BN flavours under one architecture name) rebuilds the ResNet,
+DenseNet or ConvNeXt with the bias-free ``BatchNormUncentered2d`` (and the
+other way round): that ResNet folds its norms into K1 at every 1x1 conv.
 """
 from __future__ import annotations
 
@@ -92,6 +96,61 @@ def _tpath_densenet(scope: Sequence[str]) -> str:
     return ".".join(out)
 
 
+def _make_tpath_vgg(cfg: Sequence, with_norm: bool) -> Callable:
+    """features_{i} counts convs and norms; the reference's Sequential counts
+    every module: each pool, and after each conv its norm or, without
+    norms, the Identity in its place."""
+    ours_to_ref: Dict[str, str] = {}
+    ref_idx = our_idx = 0
+    for v in cfg:
+        if v == "M":
+            ref_idx += 1
+            continue
+        ours_to_ref[f"features_{our_idx}"] = f"features.{ref_idx}"
+        if with_norm:
+            ours_to_ref[f"features_{our_idx + 1}"] = f"features.{ref_idx + 1}"
+        our_idx += 2 if with_norm else 1
+        ref_idx += 2
+    for i in range(3):
+        ours_to_ref[f"classifier_{i}"] = f"classifier.{i}"
+
+    def tpath(scope: Sequence[str]) -> str:
+        return ".".join(ours_to_ref.get(s, s) for s in scope)
+
+    return tpath
+
+
+def _make_tpath_convnext(downsampled: Sequence[bool]) -> Callable:
+    """The reference's features Sequential: the stem's conv and norm at 0
+    and 1, then one slot per stage and one more for each stage's
+    (norm, conv) downsampling."""
+
+    def feature_idx(si: int) -> int:
+        return 2 + sum(2 if d else 1 for d in downsampled[:si])
+
+    def tpath(scope: Sequence[str]) -> str:
+        out: List[str] = []
+        for s in scope:
+            if s in ("stem_conv", "stem_norm"):
+                out.append("features.0" if s == "stem_conv" else "features.1")
+            elif s.startswith("stage"):
+                si, bi = s[len("stage"):].split("_block")
+                out.append(f"features.{feature_idx(int(si))}.{bi}")
+            elif s.startswith("down"):
+                si, kind = s[len("down"):].split("_")
+                out.append(f"features.{feature_idx(int(si)) + 1}."
+                           + ("0" if kind == "norm" else "1"))
+            elif s.startswith("block_"):
+                out.append(f"block.{s[len('block_'):]}")
+            elif s in ("classifier_norm", "classifier_conv"):
+                out.append("classifier.0" if s == "classifier_norm" else "classifier.1")
+            else:
+                out.append(s)
+        return ".".join(out)
+
+    return tpath
+
+
 def _make_tpath_vit(prefix: str) -> Callable:
     def tpath(scope: Sequence[str]) -> str:
         out: List[str] = []
@@ -130,16 +189,21 @@ def family_of(name: str) -> str:
     raise ValueError(f"no released-checkpoint family for entrypoint {name!r}")
 
 
-def _tpath_for(name: str) -> Callable:
+def _tpath_for(name: str, model: torch.nn.Module) -> Callable:
+    """The scope translator of ``name``'s family for the port's ``model``."""
     family = family_of(name)
     if family == "resnet":
         return _tpath_resnet
     if family == "densenet":
         return _tpath_densenet
-    if family == "vit":  # the released B-cos ViTs carry BcosSequential's "0."
-        return _make_tpath_vit("" if name.startswith("standard_") else "0.")
-    raise NotImplementedError(f"{family} checkpoints ({name!r}) are not ported yet "
-                              "(ROADMAP A4b)")
+    if family == "vgg":
+        from bcosification_tpu_torch.models.vgg import CFGS
+
+        return _make_tpath_vgg(CFGS[model.cfg], model.with_norm)
+    if family == "convnext":
+        return _make_tpath_convnext([c.out_channels is not None for c in model.block_setting])
+    # vit: the released B-cos ViTs carry BcosSequential's "0."
+    return _make_tpath_vit("" if name.startswith("standard_") else "0.")
 
 
 def _entries(model: torch.nn.Module):
@@ -176,6 +240,9 @@ def convert_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray],
             arr = take([f"{tp}.linear.weight", f"{tp}.weight"])
         elif leaf == "weight" and target.dim() == 2:  # linear (in, out) <- (out, in)
             arr = take([f"{tp}.linear.weight", f"{tp}.weight"]).T
+        elif leaf == "layer_scale":  # (C,) <- (C, 1, 1)
+            arr = take([f"{tp}.layer_scale"])
+            arr = arr.reshape(target.shape) if arr.size == target.numel() else arr
         else:  # norm weights and biases, running_var, linear biases
             arr = take([f"{tp}.{leaf}"])
         if tuple(arr.shape) != tuple(target.shape):
@@ -193,8 +260,9 @@ def convert_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray],
 def release_state_dict(model: torch.nn.Module, name: str) -> Dict[str, torch.Tensor]:
     """The inverse of ``convert_state_dict``: ``model``'s weights (the
     registry entry ``name``'s architecture) under the reference's keys and
-    layouts, B-cos convs and linears under ``.linear.weight``."""
-    tpath = _tpath_for(name)
+    layouts, B-cos convs and linears under ``.linear.weight``, ConvNeXt's
+    layer scales as (C, 1, 1)."""
+    tpath = _tpath_for(name, model)
     state = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for key, scope, leaf, owner in _entries(model):
@@ -202,7 +270,11 @@ def release_state_dict(model: torch.nn.Module, name: str) -> Dict[str, torch.Ten
         base = tpath(scope)
         if leaf == "weight" and isinstance(owner, (BcosConv2d, BcosLinear)):
             base += ".linear"
-        out[f"{base}.{leaf}"] = t.t().contiguous() if leaf == "weight" and t.dim() == 2 else t
+        if leaf == "weight" and t.dim() == 2:
+            t = t.t().contiguous()
+        elif leaf == "layer_scale":
+            t = t.reshape(-1, 1, 1)
+        out[f"{base}.{leaf}"] = t
     return out
 
 
@@ -216,25 +288,26 @@ def convert_release_checkpoint(name: str, source: Union[str, Path, Mapping],
     weights loaded: the model the conversion targeted, which differs from
     the registry's default when the norm flavour was rebuilt.
 
-    ``rebuild_norm``: a CNN checkpoint with running statistics under a
-    stat-less default norm (or the other way round) rebuilds the net with
+    ``rebuild_norm``: a ResNet, DenseNet or ConvNeXt checkpoint with running
+    statistics under a stat-less default norm (or the other way round)
+    rebuilds the net with
     the bias-free BatchNormUncentered2d (or DetachablePositionNorm2d);
     False makes such a mismatch raise, as a tree for the default build."""
     from bcosification_tpu_torch.models.pretrained import load_model
 
     sd = load_torch_state_dict(source)
-    tpath = _tpath_for(name)
+    family_of(name)  # an unknown family raises before any build
     with abstract_init():
         model = load_model(name, pretrained=False, **model_kwargs)
         sd_has_stats = any(k.endswith("running_var") for k in sd)
         model_has_stats = any(k.endswith("running_var") for k in model.state_dict())
         if (rebuild_norm and sd_has_stats != model_has_stats
-                and family_of(name) in ("resnet", "densenet")
+                and family_of(name) in ("resnet", "densenet", "convnext")
                 and "norm_layer" not in model_kwargs):
             norm = norms.NoBias(norms.BatchNormUncentered2d if sd_has_stats
                                 else norms.DetachablePositionNorm2d)
             model = load_model(name, pretrained=False, norm_layer=norm, **model_kwargs)
-    state = convert_state_dict(model, sd, tpath)
+    state = convert_state_dict(model, sd, _tpath_for(name, model))
     if not return_model:
         return state
     model = model.to_empty(device=resolve_device(device))

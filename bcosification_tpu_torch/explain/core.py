@@ -124,10 +124,10 @@ def make_explain_fn(model, smooth: int = 15, alpha_percentile: float = 99.5,
     ``fast``: "auto" routes the ResNets that ``fast_resnet.supports`` (the
     B-cosified ones and the model zoo's) through its hand-scheduled pass;
     True forces it (raises if unsupported); False always differentiates the
-    module forward. Other nets, the DenseNets and the ViTs among them,
-    differentiate the module forward, as in the JAX package (their own
-    passes, ``fast_densenet`` and ``fast_vit``, serve
-    ``serving.export_explain``).
+    module forward. Other nets, the DenseNets, VGGs, ConvNeXts and ViTs
+    among them, differentiate the module forward, as in the JAX package
+    (their own passes, ``fast_densenet``, ``fast_vgg``, ``fast_convnext``
+    and ``fast_vit``, serve ``serving.export_explain``).
 
     Unlike the JAX package, which caches its jitted functions per model,
     nothing is cached: the function is a closure that costs nothing to build,

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain.fast_resnet import (
+from bcosification_tpu_torch.explain._shared import (
     _BN,
     _conv_t,
     _flat,

@@ -39,7 +39,7 @@ Scope (``supports``): BcosifyNetwork(BcosDenseNet) with b=2, max_out=1,
 bias-free convs, uncentered BN, ReLU or Identity, the avg-pool stem and the
 GAP-reorder classifier: the densenet recipes of ImageNet/bcosification;
 and a BcosDenseNet, bare or wrapped, of the zoo's layers
-(``fast_resnet.position_norm_layers``) with the GAP-reorder classifier and
+(``_shared.position_norm_layers``) with the GAP-reorder classifier and
 the avg-pool stem or ``small_inputs``: every DenseNet entry of the zoo.
 """
 from __future__ import annotations
@@ -49,13 +49,16 @@ from typing import Tuple
 import torch
 
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain.fast_resnet import (
+from bcosification_tpu_torch.explain._shared import (
     _BN,
     _Conv,
+    _bn_act,
+    _bn_act_bwd,
     _conv_t,
     _flat,
     _norm_bwd,
     _normalize,
+    _pool_t,
     _seg_bwd,
     _seg_fwd,
     _selected_cotangent,
@@ -178,24 +181,6 @@ def _fast_pn(net, x, idx):
     return logits, sel, (w if std_in is None else w / std_in)
 
 
-def _bn_act(a, bn: _BN, relu: bool):
-    """An eval BN and the activation, op for op as the modules compute them."""
-    r = a / bn.std.to(a.dtype)
-    if bn.gamma is not None:
-        r = r * bn.gamma
-    if bn.beta is not None:
-        r = r + bn.beta
-    r = r.to(a.dtype)
-    return torch.relu(r) if relu else r
-
-
-def _bn_act_bwd(ct, out, bn: _BN, relu: bool):
-    """Cotangent of a BN + activation's input from that of its output ``out``."""
-    if relu:
-        ct = torch.where(out > 0, ct, torch.zeros_like(ct))
-    return ct * bn.mult.to(ct.dtype)
-
-
 def _matmul(a, wt):
     """K3 on an NHWC activation, cast back to its dtype as ``bcos_conv2d`` does."""
     y = bcos_matmul_fwd(_flat(a), wt, eps=ops.CONV_NORM_EPS, eps_outside=False)
@@ -225,13 +210,6 @@ def _layer_bwd(rec, a, ct, relu):
     ct_h1 = conv1x1_bwd_explain(_flat(h1), rec["wt1"], _flat(ct_h2),
                                 _flat(h2) if relu else None, rec["bn2"].mult, relu=relu)
     return ct[..., :c_in] + _bn_act_bwd(ct_h1.view(h1.shape), h1, rec["bn1"], relu)
-
-
-def _pool_t(ct, shape, k: int, s: int, p: int):
-    """Transpose of avg_pool2d(k, s, p) (count_include_pad) back to ``shape``."""
-    c = ct.shape[-1]
-    w = torch.full((c, 1, k, k), 1.0 / (k * k), dtype=ct.dtype, device=ct.device)
-    return _conv_t(ct, w, shape, s, p, groups=c)
 
 
 def _fast(net, x, idx):

@@ -49,7 +49,7 @@ from typing import Tuple
 import torch
 
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain.fast_resnet import (
+from bcosification_tpu_torch.explain._shared import (
     _conv_t,
     _norm_bwd,
     _normalize,

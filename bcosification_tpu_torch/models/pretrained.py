@@ -1,13 +1,16 @@
 """Pretrained-model entry points, local weights only (counterpart of
 ``bcosification_tpu/models/pretrained.py``).
 
-The registry holds the JAX package's entry points that the port builds: the
+The registry holds every entry point of the JAX package's: the
 from-scratch B-cos ResNets (resnet18 ... resnet152, resnext50_32x4d,
-wide_resnet50_2) and DenseNets (densenet121 ... densenet201), the ``_long``
-names (the same architectures, longer trainings), the 8 B-cos ViTs through
-the vit_final factory with the released configs' layers, and their 8
-``standard_*`` baselines. VGG and ConvNeXt (``NOT_PORTED``) raise "not
-ported yet". ``load_model(name, pretrained=False, **kw)`` builds the model
+wide_resnet50_2), DenseNets (densenet121 ... densenet201), VGGs (vgg11 ...
+vgg19, each also ``_bnu`` with the uncentered BN) and ConvNeXts
+(convnext_atto ... convnext_large with the position norm, and
+``convnext_tiny_bnu``/``convnext_base_bnu`` with the bias-free uncentered
+BN), the ``_long`` names (the same architectures, longer trainings), the 8
+B-cos ViTs through the vit_final factory with the released configs'
+layers, and their 8 ``standard_*`` baselines.
+``load_model(name, pretrained=False, **kw)`` builds the model
 in eval mode on ``device`` (default the GPU; "cpu" when asked), its random
 init seeded by ``seed`` (default 0; the CNNs are initialised on the CPU, so
 every device gets the same weights); under ``utils.init_mode.abstract_init``
@@ -39,28 +42,25 @@ import numpy as np
 import torch
 
 from bcosification_tpu_torch.bcosify.from_jax import load_jax_variables
-from bcosification_tpu_torch.models import densenet, resnet
+from bcosification_tpu_torch.models import convnext, densenet, resnet, vgg
 from bcosification_tpu_torch.modules import norms
 from bcosification_tpu_torch.utils.init_mode import build_device
 
 __all__ = ["list_available", "load_model", "resolve_weights", "fetch_checkpoint",
-           "pretrained_urls", "pretrained_url", "NOT_PORTED"]
+           "pretrained_urls", "pretrained_url"]
 
 RESNETS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
            "wide_resnet50_2")
 DENSENETS = ("densenet121", "densenet161", "densenet169", "densenet201")
+VGGS = ("vgg11", "vgg11_bnu", "vgg13", "vgg13_bnu", "vgg16", "vgg16_bnu", "vgg19", "vgg19_bnu")
+CONVNEXTS = ("convnext_atto", "convnext_tiny", "convnext_small", "convnext_base",
+             "convnext_large")
+CONVNEXT_BNU = {"convnext_tiny_bnu": "convnext_tiny", "convnext_base_bnu": "convnext_base"}
 VITS = ("simple_vit_ti_patch16_224", "simple_vit_s_patch16_224", "simple_vit_b_patch16_224",
         "simple_vit_l_patch16_224", "vitc_ti_patch1_14", "vitc_s_patch1_14", "vitc_b_patch1_14",
         "vitc_l_patch1_14")
 LONG = {"resnet50_long": "resnet50", "resnet152_long": "resnet152",
         "densenet121_long": "densenet121"}
-# entry points of the JAX package's registry that the port cannot build yet
-NOT_PORTED = (
-    "vgg11", "vgg11_bnu", "vgg13", "vgg13_bnu", "vgg16", "vgg16_bnu", "vgg19", "vgg19_bnu",
-    "convnext_atto", "convnext_tiny", "convnext_small", "convnext_base", "convnext_large",
-    "convnext_tiny_bnu", "convnext_base_bnu",
-)
-NOT_PORTED_SLICE = "ROADMAP A4b (VGG and ConvNeXt)"
 
 
 # --------------------------------------------------------------------------
@@ -154,6 +154,10 @@ _REGISTRY: Dict[str, Callable] = {
     **{name: _cnn(getattr(resnet, name)) for name in RESNETS},
     **{name: _cnn(getattr(densenet, name), with_logit_layer=True, stem_pool="avg")
        for name in DENSENETS},
+    **{name: _cnn(getattr(vgg, name)) for name in VGGS},
+    **{name: _cnn(getattr(convnext, name)) for name in CONVNEXTS},
+    **{name: _cnn(getattr(convnext, base), norm_layer=norms.NoBias(norms.BatchNormUncentered2d))
+       for name, base in CONVNEXT_BNU.items()},
     **{name: _vit(name, True) for name in VITS},
     **{f"standard_{name}": _vit(name, False) for name in VITS},
 }
@@ -210,9 +214,6 @@ def load_model(name: str, pretrained: bool = True, **kwargs):
     and the architecture's own options), its weights from $BCOS_WEIGHTS_DIR
     when ``pretrained``."""
     if name not in _REGISTRY:
-        if name in NOT_PORTED:
-            raise NotImplementedError(f"entry point {name!r} is not ported yet "
-                                      f"({NOT_PORTED_SLICE}); available: {list_available()}")
         raise ValueError(f"Unknown entrypoint {name!r}. Available: {list_available()}")
     net = _REGISTRY[name](**kwargs)
     if not pretrained:

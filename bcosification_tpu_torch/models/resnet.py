@@ -14,7 +14,9 @@ variables map onto the state dict one to one (``bcosify/from_jax.py``).
 ``_conv_bn_act`` folds an eval-mode uncentered BN, the activation and the
 block's skip-add into the conv's epilogue whenever the conv is a fusable
 1x1 (conv1, conv3 and the downsample of a bottleneck): those run on the
-hand-written kernel K1, whose backward is the explanation's (K2). An
+hand-written kernel K1, whose backward is the explanation's (K2); an
+uncentered AllNorm folds too, but its scalar mult keeps the conv off K1
+(``bcos_layers._epilogue_no_residual``). An
 eval-mode forward without ``explain`` whose gradient autograd will need
 (an input gradient, or one of the weights) runs unfused instead, as the
 JAX package's jnp path does: conv (K3 at stride 1, cuDNN at stride 2) ->
@@ -30,7 +32,6 @@ import torch
 from torch import nn
 
 from bcosification_tpu_torch.modules import (
-    BatchNormUncentered2d,
     BcosConv2d,
     DetachablePositionNorm2d,
     Identity,
@@ -39,6 +40,7 @@ from bcosification_tpu_torch.modules import (
     ReLU,
 )
 from bcosification_tpu_torch.modules.bcos_layers import _fused_1x1_ok
+from bcosification_tpu_torch.modules.norms import _RunningVarNorm
 from bcosification_tpu_torch.modules.stochastic_depth import StochasticDepth
 from bcosification_tpu_torch.ops import pooling
 
@@ -70,7 +72,7 @@ def _conv_bn_act(conv, norm, act, x, f, residual=None, post_act=None):
         not f["train"]
         and isinstance(conv, BcosConv2d)
         and _fused_1x1_ok(conv, conv.b, conv.bias)
-        and isinstance(norm, BatchNormUncentered2d)
+        and isinstance(norm, _RunningVarNorm)
         and (act is None or isinstance(act, (ReLU, Identity)))
         and (post_act is None or isinstance(post_act, (ReLU, Identity)))
     ):

@@ -18,10 +18,14 @@ copy as they are. ``BcosLinear`` is the B-cos linear with unit-norm weight
 columns, ``BcosifyLinear`` the conversion-time one on raw weights (a
 bias-free b=2 one of either runs on the B-cos matmul kernel,
 ``ops.bcos_linear``; BcosLinear hands it the normalised weight);
-``PlainLinear`` is nn.Linear in that layout. ``PlainConv2d`` is a plain
-biased conv (the standard baselines' ViT-C stem). BcosifyLinear and
-PlainLinear take ``weight_only``: the weight alone, no bias and no dynamic
-scale (the pooled CLIP attention head applies its projections so).
+``PlainLinear`` is nn.Linear in that layout. ``NormedConv2d`` and
+``NormedLinear`` are plain (not B-cos) layers with unit-norm weights, an
+optional learned per-output scale and a bias; ``PlainConv2d`` is the
+NormedConv2d without the weight norm and with a bias (the standard
+baselines' ViT-C stem). ``BcosConv2dWithScale`` is the v1 B-cos conv whose
+output is divided by a static scale. BcosifyLinear and PlainLinear take
+``weight_only``: the weight alone, no bias and no dynamic scale (the pooled
+CLIP attention head applies its projections so).
 """
 from __future__ import annotations
 
@@ -35,8 +39,8 @@ from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops import guided
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import bcos_conv1x1_bn_act
 
-__all__ = ["BcosConv2d", "BcosifyConv2d", "BcosLinear", "BcosifyLinear", "LogitLayer",
-           "PlainConv2d", "PlainLinear"]
+__all__ = ["BcosConv2d", "BcosConv2dWithScale", "BcosifyConv2d", "BcosLinear", "BcosifyLinear",
+           "LogitLayer", "NormedConv2d", "NormedLinear", "PlainConv2d", "PlainLinear"]
 
 
 class _ConvBase(nn.Module):
@@ -97,8 +101,12 @@ def _epilogue_no_residual(mod, x, w, bias, b, explain, x_sumsq, epilogue):
     mult, add, relu = epilogue
     # K1's backward (K2) has the plain ReLU mask built in: under guided
     # backprop or DeepLIFT the conv runs unfused and its ReLU through
-    # ops.guided, as the JAX package keeps such convs off its Pallas kernel
-    if _fused_1x1_ok(mod, b, bias) and not (guided.guided_mode() or guided.deeplift_mode()):
+    # ops.guided, as the JAX package keeps such convs off its Pallas kernel.
+    # K1 reads one mult per output channel: a norm with one statistic for
+    # the whole tensor (AllNormUncentered2d) gives a (1,) mult, which the
+    # unfused route broadcasts
+    if (_fused_1x1_ok(mod, b, bias) and mult.numel() == w.shape[0]
+            and not (guided.guided_mode() or guided.deeplift_mode())):
         # [Cin, Cout] view of the OIHW weight (its transpose is contiguous)
         w2 = w.view(w.shape[0], w.shape[1]).t()
         return bcos_conv1x1_bn_act(x, w2, mult, add, relu=relu, explain=explain,
@@ -142,17 +150,56 @@ class BcosConv2d(_ConvBase):
         )
 
 
-class PlainConv2d(_ConvBase):
-    """Plain biased conv of an NHWC input (the JAX package's
-    ``NormedConv2d(use_weight_norm=False, use_bias=True)``); the bias cast to
-    the output's dtype, as the JAX package adds it."""
+class NormedConv2d(_ConvBase):
+    """Plain (not B-cos) conv with unit-norm weights per output channel;
+    ``learned_scale`` adds a per-output-channel ``scale`` (ones) that
+    multiplies the normalised weight, ``use_weight_norm=False`` takes the
+    raw weight (and ignores the scale). No bias unless ``use_bias``."""
 
-    def __init__(self, in_channels: int, features: int, kernel_size=1, **kwargs):
-        super().__init__(in_channels, features, kernel_size, use_bias=True, **kwargs)
+    def __init__(self, in_channels: int, features: int, kernel_size=1, *,
+                 use_weight_norm: bool = True, learned_scale: bool = False, **kwargs):
+        super().__init__(in_channels, features, kernel_size, **kwargs)
+        self.use_weight_norm = use_weight_norm
+        self.scale = (nn.Parameter(torch.ones(features * self.max_out,
+                                              device=kwargs.get("device")))
+                      if learned_scale else None)
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
-        out = ops.conv2d(x, self.weight, self.stride, self.padding, self.dilation, self.groups)
-        return out + self.bias.to(out.dtype)
+        return ops.normed_conv2d(
+            x, self.weight, stride=self.stride, padding=self.padding, dilation=self.dilation,
+            groups=self.groups, scale=self.scale if self.use_weight_norm else None,
+            bias=self.bias, use_weight_norm=self.use_weight_norm)
+
+
+class PlainConv2d(NormedConv2d):
+    """Plain biased conv of an NHWC input: ``NormedConv2d(use_weight_norm=False,
+    use_bias=True)``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=1, **kwargs):
+        super().__init__(in_channels, features, kernel_size, use_weight_norm=False,
+                         use_bias=True, **kwargs)
+
+
+class BcosConv2dWithScale(_ConvBase):
+    """The deprecated v1 B-cos conv (unit-norm weights, fixed b): the output
+    divided by a static scale, ``scale`` if given, else
+    sqrt(kh * kw * in_channels) / ``scale_factor``. Not a BcosConv2d: no
+    norm folds into it and no hand-scheduled pass takes it."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=1, *, b: float = 2.0,
+                 scale: Optional[float] = None, scale_factor: float = 100.0, **kwargs):
+        super().__init__(in_channels, features, kernel_size, **kwargs)
+        kh, kw = self.kernel_size
+        self.b = b
+        self.scale = (math.sqrt(kh * kw * in_channels) / scale_factor if scale is None
+                      else scale)
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        out = ops.bcos_conv2d(
+            x, self.weight, b=self.b, stride=self.stride, padding=self.padding,
+            dilation=self.dilation, groups=self.groups, max_out=self.max_out,
+            bias=self.bias, explain=explain)
+        return out / self.scale
 
 
 class BcosifyConv2d(BcosConv2d):
@@ -195,6 +242,24 @@ class PlainLinear(_LinearBase):
         if self.bias is not None and not weight_only:
             out = out + self.bias
         return out
+
+
+class NormedLinear(_LinearBase):
+    """Plain (not B-cos) linear with unit-norm (in, out) weight columns;
+    ``learned_scale`` adds a per-output ``scale`` (ones), ``use_weight_norm=False``
+    takes the raw weight. A bias unless ``use_bias=False``."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, *,
+                 use_weight_norm: bool = True, learned_scale: bool = False, **kwargs):
+        super().__init__(in_features, features, use_bias, **kwargs)
+        self.use_weight_norm = use_weight_norm
+        self.scale = (nn.Parameter(torch.ones(features, device=kwargs.get("device")))
+                      if learned_scale else None)
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        return ops.normed_linear(x, self.weight, bias=self.bias,
+                                 scale=self.scale if self.use_weight_norm else None,
+                                 use_weight_norm=self.use_weight_norm)
 
 
 class BcosLinear(_LinearBase):

@@ -1,9 +1,10 @@
 """Norms of the port (counterpart of ``bcosification_tpu/modules/norms.py``):
-the uncentered BatchNorm of the CNNs, the transformer's LayerNorm and the
-group norms of the ViT-C conv stem.
+the uncentered BatchNorm of the CNNs, the transformer's LayerNorm, the
+group norms of the ViT-C conv stem, and the norms no zoo entry uses.
 
 ``BatchNormUncentered2d`` divides by a std and never subtracts a mean.
-Channels are the last axis (NHWC).
+Channels are the last axis (NHWC). ``AllNormUncentered2d`` is the same
+with one variance over the whole tensor (running_var of shape (1,)).
 
 - Eval: the running std. The norm is then a per-channel affine, which
   ``return_affine`` hands to a fused conv epilogue as (mult, add) =
@@ -20,7 +21,13 @@ image. ``DetachableGroupNorm2d`` normalises each group of
 channels of an NHWC image over (H, W, the group's channels), centered, in
 f32, and detaches only its variance under ``explain``;
 ``DetachableGNLayerNorm2d`` is its one-group case (the ViT-C stem's norm),
-``DetachableGNInstanceNorm2d`` its one-channel-per-group case. ``NoBias``
+``DetachableGNInstanceNorm2d`` its one-channel-per-group case.
+``GroupNormUncentered2d`` (and its one-group and one-channel cases) and
+``PositionNormUncentered2d`` divide x, never centred, by the std of the
+centred variance over (H, W, the group's channels) or over each pixel's
+channels, detached under ``explain``. ``BatchNorm2d`` and ``AllNorm2d``
+are the centered batch norms (running mean and var, torch's unbiased
+running update); they refuse ``explain`` in train mode. ``NoBias``
 and ``Unaffine`` preset a norm's flags and name the factory as the JAX
 package's do (the configs show the name).
 """
@@ -32,43 +39,75 @@ import torch
 from torch import nn
 
 __all__ = [
+    "AllNorm2d",
+    "AllNormUncentered2d",
+    "BatchNorm2d",
     "BatchNormUncentered2d",
     "DetachableGNInstanceNorm2d",
     "DetachableGNLayerNorm2d",
     "DetachableGroupNorm2d",
     "DetachableLayerNorm",
     "DetachablePositionNorm2d",
+    "GNInstanceNormUncentered2d",
+    "GNLayerNormUncentered2d",
+    "GroupNormUncentered2d",
     "NoBias",
     "PlainLayerNorm",
+    "PositionNormUncentered2d",
     "Unaffine",
 ]
 
 MOMENTUM = 0.1  # weight of the batch variance in the running-var update
 
 
-class BatchNormUncentered2d(nn.Module):
+class _AffineNorm(nn.Module):
+    """What the batch, group and position norms share: the affine weight
+    and bias (per channel, or one scalar each when ``per_channel`` is
+    False) and, for each statistic in ``running``, its running buffer
+    (``running_mean`` zeros, ``running_var`` ones) and
+    ``num_batches_tracked``."""
+
+    per_channel = True
+    running = ()
+
     def __init__(self, features: int, eps: float = 1e-5, affine: bool = True,
                  use_weight: bool = True, use_bias: bool = True, *, device=None):
         super().__init__()
         self.features, self.eps = features, eps
-        self.weight = (nn.Parameter(torch.ones(features, device=device))
+        shape = features if self.per_channel else 1
+        self.weight = (nn.Parameter(torch.ones(shape, device=device))
                        if affine and use_weight else None)
-        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(shape, device=device))
                      if affine and use_bias else None)
-        self.register_buffer("running_var", torch.ones(features, device=device))
-        self.register_buffer("num_batches_tracked",
-                             torch.zeros((), dtype=torch.int32, device=device))
+        for stat in self.running:
+            fill = torch.zeros if stat == "mean" else torch.ones
+            self.register_buffer(f"running_{stat}", fill(shape, device=device))
+        if self.running:
+            self.register_buffer("num_batches_tracked",
+                                 torch.zeros((), dtype=torch.int32, device=device))
+
+
+class _RunningVarNorm(_AffineNorm):
+    """Uncentered batch-statistics norm: divides by a std, never subtracts a
+    mean. ``per_channel``: one variance per channel over (N, H, W)
+    (BatchNormUncentered2d), else one over the whole tensor, running_var of
+    shape (1,) (AllNormUncentered2d)."""
+
+    running = ("var",)
 
     def std(self) -> torch.Tensor:
         return torch.sqrt(self.running_var + self.eps)
 
     def batch_var(self, x: torch.Tensor) -> torch.Tensor:
-        """Biased per-channel variance of x over (N, H, W), one pass in f32,
-        and the running-var update (in place, under no_grad)."""
+        """Biased variance of x over (N, H, W) per channel (or over the whole
+        tensor), one pass in f32, and the running-var update (in place,
+        under no_grad)."""
         xs = x.float()
-        n = x.numel() // x.shape[-1]
-        mean = xs.sum(dim=(0, 1, 2)) / n
-        var = torch.clamp((xs * xs).sum(dim=(0, 1, 2)) / n - mean * mean, min=0.0)
+        dims = (0, 1, 2) if self.per_channel else (0, 1, 2, 3)
+        n = x.numel() // (x.shape[-1] if self.per_channel else 1)
+        mean = xs.sum(dim=dims) / n
+        var = torch.clamp((xs * xs).sum(dim=dims) / n - mean * mean, min=0.0)
+        var = var.reshape(self.running_var.shape)
         with torch.no_grad():
             self.running_var.copy_((1 - MOMENTUM) * self.running_var
                                    + MOMENTUM * var.detach())
@@ -96,6 +135,116 @@ class BatchNormUncentered2d(nn.Module):
         if self.bias is not None:
             out = out + self.bias
         return out.to(x.dtype)
+
+
+class BatchNormUncentered2d(_RunningVarNorm):
+    """Uncentered BN: one variance per channel."""
+
+
+class AllNormUncentered2d(_RunningVarNorm):
+    """Uncentered AllNorm: one variance over the whole tensor; its
+    ``return_affine`` mult has shape (1,), which no fused kernel takes."""
+
+    per_channel = False
+
+
+def _affine(out, weight, bias):
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+class _RunningMeanVarNorm(_AffineNorm):
+    """Centered batch-statistics norm (plain BN): x - mean over std. Train:
+    the batch's mean and biased variance in f32, the running mean and var
+    updated with torch's unbiased estimate, ``num_batches_tracked``
+    counted. Eval: the running statistics, so the norm is an affine map;
+    explanation mode is allowed in eval only."""
+
+    running = ("mean", "var")
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        if x.dim() != 4:
+            raise ValueError(f"expected an NHWC image, got shape {tuple(x.shape)}")
+        if explain and train:
+            raise ValueError("Centered batch norms only support explanation mode in eval!")
+        if train:
+            xf = x.float()
+            dims = (0, 1, 2) if self.per_channel else (0, 1, 2, 3)
+            mean = xf.mean(dim=dims)
+            var = (xf - mean).square().mean(dim=dims)
+            n = x.numel() // (x.shape[-1] if self.per_channel else 1)
+            with torch.no_grad():
+                shape = self.running_var.shape
+                self.running_mean.copy_((1 - MOMENTUM) * self.running_mean
+                                        + MOMENTUM * mean.detach().reshape(shape))
+                self.running_var.copy_((1 - MOMENTUM) * self.running_var + MOMENTUM
+                                       * (var.detach() * n / max(n - 1, 1)).reshape(shape))
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        std = torch.sqrt(var + self.eps)
+        out = (x - mean.to(x.dtype)) / std.to(x.dtype)
+        return _affine(out, self.weight, self.bias).to(x.dtype)
+
+
+class BatchNorm2d(_RunningMeanVarNorm):
+    """Centered BN: statistics per channel over (N, H, W)."""
+
+
+class AllNorm2d(_RunningMeanVarNorm):
+    """Centered AllNorm: one mean and variance over the whole tensor."""
+
+    per_channel = False
+
+
+class GroupNormUncentered2d(_AffineNorm):
+    """Uncentered group norm of an NHWC image: x over the std of each
+    group of channels over (H, W, the group's channels). The variance is
+    the centred one, in f32, and detached under ``explain``; x itself is
+    never centred."""
+
+    def __init__(self, features: int, num_groups: int = 32, eps: float = 1e-5,
+                 affine: bool = True, use_weight: bool = True, use_bias: bool = True, *,
+                 device=None):
+        if features % num_groups:
+            raise ValueError(f"{features} channels do not split into {num_groups} groups")
+        super().__init__(features, eps, affine, use_weight, use_bias, device=device)
+        self.num_groups = num_groups
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        n, h, w, c = x.shape
+        xg = x.reshape(n, h, w, self.num_groups, c // self.num_groups)
+        xs = (xg.detach() if explain else xg).float()
+        var = (xs - xs.mean(dim=(1, 2, 4), keepdim=True)).square().mean(dim=(1, 2, 4),
+                                                                         keepdim=True)
+        out = (xg / torch.sqrt(var + self.eps).to(x.dtype)).reshape(n, h, w, c)
+        return _affine(out, self.weight, self.bias).to(x.dtype)
+
+
+def GNInstanceNormUncentered2d(features: int, **kwargs):
+    """The uncentered group norm with one channel per group."""
+    return GroupNormUncentered2d(features, num_groups=features, **kwargs)
+
+
+def GNLayerNormUncentered2d(features: int, **kwargs):
+    """The uncentered group norm with one group."""
+    return GroupNormUncentered2d(features, num_groups=1, **kwargs)
+
+
+class PositionNormUncentered2d(_AffineNorm):
+    """Uncentered position norm: x over the std of each pixel's channels
+    (the centred variance, in f32, detached under ``explain``)."""
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        if x.dim() != 4:
+            raise ValueError(f"expected an NHWC image, got shape {tuple(x.shape)}")
+        xs = (x.detach() if explain else x).float()
+        var = (xs - xs.mean(-1, keepdim=True)).square().mean(-1, keepdim=True)
+        out = x / torch.sqrt(var + self.eps).to(x.dtype)
+        return _affine(out, self.weight, self.bias).to(x.dtype)
 
 
 class DetachableLayerNorm(nn.Module):

@@ -41,6 +41,8 @@ __all__ = [
     "dynamic_scale",
     "bcos_conv2d",
     "bcos_linear",
+    "normed_conv2d",
+    "normed_linear",
 ]
 
 # Exact values matter for parity with the reference: conv patch norms add
@@ -258,3 +260,29 @@ def bcos_linear(
     xf = x.float()
     norm = (torch.sqrt((xf * xf).sum(-1, keepdim=True)) + LINEAR_NORM_EPS).to(out.dtype)
     return dynamic_scale(out, norm, b, explain=explain) * out
+
+
+def normed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: IntOrPair = 1,
+                  padding: IntOrPair = 0, dilation: IntOrPair = 1, groups: int = 1,
+                  scale: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                  use_weight_norm: bool = True) -> torch.Tensor:
+    """Plain conv of an NHWC input with unit-norm weights (``NormedConv2d``),
+    optionally times a per-output-channel ``scale``; ``use_weight_norm=False``
+    takes the raw weight. The bias is cast to the output's dtype."""
+    wn = normed_conv_weight(w, scale) if use_weight_norm else w
+    out = conv2d(x, wn, stride, padding, dilation, groups)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def normed_linear(x: torch.Tensor, w: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
+                  scale: Optional[torch.Tensor] = None,
+                  use_weight_norm: bool = True) -> torch.Tensor:
+    """Plain linear with unit-norm (in, out) weight columns (``NormedLinear``),
+    optionally times a per-output ``scale``; the bias is added as it is."""
+    wn = normed_linear_weight(w, scale) if use_weight_norm else w
+    out = x @ wn.to(x.dtype)
+    if bias is not None:
+        out = out + bias
+    return out

@@ -7,7 +7,7 @@ import torch.nn.functional as F
 
 from bcosification_tpu_torch.ops.bcos import IntOrPair, _pair, nchw, nhwc
 
-__all__ = ["avg_pool2d", "max_pool2d", "global_avg_pool"]
+__all__ = ["avg_pool2d", "max_pool2d", "adaptive_avg_pool2d", "global_avg_pool"]
 
 
 def avg_pool2d(x: torch.Tensor, kernel_size: IntOrPair, stride: IntOrPair = None,
@@ -28,6 +28,15 @@ def max_pool2d(x: torch.Tensor, kernel_size: IntOrPair, stride: IntOrPair = None
     stride = kernel_size if stride is None else stride
     y = F.max_pool2d(nchw(x).contiguous(), _pair(kernel_size), _pair(stride), _pair(padding))
     return nhwc(y).contiguous()
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntOrPair = 1) -> torch.Tensor:
+    """F.adaptive_avg_pool2d on NHWC, only for output sizes that divide the
+    input's: the mean of each (H / oh) x (W / ow) tile."""
+    oh, ow = _pair(output_size)
+    n, h, w, c = x.shape
+    assert h % oh == 0 and w % ow == 0, (tuple(x.shape), output_size)
+    return x.reshape(n, oh, h // oh, ow, w // ow, c).mean(dim=(2, 4))
 
 
 def global_avg_pool(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:

@@ -22,13 +22,20 @@ from torch import nn
 # registers the bcos_torch custom ops, which torch.export.load resolves
 import bcosification_tpu_torch.ops.cuda  # noqa: F401
 from bcosification_tpu_torch.device import resolve_device
-from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_resnet, fast_vit
+from bcosification_tpu_torch.explain import (
+    fast_clip,
+    fast_convnext,
+    fast_densenet,
+    fast_resnet,
+    fast_vgg,
+    fast_vit,
+)
 
 __all__ = ["export_forward", "export_explain", "export_text_explain", "load_serialized"]
 
 # the hand-scheduled explanation passes, which torch.export traces (a
 # program cannot hold the generic pass's autograd.grad)
-_FAST_PASSES = (fast_resnet, fast_densenet, fast_vit)
+_FAST_PASSES = (fast_resnet, fast_densenet, fast_vgg, fast_convnext, fast_vit)
 
 
 class _Explain(nn.Module):
@@ -79,13 +86,14 @@ def export_explain(net, *, input_size: int = 224, channels: int = 6,
     (logits, selected_idx, W), W(x) the dynamic-linear weights of the
     predicted class, from the hand-scheduled pass of the model's family
     (``explain/fast_resnet.py``, ``explain/fast_densenet.py``,
+    ``explain/fast_vgg.py``, ``explain/fast_convnext.py``,
     ``explain/fast_vit.py``). Raises for a model that no pass supports."""
     for fast in _FAST_PASSES:
         if fast.supports(net):
             return _export(_Explain(net, fast), input_size, channels, dtype, device)
     raise ValueError("export_explain: the model is not supported by any hand-scheduled "
-                     "explanation pass (see explain.fast_resnet.supports and "
-                     "explain.fast_densenet.supports and explain.fast_vit.supports)")
+                     "explanation pass (see the supports() of explain.fast_resnet, "
+                     "fast_densenet, fast_vgg, fast_convnext and fast_vit)")
 
 
 def export_text_explain(net, *, embed_dim: int, input_size: int = 224, channels: int = 6,

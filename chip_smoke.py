@@ -271,6 +271,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    resnet50 in both released flavours: the position-norm one equal to its
    source, the uncentered-BN one rebuilt with BatchNormUncentered2d, its
    forward on K1 at the 36 1x1s, its fast pass on K1, K2 and K3.
+18. the zoo's VGG and ConvNeXt entries (models/vgg.py, models/convnext.py):
+   K3 and K2 against their plain versions at thirteen of their shapes in
+   both dtypes (ConvNeXt-T's stages and classifier, ConvNeXt-atto's K and
+   N of 40 and 160, ConvNeXt-B's first stage, VGG-16's two 1x1 classifier
+   convs; phase 3's bounds; no operand padded); the plain vgg16's
+   per-layer output RMS (random init contracts ~1/sqrt(9 Cin) per conv);
+   then ``load_model`` of vgg16_bnu, convnext_tiny and convnext_base_bnu at
+   full width, random init from SEED, each ConvNeXt block's layer_scale
+   drawn in +-[0.1, 1] and each uncentered BN's gamma calibrated (its
+   output RMS 1, the last one's the pre-logits'): phase 17's per-net
+   checks (launches K3 2 / 37 / 73 per forward and K2 as many per
+   explanation, no K1; fp32 parity on 2 images of explain/fast_vgg.py and
+   explain/fast_convnext.py, GPU against CPU within ten CPU spreads with
+   PyTorch's own CUDA convs and 1e-3 with cuDNN's, and the generic W
+   against them; forward-only and fwd+explain images/s at batch 128, bf16,
+   with the card's busy time and top kernels; K3's and K2's time at every
+   shape one fwd+explain gave them; the export_explain round trip of
+   convnext_base_bnu cut to its first two stages, one block each); then
+   convert_release_checkpoint of seeded reference-layout .pth files of
+   vgg16_bnu, convnext_tiny and convnext_tiny_bnu (the last under the name
+   convnext_tiny, its running statistics rebuilding it with uncentered BN),
+   each equal to its source.
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
@@ -282,8 +304,8 @@ Every time is taken over runs of calls in a row between two CUDA events, so
 the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No operand of a
-ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C, analysis or harness
-path, bf16 or fp32, needs the TMA padding (``tma_operands.padded`` stays 0
+ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C, analysis, harness,
+zoo, VGG or ConvNeXt path, bf16 or fp32, needs the TMA padding (``tma_operands.padded`` stays 0
 after phase 3).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
@@ -330,10 +352,17 @@ from bcosification_tpu_torch.clip.model import ModifiedResNet, clip_rn50_config
 from bcosification_tpu_torch.clip.tokenizer import tokenize
 from bcosification_tpu_torch.data.imagenet import imagenet_classes, imagenet_templates
 from bcosification_tpu_torch.bcosify.from_jax import to_jax_variables
-from bcosification_tpu_torch.explain import fast_clip, fast_densenet, fast_resnet, fast_vit
+from bcosification_tpu_torch.explain import (
+    fast_clip,
+    fast_convnext,
+    fast_densenet,
+    fast_resnet,
+    fast_vgg,
+    fast_vit,
+)
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
-from bcosification_tpu_torch.models import pretrained, resnet
+from bcosification_tpu_torch.models import convnext, pretrained, resnet
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
 from bcosification_tpu_torch.models.densenet import BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
@@ -350,6 +379,7 @@ from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
 from bcosification_tpu_torch.ops.cuda import bcos_matmul as k3
 from bcosification_tpu_torch.ops.cuda import stream as k4
 from bcosification_tpu_torch.probes import stream_bandwidth
+from bcosification_tpu_torch.utils.init_mode import abstract_init
 
 FLAGSHIP = {
     "name": "resnet50",
@@ -4394,6 +4424,12 @@ ZOO = {"resnet50": fast_resnet, "densenet121": fast_densenet,
        "simple_vit_l_patch16_224": fast_vit}
 ZOO_TAGS = {"resnet50": "zoo_resnet50", "densenet121": "zoo_densenet121",
             "simple_vit_l_patch16_224": "zoo_vit_l16"}
+# phase 18's entry points, and every zoo entry's hand-scheduled pass
+ZOO_VGG_CONVNEXT = {"vgg16_bnu": fast_vgg, "convnext_tiny": fast_convnext,
+                    "convnext_base_bnu": fast_convnext}
+ZOO_TAGS.update({"vgg16_bnu": "zoo_vgg16_bnu", "convnext_tiny": "zoo_convnext_tiny",
+                 "convnext_base_bnu": "zoo_convnext_base_bnu"})
+ZOO_PASSES = {**ZOO, **ZOO_VGG_CONVNEXT}
 VIT_L_ROWS = BATCH * (SIZE // 16) ** 2  # 25088 token rows at batch 128
 # (label, M, K, N, eps_outside) at batch 128, 224x224, as the zoo calls K3
 # and K2 (K2 with the bare cotangent: the position norm's or LayerNorm's
@@ -4413,16 +4449,35 @@ ZOO_CHECK_SHAPES = [
     ("zoo vit_l linear2", VIT_L_ROWS, 4096, 1024, True),
     ("zoo vit_l head", BATCH, 1024, 1000, True),
 ]
+# phase 18's: ConvNeXt-T's four stages and classifier, ConvNeXt-atto's first
+# and last stages (K and N of 40 and 80: below one 64-deep bf16 and one
+# 32-deep fp32 stage, the TMA boxes filled with zeros past K and N),
+# ConvNeXt-B's first stage, VGG-16's two 1x1 classifier convs
+ZOO_VGG_CONVNEXT_CHECK_SHAPES = [
+    ("zoo convnext_tiny stage0 block_2", 401408, 96, 384, False),
+    ("zoo convnext_tiny stage0 block_3", 401408, 384, 96, False),
+    ("zoo convnext_tiny stage1 block_2", 100352, 192, 768, False),
+    ("zoo convnext_tiny stage2 block_3", 25088, 1536, 384, False),
+    ("zoo convnext_tiny stage3 block_2", 6272, 768, 3072, False),
+    ("zoo convnext_tiny classifier", 6272, 768, 1000, False),
+    ("zoo convnext_atto stage0 block_2", 401408, 40, 160, False),
+    ("zoo convnext_atto stage0 block_3", 401408, 160, 40, False),
+    ("zoo convnext_atto stage3 block_3", 6272, 1280, 320, False),
+    ("zoo convnext_atto classifier", 6272, 320, 1000, False),
+    ("zoo convnext_base stage0 block_3", 401408, 512, 128, False),
+    ("zoo vgg16 classifier_1", 6272, 4096, 4096, False),
+    ("zoo vgg16 classifier_2", 6272, 4096, 1000, False),
+]
 ZOO_EXPORT_BATCH = 8
 
 
-def check_zoo_kernels(worst):
-    """K3 and K2 against their plain versions at ZOO_CHECK_SHAPES, in both
-    dtypes with phase 3's bounds, as the zoo calls them."""
+def check_zoo_kernels(worst, shapes=ZOO_CHECK_SHAPES):
+    """K3 and K2 against their plain versions at ``shapes``, in both dtypes
+    with phase 3's bounds, as the zoo calls them."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
     for dtype in (torch.float32, torch.bfloat16):
         ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
-        for label, m, k, n, eps_outside in ZOO_CHECK_SHAPES:
+        for label, m, k, n, eps_outside in shapes:
             x, wt, _, _, ct = operands(m, k, n, dtype, gen)
             kw = dict(eps=LINEAR_NORM_EPS if eps_outside else 1e-6, eps_outside=eps_outside)
             variant = " eps_outside" if eps_outside else ""
@@ -4482,7 +4537,7 @@ def zoo_parity(name, net, x2):
     (for the CNNs with PyTorch's own CUDA convs in place of cuDNN's; with
     cuDNN's within phase 4's 1e-3), the pre-logits within 1e-4, the argmax
     identical. Returns the pre-logit RMS."""
-    fast = ZOO[name]
+    fast = ZOO_PASSES[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lg, sg, wg = fast.fast_dynamic_linear_weights(net, x2)
@@ -4537,7 +4592,7 @@ def zoo_throughput(name, net, x):
     images/s at batch 128, bf16, each with its launch counts (K3 and K2 of
     every call recorded), host issue time, peak memory, the card's busy
     time and its top kernels."""
-    fast = ZOO[name]
+    fast = ZOO_PASSES[name]
 
     def forward():
         with torch.no_grad():
@@ -4573,11 +4628,13 @@ def zoo_throughput(name, net, x):
 
 def zoo_export(name, x2):
     """export_explain of the entry's net at a cut depth (ResNet-50 one block
-    per stage, DenseNet-121 two layers per block, ViT-L two encoders; random
+    per stage, DenseNet-121 two layers per block, ViT-L two encoders, a
+    ConvNeXt its first two stages of one block each: the stem, a block, the
+    downsampling, a block, the head, prepared as phase 18's nets; random
     init from SEED) in bf16, loaded from bytes: at batch ZOO_EXPORT_BATCH its
     W and logits equal to the eager pass's (1e-6 relative), the argmax and
     the launches identical. Returns the export seconds."""
-    fast = ZOO[name]
+    fast = ZOO_PASSES[name]
     if name == "resnet50":
         net = resnet.BcosResNet("bottleneck", (1, 1, 1, 1), device="cuda",
                                 generator=torch.Generator(device="cuda").manual_seed(SEED))
@@ -4586,6 +4643,17 @@ def zoo_export(name, x2):
         net = BcosDenseNet(block_config=(2, 2, 2, 2), with_logit_layer=True, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
+    elif name.startswith("convnext"):
+        with abstract_init():
+            full = pretrained.load_model(name, pretrained=False)
+        first, second = full.block_setting[:2]
+        blocks = [convnext.CNBlockConfig(first.input_channels, first.out_channels, 1),
+                  convnext.CNBlockConfig(second.input_channels, None, 1)]
+        net = convnext.BcosConvNeXt(
+            blocks, norm_layer=NoBias(type(full.stem_norm)), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        net = net.eval().requires_grad_(False)
+        zoo_prepare(net, x2[:1])
     else:
         net = pretrained.load_model(name, pretrained=False, depth=VIT_EXPORT_DEPTH, seed=SEED)
     t0 = time.perf_counter()
@@ -4709,36 +4777,179 @@ def phase_zoo(x2, stream_rate, worst):
     check_zoo_kernels(worst)
     nets, keys, summary = {}, {}, []
     for name in ZOO:
-        t0 = time.perf_counter()
-        net = pretrained.load_model(name, pretrained=False, seed=SEED)
-        build_s = time.perf_counter() - t0
-        say(f"zoo {name}: built on the card in {build_s:.1f} s ({sum(p.numel() for p in net.parameters()) / 1e6:.1f} M "
-            f"parameters; launches per forward {zoo_counts(net, False)})")
-        rms = zoo_parity(name, net, x2)
-        rates, launches = zoo_throughput(name, net, _batch128(x2, SEED + 64))
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
-        rows = time_shapes(collections.Counter(launches), stream_rate, gen,
-                           tag=f"zoo {name} ")
-        export_s = zoo_export(name, x2)
-        counts = zoo_counts(net, True)
-        tag = ZOO_TAGS[name]
-        for kernel, r in rows.items():
-            what = "explanation" if kernel == "bcos_conv1x1_bwd_explain" else "forward"
-            say(f"zoo {kernel} per {name} {what} ({counts[kernel]} launches): {r['ms']:.4f} ms; "
-                f"bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate "
-                f"({'FLOPs' if r['flop_s'] >= r['byte_s'] else 'bytes'}), "
-                f"{1e3 * r['measured_bound_s']:.4f} ms at the measured "
-                f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
-                f"{r['library_ms']:.4f} ms [{CARD}]")
-            keys.setdefault(kernel, {}).update({
-                f"{tag}_launches": counts[kernel], f"{tag}_ms": r["ms"],
-                f"{tag}_bound_ms": 1e3 * r["bound_s"], f"{tag}_plain_ms": r["plain_ms"],
-                f"{tag}_library_ms": r["library_ms"]})
-        summary.append(f"{name}: pre-logit RMS {rms:.3g}, " + ", ".join(
-            f"{what} {v:.1f} img/s" for what, v in rates.items()) + f", export {export_s:.1f} s")
+        net = zoo_build(name)
+        summary.append(zoo_net(name, net, x2, stream_rate, keys))
         nets[name] = net
     zoo_weight_paths(nets, x2)
     say("zoo summary: " + "; ".join(summary) + f" [{CARD}]")
+    return keys
+
+
+def zoo_build(name, **kw):
+    """load_model(name) on the card (random init from SEED), with its build
+    seconds, parameters and launches per forward printed."""
+    t0 = time.perf_counter()
+    net = pretrained.load_model(name, pretrained=False, seed=SEED, **kw)
+    build_s = time.perf_counter() - t0
+    say(f"zoo {name}: built on the card in {build_s:.1f} s "
+        f"({sum(p.numel() for p in net.parameters()) / 1e6:.1f} M parameters; launches per "
+        f"forward {zoo_counts(net, False)})")
+    return net
+
+
+def zoo_net(name, net, x2, stream_rate, keys):
+    """One zoo net's parity, throughput, kernel times at every shape of one
+    fwd+explain (their rows added to ``keys`` under the net's tag) and,
+    unless ZOO_UNEXPORTED names it, export round trip. Returns its
+    summary."""
+    rms = zoo_parity(name, net, x2)
+    rates, launches = zoo_throughput(name, net, _batch128(x2, SEED + 64))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    rows = time_shapes(collections.Counter(launches), stream_rate, gen, tag=f"zoo {name} ")
+    export_s = None if name in ZOO_UNEXPORTED else zoo_export(name, x2)
+    counts = zoo_counts(net, True)
+    tag = ZOO_TAGS[name]
+    for kernel, r in rows.items():
+        what = "explanation" if kernel == "bcos_conv1x1_bwd_explain" else "forward"
+        say(f"zoo {kernel} per {name} {what} ({counts[kernel]} launches): {r['ms']:.4f} ms; "
+            f"bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate "
+            f"({'FLOPs' if r['flop_s'] >= r['byte_s'] else 'bytes'}), "
+            f"{1e3 * r['measured_bound_s']:.4f} ms at the measured "
+            f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
+            f"{r['library_ms']:.4f} ms [{CARD}]")
+        keys.setdefault(kernel, {}).update({
+            f"{tag}_launches": counts[kernel], f"{tag}_ms": r["ms"],
+            f"{tag}_bound_ms": 1e3 * r["bound_s"], f"{tag}_plain_ms": r["plain_ms"],
+            f"{tag}_library_ms": r["library_ms"]})
+    return (f"{name}: pre-logit RMS {rms:.3g}, " + ", ".join(
+        f"{what} {v:.1f} img/s" for what, v in rates.items())
+        + ("" if export_s is None else f", export {export_s:.1f} s"))
+
+
+# --------------------------------------------------------------------------
+# 18: the zoo's VGG and ConvNeXt entries (models/vgg.py, models/convnext.py)
+# --------------------------------------------------------------------------
+# K3 per forward (K2 as many per explanation), K1 none
+ZOO_VGG_CONVNEXT_K3 = {"vgg16_bnu": 2, "convnext_tiny": 37, "convnext_base_bnu": 73}
+# not exported on the card (an export round trip takes 15-40 s of the
+# script's time limit): convnext_base_bnu's cut net runs convnext_tiny's
+# program (fast_convnext) with the uncentered BN, phase 17's zoo CNNs the
+# position norm; the VGG's export_explain round trip runs in the CPU tests
+ZOO_UNEXPORTED = ("vgg16_bnu", "convnext_tiny")
+
+
+def zoo_prepare(net, probe):
+    """A random-init VGG or ConvNeXt made fit to compare: each ConvNeXt
+    block's layer_scale drawn from SEED in +-[0.1, 1] (at its init of 1e-6
+    every block is the identity to 1e-6, so a broken K3 would pass); each
+    uncentered BN's gamma, in forward order, divided by the RMS of the
+    norm's output on ``probe`` (a random-init b=2 net contracts ~1/sqrt(9
+    Cin) per conv), then the last one's by the pre-logit RMS (VGG's
+    norm-free classifier contracts ~1e6-fold). Returns the pre-logit RMS."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    bias = net.logit_layer.logit_bias
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, convnext.CNBlock):
+                s = torch.rand(mod.layer_scale.shape, device="cuda", generator=gen) * 0.9 + 0.1
+                sign = torch.randint(0, 2, s.shape, device="cuda", generator=gen) * 2 - 1
+                mod.layer_scale.copy_(s * sign)
+        bns = [m for m in net.modules() if isinstance(m, BatchNormUncentered2d)]
+        for bn in bns:
+            bn.weight.div_(_output_rms(net, probe, bn))
+        if bns:
+            bns[-1].weight.div_(float((net(probe).double() - bias).pow(2).mean().sqrt()))
+        return float((net(probe).double() - bias).pow(2).mean().sqrt())
+
+
+def vgg_layer_rms(x2):
+    """The plain (norm-free) vgg16 at random init: the RMS of each conv's
+    output on one probe image, printed (it contracts ~1/sqrt(9 Cin) per
+    conv, so its W is no check of the kernels: phase 18 holds vgg16_bnu)."""
+    net = pretrained.load_model("vgg16", pretrained=False, seed=SEED)
+    convs = [(n, m) for n, m in net.named_modules() if isinstance(m, BcosConv2d)]
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, n=n: seen.__setitem__(n, float(out.double().pow(2).mean().sqrt())))
+        for n, m in convs]
+    try:
+        with torch.no_grad():
+            net(x2[:1])
+    finally:
+        for h in hooks:
+            h.remove()
+    say("zoo vgg16 (no norms) per-layer output RMS on the probe: " + ", ".join(
+        f"{n} {seen[n]:.3g}" for n, _ in convs))
+    del net
+
+
+def zoo_release_round_trip(nets, x2):
+    """convert_release_checkpoint of seeded reference-layout .pth files
+    (release_state_dict of phase 18's nets, the uncentered BNs' running
+    means added as the reference keeps them): vgg16_bnu, convnext_tiny (the
+    position norm) and a convnext_tiny_bnu under the name convnext_tiny (the
+    running statistics rebuild it with uncentered BN): each equal to its
+    source in the pre-logits (1e-6 relative), its modules of the source's
+    types, its forward on K3 alone."""
+    bnu = zoo_build("convnext_tiny_bnu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    for mod in bnu.modules():
+        if isinstance(mod, BatchNormUncentered2d):
+            mod.running_var.copy_(torch.rand(mod.running_var.shape, device="cuda",
+                                             generator=gen) + 0.5)
+    zoo_prepare(bnu, x2[:1])
+    sources = (("vgg16_bnu", "vgg16_bnu", nets["vgg16_bnu"]),
+               ("convnext_tiny", "convnext_tiny", nets["convnext_tiny"]),
+               ("convnext_tiny", "convnext_tiny_bnu", bnu))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, what, source in sources:
+            sd = release_import.release_state_dict(source, name)
+            for key in [k for k in sd if k.endswith("running_var")]:
+                sd[key[:-len("var")] + "mean"] = torch.randn(sd[key].shape)
+            path = Path(tmp) / f"{what}-release.pth"
+            torch.save(sd, path)
+            t0 = time.perf_counter()
+            model, _ = release_import.convert_release_checkpoint(name, path, return_model=True)
+            convert_s = time.perf_counter() - t0
+            with torch.no_grad():
+                got, counts = counted(lambda: model(x2))
+                want = source(x2)
+            bias = source.logit_layer.logit_bias
+            err = rel(got.double() - bias, want.double() - bias)
+            types = {type(m) for m in model.modules()}
+            say(f"zoo release checkpoint {what} as {name!r} ({len(sd)} tensors): converted from "
+                f".pth in {convert_s:.1f} s; uncentered BN: "
+                f"{BatchNormUncentered2d in types}; forward launches {counts}; pre-logits "
+                f"against the source's: rel {err:.3e} (bound 1e-6)")
+            check_counts(f"zoo release {what} forward", counts, zoo_counts(source, False))
+            if not err <= 1e-6 or types != {type(m) for m in source.modules()}:
+                raise AssertionError(f"the {what} release checkpoint did not convert")
+            del model
+
+
+def phase_zoo_vgg_convnext(x2, stream_rate, worst):
+    """Phase 18: load_model of vgg16_bnu, convnext_tiny and convnext_base_bnu
+    at full width (random init from SEED, ``zoo_prepare``d): phase 17's
+    checks, timings and export for each, the plain vgg16's per-layer RMS,
+    and the release round trips. Returns the keys of K2's and K3's rows of
+    the kernels line."""
+    check_zoo_kernels(worst, ZOO_VGG_CONVNEXT_CHECK_SHAPES)
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} phase 18 kernel checks padded "
+                             "their operands")
+    vgg_layer_rms(x2)
+    nets, keys, summary = {}, {}, []
+    for name in ZOO_VGG_CONVNEXT:
+        net = zoo_build(name)
+        k3 = ZOO_VGG_CONVNEXT_K3[name]
+        check_counts(f"zoo {name} per explanation", zoo_counts(net, True),
+                     {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": k3,
+                      "bcos_matmul_fwd": k3, "stream_add": 0})
+        say(f"zoo {name}: prepared, pre-logit RMS {zoo_prepare(net, x2[:1]):.3g} on the probe")
+        summary.append(zoo_net(name, net, x2, stream_rate, keys))
+        nets[name] = net
+    zoo_release_round_trip(nets, x2)
+    say("zoo VGG/ConvNeXt summary: " + "; ".join(summary) + f" [{CARD}]")
     return keys
 
 
@@ -4912,6 +5123,13 @@ def main() -> int:
     if k12.tma_operands.padded:
         raise AssertionError(f"{k12.tma_operands.padded} model zoo calls padded their operands")
     say("TMA operand padding on the model zoo's paths: 0 calls")
+    t0 = time.perf_counter()
+    zoo18 = phase_zoo_vgg_convnext(x2, probe["k4_gbs"] * 1e9, worst)
+    seconds["18 zoo, VGG and ConvNeXt"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} VGG and ConvNeXt calls padded their "
+                             "operands")
+    say("TMA operand padding on the VGG and ConvNeXt paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -4926,6 +5144,7 @@ def main() -> int:
         row.update(vit.get(row["name"], {}))
         row.update(analyses.get(row["name"], {}))
         row.update(zoo.get(row["name"], {}))
+        row.update(zoo18.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518

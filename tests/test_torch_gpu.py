@@ -15,8 +15,11 @@ with their launches, K3 in fp32 at every shape of one clip_benchmark encode
 of the full-width CLIP-RN50 at batch 64, one harness bundle encode's
 launches, K2 in fp32 at every shape of one text localisation, K1 in fp32
 at every shape of one text localisation and of one ResNet-50 eval batch,
-and the fp32 route of K1, K2 and K3 at ragged shapes (Cin off the TMA
-grid, a misaligned operand). Every test here needs a GPU and skips without one.
+the fp32 route of K1, K2 and K3 at ragged shapes (Cin off the TMA
+grid, a misaligned operand), the model zoo's position norm, grouped convs,
+shapes and small nets, K3 and K2 at the VGG and ConvNeXt shapes, the small
+VGG and ConvNeXts against the CPU, and the K1 gate (a per-channel mult
+only). Every test here needs a GPU and skips without one.
 
 This file imports torch, numpy and the port only, so it also runs on a GPU
 machine without JAX (the suite's conftest imports JAX; skip it there):
@@ -1263,3 +1266,138 @@ def test_small_zoo_gpu_matches_cpu(gpu, name):
     assert torch.equal(sel.cpu(), sc) and torch.equal(sm, sel)
     assert _rel(w, wc) <= 1e-5 and _rel(wm, w) <= 1e-5
     assert _rel(logits, lc) <= 1e-5 and _rel(out, lc) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# the zoo's VGG and ConvNeXt entries (models/vgg.py, models/convnext.py)
+# --------------------------------------------------------------------------
+# (M, K, N) at 1/8 of batch 128: ConvNeXt-atto's first stage (K and N of 40
+# and 160: one TMA box past K and N filled with zeros), ConvNeXt-T's first
+# stage, VGG-16's two 1x1 classifier convs
+VGG_CONVNEXT_SHAPES = [(401408 // 8, 40, 160), (401408 // 8, 160, 40), (401408 // 8, 96, 384),
+                       (401408 // 8, 384, 96), (6272 // 8, 4096, 4096), (6272 // 8, 4096, 1000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,k,n", VGG_CONVNEXT_SHAPES)
+def test_k3_and_k2_at_the_vgg_convnext_shapes(gpu, dtype, m, k, n):
+    """K3 and K2 (the bare cotangent, and a per-channel mult) against
+    their plain versions, with no operand padded."""
+    g = torch.Generator(device=gpu).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=gpu, generator=g).to(dtype)
+    wt = (torch.randn(n, k, device=gpu, generator=g) / k ** 0.5).to(dtype)
+    ct = torch.randn(m, n, device=gpu, generator=g).to(dtype)
+    mult = torch.rand(n, device=gpu, generator=g) + 0.1
+    ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    before = k12.tma_operands.padded
+    y = k3.bcos_matmul_fwd(x, wt, eps=1e-6, eps_outside=False)
+    assert _rel(y, k3.bcos_matmul_fwd_plain(ref(x), ref(wt), eps=1e-6, eps_outside=False)) <= tol
+    for mlt in (None, mult):
+        dx = k12.conv1x1_bwd_explain(x, wt, ct, None, mlt, relu=False)
+        want = k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, mlt, relu=False)
+        assert _rel(dx, want) <= tol
+    torch.cuda.synchronize()
+    assert k12.tma_operands.padded == before
+
+
+def _small_vgg_convnext(name, device, monkeypatch):
+    """(net, the same net on the CPU) of a small VGG or ConvNeXt of the
+    zoo's layers, every layer_scale O(1) and every running_var the mean
+    square of its norm's input on a probe (so no layer vanishes); logit
+    bias 0, so the logits are the pre-logits (VGG's classifier contracts
+    them ~3e4-fold, below the bias's rounding)."""
+    from bcosification_tpu_torch.models import convnext, pretrained, vgg
+    from bcosification_tpu_torch.modules import BatchNormUncentered2d, NoBias
+
+    if name == "vgg_bnu":
+        monkeypatch.setitem(vgg.CFGS, "T", [16, "M", 32, "M", 64, 64, "M", 64, "M"])
+        net = pretrained._cnn(vgg.BcosVGG, cfg="T", num_classes=10,
+                              logit_bias=0.0)(device=device)
+    else:
+        extra = (dict(norm_layer=NoBias(BatchNormUncentered2d)) if name == "convnext_bnu"
+                 else {})
+        blocks = [convnext.CNBlockConfig(16, 32, 2), convnext.CNBlockConfig(32, None, 2)]
+        net = pretrained._cnn(convnext.BcosConvNeXt, block_setting=blocks, num_classes=10,
+                              logit_bias=0.0, **extra)(device=device)
+    g = torch.Generator(device=device).manual_seed(5)
+    probe = torch.rand(1, 32, 32, 6, device=device, generator=g)
+
+    def pre(mod, args):
+        mod.running_var.copy_(args[0].float().square().mean(dim=(0, 1, 2)))
+
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, convnext.CNBlock):
+                mod.layer_scale.copy_(torch.rand(mod.layer_scale.shape, device=device,
+                                                 generator=g) - 0.5)
+        hooks = [m.register_forward_pre_hook(pre) for m in net.modules()
+                 if isinstance(m, BatchNormUncentered2d)]
+        net(probe)
+        for h in hooks:
+            h.remove()
+    return net, copy.deepcopy(net).to("cpu")
+
+
+@pytest.mark.parametrize("name", ["vgg_bnu", "convnext_pn", "convnext_bnu"])
+def test_small_vgg_convnext_gpu_matches_cpu(gpu, name, monkeypatch):
+    """A small VGG or ConvNeXt in fp32: the fast pass on the card (K3 and K2
+    at every stride-1 1x1, no K1) against the CPU and against the generic
+    autograd W (1e-5), and the forward's launches."""
+    from bcosification_tpu_torch.explain import fast_convnext, fast_vgg
+    from bcosification_tpu_torch.explain.core import dynamic_linear_weights
+
+    net, cpu = _small_vgg_convnext(name, gpu, monkeypatch)
+    fast = fast_vgg if name.startswith("vgg") else fast_convnext
+    n_1x1 = sum(1 for mod in net.modules() if getattr(mod, "kernel_size", None) == (1, 1)
+                and getattr(mod, "stride", None) == (1, 1))
+    assert n_1x1 == (2 if name.startswith("vgg") else 9)
+    g = torch.Generator(device=gpu).manual_seed(1)
+    x = torch.rand(2, 32, 32, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    reset_launch_counts()
+    logits, sel, w = fast.fast_dynamic_linear_weights(net, x)
+    assert launch_counts() == {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": n_1x1,
+                               "bcos_matmul_fwd": n_1x1, "stream_add": 0}
+    reset_launch_counts()
+    with torch.no_grad():
+        out = net(x)
+    assert launch_counts()["bcos_matmul_fwd"] == n_1x1
+    lc, sc, wc = fast.fast_dynamic_linear_weights(cpu, x.cpu(), device="cpu")
+    _, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x)
+    assert torch.equal(sel.cpu(), sc) and torch.equal(sm, sel)
+    assert _rel(w, wc) <= 1e-5 and _rel(wm, w) <= 1e-5
+    assert _rel(logits, lc) <= 1e-5 and _rel(out, lc) <= 1e-5
+
+
+@pytest.mark.parametrize("norm", ["AllNormUncentered2d", "BatchNormUncentered2d"])
+def test_k1_gate_takes_a_per_channel_mult_only(gpu, norm):
+    """A small ResNet of B-cos convs and ReLUs with the bias-free uncentered
+    AllNorm (a (1,) mult) or BN (a mult per output channel), same weights:
+    the eval forward folds every 1x1's norm into its epilogue; K1 takes the
+    BN's, the AllNorm's stay off it (the stride-1 1x1s on K3); both equal
+    the CPU (1e-5; logit bias 0: the logits are the pre-logits)."""
+    from bcosification_tpu_torch.models import pretrained, resnet
+    from bcosification_tpu_torch.modules import NoBias, ReLU, norms
+
+    build = pretrained._cnn(resnet.BcosResNet, block="bottleneck", layers=(1, 1), inplanes=16,
+                            num_classes=10, norm_layer=NoBias(getattr(norms, norm)),
+                            act_layer=ReLU, logit_bias=0.0)
+    net, cpu = build(device=gpu), build(device="cpu")
+    convs = [m for m in net.modules() if getattr(m, "kernel_size", None) == (1, 1)]
+    n_1x1, n_fc = len(convs) - 1, 1  # the classifier has no norm
+    n_stride1 = sum(1 for m in convs if m.stride == (1, 1))
+    g = torch.Generator(device=gpu).manual_seed(2)
+    x = torch.rand(2, 64, 64, 3, device=gpu, generator=g)
+    x = torch.cat([x, 1.0 - x], dim=-1)
+    reset_launch_counts()
+    with torch.no_grad():
+        out = net(x)
+    counts = launch_counts()
+    if norm == "AllNormUncentered2d":
+        assert counts["bcos_conv1x1_fwd"] == 0 and counts["bcos_matmul_fwd"] == n_stride1
+    else:
+        assert counts["bcos_conv1x1_fwd"] == n_1x1 and counts["bcos_matmul_fwd"] == n_fc
+    with torch.no_grad():
+        want = cpu(x.cpu())
+    assert _rel(out, want) <= 1e-5

@@ -283,21 +283,15 @@ def test_unresolved_weights_warn_and_keep_random_init(flagship, tmp_path, monkey
 
 
 def test_registry_names():
-    """The port builds every JAX entry point but the 15 VGG and ConvNeXt
-    names, which raise naming ROADMAP A4b; the names the port used to add
-    (resnet_50, ...) are unknown in both packages."""
+    """The port builds every JAX entry point (the 15 VGG and ConvNeXt names
+    among them); the names the port used to add (resnet_50, ...) are
+    unknown in both packages."""
     from bcosification_tpu.models import pretrained as jax_pretrained
     from bcosification_tpu_torch.models import pretrained
 
-    not_ported = set(pretrained.NOT_PORTED)
-    assert len(not_ported) == 15 and not_ported <= set(jax_pretrained.list_available())
-    assert all(n.startswith(("vgg", "convnext")) for n in not_ported)
-    assert pretrained.list_available() == sorted(set(jax_pretrained.list_available())
-                                                 - not_ported)
-    assert len(pretrained.list_available()) == 30
-    for name in sorted(not_ported):
-        with pytest.raises(NotImplementedError, match="A4b"):
-            pretrained.load_model(name)
+    assert pretrained.list_available() == sorted(jax_pretrained.list_available())
+    assert len(pretrained.list_available()) == 45
+    assert not hasattr(pretrained, "NOT_PORTED")
     for load in (pretrained.load_model, jax_pretrained.load_model):
         for name in ("resnet_50", "resnet_18_V1", "no_such_model"):
             with pytest.raises(ValueError, match="Unknown entrypoint"):

@@ -61,7 +61,8 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "clip_benchmark.probe_benchmark.process_vtab", "clip_benchmark.webdataset_builder",
              "clip_benchmark.model_collection", "models.pretrained", "modules.containers",
              "modules.stochastic_depth", "utils", "utils.init_mode",
-             "bcosify.release_import"):
+             "bcosify.release_import", "models.vgg", "models.convnext", "explain.fast_vgg",
+             "explain.fast_convnext", "explain._shared"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
@@ -230,3 +231,23 @@ def test_zoo_entry_points_raise_without_gpu():
                                           inplanes=8, num_classes=10)
     with torch.no_grad():
         assert torch.equal(model(x), net(x))
+
+
+def test_vgg_and_convnext_entry_points_raise_without_gpu():
+    """The zoo's VGGs and ConvNeXts build on the card unless asked for the
+    CPU, and so do their hand-scheduled passes."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from bcosification_tpu_torch.explain import fast_convnext, fast_vgg
+    from bcosification_tpu_torch.models import convnext, pretrained
+
+    for name in ("vgg11_bnu", "convnext_atto", "convnext_tiny_bnu"):
+        with pytest.raises(RuntimeError, match="GPU"):
+            pretrained.load_model(name, pretrained=False)
+    net = pretrained._cnn(convnext.BcosConvNeXt, num_classes=10,
+                          block_setting=[convnext.CNBlockConfig(8, None, 1)])(device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 16, 16, 6)).astype(np.float32))
+    assert fast_convnext.supports(net) and not fast_vgg.supports(net)
+    with pytest.raises(RuntimeError, match="GPU"):
+        fast_convnext.fast_dynamic_linear_weights(net, x)
+    assert fast_convnext.fast_dynamic_linear_weights(net, x, device="cpu")[2].shape == x.shape

@@ -123,10 +123,10 @@ def test_meta_build_shapes_match_jax(name):
 
 
 def test_release_urls_match_jax():
-    """pretrained_url of every registered and not-ported name, and of the
-    experiment names, equals the JAX package's; the table is JAX's asset."""
+    """pretrained_url of every registered name, and of the experiment names,
+    equals the JAX package's; the table is JAX's asset."""
     assert pretrained.pretrained_urls() == jpretrained.pretrained_urls()
-    names = pretrained.list_available() + list(pretrained.NOT_PORTED)
+    names = pretrained.list_available()
     names += ["resnet_50", "densenet_121", "bcos_simple_vit_b_patch16_224", "no_such_model"]
     for name in names:
         assert pretrained.pretrained_url(name) == jpretrained.pretrained_url(name), name
