@@ -2,10 +2,12 @@
 ``bcosification_tpu/bcosify/engine.py::build_bcosified_{resnet,densenet}``
 and of the ViT factory ``experiments/ImageNet/vit_bcosification/model.py``).
 
-The architecture: BcosifyConv2d convs (raw weights, fixed b), uncentered BN
-(bias-free unless ``use_bias``), ReLU (or Identity), an avg-pool stem, the
-classifier as a 1x1 conv before the global average pool, and the
-BcosifyNetwork wrapper (6-channel Normalize + LogitLayer). The ViT:
+The architecture: BcosifyConv2d convs (raw weights; b fixed, or learnable
+with bcosify_args.clamping or learn_b), uncentered BN (bias-free unless
+``use_bias``), ReLU (or Identity), an avg-pool stem, the classifier as a 1x1
+conv before the global average pool, and the BcosifyNetwork wrapper
+(6-channel Normalize, with CLIP's constants under clip_kd or
+linearprobe_clip, + LogitLayer). The ViT:
 BcosifyLinear linears but ``to_qkv``, which stays plain, the detachable
 LayerNorm and GELU. The weights come from a torchvision (or the hub's
 standard SimpleViT) state dict (``bcosify/torch_import.py``) or from a
@@ -27,7 +29,7 @@ from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.models import resnet as resnet_lib
 from bcosification_tpu_torch.models.densenet import DENSENET_CONFIGS, BcosDenseNet
 from bcosification_tpu_torch.models import vit as vit_lib
-from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
+from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork, normalization_for
 from bcosification_tpu_torch.modules import (
     BatchNormUncentered2d,
     BcosifyConv2d,
@@ -52,21 +54,31 @@ RESNET_LAYERS = {
 
 
 def _bcosify_factories(model_config: Dict[str, Any]):
+    """The layer factories of bcosify_args: BcosifyConv2d with the
+    configured b (``clamping`` and ``learn_b``, the JAX ``b_loss``, make it
+    learnable), the uncentered BN (bias-free unless ``use_bias``), ReLU or
+    Identity."""
     bargs = model_config.get("bcosify_args", {}) or {}
     b = (model_config.get("bcos_args", {}) or {}).get("b", 2)
-    for key in ("clamping", "learn_b", "clip_kd", "linearprobe_clip"):
-        if bargs.get(key, False):
-            raise NotImplementedError(f"bcosify_args.{key} is not ported yet")
-    if model_config.get("bfy_mean_zero", False):
-        raise NotImplementedError("bfy_mean_zero is not ported yet")
     use_bias = bargs.get("use_bias", False)
     norm_name = bargs.get("norm_layer", "BnUncV2")
     if norm_name not in ("BnUnc2d", "BnUncV2"):
         raise ValueError(f"unsupported norm_layer {norm_name!r}")
-    conv_layer = partial(BcosifyConv2d, b=float(b))
+    conv_layer = partial(BcosifyConv2d, b=float(b), clamping=bargs.get("clamping", False),
+                         b_loss=bargs.get("learn_b", False))
     norm_layer = BatchNormUncentered2d if use_bias else NoBias(BatchNormUncentered2d)
     act_layer = ReLU if bargs.get("act_layer", True) else Identity
     return conv_layer, norm_layer, act_layer, use_bias, bargs
+
+
+def _normalization(model_config: Dict[str, Any]):
+    """(mean, std) of the wrapper's Normalize: CLIP's under
+    bcosify_args.clip_kd or linearprobe_clip (zero mean with the config's
+    bfy_mean_zero), else ImageNet's."""
+    bargs = model_config.get("bcosify_args", {}) or {}
+    return normalization_for(clip_kd=bool(bargs.get("clip_kd", False)),
+                             linearprobe_clip=bool(bargs.get("linearprobe_clip", False)),
+                             bfy_mean_zero=bool(model_config.get("bfy_mean_zero", False)))
 
 
 def _generator(model_config: Dict[str, Any], seed: Optional[int]) -> torch.Generator:
@@ -108,7 +120,9 @@ def build_bcosified_resnet(
         fc_layer=partial(conv_layer, use_bias=use_bias), stem_pool="avg",
         gap_reorder=bool(bargs.get("gap", True)), with_logit_layer=False, generator=gen,
     )
-    net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True)
+    mean, std = _normalization(model_config)
+    net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True, mean=mean,
+                         std=std)
     if state_dict is not None:
         net.load_state_dict(resnet_state_dict(
             state_dict, net,
@@ -147,7 +161,9 @@ def build_bcosified_densenet(
         gap_reorder=bool(bargs.get("gap", True)), generator=_generator(model_config, seed),
         **cfg,
     )
-    net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True)
+    mean, std = _normalization(model_config)
+    net = BcosifyNetwork(backbone, num_classes=num_classes, with_logit_layer=True, mean=mean,
+                         std=std)
     if state_dict is not None:
         net.load_state_dict(densenet_state_dict(
             state_dict, net,

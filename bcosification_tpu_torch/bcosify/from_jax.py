@@ -6,8 +6,9 @@ port model of the same architecture. The port's module names mirror the
 JAX scopes, so a leaf at params/model/layer1_0/conv1/weight is the state
 dict entry ``model.layer1_0.conv1.weight``. Conv weights are HWIO in JAX
 and OIHW here (a grouped conv's [kh, kw, Cin / groups, Cout] too); every
-other leaf (the norms' weights, the position norm's among them, and the
-ViTs' (in, out) linear weights) copies as it is. ``to_jax_variables(model)``
+other leaf (the norms' weights, the position norm's among them, the
+ViTs' (in, out) linear weights and the learnable-b layers' scalar ``b``)
+copies as it is. ``to_jax_variables(model)``
 is the inverse: parameters go to "params", buffers (the BN running_var and
 num_batches_tracked) to "batch_stats".
 """

@@ -12,8 +12,8 @@ and "label"; the trainer moves them to the card.
 JPEGImages, Annotations): multilabel targets from the XML annotations and,
 with ``also_annotation``, the boxes rescaled to ``bbox_size``. CC3M's module
 is in ``data/cc3m.py``. Not ported yet: the C++ loader (``native_loader=True``
-raises) and the per-process split of a multi-process run
-(``split_by_process`` raises).
+raises: it needs libjpeg, which the H100 machine lacks) and the per-process
+split of a multi-process run (``split_by_process`` raises).
 """
 from __future__ import annotations
 
@@ -46,7 +46,8 @@ __all__ = [
 ]
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp", ".jfif")
-NATIVE_LOADER_SLICE = "port slice 6e (the native JPEG loader)"
+NATIVE_LOADER_SLICE = ("port slice 6e (the native JPEG loader, ROADMAP A5), which waits: "
+                       "the H100 machine has neither libjpeg's headers nor its library")
 SPLIT_BY_PROCESS_SLICE = "port slice 8 (distribution)"
 
 

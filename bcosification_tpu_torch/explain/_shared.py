@@ -36,12 +36,12 @@ def _b2_convs(m):
     """``m``'s convs if they are all B-cos convs of one type (BcosConv2d or
     BcosifyConv2d), b=2, max_out 1, undilated and bias-free; else None."""
     from bcosification_tpu_torch.modules import BcosConv2d, BcosifyConv2d
-    from bcosification_tpu_torch.modules.bcos_layers import _ConvBase
+    from bcosification_tpu_torch.modules.bcos_layers import _ConvBase, fixed_b2
 
     convs = [mod for mod in m.modules() if isinstance(mod, _ConvBase)]
     if len({type(c) for c in convs}) != 1 or type(convs[0]) not in (BcosConv2d, BcosifyConv2d):
         return None
-    if any(c.b != 2 or c.max_out != 1 or c.bias is not None or c.dilation != (1, 1)
+    if any(not fixed_b2(c) or c.max_out != 1 or c.bias is not None or c.dilation != (1, 1)
            for c in convs):
         return None
     return convs

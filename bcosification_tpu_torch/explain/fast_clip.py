@@ -64,6 +64,7 @@ def supports(net) -> bool:
     from bcosification_tpu_torch.clip.model import ModifiedResNet
     from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
     from bcosification_tpu_torch.modules import BcosifyConv2d, BcosifyLinear, PlainReLU
+    from bcosification_tpu_torch.modules.bcos_layers import fixed_b2
 
     if not isinstance(net, BcosifyNetwork) or not isinstance(net.model, ModifiedResNet):
         return False
@@ -74,7 +75,7 @@ def supports(net) -> bool:
         return False
     c_proj = m.attnpool.c_proj
     return (isinstance(m.relu1, PlainReLU) and isinstance(c_proj, BcosifyLinear)
-            and c_proj.b == 2 and c_proj.max_out == 1)
+            and fixed_b2(c_proj) and c_proj.max_out == 1)
 
 
 def _pool_t(ct: torch.Tensor, shape, k: int) -> torch.Tensor:

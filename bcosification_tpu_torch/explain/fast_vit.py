@@ -65,6 +65,7 @@ from bcosification_tpu_torch.modules import (
     DetachableLayerNorm,
     Identity,
 )
+from bcosification_tpu_torch.modules.bcos_layers import fixed_b2
 from bcosification_tpu_torch.modules.norms import DetachableGroupNorm2d
 from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain
@@ -83,7 +84,7 @@ def supports(net) -> bool:
         return False
     stem = m.stem()
     for conv, norm, act in zip(stem[::3], stem[1::3], stem[2::3]):
-        if not (isinstance(conv, BcosConv2d) and conv.b == 2 and conv.max_out == 1
+        if not (isinstance(conv, BcosConv2d) and fixed_b2(conv) and conv.max_out == 1
                 and conv.groups == 1 and conv.bias is None and conv.dilation == (1, 1)
                 and type(norm) is DetachableGroupNorm2d and _detached_act(act)):
             return False
@@ -104,7 +105,7 @@ def _detached_act(act) -> bool:
 
 
 def _bcos_linear(lin) -> bool:
-    return isinstance(lin, BcosLinear) and lin.b == 2 and lin.max_out == 1
+    return isinstance(lin, BcosLinear) and fixed_b2(lin) and lin.max_out == 1
 
 
 def fast_dynamic_linear_weights(

@@ -9,6 +9,12 @@ cross-entropy of the standard ViT baselines takes either: dense targets
 are class probabilities (mixup's). ``SigLipLoss`` is the CLIP
 recipe's sigmoid pairwise loss, in one process; its ring exchange across
 processes comes with port slice 8 (distribution).
+
+The reference's other contrastive losses, in their one-process forms:
+``info_nce`` / ``InfoNCELoss``, open_clip's ``ClipLoss``, ``CoCaLoss`` and
+``DistillClipLoss``. Their gathers across processes (``gather_features``,
+``neighbour_exchange``, ``neighbour_exchange_bidir``, a ``world_size`` > 1)
+raise: they come with ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -25,7 +31,17 @@ __all__ = [
     "CrossEntropyLoss",
     "UniformOffLabelsBCEWithLogitsLoss",
     "SigLipLoss",
+    "info_nce",
+    "InfoNCELoss",
+    "gather_features",
+    "neighbour_exchange",
+    "neighbour_exchange_bidir",
+    "ClipLoss",
+    "CoCaLoss",
+    "DistillClipLoss",
 ]
+
+_SLICE_A9 = "ROADMAP A9 (port slice 8, distribution)"
 
 
 def _one_hot_if_needed(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -60,10 +76,16 @@ def binary_cross_entropy_with_logits(
     return _reduce(loss, reduction)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  reduction: str = "mean") -> torch.Tensor:
-    """Softmax cross-entropy with integer labels over the last axis."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, reduction: str = "mean",
+                  ignore_index: Optional[int] = None) -> torch.Tensor:
+    """Softmax cross-entropy with integer labels over the last axis; labels
+    equal to ``ignore_index`` count 0, and the mean is over the others."""
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels.long()[..., None])[..., 0]
+    if ignore_index is not None:
+        mask = (labels != ignore_index).to(nll.dtype)
+        nll = nll * mask
+        if reduction == "mean":
+            return nll.sum() / torch.clamp(mask.sum(), min=1)
     return _reduce(nll, reduction)
 
 
@@ -186,3 +208,122 @@ class SigLipLoss:
 
     def __to_config__(self):
         return {"name": type(self).__name__, "bidir": self.bidir}
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def info_nce(query, positive_key, negative_keys=None, temperature: float = 0.1,
+             reduction: str = "mean", negative_mode: str = "unpaired") -> torch.Tensor:
+    """Contrastive InfoNCE on L2-normalised features: with ``negative_keys``
+    ([M, D] "unpaired" or [N, M, D] "paired") the positive is class 0 of
+    [positive, negatives]; without them the other rows of the batch are
+    the negatives."""
+    query, positive_key = _l2_normalize(query), _l2_normalize(positive_key)
+    if negative_keys is not None:
+        negative_keys = _l2_normalize(negative_keys)
+        positive_logit = (query * positive_key).sum(dim=1, keepdim=True)
+        if negative_mode == "unpaired":
+            negative_logits = query @ negative_keys.t()
+        elif negative_mode == "paired":
+            negative_logits = torch.einsum("nd,nmd->nm", query, negative_keys)
+        else:
+            raise ValueError(negative_mode)
+        logits = torch.cat([positive_logit, negative_logits], dim=1)
+        labels = torch.zeros(logits.shape[0], dtype=torch.long, device=logits.device)
+    else:
+        logits = query @ positive_key.t()
+        labels = torch.arange(query.shape[0], device=query.device)
+    return cross_entropy(logits / temperature, labels, reduction=reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class InfoNCELoss:
+    temperature: float = 0.1
+    reduction: str = "mean"
+    negative_mode: str = "unpaired"
+
+    def __call__(self, query, positive_key, negative_keys=None):
+        return info_nce(query, positive_key, negative_keys, temperature=self.temperature,
+                        reduction=self.reduction, negative_mode=self.negative_mode)
+
+
+def gather_features(image_features, text_features, *args, **kwargs):
+    """The gather of contrastive features across processes: not ported."""
+    raise NotImplementedError(f"gather_features needs a process group; it comes in {_SLICE_A9}")
+
+
+def neighbour_exchange(tensor, *args, **kwargs):
+    """One hop around the ring of processes: not ported."""
+    raise NotImplementedError(f"neighbour_exchange needs a process group; it comes in "
+                              f"{_SLICE_A9}")
+
+
+def neighbour_exchange_bidir(tensor_to_left, tensor_to_right, *args, **kwargs):
+    """The bidirectional ring hop: not ported."""
+    raise NotImplementedError(f"neighbour_exchange_bidir needs a process group; it comes in "
+                              f"{_SLICE_A9}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipLoss:
+    """open_clip's contrastive loss in one process: the mean of the image-
+    and text-side cross-entropies of ``logit_scale`` times the feature
+    products, the matching pairs on the diagonal. ``world_size`` > 1 (the
+    gathered features of every process) raises."""
+
+    local_loss: bool = False
+    world_size: int = 1
+
+    def get_logits(self, image_features, text_features, logit_scale):
+        if self.world_size > 1:
+            gather_features(image_features, text_features)
+        return (logit_scale * image_features @ text_features.t(),
+                logit_scale * text_features @ image_features.t())
+
+    def get_ground_truth(self, num_logits: int, device) -> torch.Tensor:
+        return torch.arange(num_logits, device=device)
+
+    def __call__(self, image_features, text_features, logit_scale):
+        lpi, lpt = self.get_logits(image_features, text_features, logit_scale)
+        labels = self.get_ground_truth(lpi.shape[0], lpi.device)
+        return (cross_entropy(lpi, labels) + cross_entropy(lpt, labels)) / 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CoCaLoss(ClipLoss):
+    """CoCa: (the weighted contrastive loss, the weighted captioning
+    cross-entropy with ``pad_id`` ignored)."""
+
+    caption_loss_weight: float = 1.0
+    clip_loss_weight: float = 1.0
+    pad_id: int = 0
+
+    def __call__(self, image_features, text_features, logits, labels, logit_scale):
+        clip_loss = torch.zeros((), device=logits.device)
+        if self.clip_loss_weight:
+            clip_loss = self.clip_loss_weight * ClipLoss.__call__(
+                self, image_features, text_features, logit_scale)
+        caption_loss = self.caption_loss_weight * cross_entropy(logits, labels,
+                                                                ignore_index=self.pad_id)
+        return clip_loss, caption_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillClipLoss(ClipLoss):
+    """CLIP distillation: (the contrastive loss of the student, the
+    cross-entropy of the student's logits against the teacher's softmax)."""
+
+    def dist_loss(self, teacher_logits, student_logits):
+        return -(torch.softmax(teacher_logits, dim=1)
+                 * torch.log_softmax(student_logits, dim=1)).sum(dim=1).mean()
+
+    def __call__(self, image_features, text_features, logit_scale, dist_image_features,
+                 dist_text_features, dist_logit_scale):
+        lpi, lpt = self.get_logits(image_features, text_features, logit_scale)
+        dlpi, dlpt = self.get_logits(dist_image_features, dist_text_features, dist_logit_scale)
+        labels = self.get_ground_truth(lpi.shape[0], lpi.device)
+        contrastive = (cross_entropy(lpi, labels) + cross_entropy(lpt, labels)) / 2
+        distill = (self.dist_loss(dlpi, lpi) + self.dist_loss(dlpt, lpt)) / 2
+        return contrastive, distill

@@ -18,7 +18,14 @@ copy as they are. ``BcosLinear`` is the B-cos linear with unit-norm weight
 columns, ``BcosifyLinear`` the conversion-time one on raw weights (a
 bias-free b=2 one of either runs on the B-cos matmul kernel,
 ``ops.bcos_linear``; BcosLinear hands it the normalised weight);
-``PlainLinear`` is nn.Linear in that layout. ``NormedConv2d`` and
+``PlainLinear`` is nn.Linear in that layout. The Bcosify layers take the
+learnable-b variants (``_LearnableB``): ``b_loss`` (a parameter ``b`` from
+0, the effective b is ``b + 2``), ``clamping`` (``b`` from the configured
+b, clipped to >= 1 + 1e-6) and ``learnable_b`` (``b`` as it is); the
+parameter is named ``b``, which is how the optimizers find it, and
+``b_override`` replaces the effective b for one call. A tensor b never
+takes a hand-written kernel (``fixed_b2``), as the JAX gates admit only a
+Python b == 2. ``NormedConv2d`` and
 ``NormedLinear`` are plain (not B-cos) layers with unit-norm weights, an
 optional learned per-output scale and a bias; ``PlainConv2d`` is the
 NormedConv2d without the weight norm and with a bias (the standard
@@ -40,7 +47,8 @@ from bcosification_tpu_torch.ops import guided
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import bcos_conv1x1_bn_act
 
 __all__ = ["BcosConv2d", "BcosConv2dWithScale", "BcosifyConv2d", "BcosLinear", "BcosifyLinear",
-           "LogitLayer", "NormedConv2d", "NormedLinear", "PlainConv2d", "PlainLinear"]
+           "LogitLayer", "NormedConv2d", "NormedLinear", "PlainConv2d", "PlainLinear",
+           "fixed_b2"]
 
 
 class _ConvBase(nn.Module):
@@ -68,6 +76,12 @@ class _ConvBase(nn.Module):
             self.weight.uniform_(-bound, bound, generator=generator)
             if self.bias is not None:
                 self.bias.uniform_(-bound, bound, generator=generator)
+
+
+def fixed_b2(mod: nn.Module) -> bool:
+    """True if the layer's b is the Python number 2: a learnable b (a
+    parameter, whatever its value) is never a fixed b == 2."""
+    return isinstance(mod.b, (int, float)) and mod.b == 2
 
 
 def _fused_1x1_ok(mod: _ConvBase, b, bias) -> bool:
@@ -137,13 +151,17 @@ class BcosConv2d(_ConvBase):
     def effective_weight(self) -> torch.Tensor:
         return ops.normed_conv_weight(self.weight) if self.normalize_weights else self.weight
 
+    def effective_b(self, b_override=None):
+        return self.b if b_override is None else b_override
+
     def forward(self, x, *, train: bool = False, explain: bool = False,
-                x_sumsq: Optional[torch.Tensor] = None, epilogue=None):
+                x_sumsq: Optional[torch.Tensor] = None, epilogue=None, b_override=None):
+        b = self.effective_b(b_override)
         if epilogue is not None:
-            return _epilogue_result(self, x, self.effective_weight(), self.bias, self.b,
+            return _epilogue_result(self, x, self.effective_weight(), self.bias, b,
                                     explain, x_sumsq, epilogue)
         return ops.bcos_conv2d(
-            x, self.weight, b=self.b, stride=self.stride, padding=self.padding,
+            x, self.weight, b=b, stride=self.stride, padding=self.padding,
             dilation=self.dilation, groups=self.groups, max_out=self.max_out,
             normalize_weights=self.normalize_weights, bias=self.bias, explain=explain,
             x_sumsq=x_sumsq,
@@ -202,12 +220,39 @@ class BcosConv2dWithScale(_ConvBase):
         return out / self.scale
 
 
-class BcosifyConv2d(BcosConv2d):
+class _LearnableB:
+    """The learnable-b variants of the Bcosify layers (``_resolve_b`` of the
+    JAX package): with ``b_loss``, ``clamping`` or ``learnable_b`` the layer
+    holds a scalar f32 parameter ``b`` (0 with ``b_loss``, else the
+    configured b) in place of the fixed float."""
+
+    def _init_b(self, clamping: bool, b_loss: bool, learnable_b: bool, device) -> None:
+        self.clamping, self.b_loss, self.learnable_b = clamping, b_loss, learnable_b
+        if b_loss or clamping or learnable_b:
+            init = 0.0 if b_loss else float(self.b)
+            self.b = nn.Parameter(torch.tensor(init, dtype=torch.float32, device=device))
+
+    def effective_b(self, b_override=None):
+        if b_override is not None:
+            return b_override
+        if self.b_loss:
+            return self.b + 2.0
+        if self.clamping:  # maximum, not clamp: a tie splits the gradient, as jnp.clip
+            return torch.maximum(self.b, self.b.new_tensor(1.0 + 1e-6))
+        return self.b
+
+
+class BcosifyConv2d(_LearnableB, BcosConv2d):
     """Conversion-time B-cos conv: the raw (pretrained) weights are not
-    unit-normalised. Only a fixed b is ported; learnable b comes with
-    training."""
+    unit-normalised; b fixed or learnable (``_LearnableB``)."""
 
     normalize_weights = False
+
+    def __init__(self, in_channels: int, features: int, kernel_size=1, *, b: float = 2.0,
+                 clamping: bool = False, b_loss: bool = False, learnable_b: bool = False,
+                 **kwargs):
+        super().__init__(in_channels, features, kernel_size, b=b, **kwargs)
+        self._init_b(clamping, b_loss, learnable_b, kwargs.get("device"))
 
 
 class _LinearBase(nn.Module):
@@ -275,23 +320,33 @@ class BcosLinear(_LinearBase):
         super().__init__(in_features, features * max_out, use_bias, **kwargs)
         self.b, self.max_out = b, max_out
 
-    def forward(self, x, *, train: bool = False, explain: bool = False):
-        return ops.bcos_linear(x, self.weight, b=self.b, max_out=self.max_out,
-                               normalize_weights=self.normalize_weights, bias=self.bias,
-                               explain=explain)
+    def effective_b(self, b_override=None):
+        return self.b if b_override is None else b_override
+
+    def forward(self, x, *, train: bool = False, explain: bool = False, b_override=None):
+        return ops.bcos_linear(x, self.weight, b=self.effective_b(b_override),
+                               max_out=self.max_out, normalize_weights=self.normalize_weights,
+                               bias=self.bias, explain=explain)
 
 
-class BcosifyLinear(BcosLinear):
-    """Conversion-time B-cos linear: raw (pretrained) weights, fixed b.
-    ``weight_only`` applies the weight plainly: no bias, no dynamic scale."""
+class BcosifyLinear(_LearnableB, BcosLinear):
+    """Conversion-time B-cos linear: raw (pretrained) weights, b fixed or
+    learnable (``_LearnableB``). ``weight_only`` applies the weight plainly:
+    no bias, no dynamic scale."""
 
     normalize_weights = False
 
+    def __init__(self, in_features: int, features: int, *, b: float = 2.0,
+                 clamping: bool = False, b_loss: bool = False, learnable_b: bool = False,
+                 **kwargs):
+        super().__init__(in_features, features, b=b, **kwargs)
+        self._init_b(clamping, b_loss, learnable_b, kwargs.get("device"))
+
     def forward(self, x, *, train: bool = False, explain: bool = False,
-                weight_only: bool = False):
+                weight_only: bool = False, b_override=None):
         if weight_only:
             return x @ self.weight.to(x.dtype)
-        return super().forward(x, train=train, explain=explain)
+        return super().forward(x, train=train, explain=explain, b_override=b_override)
 
 
 class LogitLayer(nn.Module):

@@ -153,12 +153,16 @@ def _per_group(out: torch.Tensor, groups: int) -> torch.Tensor:
 def dynamic_scale(out: torch.Tensor, norm: torch.Tensor, b, *, explain: bool = False):
     """The |cos|^(B-1) factor. ``explain`` detaches out and norm. A Python
     b == 2 takes the fast path |out|/norm; any other b (also a tensor) the
-    stabilised power path (|out/norm| + 1e-6)^(b-1)."""
+    stabilised power path (|out/norm| + 1e-6)^(b-1). A tensor b (learnable)
+    promotes the factor to its dtype, as JAX promotes a bf16 activation
+    with an f32 parameter."""
     if explain:
         out, norm = out.detach(), norm.detach()
     if isinstance(b, (int, float)) and b == 2:
         return out.abs() / norm
     abs_cos = (out / norm).abs() + COS_EPS
+    if isinstance(b, torch.Tensor):
+        abs_cos = abs_cos.to(torch.promote_types(abs_cos.dtype, b.dtype))
     return torch.pow(abs_cos, b - 1)
 
 

@@ -5,12 +5,13 @@ adam, adamw, sgd and rmsprop with the JAX package's defaults: no weight
 decay unless asked for (coupled L2 for adam/sgd/rmsprop, decoupled for
 adamw), RMSprop with alpha 0.9 and eps 0.0316 added outside the square
 root and, as optax orders it, the lr applied before the momentum trace
-(``RMSprop``). ``bcosify`` (any value but None) keeps the learnable ``b`` parameters
-out of the main optimizer; ``b_opt``, the optimizer over only those, comes
-with learnable b.
+(``RMSprop``). ``bcosify`` (any value but None) splits the parameters as the
+JAX package's two-optimizer set-up does: the optimizer takes every
+parameter but the learnable ``b`` ones, or, with ``b_opt``, only those.
 """
 from __future__ import annotations
 
+import copy
 from typing import Union
 
 import torch
@@ -82,14 +83,10 @@ class OptimizerFactory:
         self.args = dict(lr=lr, **kwargs)
 
     def create(self, model: nn.Module) -> torch.optim.Optimizer:
-        if self.args.get("b_opt", False):
-            raise NotImplementedError(
-                "OptimizerFactory: b_opt (the optimizer over the learnable b) comes "
-                "with learnable b in port slice 6"
-            )
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         if self.args.get("bcosify", None) is not None:
-            named = [(n, p) for n, p in named if not is_b_param(n)]
+            want_b = bool(self.args.get("b_opt", False))
+            named = [(n, p) for n, p in named if is_b_param(n) == want_b]
         params = [p for _, p in named]
         args = {k: v for k, v in self.args.items() if k not in ("bcosify", "b_opt")}
         name = self.name.lower()
@@ -106,6 +103,21 @@ class OptimizerFactory:
         eps = args.pop("eps", 1e-8)
         opt = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
         return opt(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+
+    def with_name(self, new_name: str) -> "OptimizerFactory":
+        args = copy.deepcopy(self.args)
+        lr = args.pop("lr")
+        return type(self)(new_name, lr, **args)
+
+    def with_args(self, **kwargs) -> "OptimizerFactory":
+        """A copy with ``kwargs`` added or overridden; the other arguments
+        are kept."""
+        if "lr" in kwargs or "name" in kwargs:
+            raise ValueError("with_args takes neither lr nor name")
+        args = copy.deepcopy(self.args)
+        lr = args.pop("lr")
+        args.update(kwargs)
+        return type(self)(self.name, lr, **args)
 
     @property
     def lr(self) -> float:

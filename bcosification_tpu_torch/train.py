@@ -2,7 +2,9 @@
 
     python -m bcosification_tpu_torch.train --dataset ImageNet \\
         --base_network bcosification --experiment_name resnet_50 [--amp] \\
-        [--fast_dev_run] [--force-no-resume] [--base_directory D]
+        [--fast_dev_run] [--force-no-resume] [--base_directory D] \\
+        [--tensorboard_logger] [--wandb_logger] [--explanation_logging] \\
+        [--profile_dir P] [--debug]
 
 It runs on the GPU. ``--amp`` trains in bf16 (f32 parameters and optimizer
 state); ``--distributed`` and ``--jit`` are accepted and have no effect on
@@ -57,7 +59,8 @@ def get_parser():
                         help="pipeline stages; not ported yet (slice 8)")
     parser.add_argument("--log_every_n_steps", type=int, default=50,
                         help="per-step logging cadence")
-    parser.add_argument("--profile_dir", default=None, help="not ported yet")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of train steps 3-8 here")
     parser.add_argument(
         "--force-no-resume", dest="resume", default=True, action="store_false",
         help="do NOT auto-resume from the last checkpoint (note the inverted dest)",

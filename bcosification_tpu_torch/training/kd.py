@@ -27,10 +27,9 @@ from torch import nn
 
 from bcosification_tpu_torch.data.presets import CLIP_MEAN, CLIP_STD
 from bcosification_tpu_torch.losses import SigLipLoss
-from bcosification_tpu_torch.optim.optimizer_factory import set_lr
 from bcosification_tpu_torch.training import agc as agc_lib
 from bcosification_tpu_torch.training import ema as ema_lib
-from bcosification_tpu_torch.training.steps import AGC_CLIP_FACTOR, TrainState
+from bcosification_tpu_torch.training.steps import AGC_CLIP_FACTOR, TrainState, apply_update
 
 __all__ = ["kd_forward_features", "kd_loss", "make_kd_train_step"]
 
@@ -75,26 +74,26 @@ def make_kd_train_step(
     use_agc: bool = True,
     ema_decay: Optional[float] = None,
     ema_steps: int = 32,
+    accumulate: int = 1,
     amp: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, Any]]]:
     """``train_step(state, batch) -> (state, {"loss"})`` of the KD recipe:
     ``state`` holds the student; ``batch["image"]`` raw [0, 1] NHWC images
-    on its device. ``lr_schedule``: a schedule(step) -> lr, a constant, or
-    None to keep the optimizer's own lr."""
+    on its device. ``lr_schedule``: a schedule(micro-step) -> lr, a
+    constant, or None to keep the optimizer's own lr; ``accumulate``
+    micro-batches per update (``steps.apply_update``)."""
     teacher.requires_grad_(False)
 
     def train_step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
+        model = state.model
         images = batch["image"].to(torch.bfloat16) if amp else batch["image"]
-        opt.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         t_feat, s_out = kd_forward_features(model, teacher, images, train=True)
         loss = kd_loss(s_out, t_feat, logit_scale, logit_bias, cos_power)
         loss.backward()
         if use_agc:
             agc_lib.adaptive_clip_grads_(model, AGC_CLIP_FACTOR)
-        if lr_schedule is not None:
-            set_lr(opt, lr_schedule(state.step) if callable(lr_schedule) else lr_schedule)
-        opt.step()
+        apply_update(state, lr_schedule, accumulate)
         state.step += 1
         if ema_decay is not None and state.ema is not None:
             ema_lib.maybe_ema_update(state.ema, model, ema_decay, state.step, ema_steps)

@@ -27,6 +27,28 @@ Each epoch logs ``train_loss``, ``val_loss`` (fixed logit scale 10 and bias
 ``DATA_ROOT`` or ``IMAGENET_PATH`` is set, the zero-shot top-1 of each
 dataset found there. KD checkpoints are ranked by ``val_loss``
 (``checkpointing.monitor_for``).
+
+The options of the JAX trainer that no grid config sets:
+
+- ``trainer.accumulate_grad_batches`` k: the mean gradient of k
+  micro-batches per optimizer step (``optax.MultiSteps``; ``_make_optimizers``):
+  the LR schedule advances once per optimizer step (built over
+  ``steps_per_epoch // k`` steps), the logged lr is indexed by micro-step,
+  the EMA is updated every ``ema.steps * k`` micro-steps, and AGC or the
+  clip act on each micro-batch before it is accumulated.
+- learnable b (bcosify_args): ``linear_b`` (without ``b_loss``) writes
+  ``make_linear_b_schedule``'s b before every step, ``b_interpolation``
+  1 + clip(step / total, 0, 1); ``manual_optim`` trains the b parameters
+  with their own optimizer (``b_optimizer``, default the main one as SGD).
+- args (the train command's flags): ``tensorboard_logger`` and
+  ``wandb_logger`` (``training/loggers.py``; per-step ``train_loss_step``
+  and ``lr`` every ``log_every_n_steps`` steps, default 50),
+  ``profile_dir`` (a ``torch.profiler`` trace of train steps 3-8 of the
+  first epoch, clamped to a short one; ``utils/profiling.py``), ``debug``
+  (a hash of the parameters after each epoch, ``param_hash``), and
+  ``fit(explanation_logging=True)`` (the explanations of 8 validation
+  images every ``explanation_logging_every_n_epochs`` epochs, an npz and a
+  PNG grid under ``explanations/``).
 """
 from __future__ import annotations
 
@@ -46,16 +68,10 @@ from bcosification_tpu_torch.training.loggers import MetricsLogger, setup_logger
 
 __all__ = ["Trainer", "run_training"]
 
-_SLICE_6 = "port slice 6 (the rest of training)"
 _SLICE_8 = "port slice 8 (distribution)"
-_SLICE_6D = "port slice 6d (loggers and the explanation logger)"
 # flags of the train command whose features are not ported: (flag, the
 # argparse dest, its value when off, the slice that brings it)
 UNPORTED_FLAGS = (
-    ("--tensorboard_logger", "tensorboard_logger", False, _SLICE_6D),
-    ("--wandb_logger", "wandb_logger", False, _SLICE_6D),
-    ("--explanation_logging", "explanation_logging", False, _SLICE_6D),
-    ("--profile_dir", "profile_dir", None, _SLICE_6D),
     ("--fsdp", "fsdp", False, _SLICE_8),
     ("--model_parallel", "model_parallel", 1, _SLICE_8),
     ("--pipeline_parallel", "pipeline_parallel", 1, _SLICE_8),
@@ -66,24 +82,115 @@ def _check_ported(config: Dict[str, Any]) -> None:
     """Raise NotImplementedError, naming the later slice, for the options of
     the JAX trainer that the port does not have yet."""
     tcfg = config.get("trainer", {}) or {}
-    bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
+    data = config.get("data", {}) or {}
     unported = [
-        (int(tcfg.get("pipeline_parallel", 1) or 1) > 1, "trainer.pipeline_parallel", _SLICE_8),
-        (int(tcfg.get("model_parallel", 1) or 1) > 1, "trainer.model_parallel", _SLICE_8),
-        (tcfg.get("fsdp", False), "trainer.fsdp", _SLICE_8),
-        ((config.get("data", {}) or {}).get("split_by_process", False),
-         "data.split_by_process", _SLICE_8),
-        ((config.get("data", {}) or {}).get("split_shards_by_process", False),
-         "data.split_shards_by_process", _SLICE_8),
-        (int(tcfg.get("accumulate_grad_batches", 1) or 1) > 1,
-         "trainer.accumulate_grad_batches > 1", _SLICE_6),
-        (bargs.get("linear_b", False), "bcosify_args.linear_b (learnable b)", _SLICE_6),
-        (bargs.get("b_interpolation", False), "bcosify_args.b_interpolation", _SLICE_6),
-        (bargs.get("manual_optim", False), "bcosify_args.manual_optim (learnable b)", _SLICE_6),
+        (int(tcfg.get("pipeline_parallel", 1) or 1) > 1, "trainer.pipeline_parallel"),
+        (int(tcfg.get("model_parallel", 1) or 1) > 1, "trainer.model_parallel"),
+        (tcfg.get("fsdp", False), "trainer.fsdp"),
+        (data.get("split_by_process", False), "data.split_by_process"),
+        (data.get("split_shards_by_process", False), "data.split_shards_by_process"),
     ]
-    for asked, what, where in unported:
+    for asked, what in unported:
         if asked:
-            raise NotImplementedError(f"Trainer: {what} is not ported yet; it comes in {where}")
+            raise NotImplementedError(f"Trainer: {what} is not ported yet; it comes in "
+                                      f"{_SLICE_8}")
+
+
+def _accumulation(config: Dict[str, Any]) -> int:
+    return int((config.get("trainer", {}) or {}).get("accumulate_grad_batches", 1) or 1)
+
+
+def _make_optimizers(config: Dict[str, Any], steps_per_epoch: int):
+    """(optimizer factory, b optimizer factory or None, schedule or
+    constant lr indexed by micro-step) of the config (JAX
+    ``trainer.py::_make_optimizers``). Under accumulation k the schedule is
+    built over ``steps_per_epoch // k`` optimizer steps and read at
+    ``step // k``. ``manual_optim``: the b optimizer, the config's
+    ``b_optimizer`` or the main one as SGD, over the b parameters only."""
+    opt_factory, sched_factory = config["optimizer"], config.get("lr_scheduler")
+    accum = _accumulation(config)
+    schedule = (sched_factory.create(opt_factory.lr, max(steps_per_epoch // accum, 1))
+                if sched_factory is not None else opt_factory.lr)
+    bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
+    b_factory = None
+    if bargs.get("manual_optim", False):
+        b_factory = config.get("b_optimizer", opt_factory.with_name("sgd")).with_args(
+            bcosify=True, b_opt=True)
+    if accum > 1 and callable(schedule):
+        def micro_schedule(step, _schedule=schedule):
+            return _schedule(step // accum)
+        return opt_factory, b_factory, micro_schedule
+    return opt_factory, b_factory, schedule
+
+
+def _b_schedule(config: Dict[str, Any], batch_size: int, total_steps: int):
+    """The b schedule of bcosify_args (JAX ``Trainer.fit``): ``linear_b``
+    without ``b_loss`` is ``make_linear_b_schedule`` over the batch,
+    ``b_interpolation`` 1 + clip(step / total_steps, 0, 1) in f32."""
+    bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
+    if bargs.get("linear_b", False) and not bargs.get("b_loss", False):
+        return steps_lib.make_linear_b_schedule(
+            b_at_start=bargs.get("b_at_start", 1), b_at_end=bargs.get("b_at_end", 2),
+            b_lr=bargs.get("b_lr", 0.0001), world_size=1, batch_size=batch_size)
+    if bargs.get("b_interpolation", False):
+        def b_schedule(step):
+            frac = np.clip(np.float32(step) / np.float32(total_steps), np.float32(0.0),
+                           np.float32(1.0))
+            return np.float32(1.0) + frac
+        return b_schedule
+    return None
+
+
+def param_hash(model: torch.nn.Module) -> str:
+    """A short content hash of ``model``'s parameters: sha256 over the JAX
+    layout of every leaf (``to_jax_variables``) in the JAX tree order (keys
+    sorted), so one set of weights hashes alike in both packages. ``--debug``
+    prints it after each epoch: the student changes, a frozen teacher not."""
+    import hashlib
+
+    from bcosification_tpu_torch.bcosify.from_jax import to_jax_variables
+
+    h = hashlib.sha256()
+
+    def walk(tree):
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                walk(tree[key])
+            else:
+                h.update(np.ascontiguousarray(tree[key]).tobytes())
+
+    walk(to_jax_variables(model)["params"])
+    return h.hexdigest()[:16]
+
+
+class _ProfileWindow:
+    """``--profile_dir``: a ``torch.profiler`` trace from train step
+    ``first`` to step ``last`` (0-based, both included) of one epoch,
+    written to the directory when the window closes."""
+
+    def __init__(self, profile_dir, window, device):
+        self.profile_dir, self.window, self.device = profile_dir, window, device
+        self._prof = None
+
+    def before(self, n_steps: int) -> None:
+        if self.window is not None and n_steps == self.window[0]:
+            from bcosification_tpu_torch.utils.profiling import start_trace
+
+            self._prof = start_trace(self.device)
+
+    def after(self, n_steps: int) -> None:
+        """After step ``n_steps`` (0-based) of the epoch."""
+        if self._prof is not None and n_steps == self.window[1]:
+            self.close()
+
+    def close(self) -> None:
+        """End of the epoch: close a window the epoch ended inside."""
+        if self._prof is not None:
+            from bcosification_tpu_torch.utils.profiling import stop_trace
+
+            path = stop_trace(self._prof, self.profile_dir)
+            print(f"profiler trace written to {path}")
+        self._prof, self.window = None, None
 
 
 class Trainer:
@@ -92,23 +199,30 @@ class Trainer:
         self.config = experiment.config
         self.args = args or {}
         self.device = resolve_device(device)
-        setup_loggers(self.args)
         self.save_dir = Path(experiment.save_dir)
         self.save_dir.mkdir(parents=True, exist_ok=True)
         monitor, mode = monitor_for(self.config)
         self.ckpt = CheckpointManager(str(self.save_dir), monitor=monitor, mode=mode)
-        self.metrics = MetricsLogger(self.save_dir)
+        self.loggers = setup_loggers(self.args, self.save_dir)
+        for lg in self.loggers:
+            lg.log_hparams(self.config)
+        self.metrics = MetricsLogger(self.save_dir, self.loggers)
         self.metrics.log_hparams(self.config)
+        # per-step event logging every n steps (0 or less: none)
+        n = self.args.get("log_every_n_steps", 50)
+        self._log_every_n_steps = int(n) if n is not None and int(n) > 0 else 0
+
+    def _profile_window(self, window) -> Optional[_ProfileWindow]:
+        profile_dir = self.args.get("profile_dir")
+        return _ProfileWindow(profile_dir, window, self.device) if profile_dir else None
+
+    def _log_step(self, metrics: Dict[str, float], step: int) -> None:
+        for lg in self.loggers:
+            lg.log_metrics(metrics, step=step)
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
-
-    def _schedule(self, steps_per_epoch: int):
-        """The config's schedule(step) -> lr, or its constant lr."""
-        opt_factory, sched_factory = self.config["optimizer"], self.config.get("lr_scheduler")
-        return (sched_factory.create(opt_factory.lr, steps_per_epoch)
-                if sched_factory is not None else opt_factory.lr)
 
     def _resume(self, state: steps_lib.TrainState) -> int:
         """Load the last checkpoint into ``state``; the epoch to start at."""
@@ -120,7 +234,9 @@ class Trainer:
         return last_epoch + 1
 
     def fit(self, model, datamodule, max_epochs: Optional[int] = None,
-            fast_dev_run: bool = False, resume: bool = True) -> steps_lib.TrainState:
+            fast_dev_run: bool = False, resume: bool = True,
+            explanation_logging: bool = False,
+            explanation_logging_every_n_epochs: int = 1) -> steps_lib.TrainState:
         config = self.config
         _check_ported(config)
         if config.get("clip_kd", False):
@@ -132,26 +248,31 @@ class Trainer:
         train_loader = datamodule.train_dataloader(seed=config.get("seed", 0) or 0)
         steps_per_epoch = max(len(train_loader), 1)
 
-        opt_factory = config["optimizer"]
-        schedule = self._schedule(steps_per_epoch)
+        accum = _accumulation(config)
+        opt_factory, b_factory, schedule = _make_optimizers(config, steps_per_epoch)
         ema_config = config.get("ema", None)
         ema_decay, ema_steps = None, 32
         if ema_config is not None:
             ema_steps = ema_config.get("steps", 32)
             ema_decay = adjusted_ema_decay(ema_config["decay"], world_size=1,
                                            batch_size=datamodule.batch_size,
-                                           max_epochs=max_epochs, ema_steps=ema_steps)
+                                           max_epochs=max_epochs, ema_steps=ema_steps,
+                                           accumulate_grad_batches=accum)
         train_step = steps_lib.make_train_step(
             config["criterion"], schedule, use_agc=config.get("use_agc", False),
             gradient_clip_val=tcfg.get("gradient_clip_val"), ema_decay=ema_decay,
-            ema_steps=ema_steps, amp=bool(self.args.get("amp", False)),
+            # the EMA follows optimizer steps: every ema_steps of them
+            ema_steps=ema_steps * accum,
+            b_schedule=_b_schedule(config, datamodule.batch_size,
+                                   max_epochs * steps_per_epoch),
+            accumulate=accum, amp=bool(self.args.get("amp", False)),
         )
         eval_step = steps_lib.make_eval_step(config.get("test_criterion"))
         eval_step_ema = (steps_lib.make_eval_step(config.get("test_criterion"), use_ema=True)
                          if ema_config is not None else None)
-        state = steps_lib.create_train_state(model, opt_factory.create,
-                                             with_ema=ema_config is not None,
-                                             device=self.device)
+        state = steps_lib.create_train_state(
+            model, opt_factory.create, with_ema=ema_config is not None, device=self.device,
+            make_b_optimizer=None if b_factory is None else b_factory.create)
 
         start_epoch = self._resume(state) if resume else 0
         if start_epoch == 0 and not fast_dev_run:
@@ -162,16 +283,32 @@ class Trainer:
             self.metrics.log(-1, {f"initial_{k}": v for k, v in init_metrics.items()},
                              csv=False)
 
+        last = 0 if fast_dev_run else max(steps_per_epoch - 1, 0)
+        profile = self._profile_window((min(3, last), min(8, last)))
         for epoch in range(start_epoch, max_epochs):
             t0 = time.time()
             train_loader.set_epoch(epoch)
             losses, accs = [], []
             for batch in train_loader:
+                n_steps = len(losses)
+                if profile is not None:
+                    profile.before(n_steps)
                 state, metrics = train_step(state, self._to_device(batch))
+                if profile is not None:
+                    profile.after(n_steps)
                 losses.append(metrics["loss"])
                 accs.append(metrics["acc1"])
+                # the float() waits for the card: only every n steps
+                if self.loggers and self._log_every_n_steps and (
+                        (n_steps + 1) % self._log_every_n_steps == 0):
+                    self._log_step({
+                        "train_loss_step": float(metrics["loss"]),
+                        "lr": float(schedule(state.step)) if callable(schedule) else schedule,
+                    }, step=epoch * steps_per_epoch + n_steps + 1)
                 if fast_dev_run:
                     break
+            if profile is not None:
+                profile.close()
             if not losses:
                 print("WARNING: the train loader yielded no batches (dataset smaller than "
                       "batch_size with drop_last?); this epoch's train metrics are NaN")
@@ -189,13 +326,19 @@ class Trainer:
             if eval_step_ema is not None:
                 ema_metrics = self.validate(eval_step_ema, state, datamodule)
                 epoch_metrics.update({f"{k}_ema": v for k, v in ema_metrics.items()})
-            self.metrics.log(epoch, epoch_metrics)
+            self.metrics.log(epoch, epoch_metrics, logger_step=(epoch + 1) * steps_per_epoch)
             self.ckpt.save(state.state_dict(), epoch, epoch_metrics)
             print(f"epoch {epoch}: loss {train_loss:.4f} acc {train_acc:.4f} "
                   f"val_acc1 {val_metrics['val_acc1']:.4f} "
                   f"({epoch_metrics['epoch_time_s']:.1f}s)")
+            if self.args.get("debug"):
+                print(f"  params hash: {param_hash(state.model)}")
+            if explanation_logging and epoch % explanation_logging_every_n_epochs == 0:
+                self._log_explanations(state, datamodule, epoch)
             if fast_dev_run:
                 break
+        for lg in self.loggers:
+            lg.finalize()
         return state
 
     def fit_kd(self, model, datamodule, max_epochs: Optional[int] = None,
@@ -222,13 +365,14 @@ class Trainer:
         clip_name = MODEL_CONFIG_CLIP_NAMES.get(mcfg.get("name", "resnet50clip"), "RN50")
         teacher, text_model, _, _ = clip_load(clip_name, device=self.device)
         kd_cos_power = int(mcfg.get("cos_power", 1)) if mcfg.get("attn_unpool") else 0
+        opt_factory, _, schedule = _make_optimizers(config, steps_per_epoch)
         train_step = kd_lib.make_kd_train_step(
-            teacher, self._schedule(steps_per_epoch),
+            teacher, schedule,
             logit_scale=float(mcfg.get("logit_scale_value", 10)),
             logit_bias=float(mcfg.get("logit_bias_value", -10)), cos_power=kd_cos_power,
-            use_agc=config.get("use_agc", True), amp=bool(self.args.get("amp", False)))
-        state = steps_lib.create_train_state(model, config["optimizer"].create,
-                                             device=self.device)
+            use_agc=config.get("use_agc", True), accumulate=_accumulation(config),
+            amp=bool(self.args.get("amp", False)))
+        state = steps_lib.create_train_state(model, opt_factory.create, device=self.device)
         start_epoch = self._resume(state) if resume else 0
 
         @torch.no_grad()
@@ -237,16 +381,29 @@ class Trainer:
             return kd_lib.kd_loss(s_out, t_feat, 10.0, -10.0, kd_cos_power)
 
         max_val_batches = config.get("max_val_batches", 200)
+        profile = self._profile_window((0, 0) if fast_dev_run else (3, 8))
         for epoch in range(start_epoch, max_epochs):
             t0 = time.time()
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             losses = []
             for batch in train_loader:
+                n_steps = len(losses)
+                if profile is not None:
+                    profile.before(n_steps)
                 state, metrics = train_step(state, self._to_device({"image": batch["image"]}))
+                if profile is not None:
+                    profile.after(n_steps)
                 losses.append(metrics["loss"])
+                # per-step events matter most here: CC3M KD epochs are hours
+                if self.loggers and self._log_every_n_steps and (
+                        len(losses) % self._log_every_n_steps == 0):
+                    self._log_step({"train_loss_step": float(metrics["loss"])},
+                                   step=int(state.step))
                 if fast_dev_run:
                     break
+            if profile is not None:
+                profile.close()
             val_losses = []
             for batch in datamodule.val_dataloader():
                 images = torch.as_tensor(batch["image"]).to(self.device)
@@ -260,12 +417,17 @@ class Trainer:
                 "epoch_time_s": time.time() - t0,
             }
             epoch_metrics.update(self._maybe_zeroshot(state.model, text_model, kd_cos_power))
-            self.metrics.log(epoch, epoch_metrics)
+            self.metrics.log(epoch, epoch_metrics, logger_step=int(state.step))
             self.ckpt.save(state.state_dict(), epoch, epoch_metrics)
             print(f"epoch {epoch}: kd loss {epoch_metrics['train_loss']:.4f} val "
                   f"{epoch_metrics['val_loss']:.4f} ({epoch_metrics['epoch_time_s']:.1f}s)")
+            if self.args.get("debug"):
+                # the student must change, the frozen teacher must not
+                print(f"  student params hash: {param_hash(state.model)}")
             if fast_dev_run:
                 break
+        for lg in self.loggers:
+            lg.finalize()
         return state
 
     def _maybe_zeroshot(self, model, text_model, cos_power: int) -> Dict[str, float]:
@@ -331,6 +493,41 @@ class Trainer:
         return out
 
 
+    def _log_explanations(self, state, datamodule, epoch: int, n_images: int = 8) -> None:
+        """The explanations of the first ``n_images`` validation images by
+        the model being trained (``explain.core.make_explain_fn``; the
+        ResNets through their hand-scheduled pass): the RGBA explanation,
+        the contribution map and the prediction in
+        ``explanations/epoch_{epoch}.npz``, the explanations as a PNG grid
+        of at most 4 columns (``epoch_{epoch}.png``), also logged as an
+        image."""
+        from bcosification_tpu_torch.explain.core import make_explain_fn
+
+        batch = next(iter(datamodule.val_dataloader()), None)
+        if batch is None:
+            return
+        x = torch.as_tensor(batch["image"][:n_images])
+        res = make_explain_fn(state.model)(x, device=self.device)
+        outdir = self.save_dir / "explanations"
+        outdir.mkdir(exist_ok=True)
+        expl = res["explanation"].detach().cpu().numpy()  # [N, H, W, 4] in [0, 1]
+        np.savez_compressed(
+            outdir / f"epoch_{epoch}.npz", explanation=expl,
+            contribution_map=res["contribution_map"].detach().cpu().numpy(),
+            prediction=res["prediction"].cpu().numpy())
+        from PIL import Image
+
+        n, h, w, _ = expl.shape
+        cols = min(n, 4)
+        grid = np.zeros((-(-n // cols) * h, cols * w, 4), np.float32)
+        for i in range(n):
+            r, c = divmod(i, cols)
+            grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = expl[i]
+        Image.fromarray((grid * 255).astype(np.uint8), "RGBA").save(outdir / f"epoch_{epoch}.png")
+        for lg in self.loggers:
+            lg.log_image("explanations", grid, step=epoch)
+
+
 def check_flags(args) -> None:
     """Raise NotImplementedError, naming the flag and its slice, for a flag
     of the train command whose feature is not ported; none is ignored."""
@@ -361,4 +558,7 @@ def run_training(args, device=None) -> steps_lib.TrainState:
     datamodule = experiment.get_datamodule(cache_dataset=getattr(args, "cache_dataset", None))
     trainer = Trainer(experiment, vars(args), device=dev)
     return trainer.fit(model, datamodule, fast_dev_run=getattr(args, "fast_dev_run", False),
-                       resume=getattr(args, "resume", True))
+                       resume=getattr(args, "resume", True),
+                       explanation_logging=getattr(args, "explanation_logging", False),
+                       explanation_logging_every_n_epochs=getattr(
+                           args, "explanation_logging_every_n_epochs", 1))

@@ -174,8 +174,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    path within ten times the CPU's spread, argmax identical) and the
    hand-scheduled pass with the stem's transpose against the module path;
    the fp32 export_explain of the ViT-C B at depth 2 loaded from bytes, its
-   W against the module path's within that bound (fault C5), and both
-   programs' bf16 round trip at batch 128; forward-only and fwd+explain
+   W against the module path's within that bound (fault C5; the bf16
+   round trip of the same pass is (c)'s); forward-only and fwd+explain
    (module path) at batch 128, bf16, K3 35 per forward, and its recipe's
    train step at batch 128; (c) the B-cos ViT-B of vit_final
    (bcos_simple_vit_b_patch16_224): phase 13's parity of the fast pass and
@@ -264,8 +264,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B-cos conv and bias-free B-cos linear, no K1); each kernel's time at
    every shape one fwd+explain gave it, beside its bound, plain version and
    torch.matmul; the export_explain round trip at a cut depth (one block
-   per stage, two dense layers per block, two encoders) against the eager
-   pass; then load_model of the ResNet-50 and the DenseNet-121 from npz
+   per stage, two dense layers per block; the ViT-L's fast_vit program is
+   phase 14's) against the eager pass; then load_model of the ResNet-50 and the DenseNet-121 from npz
    files of the JAX export format written to a temporary BCOS_WEIGHTS_DIR,
    and convert_release_checkpoint of seeded reference-layout .pth files of
    resnet50 in both released flavours: the position-norm one equal to its
@@ -292,7 +292,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    convert_release_checkpoint of seeded reference-layout .pth files of
    vgg16_bnu, convnext_tiny and convnext_tiny_bnu (the last under the name
    convnext_tiny, its running statistics rebuilding it with uncentered BN),
-   each equal to its source.
+   each equal to its source;
+19. the training options no grid config sets, on the resnet_50 recipe's
+   bcosified ResNet-50 at full width (phase 4's weights and calibrated BN
+   statistics, a learnable b at its initial value): Trainer.fit with accumulate_grad_batches 2 over 4
+   micro-batches of 64 (bf16 amp) with the TensorBoard logger at every
+   step, --profile_dir, --debug and explanation logging (launches: K3 34
+   per micro-batch, each validation's forward, the explanation logger's
+   fast pass 36 / 37 / 1), the event file read back with its CRCs, the
+   npz and PNG of the explanations, the profiler trace's CUDA kernels and
+   the printed parameter hash; the accumulated step alone (K3 68 per
+   optimizer step, the parameters unchanged after the first micro-batch,
+   its time and card busy time) and, on the small flagship in fp32, Adam's
+   first moment after one accumulated update on the GPU against the CPU
+   within ten CPU spreads; Trainer.fit of 3 steps at batch 64 of each
+   learnable-b variant (learn_b; clamping with manual_optim, its SGD at lr
+   0.05; clamping with linear_b), then 3 more steps and the module-path
+   explanation of 8 images, with no launch of K1, K2 or K3 and the fast
+   pass refusing the net, the stem conv's b after each step (linear_b's
+   equal to make_linear_b_schedule in f32) and the step's time and card
+   busy time; the clip_kd ResNet-50 (CLIP's Normalize constants) in fp32
+   on 2 images, its pre-logits against the CPU's within 1e-4.
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
@@ -317,6 +337,7 @@ import contextlib
 import copy
 import hashlib
 import importlib
+import io
 import json
 import math
 import os
@@ -3135,8 +3156,8 @@ def vitc_export(model_config, x2):
     export_explain (the hand-scheduled pass with the stem's transpose)
     loaded from bytes: on 2 images its W against the module path's on the
     GPU within ten times the CPU's own spread under 1e-7 relative input
-    noise, the argmax identical, its launches those of the pass; then the
-    bf16 round trip of both programs at batch 128 (vit_serving)."""
+    noise, the argmax identical, its launches those of the pass. The bf16
+    round trip of fast_vit's programs is the B-cos ViT-B's (phase 14 (c))."""
     vit_final_model = importlib.import_module(
         "bcosification_tpu_torch.experiments.ImageNet.vit_final.model")
     shallow = vit_final_model.get_model(model_config, depth=VIT_EXPORT_DEPTH)
@@ -3157,9 +3178,7 @@ def vitc_export(model_config, x2):
         f"{bool(torch.equal(sel, sm))}; launches {counts}")
     if not err <= bound or not torch.equal(sel, sm) or not torch.isfinite(w).all():
         raise AssertionError("the exported ViT-C explanation disagrees with the module path")
-    served = vit_serving(shallow, _batch128(x2, SEED + 38),
-                         tag=f"vit_final bcos_vitc_b depth {VIT_EXPORT_DEPTH}")
-    return {"export_explain_fp32_s": export_s, **served}
+    return {"export_explain_fp32_s": export_s}
 
 
 def vit_final_cli(exp_root):
@@ -3277,8 +3296,8 @@ def phase_vit_train(x2, stream_rate, worst, exp_root):
         f"{train_c['img_s']:.1f} (batch {BATCH}); export at depth {VIT_EXPORT_DEPTH}: "
         f"export_forward {served['export_seconds']['export_forward']:.1f} s, export_explain "
         f"{served['export_seconds']['export_explain']:.1f} s; the ViT-C B at depth "
-        f"{VIT_EXPORT_DEPTH}: export_explain {vitc_served['export_seconds']['export_explain']:.1f}"
-        f" s, loaded fwd+explain {vitc_served['loaded_img_s']:.1f} img/s; entry points "
+        f"{VIT_EXPORT_DEPTH}: export_explain (fp32) {vitc_served['export_explain_fp32_s']:.1f}"
+        f" s; entry points "
         + ", ".join(f"{k} {v['train_s']:.1f} + {v['eval_s']:.1f} s" for k, v in cli.items())
         + f" [{CARD}]")
     return keys
@@ -4628,8 +4647,8 @@ def zoo_throughput(name, net, x):
 
 def zoo_export(name, x2):
     """export_explain of the entry's net at a cut depth (ResNet-50 one block
-    per stage, DenseNet-121 two layers per block, ViT-L two encoders, a
-    ConvNeXt its first two stages of one block each: the stem, a block, the
+    per stage, DenseNet-121 two layers per block, a ConvNeXt its first two
+    stages of one block each: the stem, a block, the
     downsampling, a block, the head, prepared as phase 18's nets; random
     init from SEED) in bf16, loaded from bytes: at batch ZOO_EXPORT_BATCH its
     W and logits equal to the eager pass's (1e-6 relative), the argmax and
@@ -4643,7 +4662,7 @@ def zoo_export(name, x2):
         net = BcosDenseNet(block_config=(2, 2, 2, 2), with_logit_layer=True, device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
-    elif name.startswith("convnext"):
+    else:  # a ConvNeXt
         with abstract_init():
             full = pretrained.load_model(name, pretrained=False)
         first, second = full.block_setting[:2]
@@ -4654,8 +4673,6 @@ def zoo_export(name, x2):
             generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
         zoo_prepare(net, x2[:1])
-    else:
-        net = pretrained.load_model(name, pretrained=False, depth=VIT_EXPORT_DEPTH, seed=SEED)
     t0 = time.perf_counter()
     program = serving.load_serialized(serving.export_explain(net, input_size=SIZE,
                                                              dtype=torch.bfloat16))
@@ -4834,8 +4851,10 @@ ZOO_VGG_CONVNEXT_K3 = {"vgg16_bnu": 2, "convnext_tiny": 37, "convnext_base_bnu":
 # not exported on the card (an export round trip takes 15-40 s of the
 # script's time limit): convnext_base_bnu's cut net runs convnext_tiny's
 # program (fast_convnext) with the uncentered BN, phase 17's zoo CNNs the
-# position norm; the VGG's export_explain round trip runs in the CPU tests
-ZOO_UNEXPORTED = ("vgg16_bnu", "convnext_tiny")
+# position norm; the VGG's export_explain round trip runs in the CPU tests;
+# the zoo ViT-L is a vit_final net on fast_vit, whose programs phase 14
+# exports for the B-cos ViT-B of vit_final at the same depth
+ZOO_UNEXPORTED = ("vgg16_bnu", "convnext_tiny", "simple_vit_l_patch16_224")
 
 
 def zoo_prepare(net, probe):
@@ -4951,6 +4970,320 @@ def phase_zoo_vgg_convnext(x2, stream_rate, worst):
     zoo_release_round_trip(nets, x2)
     say("zoo VGG/ConvNeXt summary: " + "; ".join(summary) + f" [{CARD}]")
     return keys
+
+
+# --------------------------------------------------------------------------
+# 19: the training options no grid config sets
+# --------------------------------------------------------------------------
+OPTIONS_ACCUM, OPTIONS_MICRO_STEPS = 2, 4  # 6b: 4 micro-batches of 64 in the fit, 2 updates
+OPTIONS_WINDOW = 3  # timed optimizer steps (6b) and steps (6c)
+OPTIONS_B_STEPS = 3  # the steps of each learnable-b Trainer.fit
+B_VARIANTS = {  # bcosify_args of the learnable-b variants (6c)
+    "learn_b": {"learn_b": True},
+    "clamping + manual_optim": {"clamping": True, "manual_optim": True},  # SGD, lr 0.05
+    "linear_b": {"clamping": True, "linear_b": True},
+}
+NO_KERNEL_COUNTS = {"bcos_conv1x1_fwd": 0, "bcos_conv1x1_bwd_explain": 0,
+                    "bcos_matmul_fwd": 0, "stream_add": 0}
+
+
+def options_batch(seed, n=TRAIN_BATCH, size=SIZE, classes=1000):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.rand((n, size, size, 3), device="cuda", generator=gen)
+    return {"image": torch.cat([image, 1.0 - image], dim=-1),
+            "label": torch.randint(0, classes, (n,), device="cuda", generator=gen)}
+
+
+def options_net(bargs, calibrated):
+    """The recipe's bcosified ResNet-50 with ``bargs`` added to its
+    bcosify_args and its model config: the weights and BN statistics of
+    ``calibrated`` (phase 4's net, random init from SEED, BN gammas
+    calibrated), a learnable b at its initial value."""
+    config = {**FLAGSHIP, "bcosify_args": {**FLAGSHIP["bcosify_args"], **bargs}}
+    net = build_bcosified_resnet(config, seed=SEED)
+    missing, unexpected = net.load_state_dict(calibrated.state_dict(), strict=False)
+    if unexpected or not all(k.endswith(".b") for k in missing):
+        raise AssertionError(f"{bargs}: state dict keys missing {missing}, unexpected "
+                             f"{unexpected}")
+    return net, config
+
+
+def options_experiment(save_dir, model_config, ema=True, **extra):
+    """Phase 8's resnet_50 recipe on ``model_config``."""
+    exp = train_experiment(save_dir, UniformOffLabelsBCEWithLogitsLoss())
+    exp.config["model"] = model_config
+    if not ema:
+        del exp.config["ema"]
+    exp.config.update(extra)
+    return exp
+
+
+def fit_printing(trainer, *args, **kwargs):
+    """(Trainer.fit(*args, **kwargs), what it printed); the lines are said
+    too."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state = trainer.fit(*args, **kwargs)
+    torch.cuda.synchronize()
+    for line in out.getvalue().splitlines():
+        say(f"  | {line}")
+    return state, out.getvalue()
+
+
+def call_window(fn, calls, what):
+    """(ms per call, card busy ms or None) of ``calls`` calls of ``fn`` in a
+    row between two CUDA events, the card's busy time from torch.profiler
+    over 2 more; said with the median host ms per call."""
+    host = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    busy, top = device_profile(fn, 2)
+    say(f"{what}: {ms:.2f} ms per call ({calls} in a row; the host issues one in "
+        f"{statistics.median(host):.2f} ms, median); the card busy "
+        + ("not measured (no device time in the trace)" if busy is None else
+           f"{busy:.2f} ms per call (torch.profiler over 2 calls; top: "
+           + ", ".join(f"{n[:40]} {k:.2f}" for n, k in top[:3]) + ")") + f" [{CARD}]")
+    return ms, busy
+
+
+def accumulation_parity():
+    """Two fp32 micro-batches of the accumulated recipe step (k = 2, AGC,
+    Adam) of the small flagship on the card and on the CPU: Adam's first
+    moment after the one update, the card's distance from the CPU's
+    against ten CPU spreads (the CPU's own distance under 1e-7 relative
+    input noise). Returns (value, bound)."""
+    small = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10,
+                                   inplanes=8, layers=("bottleneck", (1, 1)), seed=SEED)
+    batches = [options_batch(SEED + 72 + i, n=2, size=32, classes=10) for i in range(2)]
+    calibrate(small, batches[0]["image"][:1])
+    recipe = train_experiment(".", UniformOffLabelsBCEWithLogitsLoss()).config
+    noise = torch.randn((2, 32, 32, 6), generator=torch.Generator().manual_seed(SEED + 74))
+
+    def first_moment(dev, noisy):
+        state = steps_lib.create_train_state(small, recipe["optimizer"].create, device=dev)
+        step = steps_lib.make_train_step(recipe["criterion"], 1e-4, use_agc=True,
+                                         accumulate=OPTIONS_ACCUM)
+        for b in batches:
+            image = b["image"].to(dev)
+            if noisy:
+                image = image * (1 + 1e-7 * noise.to(dev))
+            step(state, {"image": image, "label": b["label"].to(dev)})
+        return torch.cat([state.optimizer.state[p]["exp_avg"].double().cpu().flatten()
+                          for p in state.optimizer.param_groups[0]["params"]])
+
+    gpu, cpu = first_moment("cuda", False), first_moment("cpu", False)
+    return rel(gpu, cpu), 10 * rel(first_moment("cpu", True), cpu)
+
+
+def options_accumulation(calibrated, root):
+    """6b and 6d: Trainer.fit of the recipe with accumulate_grad_batches 2
+    over 4 micro-batches of 64 (bf16 amp) with the TensorBoard logger
+    (every step), --profile_dir, --debug and explanation logging, and what
+    those wrote; then the accumulated step alone (K3 per optimizer step, one
+    update per 2 micro-batches, its time) and the fp32 parity."""
+    from bcosification_tpu_torch.training.loggers import read_events
+    from bcosification_tpu_torch.training.trainer import param_hash
+
+    net, config = options_net({}, calibrated)
+    exp = options_experiment(root / "accumulate", config,
+                             trainer=dict(max_epochs=1, accumulate_grad_batches=OPTIONS_ACCUM))
+    batch = options_batch(SEED + 70)
+    trainer = Trainer(exp, {"amp": True, "tensorboard_logger": True, "log_every_n_steps": 1,
+                            "profile_dir": str(root / "profile"), "debug": True})
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    state, printed = fit_printing(trainer, net, RepeatedBatch(batch, OPTIONS_MICRO_STEPS),
+                                  explanation_logging=True)
+    counts = launch_counts()
+    fit_s = time.perf_counter() - t0
+    evals = 3  # the initial, the epoch's and the EMA validation: one forward each
+    want = {"bcos_conv1x1_fwd": 36 * evals + EXPLAIN_COUNTS["bcos_conv1x1_fwd"],
+            "bcos_conv1x1_bwd_explain": EXPLAIN_COUNTS["bcos_conv1x1_bwd_explain"],
+            "bcos_matmul_fwd": (TRAIN_STEP_COUNTS["bcos_matmul_fwd"] * OPTIONS_MICRO_STEPS
+                                + evals + EXPLAIN_COUNTS["bcos_matmul_fwd"]),
+            "stream_add": 0}
+    say(f"options 6b: Trainer.fit, accumulate_grad_batches {OPTIONS_ACCUM}, "
+        f"{OPTIONS_MICRO_STEPS} micro-batches of {TRAIN_BATCH} (bf16 amp), with the "
+        f"TensorBoard logger, --profile_dir, --debug and explanation logging: {fit_s:.1f} s; "
+        f"launches {counts} (the explanation logger's fast pass among them: {EXPLAIN_COUNTS})")
+    check_counts("accumulated Trainer.fit", counts, want)
+    opt_steps = {int(s["step"]) for s in state.optimizer.state.values()}
+    if state.step != OPTIONS_MICRO_STEPS or opt_steps != {OPTIONS_MICRO_STEPS // OPTIONS_ACCUM}:
+        raise AssertionError(f"accumulated fit: step {state.step}, optimizer steps {opt_steps}")
+
+    events = read_events(trainer.loggers[0].path)  # checks every record's CRCs
+    step_events = [e["step"] for e in events if "train_loss_step" in e["scalars"]]
+    tags = sorted({t for e in events for t in [*e["scalars"], *e["images"]]})
+    say(f"options 6d: TensorBoard event file {trainer.loggers[0].path.name}: {len(events)} "
+        f"records, every CRC checked; train_loss_step at steps {step_events}; tags {tags}")
+    if step_events != list(range(1, OPTIONS_MICRO_STEPS + 1)) or "explanations" not in tags:
+        raise AssertionError("the TensorBoard event file lacks its records")
+    with np.load(exp.save_dir / "explanations" / "epoch_0.npz") as f:
+        shapes = {k: f[k].shape for k in f.files}
+        finite = all(np.isfinite(f[k]).all() for k in f.files)
+    png = exp.save_dir / "explanations" / "epoch_0.png"
+    trace = root / "profile" / "trace.json"
+    trace_kernels = sum(1 for e in json.loads(trace.read_text())["traceEvents"]
+                        if e.get("cat") == "kernel")
+    hash_line = f"params hash: {param_hash(state.model)}"
+    say(f"options 6d: explanations/epoch_0.npz {shapes} (finite: {finite}), epoch_0.png "
+        f"{png.stat().st_size} bytes; the profiler trace of step 3, "
+        f"{trace.stat().st_size / 1e6:.1f} MB, holds {trace_kernels} CUDA kernel events; "
+        f"--debug printed '{hash_line}': {hash_line in printed}")
+    if (shapes.get("explanation") != (8, SIZE, SIZE, 4) or not finite or not png.exists()
+            or trace_kernels == 0 or hash_line not in printed):
+        raise AssertionError("the logging flags did not write what they ask for")
+
+    step = steps_lib.make_train_step(UniformOffLabelsBCEWithLogitsLoss(), 1e-4, use_agc=True,
+                                     accumulate=OPTIONS_ACCUM, amp=True)
+    weight = state.model.model.layer1_0.conv1.weight
+    before = weight.detach().clone()
+    reset_launch_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    unchanged = torch.equal(weight, before)
+    step(state, batch)
+    torch.cuda.synchronize()
+    per_update = launch_counts()
+    changed = not torch.equal(weight, before)
+    say(f"options 6b: launches per optimizer step of {OPTIONS_ACCUM} micro-batches "
+        f"{per_update}; the parameters unchanged after the first micro-batch: {unchanged}, "
+        f"changed after the second: {changed}")
+    check_counts("accumulated optimizer step", per_update,
+                 scaled_counts(TRAIN_STEP_COUNTS, OPTIONS_ACCUM))
+    if not (unchanged and changed):
+        raise AssertionError("the accumulated step does not update once per 2 micro-batches")
+
+    def update():
+        for _ in range(OPTIONS_ACCUM):
+            step(state, batch)
+
+    ms, busy = call_window(update, OPTIONS_WINDOW, f"options 6b: one optimizer step of "
+                           f"{OPTIONS_ACCUM} micro-batches of {TRAIN_BATCH} (bf16 amp)")
+    say(f"options 6b: {OPTIONS_ACCUM * TRAIN_BATCH / ms * 1e3:.1f} img/s accumulated [{CARD}]")
+    val, bound = accumulation_parity()
+    say(f"options 6b parity, small flagship fp32, Adam's first moment after one accumulated "
+        f"update, gpu vs cpu: {val:.3e} (bound {bound:.3e}: ten CPU spreads)")
+    if not val <= bound:
+        raise AssertionError("the accumulated step on the GPU disagrees with the CPU")
+    return {"k3_per_update": per_update["bcos_matmul_fwd"], "update_ms": ms,
+            "img_s": OPTIONS_ACCUM * TRAIN_BATCH / ms * 1e3, "busy_ms": busy}
+
+
+def options_learnable_b(calibrated, root):
+    """6c: Trainer.fit of each learnable-b variant (3 steps at batch 64,
+    bf16 amp) with no launch of K1, K2 or K3, then its module-path
+    explanation of 8 images (the fast pass refuses the net), the b of the
+    stem conv after each step (linear_b: the schedule's closed form in f32,
+    exactly) and the step's time."""
+    from bcosification_tpu_torch.explain.core import make_explain_fn
+    from bcosification_tpu_torch.training import trainer as trainer_lib
+
+    batch = options_batch(SEED + 71)
+    out = {}
+    for name, bargs in B_VARIANTS.items():
+        net, config = options_net(bargs, calibrated)
+        exp = options_experiment(root / name.replace(" ", ""), config, ema=False,
+                                 b_optimizer=OptimizerFactory("sgd", 0.05))
+        trainer = Trainer(exp, {"amp": True})
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        state, _ = fit_printing(trainer, net, RepeatedBatch(batch, OPTIONS_B_STEPS))
+        counts = launch_counts()
+        fit_s = time.perf_counter() - t0
+        check_counts(f"{name} Trainer.fit", counts, NO_KERNEL_COUNTS)
+        if fast_resnet.supports(state.model):
+            raise AssertionError(f"{name}: the fast pass takes a learnable-b net")
+        res, counts_e = counted(lambda: make_explain_fn(state.model)(batch["image"][:8]))
+        check_counts(f"{name} explanation", counts_e, NO_KERNEL_COUNTS)
+        if not torch.isfinite(res["dynamic_linear_weights"]).all():
+            raise AssertionError(f"{name}: the explanation is not finite")
+
+        _, _, schedule = trainer_lib._make_optimizers(exp.config, OPTIONS_B_STEPS)
+        b_schedule = trainer_lib._b_schedule(exp.config, TRAIN_BATCH, OPTIONS_B_STEPS)
+        step = steps_lib.make_train_step(exp.config["criterion"], schedule, use_agc=True,
+                                         b_schedule=b_schedule, amp=True)
+        b_param = state.model.model.conv1.b
+        trajectory = [b_param.item()]
+        reset_launch_counts()
+        for _ in range(OPTIONS_WINDOW):
+            step(state, batch)
+            trajectory.append(b_param.item())
+        check_counts(f"{name} steps", launch_counts(), NO_KERNEL_COUNTS)
+        exact = None
+        if b_schedule is not None:
+            want = [np.float32(b_schedule(s)) for s in range(OPTIONS_B_STEPS,
+                                                               state.step + 1)]
+            exact = [np.float32(v) for v in trajectory] == want
+        say(f"options 6c {name}: Trainer.fit of {OPTIONS_B_STEPS} steps {fit_s:.1f} s, "
+            f"launches {counts}; explanation (module path) launches {counts_e}; the stem's "
+            f"b parameter after steps {OPTIONS_B_STEPS}..{state.step}: "
+            + ", ".join(f"{v:.9g}" for v in trajectory)
+            + ("" if exact is None else f"; equal to make_linear_b_schedule in f32: {exact}"))
+        if exact is False or not all(math.isfinite(v) for v in trajectory):
+            raise AssertionError(f"{name}: the b trajectory is off")
+        if name == "clamping + manual_optim" and (state.b_optimizer is None
+                                                  or b_param.grad is None):
+            raise AssertionError("manual_optim did not train b")
+        ms, busy = call_window(lambda: step(state, batch), OPTIONS_WINDOW,
+                               f"options 6c {name}: one step of {TRAIN_BATCH} (bf16 amp)")
+        out[name] = {"ms": ms, "busy_ms": busy, "img_s": TRAIN_BATCH / ms * 1e3}
+        del net, state, trainer
+    return out
+
+
+def options_clip_normalisation(calibrated, x2):
+    """6f: the bcosified ResNet-50 with bcosify_args.clip_kd (CLIP's
+    Normalize constants) in fp32 on 2 images: the card's pre-logits against
+    the CPU's within phase 4's 1e-4 (max relative), the argmax identical."""
+    from bcosification_tpu_torch.models.bcosify_net import CLIP_MEAN_ADDINVERSE
+
+    net, _ = options_net({"clip_kd": True}, calibrated)
+    if net.mean != CLIP_MEAN_ADDINVERSE:
+        raise AssertionError(f"clip_kd: Normalize mean {net.mean}")
+    with torch.no_grad():
+        out = net(x2).double().cpu()
+        cpu = copy.deepcopy(net).to("cpu")
+        out_c = cpu(x2.cpu()).double()
+    bias = net.logit_bias
+    err = float(((out - bias) - (out_c - bias)).abs().max() / (out_c - bias).abs().max())
+    same = bool(torch.equal(out.argmax(1), out_c.argmax(1)))
+    say(f"options 6f: clip_kd ResNet-50 (Normalize mean {net.mean[:3]}...), fp32 pre-logits "
+        f"gpu vs cpu {err:.3e} (bound 1e-4, max relative); argmax identical {same}")
+    if not err <= 1e-4 or not same or not torch.isfinite(out).all():
+        raise AssertionError("the clip_kd net on the GPU disagrees with the CPU")
+
+
+def phase_train_options(net, x2):
+    """Phase 19: the training options no grid config sets (ROADMAP A5 6b,
+    6c, 6d, 6f) on the recipe's bcosified ResNet-50 at full width, from the
+    weights of phase 4's calibrated ``net``."""
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        accumulated = options_accumulation(net, root)
+        seconds["6b+6d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        learnable = options_learnable_b(net, root)
+        seconds["6c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    options_clip_normalisation(net, x2)
+    seconds["6f"] = time.perf_counter() - t0
+    say("training options seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    say(f"training options summary: accumulated optimizer step ({OPTIONS_ACCUM} x "
+        f"{TRAIN_BATCH}) {accumulated['update_ms']:.2f} ms, {accumulated['img_s']:.1f} img/s, "
+        f"K3 {accumulated['k3_per_update']} per optimizer step; learnable-b steps "
+        + ", ".join(f"{k} {v['ms']:.2f} ms ({v['img_s']:.1f} img/s)"
+                    for k, v in learnable.items()) + f" [{CARD}]")
 
 
 def text_localisation_call(student):
@@ -5106,7 +5439,7 @@ def main() -> int:
         t0 = time.perf_counter()
         analyses = phase_analyses(net, students, probe["k4_gbs"] * 1e9, worst, exp_root)
         seconds["15 analyses"] = time.perf_counter() - t0
-        del net, students
+        del students
         if k12.tma_operands.padded:
             raise AssertionError(f"{k12.tma_operands.padded} analysis calls padded their "
                                  "operands")
@@ -5130,6 +5463,9 @@ def main() -> int:
         raise AssertionError(f"{k12.tma_operands.padded} VGG and ConvNeXt calls padded their "
                              "operands")
     say("TMA operand padding on the VGG and ConvNeXt paths: 0 calls")
+    t0 = time.perf_counter()
+    phase_train_options(net, x2)
+    seconds["19 training options"] = time.perf_counter() - t0
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],

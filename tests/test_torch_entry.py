@@ -5,7 +5,8 @@ tiny config (crop 32, batch 8) on the small flagship, ("bottleneck",
 writes metrics and a checkpoint and resumes from it; ``evaluate --reload
 last`` reproduces the fit's logged accuracy and the JAX package's
 ``evaluate.evaluate`` counts on the same weights and folder; ``--weights``
-reads an npz of JAX variables; unported flags raise."""
+reads an npz of JAX variables; the logger, profiler and explanation flags
+write their files; unported flags raise."""
 import argparse
 
 import numpy as np
@@ -27,7 +28,7 @@ from bcosification_tpu_torch.data.synthetic import write_imagenet_tree
 from bcosification_tpu_torch.experiments.ImageNet.bcosification import experiment_parameters
 from bcosification_tpu_torch.experiments.utils import experiment_utils
 from bcosification_tpu_torch.experiments.utils.config_utils import update_config
-from bcosification_tpu_torch.training.trainer import UNPORTED_FLAGS, run_training
+from bcosification_tpu_torch.training.trainer import UNPORTED_FLAGS, param_hash, run_training
 
 torch.set_num_threads(1)
 NAME, LAYERS, NUM_CLASSES = "tiny", ("bottleneck", (1, 1)), 10
@@ -157,6 +158,27 @@ def test_unported_flags_raise(tiny, flag, dest, off, where):
     with pytest.raises(NotImplementedError, match=flag):
         run_training(args, device="cpu")
     assert not _save_dir(tiny).exists()  # refused before anything is written
+
+
+PORTED_FLAGS = {  # flags that raised until the training options were ported
+    "--tensorboard_logger": ("tb",),
+    "--wandb_logger": (),
+    "--explanation_logging": ("explanations/epoch_0.npz", "explanations/epoch_0.png"),
+    "--profile_dir": ("prof/trace.json",),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(PORTED_FLAGS))
+def test_ported_flags_run(tiny, flag, capsys):
+    """A --fast_dev_run with the flag (and --debug) trains its one step and
+    writes what the flag asks for under the experiment (the profiler trace
+    under --profile_dir); --debug prints the parameter hash."""
+    value = [str(_save_dir(tiny) / "prof")] if flag == "--profile_dir" else []
+    state = run_training(_train_args(tiny, flag, *value, "--debug"), device="cpu")
+    assert state.step == 1
+    for rel in PORTED_FLAGS[flag]:
+        assert (_save_dir(tiny) / rel).exists(), rel
+    assert f"params hash: {param_hash(state.model)}" in capsys.readouterr().out
 
 
 def test_train_main_validates_the_experiment_name(tiny):

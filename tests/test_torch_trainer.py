@@ -1,7 +1,8 @@
 """The port's Trainer on the CPU: fit, metrics, checkpoints and resume on
 a tiny synthetic set (as tests/test_trainer_e2e.py), the same fit against
-the JAX Trainer on the same weights, the checkpoint selection rules, and
-the options that raise until their slice is ported."""
+the JAX Trainer on the same weights, with and without the training
+options no grid config sets, the checkpoint selection rules, the event
+loggers, and the options that raise until their slice is ported."""
 import gzip
 import json
 import types
@@ -213,10 +214,13 @@ UNPORTED = {
     "model_parallel": ({"trainer": {"model_parallel": 2}}, "slice 8"),
     "fsdp": ({"trainer": {"fsdp": True}}, "slice 8"),
     "split_by_process": ({"data": {"split_by_process": True}}, "slice 8"),
-    "accumulate": ({"trainer": {"accumulate_grad_batches": 2}}, "slice 6"),
-    "linear_b": ({"model": {"bcosify_args": {"linear_b": True}}}, "slice 6"),
-    "b_interpolation": ({"model": {"bcosify_args": {"b_interpolation": True}}}, "slice 6"),
-    "manual_optim": ({"model": {"bcosify_args": {"manual_optim": True}}}, "slice 6"),
+}
+# options that raised until the training options were ported
+PORTED = {
+    "accumulate": {"trainer": {"max_epochs": 2, "accumulate_grad_batches": 2}},
+    "linear_b": {"model": {"bcosify_args": {"linear_b": True}}},
+    "b_interpolation": {"model": {"bcosify_args": {"b_interpolation": True}}},
+    "manual_optim": {"model": {"bcosify_args": {"manual_optim": True}}},
 }
 
 
@@ -231,12 +235,48 @@ def test_unported_options_raise(tmp_path, case):
         Trainer(exp, device="cpu").fit(TinyNet(), SynthDataModule(), max_epochs=1)
 
 
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_options_match_jax_trainer(tmp_path, case):
+    """The options as the JAX Trainer runs them, from the same weights, with
+    EMA: two epochs' train loss, validation metrics and lr within 1e-4
+    relative (TinyNet has no learnable b: linear_b, b_interpolation and
+    manual_optim leave its training as it is, in both packages)."""
+    from bcosification_tpu.training.trainer import Trainer as JaxTrainer
+    from bcosification_tpu_torch.training.trainer import Trainer
+
+    model, variables, tiny = _jax_tiny()
+    dm = SynthDataModule()
+    histories = []
+    for port in (False, True):
+        exp = _experiment(tmp_path / str(port), port=port, ema=True)
+        exp.config.update(PORTED[case])
+        if port:
+            Trainer(exp, device="cpu").fit(tiny, dm, max_epochs=2)
+        else:
+            JaxTrainer(exp).fit(model, jax.tree_util.tree_map(jnp.asarray, variables), dm,
+                                max_epochs=2)
+        histories.append(_history(exp))
+    want, got = histories
+    for key in ("train_loss", "val_acc1", "val_loss", "val_loss_ema", "lr"):
+        np.testing.assert_allclose([v for _, v in got[key]], [v for _, v in want[key]],
+                                   rtol=1e-4, atol=1e-7, err_msg=key)
+
+
 def test_trainer_device_and_loggers(tmp_path):
+    from bcosification_tpu_torch.training.loggers import TensorBoardLogger, read_events
     from bcosification_tpu_torch.training.trainer import Trainer
 
     exp = _experiment(tmp_path)
-    with pytest.raises(NotImplementedError, match="event-stream"):
-        Trainer(exp, {"tensorboard_logger": True}, device="cpu")
+    trainer = Trainer(exp, {"tensorboard_logger": True, "log_every_n_steps": 2}, device="cpu")
+    (logger,) = trainer.loggers
+    assert isinstance(logger, TensorBoardLogger) and logger.logdir == exp.save_dir / "tb"
+    trainer.fit(TinyNet(), SynthDataModule(), max_epochs=1)
+    events = read_events(logger.path)
+    steps = [(e["step"], sorted(e["scalars"])) for e in events[1:]]
+    assert events[0]["file_version"] == "brain.Event:2"
+    assert steps[:2] == [(0, ["initial_val_acc1", "initial_val_acc5", "initial_val_loss"]),
+                         (2, ["lr", "train_loss_step"])]
+    assert steps[-1][0] == 4 and "val_acc1" in steps[-1][1]
     if not torch.cuda.is_available():  # the entry point runs on the card by default
         with pytest.raises(RuntimeError, match="GPU"):
             Trainer(exp)

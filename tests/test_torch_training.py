@@ -378,8 +378,10 @@ def test_optimizer_factory_b_params():
     assert len(OptimizerFactory("adam", 1e-3).create(model).param_groups[0]["params"]) == 2
     kept = OptimizerFactory("adam", 1e-3, bcosify=True).create(model).param_groups[0]["params"]
     assert len(kept) == 1 and kept[0] is model.weight
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        OptimizerFactory("sgd", 1e-3, bcosify=True, b_opt=True).create(model)
+    b_opt = OptimizerFactory("adam", 1e-3, bcosify=True, weight_decay=0.1).with_name(
+        "sgd").with_args(b_opt=True).create(model)
+    assert isinstance(b_opt, torch.optim.SGD) and b_opt.param_groups[0]["params"] == [model.b]
+    assert b_opt.param_groups[0]["weight_decay"] == 0.1
     with pytest.raises(ValueError):
         OptimizerFactory("lamb", 1e-3)
 
@@ -613,8 +615,8 @@ def test_train_step_guards():
     crit = UniformOffLabelsBCEWithLogitsLoss()
     with pytest.raises(ValueError, match="mutually exclusive"):
         tsteps.make_train_step(crit, use_agc=True, gradient_clip_val=1.0)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tsteps.make_train_step(crit, b_schedule=lambda s: 2.0)
+    with pytest.raises(ValueError, match="positive increment"):
+        tsteps.make_linear_b_schedule(b_lr=0.0)
 
 
 def test_gradient_clip_matches_jax(flagship):
