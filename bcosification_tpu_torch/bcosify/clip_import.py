@@ -1,6 +1,5 @@
-"""OpenAI CLIP checkpoints into the port, and the B-cosified CLIP-RN50 builder
-(counterpart of ``bcosification_tpu/bcosify/clip_import.py``, its ResNet
-half).
+"""OpenAI CLIP checkpoints into the port, and the B-cosified CLIP builders
+(counterpart of ``bcosification_tpu/bcosify/clip_import.py``).
 
 - The text tower and the frozen teacher image tower take the checkpoint as
   it is (linear weights transposed to the port's (in, out) layout).
@@ -9,13 +8,19 @@ half).
   every BN uncentered (its bias folded and kept only with
   ``bcosify_args.use_bias``), the attention pool's q/k/v kept plain and
   c_proj B-cosified (b=2), biases and the positional embedding nulled.
+- The ViT student (``BcosifyNetwork(CLIPVisionTransformer)``) applies the
+  same recipe with the ViT rules: the patchify conv doubled to [w, -w] / 2
+  (exact on the [z, -z] input), out_proj, c_fc and c_proj B-cosified (b=2)
+  with their biases dropped, the q/k/v projection kept plain with its bias
+  zeroed (not removed), the QuickGELU gate detached in explanation mode;
+  the class and positional embeddings, the LayerNorms and ``proj`` as they
+  are.
 
 Each import is strict within the checkpoint's part that it reads (the keys
 under ``visual.`` for an image tower, the others but ``logit_scale`` for the
 text tower): a key the model needs and does not find, a key that maps onto
 nothing (beside the entries the conversion drops) or a shape the model does
-not have raises. The CLIP ViT towers come with the CLIP ViT slice
-(``clip.model.VIT_SLICE``).
+not have raises.
 """
 from __future__ import annotations
 
@@ -49,6 +54,9 @@ __all__ = [
     "build_clip_text",
     "build_clip_teacher_visual",
     "build_bcosified_clip_visual",
+    "clip_visual_vit_teacher_to_variables",
+    "clip_visual_vit_student_to_variables",
+    "build_bcosified_clip_vit_visual",
 ]
 
 _PROJS = ("q_proj", "k_proj", "v_proj", "c_proj")
@@ -67,6 +75,29 @@ class _ClipImport(_Import):
             self.copy(f"{src}.{leaf}", f"{dst}.{leaf}")
 
 
+    def layer_norm(self, src: str, dst: str) -> None:
+        self.copy(f"{src}.weight", f"{dst}.weight")
+        self.copy(f"{src}.bias", f"{dst}.bias")
+
+    def resblocks(self, src: str, dst: str, layers: int, *, null_in_bias: bool = False,
+                  bias: bool = True) -> None:
+        """``layers`` residual blocks: q/k/v as one plain (in, out) linear
+        (its bias zeroed with ``null_in_bias``), out_proj, c_fc and c_proj
+        (their biases only with ``bias``), ln_1 and ln_2."""
+        for i in range(layers):
+            s, d = f"{src}.{i}", f"{dst}{i}"
+            self.flat[f"{d}.attn_in_proj.weight"] = np.ascontiguousarray(
+                self.take(f"{s}.attn.in_proj_weight").T)
+            in_bias = self.take(f"{s}.attn.in_proj_bias")
+            self.flat[f"{d}.attn_in_proj.bias"] = (np.zeros_like(in_bias) if null_in_bias
+                                                   else in_bias)
+            for name, scope in (("attn.out_proj", "attn_out_proj"), ("mlp.c_fc", "mlp_c_fc"),
+                                ("mlp.c_proj", "mlp_c_proj")):
+                self.linear(f"{s}.{name}", f"{d}.{scope}", bias=bias)
+            for ln in ("ln_1", "ln_2"):
+                self.layer_norm(f"{s}.{ln}", f"{d}.{ln}")
+
+
 def clip_text_to_variables(text: torch.nn.Module, sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The state dict of the port's ``TextTransformer`` ``text`` from an
     OpenAI checkpoint: the embeddings, the resblocks, ln_final and the
@@ -75,19 +106,8 @@ def clip_text_to_variables(text: torch.nn.Module, sd: Mapping[str, Any]) -> Dict
     for name in ("positional_embedding", "text_projection"):
         imp.copy(name, name)
     imp.copy("token_embedding.weight", "token_embedding")
-    for i in range(text.num_layers):
-        src, dst = f"transformer.resblocks.{i}", f"resblocks_{i}"
-        imp.flat[f"{dst}.attn_in_proj.weight"] = np.ascontiguousarray(
-            imp.take(f"{src}.attn.in_proj_weight").T)
-        imp.copy(f"{src}.attn.in_proj_bias", f"{dst}.attn_in_proj.bias")
-        for s, d in (("attn.out_proj", "attn_out_proj"), ("mlp.c_fc", "mlp_c_fc"),
-                     ("mlp.c_proj", "mlp_c_proj")):
-            imp.linear(f"{src}.{s}", f"{dst}.{d}")
-        for ln in ("ln_1", "ln_2"):
-            imp.copy(f"{src}.{ln}.weight", f"{dst}.{ln}.weight")
-            imp.copy(f"{src}.{ln}.bias", f"{dst}.{ln}.bias")
-    imp.copy("ln_final.weight", "ln_final.weight")
-    imp.copy("ln_final.bias", "ln_final.bias")
+    imp.resblocks("transformer.resblocks", "resblocks_", text.num_layers)
+    imp.layer_norm("ln_final", "ln_final")
     return imp.finish(text)
 
 
@@ -141,6 +161,46 @@ def clip_visual_student_to_variables(net, sd: Mapping[str, Any], *, attn_unpool:
         imp.linear(f"visual.attnpool.{p}", f"model.attnpool.{p}", bias=use_bias)
     droppable += [f"visual.attnpool.{p}.{leaf}" for p in _PROJS for leaf in ("weight", "bias")
                   if p not in projs or (leaf == "bias" and not use_bias)]
+    return imp.finish(net, droppable=droppable)
+
+
+def _visual_vit_entries(imp: _ClipImport, layers: int, scope: str, *, bcosified: bool,
+                        use_bias: bool = True) -> list:
+    """The CLIP ViT tower's entries (visual.conv1, the embeddings, ln_pre,
+    the resblocks, ln_post, proj). ``bcosified``: the patchify conv doubled
+    to [w, -w] / 2 and, without ``use_bias``, the q/k/v bias zeroed and the
+    other linears' biases dropped. Returns the keys the conversion drops."""
+    w = imp.take("visual.conv1.weight")
+    imp.flat[f"{scope}conv1.weight"] = P.add_channels_conv_weight(w) if bcosified else w
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        imp.copy(f"visual.{name}", f"{scope}{name}")
+    imp.layer_norm("visual.ln_pre", f"{scope}ln_pre")
+    imp.layer_norm("visual.ln_post", f"{scope}ln_post")
+    null_bias = bcosified and not use_bias
+    imp.resblocks("visual.transformer.resblocks", f"{scope}resblocks_", layers,
+                  null_in_bias=null_bias, bias=not null_bias)
+    if not null_bias:
+        return []
+    return [f"visual.transformer.resblocks.{i}.{name}.bias" for i in range(layers)
+            for name in ("attn.out_proj", "mlp.c_fc", "mlp.c_proj")]
+
+
+def clip_visual_vit_teacher_to_variables(visual, sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state dict of the frozen ViT teacher ``visual`` (a
+    CLIPVisionTransformer) from an OpenAI checkpoint, as it is."""
+    imp = _ClipImport(sd, visual=True, fold_bn_bias=False, use_bias=True)
+    _visual_vit_entries(imp, visual.num_layers, "", bcosified=False)
+    return imp.finish(visual)
+
+
+def clip_visual_vit_student_to_variables(net, sd: Mapping[str, Any], *,
+                                         use_bias: bool = False) -> Dict[str, torch.Tensor]:
+    """The state dict of the ViT student ``net``
+    (BcosifyNetwork(CLIPVisionTransformer)) from an OpenAI checkpoint,
+    B-cosified (``_visual_vit_entries``)."""
+    imp = _ClipImport(sd, visual=True, fold_bn_bias=False, use_bias=use_bias)
+    droppable = _visual_vit_entries(imp, net.model.num_layers, "model.", bcosified=True,
+                                    use_bias=use_bias)
     return imp.finish(net, droppable=droppable)
 
 
@@ -250,27 +310,37 @@ def build_clip_text(sd: Optional[Mapping[str, Any]] = None, cfg: Optional[dict] 
     return _frozen(text, dev)
 
 
-def _check_resnet(cfg) -> None:
-    if not isinstance(cfg["vision_layers"], (tuple, list)):
-        raise NotImplementedError(f"a CLIP ViT tower: it comes with {clip_model.VIT_SLICE}")
+def _is_vit(cfg) -> bool:
+    return not isinstance(cfg["vision_layers"], (tuple, list))
+
+
+def _vit(cfg, generator, **kw) -> clip_model.CLIPVisionTransformer:
+    return clip_model.CLIPVisionTransformer(
+        input_resolution=cfg["image_resolution"], patch_size=cfg["vision_patch_size"],
+        width=cfg["vision_width"], layers=cfg["vision_layers"],
+        heads=cfg["vision_width"] // 64, output_dim=cfg["embed_dim"], generator=generator,
+        **kw)
 
 
 def build_clip_teacher_visual(sd: Optional[Mapping[str, Any]] = None,
-                              cfg: Optional[dict] = None, *, device=None,
-                              seed: int = 0) -> clip_model.ModifiedResNet:
-    """The frozen teacher image tower (ModifiedResNet, the standard attention
-    pool, 3-channel input) in eval mode on ``device``, from ``sd`` or at
-    random init from ``seed``."""
+                              cfg: Optional[dict] = None, *, device=None, seed: int = 0):
+    """The frozen teacher image tower (ModifiedResNet with the standard
+    attention pool, or CLIPVisionTransformer; 3-channel input) in eval mode
+    on ``device``, from ``sd`` or at random init from ``seed``."""
     dev = resolve_device(device)
     cfg = _config(sd, cfg)
-    _check_resnet(cfg)
-    visual = clip_model.ModifiedResNet(
-        layers=tuple(cfg["vision_layers"]), output_dim=cfg["embed_dim"],
-        heads=cfg["vision_width"] * 32 // 64, input_resolution=cfg["image_resolution"],
-        width=cfg["vision_width"], attnpool="standard",
-        generator=torch.Generator().manual_seed(seed))
+    generator = torch.Generator().manual_seed(seed)
+    if _is_vit(cfg):
+        visual = _vit(cfg, generator)
+        to_variables = clip_visual_vit_teacher_to_variables
+    else:
+        visual = clip_model.ModifiedResNet(
+            layers=tuple(cfg["vision_layers"]), output_dim=cfg["embed_dim"],
+            heads=cfg["vision_width"] * 32 // 64, input_resolution=cfg["image_resolution"],
+            width=cfg["vision_width"], attnpool="standard", generator=generator)
+        to_variables = clip_visual_teacher_to_variables
     if sd is not None:
-        visual.load_state_dict(clip_visual_teacher_to_variables(visual, sd))
+        visual.load_state_dict(to_variables(visual, sd))
     return _frozen(visual, dev)
 
 
@@ -286,7 +356,9 @@ def build_bcosified_clip_visual(model_config: Dict[str, Any],
     (e.g. a small test net)."""
     dev = resolve_device(device)
     cfg = _config(sd, cfg)
-    _check_resnet(cfg)
+    if _is_vit(cfg):
+        raise ValueError("build_bcosified_clip_visual builds the ModifiedResNet student: a "
+                         "ViT configuration takes build_bcosified_clip_vit_visual")
     bargs = model_config.get("bcosify_args", {}) or {}
     b = float((model_config.get("bcos_args", {}) or {}).get("b", 2))
     use_bias = bool(bargs.get("use_bias", False))
@@ -306,4 +378,36 @@ def build_bcosified_clip_visual(model_config: Dict[str, Any],
     if sd is not None:
         net.load_state_dict(clip_visual_student_to_variables(
             net, sd, attn_unpool=attn_unpool, use_bias=use_bias))
+    return _frozen(net, dev)
+
+
+def build_bcosified_clip_vit_visual(model_config: Dict[str, Any],
+                                    sd: Optional[Mapping[str, Any]] = None,
+                                    cfg: Optional[dict] = None, *, device=None,
+                                    seed: Optional[int] = None) -> BcosifyNetwork:
+    """The ViT student: BcosifyNetwork(B-cosified CLIPVisionTransformer) with
+    CLIP's 6-channel Normalize and no logit layer, in eval mode on ``device``
+    (default the GPU). b=2 BcosifyConv2d patchify conv (no bias) and
+    BcosifyLinear out_proj / c_fc / c_proj (biases with
+    ``bcosify_args.use_bias``), the gate-detaching QuickGELU, the per-token
+    head with ``attn_unpool``. From the OpenAI checkpoint ``sd`` (the
+    architecture read from it), or at random init from ``seed`` (default:
+    model_config's "seed", else 0) with ``cfg`` (``clip_vit_config``)."""
+    dev = resolve_device(device)
+    cfg = cfg if cfg is not None else clip_model.config_from_state_dict(sd)
+    if not _is_vit(cfg):
+        raise ValueError("build_bcosified_clip_vit_visual needs a ViT configuration")
+    bargs = model_config.get("bcosify_args", {}) or {}
+    b = float((model_config.get("bcos_args", {}) or {}).get("b", 2))
+    use_bias = bool(bargs.get("use_bias", False))
+    visual = _vit(cfg, _generator(model_config, seed), in_channels=6,
+                  conv_layer=partial(BcosifyConv2d, b=b),
+                  linear_layer=partial(BcosifyLinear, b=b, use_bias=use_bias),
+                  act_layer=partial(clip_model.QuickGELU, detach_gate=True),
+                  unpool=bool(model_config.get("attn_unpool", False)))
+    mean, std = normalization_for(clip_kd=True,
+                                  bfy_mean_zero=bool(model_config.get("bfy_mean_zero", False)))
+    net = BcosifyNetwork(visual, with_logit_layer=False, mean=mean, std=std)
+    if sd is not None:
+        net.load_state_dict(clip_visual_vit_student_to_variables(net, sd, use_bias=use_bias))
     return _frozen(net, dev)

@@ -1,5 +1,5 @@
-"""CLIP on PyTorch: the ModifiedResNet image tower and the text transformer
-(counterpart of ``bcosification_tpu/clip/model.py``).
+"""CLIP on PyTorch: the ModifiedResNet and ViT image towers and the text
+transformer (counterpart of ``bcosification_tpu/clip/model.py``).
 
 The image tower is built from layer factories, so that one architecture
 serves as the frozen fp32 teacher (plain convs, centered eval BN, the
@@ -12,11 +12,19 @@ conv -> norm -> act with the conv on the B-cos matmul kernel (K3), as the
 JAX module sends it to its Pallas kernel; the hand-scheduled explanation
 pass (``explain/fast_clip.py``) folds the norms into K1/K2 instead.
 
+The ViT tower (``CLIPVisionTransformer``) takes the same kind of factories:
+the teacher's plain patchify conv, linears and QuickGELU, or the student's
+b=2 BcosifyConv2d patchify conv on the 6 AddInverse channels, BcosifyLinears
+(out_proj, c_fc, c_proj: K3) and the gate-detaching QuickGELU; the combined
+q/k/v projection stays a plain linear in both, with q and k detached in
+explanation mode. ``explain/fast_clip_vit.py`` is its autograd-free
+explanation pass.
+
 Module names follow the JAX scopes (conv1..3, bn1..3, layer{s}_{j} with
 conv1..3, bn1..3, downsample_conv, downsample_norm, attnpool; resblocks_{i}
-with attn_in_proj, attn_out_proj, ln_1, ln_2, mlp_c_fc, mlp_c_proj), so the
-JAX variables load with ``bcosify/from_jax.py``. The CLIP ViT towers are not
-ported yet (``VIT_SLICE``).
+with attn_in_proj, attn_out_proj, ln_1, ln_2, mlp_c_fc, mlp_c_proj; the
+ViT's conv1, class_embedding, positional_embedding, ln_pre, ln_post and
+proj), so the JAX variables load with ``bcosify/from_jax.py``.
 """
 from __future__ import annotations
 
@@ -37,7 +45,6 @@ from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops import pooling
 
 __all__ = [
-    "VIT_SLICE",
     "QuickGELU",
     "CLIPLayerNorm",
     "PlainConv2d",
@@ -45,6 +52,7 @@ __all__ = [
     "CLIPBottleneck",
     "ModifiedResNet",
     "ResidualAttentionBlock",
+    "CLIPVisionTransformer",
     "TextTransformer",
     "CLIP",
     "clip_rn50_config",
@@ -52,15 +60,25 @@ __all__ = [
     "config_from_state_dict",
 ]
 
-VIT_SLICE = ("the CLIP ViT slice (ROADMAP A6: CLIPVisionTransformer, clip_vit_config and the "
-             "vit*clip configs)")
-
 
 class QuickGELU(nn.Module):
-    """CLIP's x * sigmoid(1.702 x) (the text tower keeps it plain)."""
+    """CLIP's x * sigmoid(1.702 x). With ``detach_gate`` (the B-cosified ViT
+    student) the gate is detached in explanation mode, which makes the
+    activation dynamic-linear; the teacher and the text tower keep it
+    plain."""
+
+    def __init__(self, detach_gate: bool = False):
+        super().__init__()
+        self.detach_gate = detach_gate
+
+    def gate(self, x):
+        return torch.sigmoid(1.702 * x)
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
-        return x * torch.sigmoid(1.702 * x)
+        gate = self.gate(x)
+        if self.detach_gate and explain:
+            gate = gate.detach()
+        return x * gate
 
 
 class CLIPLayerNorm(nn.Module):
@@ -73,14 +91,18 @@ class CLIPLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
-    def forward(self, x, *, train: bool = False, explain: bool = False):
+    def normalize(self, x, *, explain: bool = False):
+        """(the output, the f32 std sqrt(var + eps) it divided by)."""
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         var = (xf - mean).square().mean(-1, keepdim=True)
         if explain:
             var = var.detach()
-        out = (xf - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
-        return out.to(x.dtype)
+        std = torch.sqrt(var + self.eps)
+        return ((xf - mean) / std * self.weight + self.bias).to(x.dtype), std
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        return self.normalize(x, explain=explain)[0]
 
 
 class PlainConv2d(_ConvBase):
@@ -227,43 +249,59 @@ class ModifiedResNet(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-norm transformer block of plain linears with the combined q/k/v
-    projection ``attn_in_proj``, optionally causal (the text tower's; the
-    B-cos variants of the ViT student come with the CLIP ViT slice)."""
+    """Pre-norm transformer block with the combined q/k/v projection
+    ``attn_in_proj`` (always a plain linear), optionally causal (the text
+    tower's). ``linear_layer`` (default PlainLinear) builds out_proj, c_fc
+    and c_proj and ``act_layer`` (default QuickGELU) the activation: the
+    B-cosified ViT student injects BcosifyLinear and the gate-detaching
+    QuickGELU."""
 
-    def __init__(self, d_model: int, n_head: int, causal: bool = False, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, d_model: int, n_head: int, causal: bool = False, *,
+                 linear_layer: Optional[Callable] = None, act_layer: Optional[Callable] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_head, self.causal = n_head, causal
         kw = dict(device=device, generator=generator)
+        linear = linear_layer or PlainLinear
         self.attn_in_proj = PlainLinear(d_model, 3 * d_model, **kw)
-        self.attn_out_proj = PlainLinear(d_model, d_model, **kw)
+        self.attn_out_proj = linear(d_model, d_model, **kw)
         self.ln_1 = CLIPLayerNorm(d_model, device=device)
         self.ln_2 = CLIPLayerNorm(d_model, device=device)
-        self.mlp_c_fc = PlainLinear(d_model, 4 * d_model, **kw)
-        self.mlp_gelu = QuickGELU()
-        self.mlp_c_proj = PlainLinear(4 * d_model, d_model, **kw)
+        self.mlp_c_fc = linear(d_model, 4 * d_model, **kw)
+        self.mlp_gelu = (act_layer or QuickGELU)()
+        self.mlp_c_proj = linear(4 * d_model, d_model, **kw)
+
+    def attend(self, q, k):
+        """The attention weights [B, heads, N, N] of q and k [B, N, d]."""
+        n, d = q.shape[1:]
+        dots = torch.einsum("bhnd,bhmd->bhnm", _heads(q, self.n_head), _heads(k, self.n_head))
+        dots = dots / (d // self.n_head) ** 0.5
+        if self.causal:
+            dots = dots + torch.full((n, n), float("-inf"), dtype=q.dtype,
+                                     device=q.device).triu(1)
+        return torch.softmax(dots, dim=-1)
+
+    def mix(self, attn, v):
+        """The heads' attention-weighted v, merged back to [B, N, d]."""
+        b, n, d = v.shape
+        out = torch.einsum("bhnm,bhmd->bhnd", attn, _heads(v, self.n_head))
+        return out.transpose(1, 2).reshape(b, n, d)
 
     def attention(self, t, f):
-        b, n, d = t.shape
-        q, k, v = self.attn_in_proj(t).split(d, dim=-1)
+        q, k, v = self.attn_in_proj(t).split(t.shape[-1], dim=-1)
         if f["explain"]:
             q, k = q.detach(), k.detach()
-        dh = d // self.n_head
-        dots = torch.einsum("bhnd,bhmd->bhnm", _heads(q, self.n_head), _heads(k, self.n_head))
-        dots = dots / dh ** 0.5
-        if self.causal:
-            dots = dots + torch.full((n, n), float("-inf"), dtype=t.dtype,
-                                     device=t.device).triu(1)
-        attn = torch.softmax(dots, dim=-1)
-        out = torch.einsum("bhnm,bhmd->bhnd", attn, _heads(v, self.n_head))
-        return self.attn_out_proj(out.transpose(1, 2).reshape(b, n, d), **f)
+        return self.attn_out_proj(self.mix(self.attend(q, k), v), **f)
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
         x = x + self.attention(self.ln_1(x, **f), f)
         h = self.mlp_c_fc(self.ln_2(x, **f), **f)
         return x + self.mlp_c_proj(self.mlp_gelu(h, **f), **f)
+
+
+def _normal(shape, std, generator, device) -> nn.Parameter:
+    return nn.Parameter((torch.randn(shape, generator=generator) * std).to(device))
 
 
 class TextTransformer(nn.Module):
@@ -276,16 +314,13 @@ class TextTransformer(nn.Module):
         super().__init__()
         self.context_length, self.num_layers = context_length, layers
 
-        def normal(shape, std):
-            return nn.Parameter((torch.randn(shape, generator=generator) * std).to(device))
-
-        self.token_embedding = normal((vocab_size, width), 0.02)
-        self.positional_embedding = normal((context_length, width), 0.01)
+        self.token_embedding = _normal((vocab_size, width), 0.02, generator, device)
+        self.positional_embedding = _normal((context_length, width), 0.01, generator, device)
         for i in range(layers):
             setattr(self, f"resblocks_{i}", ResidualAttentionBlock(
                 width, heads, causal=True, device=device, generator=generator))
         self.ln_final = CLIPLayerNorm(width, device=device)
-        self.text_projection = normal((width, embed_dim), width ** -0.5)
+        self.text_projection = _normal((width, embed_dim), width ** -0.5, generator, device)
 
     def forward(self, text, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
@@ -296,6 +331,84 @@ class TextTransformer(nn.Module):
         x = self.ln_final(x, **f)
         x = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
         return x @ self.text_projection
+
+
+class CLIPVisionTransformer(nn.Module):
+    """The CLIP ViT image tower: the patchify conv (kernel = stride = patch,
+    no bias), the class token prepended, the positional embedding added in
+    x's dtype, ln_pre, the residual blocks, then the pooled head (ln_post of
+    the class token @ proj) or, with ``unpool``, the per-token head (ln_post
+    of tokens 1: @ proj, divided by its L2 norm, which explanation mode
+    detaches): [B, D] or [B, HW, D].
+
+    ``conv_layer``, ``linear_layer`` and ``act_layer`` are the layer
+    factories (the defaults build the plain teacher); the student's 6-channel
+    patchify conv takes ``in_channels=6``."""
+
+    def __init__(self, input_resolution: int = 224, patch_size: int = 32, width: int = 768,
+                 layers: int = 12, heads: int = 12, output_dim: int = 512, *,
+                 in_channels: int = 3, conv_layer: Optional[Callable] = None,
+                 linear_layer: Optional[Callable] = None, act_layer: Optional[Callable] = None,
+                 unpool: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_resolution, self.patch_size = input_resolution, patch_size
+        self.width, self.num_layers, self.unpool = width, layers, unpool
+        kw = dict(device=device, generator=generator)
+        conv = conv_layer or PlainConv2d
+        self.conv1 = conv(in_channels, width, patch_size, stride=patch_size, **kw)
+        grid = input_resolution // patch_size
+        self.class_embedding = _normal((width,), width ** -0.5, generator, device)
+        self.positional_embedding = _normal((grid * grid + 1, width), width ** -0.5,
+                                            generator, device)
+        self.ln_pre = CLIPLayerNorm(width, device=device)
+        for i in range(layers):
+            setattr(self, f"resblocks_{i}", ResidualAttentionBlock(
+                width, heads, linear_layer=linear_layer, act_layer=act_layer, **kw))
+        self.proj = _normal((width, output_dim), width ** -0.5, generator, device)
+        self.ln_post = CLIPLayerNorm(width, device=device)
+
+    # the raw (width, ...) parameters hold their output units on the last
+    # axis, as the linears' (in, out) weights (training/agc.py)
+    param_unit_axes = {"positional_embedding": -1, "proj": -1}
+
+    def blocks(self):
+        return [getattr(self, f"resblocks_{i}") for i in range(self.num_layers)]
+
+    def tokens(self, x, *, train: bool = False, explain: bool = False):
+        """The patch tokens after ln_pre: [B, 1 + HW, width], the class token
+        first."""
+        x = self.conv1(x, train=train, explain=explain)
+        b, h, w, c = x.shape
+        x = x.reshape(b, h * w, c)
+        cls = self.class_embedding.to(x.dtype).expand(b, 1, c)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(x.dtype)
+        return self.ln_pre(x, train=train, explain=explain)
+
+    def head(self, x, *, train: bool = False, explain: bool = False):
+        """The pooled or unpooled features of the blocks' output x."""
+        proj = self.proj
+        if self.unpool:
+            tok = self.ln_post(x[:, 1:], train=train, explain=explain)
+            out = _promoted(tok, proj) @ proj
+            norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+            if explain:
+                norm = norm.detach()
+            return out / norm
+        cls = self.ln_post(x[:, :1], train=train, explain=explain)[:, 0]
+        return _promoted(cls, proj) @ proj
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        f = dict(train=train, explain=explain)
+        x = self.tokens(x, **f)
+        for blk in self.blocks():
+            x = blk(x, **f)
+        return self.head(x, **f)
+
+
+def _promoted(x, w):
+    """x in the dtype of x @ w under JAX's promotion (bf16 @ f32 -> f32)."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
 
 
 class CLIP(nn.Module):
@@ -337,22 +450,48 @@ def clip_rn50_config() -> dict:
 
 
 def clip_vit_config(name: str = "ViT-B/32") -> dict:
-    raise NotImplementedError(f"CLIP tower {name!r}: they come with {VIT_SLICE}")
+    """The published OpenAI CLIP ViT architectures, for towers built without
+    a checkpoint."""
+    width, layers, patch, embed = {
+        "ViT-B/32": (768, 12, 32, 512),
+        "ViT-B/16": (768, 12, 16, 512),
+        "ViT-L/14": (1024, 24, 14, 768),
+    }[name]
+    return dict(
+        embed_dim=embed,
+        image_resolution=224,
+        vision_layers=layers,
+        vision_width=width,
+        vision_patch_size=patch,
+        context_length=77,
+        vocab_size=49408,
+        transformer_width=512 if "B/" in name else 768,
+        transformer_heads=8 if "B/" in name else 12,
+        transformer_layers=12,
+    )
 
 
 def config_from_state_dict(sd) -> dict:
-    """The CLIP architecture of an OpenAI checkpoint (its keys and shapes)."""
+    """The CLIP architecture of an OpenAI checkpoint (its keys and shapes):
+    ``vision_layers`` an int for a ViT tower, a 4-tuple for a ModifiedResNet."""
     if "visual.proj" in sd:
-        raise NotImplementedError(f"a CLIP ViT checkpoint: they come with {VIT_SLICE}")
-    counts = [len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")})
-              for b in (1, 2, 3, 4)]
-    out_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision_width, _, _, vision_patch_size = sd["visual.conv1.weight"].shape
+        vision_layers = len([k for k in sd if k.startswith("visual.")
+                             and k.endswith(".attn.in_proj_weight")])
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = vision_patch_size * grid
+    else:
+        vision_layers = tuple(len({k.split(".")[2] for k in sd
+                                   if k.startswith(f"visual.layer{b}.")}) for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        out_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision_patch_size, image_resolution = None, out_width * 32
     return dict(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=out_width * 32,
-        vision_layers=tuple(counts),
-        vision_width=sd["visual.layer1.0.conv1.weight"].shape[0],
-        vision_patch_size=None,
+        image_resolution=image_resolution,
+        vision_layers=vision_layers,
+        vision_width=vision_width,
+        vision_patch_size=vision_patch_size,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         transformer_width=sd["ln_final.weight"].shape[0],

@@ -42,10 +42,6 @@ MODEL_TYPES = [
 
 __all__ = ["MODEL_TYPES", "load_clip", "ModelBundle", "features_numpy"]
 
-# the CLIP ViT towers are not in the port yet (clip/model.py raises)
-CLIP_VIT_ITEM = "ROADMAP A6 (the CLIP ViT towers)"
-
-
 def features_numpy(feats) -> np.ndarray:
     """A feature batch (tensor on any device, or numpy) as float32 numpy."""
     if isinstance(feats, torch.Tensor):
@@ -162,7 +158,9 @@ def _load_bcos_captioner(model_name: str, pretrained: str, experiment_path: Opti
     if pretrained and pretrained.endswith(".npz"):
         head = cap_lib.load_captioner(pretrained, device=bundle.device)
     else:
-        feature_dim = bundle.image_model.model.attnpool.c_proj.weight.shape[-1]
+        tower = bundle.image_model.model
+        feature_dim = (tower.proj.shape[-1] if hasattr(tower, "proj")  # a CLIP ViT
+                       else tower.attnpool.c_proj.weight.shape[-1])
         head = cap_lib.GreedyCaptioner(feature_dim, vocab_size=49408, device=bundle.device)
 
     def generate(images) -> List[str]:
@@ -197,10 +195,6 @@ def _load_standard_clip(model_name: str, pretrained: str, device=None):
                 f"falling back to RN50 (available: {available})"
             )
             name = "RN50"
-    if name.startswith("ViT"):
-        raise NotImplementedError(
-            f"standard_clip {model_name!r}: the port has no CLIP ViT tower yet; it comes "
-            f"with {CLIP_VIT_ITEM}")
     dev = resolve_device(device)
     visual, text_model, _, cfg = clip_load(name, device=dev)
     bundle = ModelBundle(_eager(visual), text_model, tokenize, 0, dev)

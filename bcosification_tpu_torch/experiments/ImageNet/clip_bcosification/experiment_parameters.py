@@ -92,8 +92,8 @@ attn_unpool = {
     for name, cfg in resnets_clip.items()
 }
 
-# the CLIP ViT towers through the same recipe (their model factory raises
-# until the CLIP ViT slice, clip.model.VIT_SLICE)
+# the CLIP ViT towers through the same recipe (beyond the reference, which
+# B-cosifies CLIP-RN50 only; model.py builds them with the ViT rules)
 vits_clip = {
     f"vit_{tag}_clip_b2_noBias_randomResizedCrop_sigLip_ImageNet_bcosification": (
         update_default(

@@ -3,17 +3,23 @@
 OpenAI CLIP-RN50 image tower, B-cosified by ``bcosify/clip_import.py``
 (biases and the attention pool's positional embedding nulled, c_proj
 B-cosified), in the 6-channel BcosifyNetwork wrapper without a logit layer.
+``model.name`` also takes the CLIP ViT towers (vitb32clip, vitb16clip,
+vitl14clip), B-cosified by the ViT recipe
+(``clip_import.build_bcosified_clip_vit_visual``), as in the JAX package.
 
 The OpenAI checkpoint is read from local files (``clip/load.py``:
-$CLIP_WEIGHTS_PATH, $CLIP_WEIGHTS_DIR/RN50.pt); nothing is downloaded.
-Without it the tower is initialised at random, with the JAX package's
-warning. The CLIP ViT towers raise, naming the slice that brings them.
+$CLIP_WEIGHTS_PATH, $CLIP_WEIGHTS_DIR/RN50.pt, ViT-B-16.pt, ...); nothing
+is downloaded. Without it the tower is initialised at random, with the JAX
+package's warning.
 """
 from __future__ import annotations
 
-from bcosification_tpu_torch.bcosify.clip_import import build_bcosified_clip_visual
+from bcosification_tpu_torch.bcosify.clip_import import (
+    build_bcosified_clip_visual,
+    build_bcosified_clip_vit_visual,
+)
+from bcosification_tpu_torch.clip import model as clip_model
 from bcosification_tpu_torch.clip.load import MODEL_CONFIG_CLIP_NAMES, load_state_dict_file
-from bcosification_tpu_torch.clip.model import VIT_SLICE
 
 __all__ = ["get_model"]
 
@@ -25,7 +31,10 @@ def get_model(model_config, device=None):
     name = model_config.get("name", "resnet50clip")
     if name not in MODEL_CONFIG_CLIP_NAMES:
         raise ValueError(f"unsupported CLIP model {name!r}")
+    clip_name = MODEL_CONFIG_CLIP_NAMES[name]
+    sd = load_state_dict_file(clip_name)
     if name.startswith("vit"):
-        raise NotImplementedError(f"CLIP tower {name!r}: it comes with {VIT_SLICE}")
-    sd = load_state_dict_file(MODEL_CONFIG_CLIP_NAMES[name])
+        cfg = (clip_model.config_from_state_dict(sd) if sd is not None
+               else clip_model.clip_vit_config(clip_name))
+        return build_bcosified_clip_vit_visual(model_config, sd, cfg, device=device)
     return build_bcosified_clip_visual(model_config, sd, device=device)

@@ -1,9 +1,10 @@
 """What the hand-scheduled explanation passes share
 (``explain/fast_resnet.py``, ``fast_densenet.py``, ``fast_vgg.py``,
-``fast_convnext.py``, ``fast_vit.py``, ``fast_clip.py``): finding a model's
+``fast_convnext.py``, ``fast_vit.py``, ``fast_clip.py``,
+``fast_clip_vit.py``): finding a model's
 parts and the layers a pass is written for, the explanation-mode forward
 and the explicit linear transpose of each layer (B-cos convs, eval BNs,
-position norms, pools), and the input normalisation and the selected
+position norms, pools, B-cos linears), and the input normalisation and the selected
 class's cotangent."""
 from __future__ import annotations
 
@@ -104,6 +105,15 @@ def zoo_layers(m) -> bool:
                StochasticDepth, LogitLayer)
     leaves = [mod for mod in m.modules() if not any(True for _ in mod.children())]
     return _b2_convs(m) is not None and all(type(mod) in allowed for mod in leaves)
+
+
+def _bcos_linear(lin) -> bool:
+    """True for a b=2 B-cos linear without max-out (BcosLinear or
+    BcosifyLinear), which ``_Linear`` transposes."""
+    from bcosification_tpu_torch.modules import BcosLinear
+    from bcosification_tpu_torch.modules.bcos_layers import fixed_b2
+
+    return isinstance(lin, BcosLinear) and fixed_b2(lin) and lin.max_out == 1
 
 
 def _weight(conv, dtype) -> torch.Tensor:
@@ -266,6 +276,43 @@ class _Norm:
         if self.bn.gamma is not None:
             ct = (ct.float() * self.bn.gamma).to(self.dtype)
         return ct / self.bn.std.to(self.dtype)
+
+
+class _Linear:
+    """One B-cos linear's forward, and the transpose of its explanation-mode
+    (scale detached) map. A bias-free one runs K3 forward and K2 backward."""
+
+    def __init__(self, lin, a: torch.Tensor):
+        self.a = a.reshape(-1, a.shape[-1])
+        self.lead = a.shape[:-1]
+        self.bias = lin.bias
+        w = ops.normed_linear_weight(lin.weight) if lin.normalize_weights else lin.weight
+        self.w = w.to(a.dtype)
+        if self.bias is None:
+            self.wt = self.w.t().contiguous()
+
+    def forward(self) -> torch.Tensor:
+        """The output in the input's dtype, as ``ops.bcos_linear`` gives it;
+        a biased one keeps its scale for the backward."""
+        if self.bias is None:
+            y = bcos_matmul_fwd(self.a, self.wt, eps=ops.LINEAR_NORM_EPS, eps_outside=True)
+            return y.view(*self.lead, -1).to(self.a.dtype)
+        u = self.a @ self.w + self.bias
+        af = self.a.float()
+        n = (torch.sqrt((af * af).sum(-1, keepdim=True)) + ops.LINEAR_NORM_EPS).to(u.dtype)
+        self.scale = u.abs() / n
+        return (self.scale * u).view(*self.lead, -1)
+
+    def backward(self, ct: torch.Tensor) -> torch.Tensor:
+        """The input's cotangent from the output's ``ct``."""
+        ct = ct.reshape(-1, ct.shape[-1])
+        if self.bias is None:
+            dx = conv1x1_bwd_explain(self.a, self.wt, ct.to(self.a.dtype).contiguous(), None,
+                                     None, relu=False, eps=ops.LINEAR_NORM_EPS,
+                                     eps_outside=True)
+        else:
+            dx = (ct * self.scale).to(self.a.dtype) @ self.w.t()
+        return dx.view(*self.lead, -1)
 
 
 class _ConvNorm:

@@ -53,7 +53,17 @@ from bcosification_tpu_torch.ops import bcos as ops
 from bcosification_tpu_torch.ops import pooling
 from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain, conv1x1_fwd
 
-__all__ = ["supports", "fast_encode_and_vjp", "text_score_head", "fast_text_dlw"]
+__all__ = ["supports", "text_pass_for", "fast_encode_and_vjp", "text_score_head",
+           "fast_text_dlw", "text_scores_and_w"]
+
+
+def text_pass_for(net):
+    """The hand-scheduled text-grounded pass whose ``supports`` takes the
+    CLIP image tower ``net``: this module (the CLIP-RN50s), ``fast_clip_vit``
+    (the CLIP ViTs), or None."""
+    from bcosification_tpu_torch.explain import fast_clip, fast_clip_vit  # it imports this one
+
+    return next((p for p in (fast_clip, fast_clip_vit) if p.supports(net)), None)
 
 
 def supports(net) -> bool:
@@ -270,11 +280,18 @@ def fast_text_dlw(net, x: torch.Tensor, t: torch.Tensor, *, device=None
     so one backward of a ones cotangent gives each image's W)."""
     x = _resolve(net, x, device)
     with torch.no_grad():  # one grad-free region: torch.export keeps it whole
-        feats, vjp = _encode(net, x)
-        f, norm, scores = _cosine(feats, t.to(feats.device))
-        ct_f = t.to(feats.device, feats.dtype).expand_as(f)
-        if f.dim() == 3:
-            ct_f = ct_f / f.shape[1]
-        # d(g / ||g||): (ct - f (f . ct)) / ||g||
-        ct_feats = (ct_f - f * (f * ct_f).sum(-1, keepdim=True)) / norm
-        return scores, vjp(ct_feats)
+        return text_scores_and_w(*_encode(net, x), t)
+
+
+def text_scores_and_w(feats: torch.Tensor, vjp: Callable, t: torch.Tensor):
+    """(scores, W) of ``text_score_head`` on the explain-mode features of a
+    tower and its written-out ``vjp`` (the CLIP-RN50's here, the CLIP ViT's
+    in ``fast_clip_vit``): the head's cotangent, its normalisation
+    differentiated, through vjp."""
+    f, norm, scores = _cosine(feats, t.to(feats.device))
+    ct_f = t.to(feats.device, feats.dtype).expand_as(f)
+    if f.dim() == 3:
+        ct_f = ct_f / f.shape[1]
+    # d(g / ||g||): (ct - f (f . ct)) / ||g||
+    ct_feats = (ct_f - f * (f * ct_f).sum(-1, keepdim=True)) / norm
+    return scores, vjp(ct_feats)

@@ -50,7 +50,9 @@ import torch
 
 from bcosification_tpu_torch.device import resolve_device
 from bcosification_tpu_torch.explain._shared import (
+    _bcos_linear,
     _conv_t,
+    _Linear,
     _norm_bwd,
     _normalize,
     _selected_cotangent,
@@ -60,7 +62,6 @@ from bcosification_tpu_torch.explain._shared import (
 from bcosification_tpu_torch.models.vit import _patchify, _unpatchify, pos_emb_sincos_2d
 from bcosification_tpu_torch.modules import (
     BcosConv2d,
-    BcosLinear,
     DetachableGELU,
     DetachableLayerNorm,
     Identity,
@@ -68,8 +69,6 @@ from bcosification_tpu_torch.modules import (
 from bcosification_tpu_torch.modules.bcos_layers import fixed_b2
 from bcosification_tpu_torch.modules.norms import DetachableGroupNorm2d
 from bcosification_tpu_torch.ops import bcos as ops
-from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain
-from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
 
 __all__ = ["supports", "fast_dynamic_linear_weights"]
 
@@ -104,10 +103,6 @@ def _detached_act(act) -> bool:
     return type(act) is Identity or (type(act) is DetachableGELU and act.detachable)
 
 
-def _bcos_linear(lin) -> bool:
-    return isinstance(lin, BcosLinear) and fixed_b2(lin) and lin.max_out == 1
-
-
 def fast_dynamic_linear_weights(
     net, x: torch.Tensor, idx=None, *, device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -120,43 +115,6 @@ def fast_dynamic_linear_weights(
         raise ValueError("fast ViT explain pass: unsupported model (see supports())")
     with torch.no_grad():
         return _fast(net, x.to(dev), idx)
-
-
-class _Linear:
-    """One B-cos linear's forward, and the transpose of its explanation-mode
-    (scale detached) map. A bias-free one runs K3 forward and K2 backward."""
-
-    def __init__(self, lin: BcosLinear, a: torch.Tensor):
-        self.a = a.reshape(-1, a.shape[-1])
-        self.lead = a.shape[:-1]
-        self.bias = lin.bias
-        w = ops.normed_linear_weight(lin.weight) if lin.normalize_weights else lin.weight
-        self.w = w.to(a.dtype)
-        if self.bias is None:
-            self.wt = self.w.t().contiguous()
-
-    def forward(self) -> torch.Tensor:
-        """The output in the input's dtype, as ``ops.bcos_linear`` gives it;
-        a biased one keeps its scale for the backward."""
-        if self.bias is None:
-            y = bcos_matmul_fwd(self.a, self.wt, eps=ops.LINEAR_NORM_EPS, eps_outside=True)
-            return y.view(*self.lead, -1).to(self.a.dtype)
-        u = self.a @ self.w + self.bias
-        af = self.a.float()
-        n = (torch.sqrt((af * af).sum(-1, keepdim=True)) + ops.LINEAR_NORM_EPS).to(u.dtype)
-        self.scale = u.abs() / n
-        return (self.scale * u).view(*self.lead, -1)
-
-    def backward(self, ct: torch.Tensor) -> torch.Tensor:
-        """The input's cotangent from the output's ``ct``."""
-        ct = ct.reshape(-1, ct.shape[-1])
-        if self.bias is None:
-            dx = conv1x1_bwd_explain(self.a, self.wt, ct.to(self.a.dtype).contiguous(), None,
-                                     None, relu=False, eps=ops.LINEAR_NORM_EPS,
-                                     eps_outside=True)
-        else:
-            dx = (ct * self.scale).to(self.a.dtype) @ self.w.t()
-        return dx.view(*self.lead, -1)
 
 
 class _StemSegment:

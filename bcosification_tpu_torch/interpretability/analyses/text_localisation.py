@@ -8,8 +8,10 @@ attn-unpool features, optionally argmax-masked, max-normed or
 cosine-power weighted, then averaged); one backward gives W(x) and the
 colour explanation (``compute_attributions``). A B-cosified CLIP-RN50
 takes the hand-scheduled trunk ``explain/fast_clip.fast_encode_and_vjp``
-(K1 forward and K2 backward at its 1x1 convs); the head is differentiated
-with autograd on the features.
+(K1 forward and K2 backward at its 1x1 convs), a B-cosified CLIP ViT
+``explain/fast_clip_vit.fast_encode_and_vjp`` (K3 forward and K2 backward
+at its B-cos linears; its unpooled logits lie on the token grid, 14x14 for
+ViT-B/16); the head is differentiated with autograd on the features.
 
     python -m bcosification_tpu_torch.interpretability.analyses.text_localisation \\
         --exp_name <clip experiment> --text_to_localize "a dog" [--random_img_path F]
@@ -81,7 +83,7 @@ def compute_attributions(student, text_embedding, image, *, pool_cosine: int = 1
     percentile of its magnitude, with that range) and the RGBA explanation.
     The cosine score is 0-homogeneous in x (the tower is dynamic-linear in
     explanation mode), so the contributions sum to about 0."""
-    from bcosification_tpu_torch.explain import fast_clip
+    from bcosification_tpu_torch.explain.fast_clip import text_pass_for
 
     if pool_cosine == 0 and norm_max_cosine:
         # the argmax path reshapes to (1, HW), whose dim-0 abs-max is the row
@@ -94,8 +96,9 @@ def compute_attributions(student, text_embedding, image, *, pool_cosine: int = 1
     def head(feats):
         return _head_score(feats, text_embedding, pool_cosine, norm_max_cosine)
 
-    if fast_clip.supports(student):
-        feats, vjp = fast_clip.fast_encode_and_vjp(student, image, device=dev)
+    fast = text_pass_for(student)
+    if fast is not None:
+        feats, vjp = fast.fast_encode_and_vjp(student, image, device=dev)
         feats = feats.detach().requires_grad_(True)
         with torch.enable_grad():
             score = head(feats)

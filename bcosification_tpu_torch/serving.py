@@ -10,7 +10,8 @@ at export. The hand-written kernels appear in the program as the
 ``bcos_torch`` custom ops, so a loaded program launches them (and counts
 the launches) as the eager model does. ``export_text_explain`` packages
 the text-grounded explanation of a B-cosified CLIP image tower: (x, t) ->
-(scores, W) through ``explain/fast_clip.py``.
+(scores, W) through ``explain/fast_clip.py`` (CLIP-RN50) or
+``explain/fast_clip_vit.py`` (the CLIP ViTs).
 """
 from __future__ import annotations
 
@@ -48,12 +49,12 @@ class _Explain(nn.Module):
 
 
 class _TextExplain(nn.Module):
-    def __init__(self, net):
+    def __init__(self, net, fast):
         super().__init__()
-        self.net = net
+        self.net, self.fast = net, fast
 
     def forward(self, x, t):
-        return fast_clip.fast_text_dlw(self.net, x, t, device=x.device)
+        return self.fast.fast_text_dlw(self.net, x, t, device=x.device)
 
 
 def _export(module: nn.Module, input_size: int, channels: int, dtype, device,
@@ -102,14 +103,15 @@ def export_text_explain(net, *, embed_dim: int, input_size: int = 224, channels:
     CLIP image tower: (x [batch?, S, S, C], t [embed_dim]) -> (scores
     [batch?], W like x), score_b the cosine of the tower's explain-mode
     features with t (per location and averaged for attn-unpool towers) and
-    W = d score / dx, through the hand-scheduled pass
-    (``explain/fast_clip.py``). Raises for a tower that pass does not
-    support."""
-    if not fast_clip.supports(net):
-        raise ValueError("export_text_explain: the model is not supported by the "
-                         "hand-scheduled CLIP pass (see explain.fast_clip.supports)")
-    return _export(_TextExplain(net), input_size, channels, dtype, device,
-                   extra=(((embed_dim,), dtype),))
+    W = d score / dx, through the hand-scheduled pass of the tower
+    (``explain/fast_clip.py``, ``explain/fast_clip_vit.py``). Raises for a
+    tower that neither supports."""
+    fast = fast_clip.text_pass_for(net)
+    if fast is not None:
+        return _export(_TextExplain(net, fast), input_size, channels, dtype, device,
+                       extra=(((embed_dim,), dtype),))
+    raise ValueError("export_text_explain: the model is not supported by a hand-scheduled "
+                     "CLIP pass (see explain.fast_clip.supports, fast_clip_vit.supports)")
 
 
 class Serialized:

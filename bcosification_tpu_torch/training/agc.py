@@ -6,8 +6,10 @@ parameter norm; unit-wise norms reduce over every axis but the unit's.
 The unit is the FIRST axis of a torch layout (OIHW conv weights, [out, in]
 linears), where the JAX package's HWIO / (in, out) layouts put it last. The
 port's own linears keep the JAX (in, out) weight (``modules/bcos_layers.py``)
-and declare it with ``weight_unit_axis = -1``; clipping a module's gradients
-reads that. Parameters with at most one axis longer than 1 (vectors,
+and declare it with ``weight_unit_axis = -1``, and a module's other raw
+parameters in that layout (the CLIP ViT's ``proj`` and positional
+embedding) with ``param_unit_axes``; clipping a module's gradients reads
+both. Parameters with at most one axis longer than 1 (vectors,
 scalars) use their full norm.
 """
 from __future__ import annotations
@@ -37,16 +39,23 @@ def clip_grad(p: torch.Tensor, g: torch.Tensor, clip_factor: float = 0.01,
     return torch.where(grad_norm < max_norm, g, clipped)
 
 
+def _unit_axis(module: nn.Module, name: str) -> int:
+    if name == "weight":
+        return getattr(module, "weight_unit_axis", 0)
+    return getattr(module, "param_unit_axes", {}).get(name, 0)
+
+
 @torch.no_grad()
 def adaptive_clip_grads_(params: Union[nn.Module, Iterable[torch.Tensor]],
                          clip_factor: float = 0.01, eps: float = 1e-3) -> None:
     """Clip the ``.grad`` of every parameter that has one, in place.
     ``params``: parameters in a torch layout (the unit on the first axis),
     or a module, whose weights take the unit axis their module declares
-    (``weight_unit_axis``, default 0)."""
+    (``weight_unit_axis``, default 0) and its other parameters the axis
+    that ``param_unit_axes`` names, else 0."""
     if isinstance(params, nn.Module):
-        pairs = [(p, getattr(m, "weight_unit_axis", 0) if n == "weight" else 0)
-                 for m in params.modules() for n, p in m.named_parameters(recurse=False)]
+        pairs = [(p, _unit_axis(m, n)) for m in params.modules()
+                 for n, p in m.named_parameters(recurse=False)]
     else:
         pairs = [(p, 0) for p in params]
     for p, unit_axis in pairs:

@@ -83,8 +83,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward-only and fwd+explain images/s at batch 128, bf16, over windows
    of about 1.7 s, with their launch counts (K3 62 / K2 0 / K1 0 and K3 62
    / K2 62 / K1 0), host issue time and peak memory; the forward and the
-   explanation programs exported, loaded from bytes and held to the eager
-   calls (fault C3); Trainer.fit of the Experiment at batch 64, bf16 amp, on one
+   explanation programs of the DenseNet-121 cut to two dense layers in each
+   of the first three blocks and one in the last (full width;
+   SERVE_DENSENET_BLOCKS) exported, loaded from bytes and
+   held to the eager calls (fault C3), their loaded rates those of the cut
+   net; Trainer.fit of the Experiment at batch 64, bf16 amp, on one
    repeated batch (a falling loss, K3 62 launches per step, the step's
    img/s, host ms and peak memory); then ``train --fast_dev_run``
    resuming from it and ``evaluate --reload last`` equal to the logged
@@ -101,10 +104,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    encode and the text fwd+explain images/s at batch 128, bf16, with their
    launch counts (encode: K3 36, +1 unpooled; explanation: K1 36, K2 36,
    +1 K2 and +1 K3 unpooled), host issue time and peak memory; the pooled
-   tower's text explanation and forward exported, loaded from bytes and
-   held to the eager calls; the zero-shot classifier of a random-init text
-   tower over 1000 classes x 80 templates in bf16 (tokenize and tower
-   timed), 8 classes in fp32 against the CPU (1e-4), and
+   tower cut to one bottleneck per stage (full width; SERVE_CLIP_LAYERS):
+   its text explanation and forward exported, loaded from bytes and held to
+   the eager calls, the loaded rate that of the cut net; the zero-shot
+   classifier of a random-init text tower over 1000 classes x 80 templates
+   in bf16 (tokenize and tower timed), one class (80 prompts) in fp32
+   against the CPU (1e-4), and
    ``zeroshot_evaluate`` of both heads over the tree's val split; then
    each kernel's time at every shape of one attn-unpool encode (K3) and
    text explanation (K1, K2, K3) beside its bound;
@@ -152,8 +157,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    explanation, K1 0; the variant 12 and 12); forward-only and fwd+explain
    (fast pass and module path) images/s at batch 128, bf16, with launch
    counts, host issue time, peak memory, the card's busy time and its top
-   kernels (torch.profiler); both programs exported, loaded
-   from bytes and held to the eager calls, the export seconds; ``evaluate
+   kernels (torch.profiler); both programs of the ViT-B/16 cut to
+   VIT_EXPORT_DEPTH encoders (full width) exported, loaded from bytes and
+   held to the eager calls, the export seconds and the cut net's loaded
+   rate; ``evaluate
    --base_network vit_bcosification --reload fresh`` over phase 9's tree,
    K3 38 per eval batch; then each kernel's time at every shape of one
    explanation beside its bound, plain version and torch.matmul;
@@ -173,13 +180,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    2 images, GPU against CPU (pre-logits and logits 1e-4, W of the module
    path within ten times the CPU's spread, argmax identical) and the
    hand-scheduled pass with the stem's transpose against the module path;
-   the fp32 export_explain of the ViT-C B at depth 2 loaded from bytes, its
+   the fp32 export_explain of the ViT-C B at depth 1 (VIT_EXPORT_DEPTH)
+   loaded from bytes, its
    W against the module path's within that bound (fault C5; the bf16
    round trip of the same pass is (c)'s); forward-only and fwd+explain
    (module path) at batch 128, bf16, K3 35 per forward, and its recipe's
    train step at batch 128; (c) the B-cos ViT-B of vit_final
    (bcos_simple_vit_b_patch16_224): phase 13's parity of the fast pass and
-   the module path, then the exported forward and explanation at depth 2,
+   the module path, then the exported forward and explanation at depth 1,
    loaded from bytes and held to the eager calls; (d) ``train --base_network
    vit_final --fast_dev_run --amp`` of bcos_vitc_ti_patch1_14 and of the
    standard vitc_ti_patch1_14 (3 channels, no K3) over phase 9's tree, each
@@ -216,8 +224,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ResNet-50 eval batch (64 images of 224^2) and K1 and K2 at every shape
    of one fp32 Ours grid (against their plain versions, then timed per
    call of the path with the card's busy time and the host's time per
-   launch, beside their bounds at 67 TFLOP/s fp32 and in 3xTF32 at 495
-   TFLOP/s, their plain versions and torch.matmul); the dtype of the
+   launch, beside their bounds in 3xTF32 at 495 TFLOP/s and at 67 TFLOP/s
+   fp32, their plain versions and torch.matmul); the dtype of the
    activations that reached K1 in phase 9's validation and evaluate runs
    and in the localisation commands;
 16. the CLIP benchmark harness (bcosification_tpu_torch/clip_benchmark, the
@@ -242,8 +250,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    probe head at weight decay 1e-4, GPU against CPU fp32, within ten CPU
    spreads under 1e-7 relative input noise; K3 against its plain version in
    fp32 at every distinct shape of one harness encode, and timed per
-   attn-unpool fp32 encode beside its bounds (67 TFLOP/s fp32 outside the
-   tensor cores; the 3xTF32 route's three tf32 products at 495 TFLOP/s),
+   attn-unpool fp32 encode beside its bounds (the 3xTF32 route's three
+   tf32 products at 495 TFLOP/s; 67 TFLOP/s fp32 outside the tensor cores),
    plain version and torch.matmul, with tma_operands' count (0).
 
 17. the B-cos v2 model zoo (models/pretrained.py): ``load_model`` of
@@ -264,8 +272,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B-cos conv and bias-free B-cos linear, no K1); each kernel's time at
    every shape one fwd+explain gave it, beside its bound, plain version and
    torch.matmul; the export_explain round trip at a cut depth (one block
-   per stage, two dense layers per block; the ViT-L's fast_vit program is
-   phase 14's) against the eager pass; then load_model of the ResNet-50 and the DenseNet-121 from npz
+   per stage, the DenseNet-121 SERVE_DENSENET_BLOCKS; the ViT-L's fast_vit
+   program is phase 14's) against the eager pass; then load_model of the
+   ResNet-50 and the DenseNet-121 from npz
    files of the JAX export format written to a temporary BCOS_WEIGHTS_DIR,
    and convert_release_checkpoint of seeded reference-layout .pth files of
    resnet50 in both released flavours: the position-norm one equal to its
@@ -312,7 +321,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    pass refusing the net, the stem conv's b after each step (linear_b's
    equal to make_linear_b_schedule in f32) and the step's time and card
    busy time; the clip_kd ResNet-50 (CLIP's Normalize constants) in fp32
-   on 2 images, its pre-logits against the CPU's within 1e-4.
+   on 2 images, its pre-logits against the CPU's within 1e-4; then K1, K2
+   and K3 in fp32 at every shape of one explanation logger call (8 images
+   of 224^2 through fast_resnet: 36 / 37 / 1 launches), each against its
+   plain version and timed per call beside its bounds, plain version and
+   torch.matmul, with the card's busy time;
+20. the CLIP ViT towers (ROADMAP A6): the B-cosified ViT-B/16 students of
+   the clip_bcosification recipe, pooled and attn-unpool (width 768, 12
+   blocks, 12 heads, patch 16, 197 tokens, embed_dim 512; random init from
+   SEED): K3 and K2 against their plain versions at the distinct shapes
+   of one encode at batch 128 (M = 25 216) and one KD step at batch 64 (M =
+   12 608) in both dtypes (phase 3's bounds; the linear norm, K2 with the
+   bare cotangent); per head, fp32 on 2 images, GPU against CPU, the
+   features, W of the text explanation from explain/fast_clip_vit.py and
+   from the module path through autograd, and the two paths against each
+   other (each within ten times the CPU's own spread under 1e-7 relative
+   input noise, the patchify conv on PyTorch's own CUDA conv; with cuDNN's
+   within 1e-3); the attn-unpool head's encode and text fwd+explain
+   images/s at batch 128 from bf16 images (launches K3 36 per encode, K3 36 and K2 36
+   per explanation, no K1; host issue time, peak memory, card busy time
+   and top kernels); export_text_explain of the attn-unpool student at
+   depth 2, loaded from bytes and held to the eager pass; Trainer.fit of
+   the attn-unpool ViT-B/16 KD Experiment for 5 steps at batch 64, bf16
+   amp, with the random-init ViT-B/16 teacher (finite losses, K3 36 per
+   step, the teacher equal to a fresh load, the student moved) and the KD
+   step's ms and img/s over a window; the dtypes that reach the B-cos
+   linears (f32 from the first block's q/k/v projection on: its bias, zeroed
+   in the student, promotes, as in the JAX package), then K3 and K2 in
+   that dtype at every shape of one encode, one explanation and one KD
+   step beside their bounds, plain versions and torch.matmul. Phase 16 also runs ``cli eval
+   --model_type standard_clip --model ViT-B-32`` (zero-shot, the plain ViT
+   tower at random init: no K3) on its tree.
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
@@ -325,8 +364,10 @@ the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No operand of a
 ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C, analysis, harness,
-zoo, VGG or ConvNeXt path, bf16 or fp32, needs the TMA padding (``tma_operands.padded`` stays 0
-after phase 3).
+zoo, VGG, ConvNeXt or CLIP ViT path, bf16 or fp32, needs the TMA padding
+(``tma_operands.padded`` stays 0 after phase 3: the CLIP ViT's M = 197 B
+is no multiple of 128, but only K, the rows' length, must lie on the
+grid).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
@@ -368,7 +409,11 @@ from bcosification_tpu_torch.training import zeroshot
 from bcosification_tpu_torch.training.trainer import Trainer
 from bcosification_tpu_torch.bcosify import release_import
 from bcosification_tpu_torch.bcosify.clip_import import build_clip_teacher_visual, build_clip_text
-from bcosification_tpu_torch.bcosify.engine import build_bcosified_densenet, build_bcosified_resnet
+from bcosification_tpu_torch.bcosify.engine import (
+    build_bcosified_densenet,
+    build_bcosified_resnet,
+    build_bcosified_vit,
+)
 from bcosification_tpu_torch.clip.model import ModifiedResNet, clip_rn50_config
 from bcosification_tpu_torch.clip.tokenizer import tokenize
 from bcosification_tpu_torch.data.imagenet import imagenet_classes, imagenet_templates
@@ -385,8 +430,9 @@ from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
 from bcosification_tpu_torch.models import convnext, pretrained, resnet
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
-from bcosification_tpu_torch.models.densenet import BcosDenseNet
+from bcosification_tpu_torch.models.densenet import DENSENET_CONFIGS, BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
+from bcosification_tpu_torch.models.vit import VIT_CONFIGS
 from bcosification_tpu_torch.modules import (
     BatchNormUncentered2d,
     BcosConv2d,
@@ -411,6 +457,7 @@ FLAGSHIP = {
 BATCH, SIZE, SEED = 128, 224, 0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores (data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense tf32 (data sheet); 3xTF32 does 3 tf32 products
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SOURCES = {
     "bcos_conv1x1_fwd": ("bcosification_tpu_torch/ops/cuda/csrc/bcos_conv1x1_fwd.cu",
@@ -461,7 +508,6 @@ FP32_RAGGED_SHAPES = [
     ("ragged m3149 k1022 n1001", 3149, 1022, 1001, False, False),
     ("misaligned m49 k64 n1000", 49, 64, 1000, True, True),
 ]
-PEAK_TF32_FLOPS = 495e12  # H100 SXM dense tf32 (data sheet); 3xTF32 does 3 tf32 products
 # each kernel's earlier ms per fwd+explain call (PERF.md; NVIDIA H100 80GB
 # HBM3, 700.00 W), timed by the same method as time_kernels
 PREVIOUS_MS = {"bcos_conv1x1_fwd": ("PR 3", 5.32), "bcos_conv1x1_bwd_explain": ("PR 3", 7.61),
@@ -653,11 +699,12 @@ def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
     the median of 10 samples of 10 launches in a row (the plain version 3
     samples of 3), weighted by its launches. A row sums ms, plain_ms,
     library_ms (torch.matmul), the bound at the data-sheet rates (bound_s,
-    split into flop_s and byte_s by what binds; fp32 FLOPs at the 67 TFLOP/s
-    outside the tensor cores) and at ``stream_rate`` (bytes/s, K4's measured
-    rate on this card), and the FLOPs (``tf32x3_ms``: their bound on the
-    fp32 route's tensor cores)."""
-    peak_flops = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    split into flop_s and byte_s by what binds; fp32 FLOPs on the route the
+    kernels run, 3xTF32: three tf32 products at 495 TFLOP/s) and at
+    ``stream_rate`` (bytes/s, K4's measured rate on this card), the FLOPs,
+    and the fp32 bound at the 67 TFLOP/s outside the tensor cores
+    (cores_s, a side column; ``fp32_cores_ms``)."""
+    peak_flops = PEAK_TF32_FLOPS / 3 if dtype == torch.float32 else PEAK_BF16_FLOPS
     rows = {}
     for (name, m, k, n, relu, *linear), count in sorted(per_shape.items()):
         x, wt, mult, add, ct = operands(m, k, n, dtype, gen)
@@ -669,13 +716,14 @@ def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
         f_s, b_s = flops / peak_flops, nbytes / PEAK_BYTES
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_s=0.0,
                                        byte_s=0.0, bound_s=0.0, measured_bound_s=0.0,
-                                       flops=0.0))
+                                       flops=0.0, cores_s=0.0))
         r["ms"] += count * t_k
         r["flops"] += count * flops
         r["plain_ms"] += count * t_p
         r["library_ms"] += count * t_l
         r["bound_s"] += count * max(f_s, b_s)
         r["measured_bound_s"] += count * max(f_s, b_s * PEAK_BYTES / stream_rate)
+        r["cores_s"] += count * max(flops / PEAK_FP32_FLOPS, b_s)
         r["flop_s" if f_s >= b_s else "byte_s"] += count * max(f_s, b_s)
         label = name + (" linear" if any(linear) else "")
         say(f"time {tag}{label:26s} M={m:6d} K={k:4d} N={n:4d} x{count:2d}: {t_k:.4f} ms, "
@@ -687,10 +735,25 @@ def time_shapes(per_shape, stream_rate, gen, tag="", dtype=torch.bfloat16):
     return rows
 
 
-def tf32x3_ms(row):
-    """The least ms of a row's fp32 work on the 3xTF32 route: three tf32
-    products per f32 product at the 495 TFLOP/s data-sheet rate."""
-    return 3 * row["flops"] / PEAK_TF32_FLOPS * 1e3
+def check_bounds(kernels):
+    """Every time in the kernels line at or above its data-sheet bound
+    (``ms`` against ``bound_ms``, ``<path>_ms`` against ``<path>_bound_ms``):
+    a kernel faster than its bound means the bound took a lower peak rate
+    than the card has for that work."""
+    below = [f"{row['name']} {key[:-len('bound_ms')]}ms {row[key[:-len('bound_ms')] + 'ms']:.4f}"
+             f" < {bound:.4f}"
+             for row in kernels for key, bound in row.items()
+             if (key == "bound_ms" or key.endswith("_bound_ms")) and bound is not None
+             and row.get(key[:-len("bound_ms")] + "ms", bound) < bound]
+    if below:
+        raise AssertionError("kernel times below their bounds: " + "; ".join(below))
+    say("every kernel time in the kernels line is at or above its data-sheet bound")
+
+
+def fp32_cores_ms(row):
+    """A row's fp32 bound outside the tensor cores (67 TFLOP/s, 3350 GB/s):
+    a side column beside bound_s, which is on the 3xTF32 route they run."""
+    return 1e3 * row["cores_s"]
 
 
 def time_kernels(model, worst, counts, stream_rate):
@@ -1486,24 +1549,35 @@ def copy_ms(batch, calls=5):
 
 
 @contextlib.contextmanager
+def experiment_root():
+    """The experiment root in a temporary directory while the context lasts."""
+    old = settings.EXPERIMENT_ROOT
+    with tempfile.TemporaryDirectory() as tmp:
+        settings.EXPERIMENT_ROOT = tmp
+        try:
+            yield Path(tmp)
+        finally:
+            settings.EXPERIMENT_ROOT = old
+
+
+@contextlib.contextmanager
 def synthetic_imagenet():
     """A synthetic ImageNet-layout JPEG tree in a temporary directory (see
-    the module docstring, phase 9), with IMAGENET_PATH and the experiment
-    root pointing into it while the context lasts; yields the experiment
-    root."""
-    old_paths = (settings.IMAGENET_PATH, settings.EXPERIMENT_ROOT, os.environ.get("IMAGENET_PATH"))
-    with tempfile.TemporaryDirectory() as tmp:
-        data_root, exp_root = Path(tmp) / "imagenet", Path(tmp) / "experiments"
+    the module docstring, phase 9), with IMAGENET_PATH pointing into it and
+    the experiment root in another (``experiment_root``) while the context
+    lasts; yields the experiment root."""
+    old_paths = (settings.IMAGENET_PATH, os.environ.get("IMAGENET_PATH"))
+    with tempfile.TemporaryDirectory() as tmp, experiment_root() as exp_root:
+        data_root = Path(tmp) / "imagenet"
         t0 = time.perf_counter()
         write_imagenet_tree(data_root, ENTRY_CLASSES, ENTRY_TRAIN, ENTRY_VAL, seed=SEED)
         say(f"entry: wrote {ENTRY_TRAIN} train and {ENTRY_VAL} val JPEGs (500x375, quality 90, "
             f"{ENTRY_CLASSES} classes) in {time.perf_counter() - t0:.1f} s")
         os.environ["IMAGENET_PATH"] = settings.IMAGENET_PATH = str(data_root)
-        settings.EXPERIMENT_ROOT = str(exp_root)
         try:
             yield exp_root
         finally:
-            settings.IMAGENET_PATH, settings.EXPERIMENT_ROOT, env = old_paths
+            settings.IMAGENET_PATH, env = old_paths
             if env is None:
                 os.environ.pop("IMAGENET_PATH", None)
             else:
@@ -1784,6 +1858,12 @@ def _batch128(x2, seed):
     return x.to(torch.bfloat16)
 
 
+def kernel_counts(launches):
+    """{kernel: launches} over a launch list, every kernel of the line."""
+    counts = collections.Counter(key[0] for key in launches)
+    return {name: counts.get(name, 0) for name in MODEL_KERNELS + ("stream_add",)}
+
+
 def counted(fn):
     """(fn(), the launch counts of that call alone)."""
     torch.cuda.synchronize()
@@ -1841,23 +1921,39 @@ def densenet_throughput(net, x2):
     return out
 
 
-def densenet_serving(net, x2):
-    """The forward and the forward + explanation programs exported, saved to
-    bytes and loaded back; at batch 128, bf16, against the eager calls
+# the exported DenseNet-121's dense layers per block: the shallowest that
+# keeps every 1x1's input channels a multiple of 8 (bf16 TMA rows; with one
+# layer per block a transition's 36 channels would be padded)
+SERVE_DENSENET_BLOCKS = (2, 2, 2, 1)
+
+
+def densenet_serving(x2):
+    """The forward and the forward + explanation programs of the DenseNet-121
+    cut to SERVE_DENSENET_BLOCKS (full width, random init from SEED,
+    gamma-calibrated: the export's time is its traced ops) exported, saved
+    to bytes and loaded back; at batch 128, bf16, against the eager calls
     (argmax identical, logits and W within 1e-6 relative: the same ops and
     kernels on the same inputs; the same launch counts), then timed."""
+    model_config = Experiment(*DENSENET_EXPERIMENT).model_config
+    net = build_bcosified_densenet(model_config, seed=SEED, arch_cfg={
+        **DENSENET_CONFIGS[model_config["name"]], "block_config": SERVE_DENSENET_BLOCKS})
+    calibrate(net, x2[:1])
+    launches = densenet_launches(net.model, 1, SIZE)
+    explain_counts = kernel_counts(launches)
+    forward_counts = kernel_counts([key for key in launches if key[0] == "bcos_matmul_fwd"])
     t0 = time.perf_counter()
     blob_fwd = serving.export_forward(net, input_size=SIZE, dtype=torch.bfloat16)
     blob = serving.export_explain(net, input_size=SIZE, dtype=torch.bfloat16)
     fwd, program = serving.load_serialized(blob_fwd), serving.load_serialized(blob)
     export_s = time.perf_counter() - t0
-    say(f"densenet serving: exported and loaded both programs in {export_s:.1f} s "
+    say(f"densenet serving (blocks {SERVE_DENSENET_BLOCKS}): exported and loaded both programs "
+        f"in {export_s:.1f} s "
         f"({len(blob_fwd) / 1e6:.1f} MB and {len(blob) / 1e6:.1f} MB)")
     x = _batch128(x2, SEED + 11)
     (logits, sel, w), counts = counted(lambda: program.call(x))
-    check_counts("densenet loaded fwd+explain", counts, DENSENET_EXPLAIN_COUNTS)
+    check_counts("densenet loaded fwd+explain", counts, explain_counts)
     logits_f, counts_f = counted(lambda: fwd.call(x))
-    check_counts("densenet loaded forward", counts_f, DENSENET_FORWARD_COUNTS)
+    check_counts("densenet loaded forward", counts_f, forward_counts)
     le, se, we = fast_densenet.fast_dynamic_linear_weights(net, x)
     with torch.no_grad():
         lf = net(x)
@@ -1878,7 +1974,8 @@ def densenet_serving(net, x2):
     for what, call in (("forward-only", lambda: fwd.call(x)),
                        ("fwd+explain", lambda: program.call(x))):
         ms, calls, host, _ = windowed(call)
-        say(f"densenet serving loaded {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
+        say(f"densenet serving loaded {what} (blocks {SERVE_DENSENET_BLOCKS}): "
+            f"{BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
             f"window of {calls} calls; host {host:.2f} ms) [{CARD}]")
         out[what] = BATCH / ms * 1e3
     return out
@@ -1963,13 +2060,14 @@ def phase_densenet(x2, stream_rate, worst, exp_root):
     rows = time_shapes(per_shape, stream_rate, gen, tag="densenet ")
     densenet_parity(net, x2)
     rates = densenet_throughput(net, x2)
-    served = densenet_serving(net, x2)
+    served = densenet_serving(x2)
     trained = densenet_train(net)
     cli_round_trip(DENSENET_EXPERIMENT, exp_root, DENSENET_FORWARD_COUNTS,
                    DENSENET_FORWARD_COUNTS["bcos_matmul_fwd"], ("last",), tag="densenet")
     say(f"densenet summary: fwd+explain {rates['fwd+explain']['img_s']:.1f} img/s, forward-only "
         f"{rates['forward-only']['img_s']:.1f}; loaded fwd+explain {served['fwd+explain']:.1f}, "
-        f"forward-only {served['forward-only']:.1f}; train step {trained['step_img_s']:.1f} img/s "
+        f"forward-only {served['forward-only']:.1f} (blocks {SERVE_DENSENET_BLOCKS}); train step "
+        f"{trained['step_img_s']:.1f} img/s "
         f"(peak {trained['peak_gb']:.1f} GB); export {served['export_s']:.1f} s [{CARD}]")
     keys = {}
     for name in ("bcos_matmul_fwd", "bcos_conv1x1_bwd_explain"):
@@ -2157,6 +2255,9 @@ def clip_throughput(net, x, t, unpool, head):
     return out
 
 
+ZEROSHOT_PARITY_CLASSES = 1  # the fp32 classifier's classes held GPU against CPU
+
+
 def clip_zeroshot(nets, device):
     """The zero-shot classifier of a random-init CLIP-RN50 text tower (from
     SEED) over the 1000 ImageNet classes x 80 templates in bf16 (tokenize
@@ -2194,12 +2295,14 @@ def clip_zeroshot(nets, device):
             or not bool(torch.isfinite(w).all()) or float((norms - 1).abs().max()) > 1e-5):
         raise AssertionError("the zero-shot classifier is not [embed_dim, classes] finite unit "
                              "columns")
-    w_gpu = zeroshot.zeroshot_classifier(text, imagenet_classes[:8], imagenet_templates)
+    classes = imagenet_classes[:ZEROSHOT_PARITY_CLASSES]
+    w_gpu = zeroshot.zeroshot_classifier(text, classes, imagenet_templates)
     t0 = time.perf_counter()
-    w_cpu = zeroshot.zeroshot_classifier(copy.deepcopy(text).to("cpu"), imagenet_classes[:8],
+    w_cpu = zeroshot.zeroshot_classifier(copy.deepcopy(text).to("cpu"), classes,
                                          imagenet_templates)
     err = rel(w_gpu, w_cpu)
-    say(f"clip zero-shot fp32, 8 classes x 80 templates, gpu vs cpu: {err:.3e} (bound 1e-4; "
+    say(f"clip zero-shot fp32, {len(classes)} classes x 80 templates, gpu vs cpu: {err:.3e} "
+        f"(bound 1e-4; "
         f"the cpu took {time.perf_counter() - t0:.1f} s)")
     if not err <= 1e-4:
         raise AssertionError("the zero-shot classifier on the GPU disagrees with the CPU")
@@ -2226,11 +2329,24 @@ def clip_zeroshot(nets, device):
     return out
 
 
-def clip_serving(net, x, t):
-    """The pooled tower's text-grounded explanation and forward exported,
-    saved to bytes and loaded back: at batch 128, bf16, equal to the eager
-    calls (1e-6 relative: the same ops and kernels on the same inputs) with
-    the same launch counts; the loaded explanation's images/s."""
+SERVE_CLIP_LAYERS = (1, 1, 1, 1)  # the exported CLIP-RN50's bottlenecks per stage
+
+
+def clip_serving(x2, x, t):
+    """The pooled tower cut to SERVE_CLIP_LAYERS (full width, random init
+    from SEED, gamma-calibrated: the export's time is its traced ops): its
+    text-grounded explanation and forward exported, saved to bytes and
+    loaded back: at batch 128, bf16, equal to the eager calls (1e-6
+    relative: the same ops and kernels on the same inputs) with the same
+    launch counts; the loaded explanation's images/s."""
+    from bcosification_tpu_torch.bcosify.clip_import import build_bcosified_clip_visual
+
+    cfg = {**clip_rn50_config(), "vision_layers": SERVE_CLIP_LAYERS}
+    net = build_bcosified_clip_visual(Experiment(*CLIP_EXPERIMENTS["pooled"]).model_config,
+                                      None, cfg, seed=SEED)
+    calibrate(net, x2[:1])
+    explain_counts = kernel_counts(clip_launches(net, 1, SIZE, True))
+    forward_counts = kernel_counts(clip_launches(net, 1, SIZE, False))
     t0 = time.perf_counter()
     blob = serving.export_text_explain(net, embed_dim=t.shape[0], input_size=SIZE,
                                        dtype=torch.bfloat16, device=x.device)
@@ -2238,13 +2354,14 @@ def clip_serving(net, x, t):
                                       device=x.device)
     program, fwd = serving.load_serialized(blob), serving.load_serialized(blob_fwd)
     export_s = time.perf_counter() - t0
-    say(f"clip serving: exported and loaded both programs in {export_s:.1f} s "
+    say(f"clip serving (layers {SERVE_CLIP_LAYERS}): exported and loaded both programs in "
+        f"{export_s:.1f} s "
         f"({len(blob) / 1e6:.1f} MB and {len(blob_fwd) / 1e6:.1f} MB)")
     t16 = t.to(torch.bfloat16)
     (s, w), counts = counted(lambda: program.call(x, t16))
-    check_counts("clip loaded text explain", counts, clip_counts(False, True))
+    check_counts("clip loaded text explain", counts, explain_counts)
     feats, counts_f = counted(lambda: fwd.call(x))
-    check_counts("clip loaded forward", counts_f, clip_counts(False, False))
+    check_counts("clip loaded forward", counts_f, forward_counts)
     es, ew = fast_clip.fast_text_dlw(net, x, t16, device=x.device)
     with torch.no_grad():
         ef = net(x)
@@ -2256,7 +2373,8 @@ def clip_serving(net, x, t):
     if any(not val <= bound for val, bound in checks.values()):
         raise AssertionError("the loaded CLIP programs disagree with the eager calls")
     ms, calls, host, _ = windowed(lambda: program.call(x, t16))
-    say(f"clip serving loaded text fwd+explain: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
+    say(f"clip serving loaded text fwd+explain (layers {SERVE_CLIP_LAYERS}): "
+        f"{BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms; one "
         f"window of {calls} calls; host {host:.2f} ms) [{CARD}]")
     return {"export_s": export_s, "loaded_img_s": BATCH / ms * 1e3}
 
@@ -2279,7 +2397,7 @@ def phase_clip(x2, stream_rate, worst):
         rates[head] = clip_throughput(net, x, t, head == "unpool", head)
         nets[head] = (net, int(exp.model_config.get("cos_power", 1)) if head == "unpool" else 0)
     pooled = nets["pooled"][0]
-    served = clip_serving(pooled, _batch128(x2, SEED + 18),
+    served = clip_serving(x2, _batch128(x2, SEED + 18),
                           _text_direction(pooled.model.attnpool.c_proj.features, SEED + 19,
                                           x2.device))
     zs = clip_zeroshot(nets, x2.device)
@@ -2292,7 +2410,8 @@ def phase_clip(x2, stream_rate, worst):
         f"fwd+explain {rates['pooled']['fwd+explain']['img_s']:.1f}; attn-unpool encode "
         f"{rates['unpool']['encode']['img_s']:.1f}, text fwd+explain "
         f"{rates['unpool']['fwd+explain']['img_s']:.1f}; loaded text fwd+explain "
-        f"{served['loaded_img_s']:.1f}; export {served['export_s']:.1f} s; zero-shot classifier "
+        f"{served['loaded_img_s']:.1f} (layers {SERVE_CLIP_LAYERS}); export "
+        f"{served['export_s']:.1f} s; zero-shot classifier "
         f"{zs['classifier_s']:.2f} s [{CARD}]")
     keys = {}
     for what, explain_ in (("encode", False), ("explain", True)):
@@ -2444,17 +2563,18 @@ def kd_fit(head, net, batch):
     return teacher
 
 
-def kd_window(head, net, teacher, batch):
-    """One KD train step's launches (kd_counts), then its ms, img/s, host issue
-    ms and peak memory over KD_WINDOW steps in a row after a warm-up step,
-    the card's busy time and top kernels, and the teacher's forward alone."""
-    unpool = head == "unpool"
+def kd_window(head, net, teacher, batch, counts=None):
+    """One KD train step's launches (``counts``, default kd_counts), then its
+    ms, img/s, host issue ms and peak memory over KD_WINDOW steps in a row
+    after a warm-up step, the card's busy time and top kernels, and the
+    teacher's forward alone."""
+    unpool = head.endswith("unpool")
     opt = OptimizerFactory("Adam", 1e-4, bcosify=True, b_opt=False)
     state = steps_lib.create_train_state(net, opt.create)
     step = kd_lib.make_kd_train_step(teacher, 1e-4, cos_power=2 if unpool else 0, amp=True)
     step(state, batch)
     _, per_step = counted(lambda: step(state, batch))
-    check_counts(f"kd {head} train step", per_step, kd_counts(unpool))
+    check_counts(f"kd {head} train step", per_step, counts or kd_counts(unpool))
     torch.cuda.reset_peak_memory_stats()
     host = []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2731,8 +2851,7 @@ def vit_launches(net, batch, size, explain):
 
 
 def vit_counts(net, explain):
-    counts = collections.Counter(key[0] for key in vit_launches(net, 1, SIZE, explain))
-    return {name: counts.get(name, 0) for name in MODEL_KERNELS + ("stream_add",)}
+    return kernel_counts(vit_launches(net, 1, SIZE, explain))
 
 
 def check_vit_kernels(worst):
@@ -2940,7 +3059,11 @@ def phase_vit(x2, stream_rate, worst, exp_root):
     del nets
     x = _batch128(x2, SEED + 27)
     rates = vit_throughput(net, x)
-    served = vit_serving(net, x)
+    model_config = Experiment(*VIT_EXPERIMENTS["default"]).model_config
+    shallow = build_bcosified_vit(model_config, seed=SEED, arch_cfg={
+        **VIT_CONFIGS[model_config["name"]], "depth": VIT_EXPORT_DEPTH})
+    served = vit_serving(shallow, x, tag=f"vit depth {VIT_EXPORT_DEPTH}")
+    del shallow
     del x
     eval_s = vit_evaluate(net, exp_root)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
@@ -2949,7 +3072,7 @@ def phase_vit(x2, stream_rate, worst, exp_root):
     say(f"vit summary: forward-only {rates['forward-only']['img_s']:.1f} img/s, fwd+explain "
         f"{rates['fwd+explain (fast pass)']['img_s']:.1f} (fast pass) / "
         f"{rates['fwd+explain (module path)']['img_s']:.1f} (module path); loaded fwd+explain "
-        f"{served['loaded_img_s']:.1f}; export_forward "
+        f"{served['loaded_img_s']:.1f} (depth {VIT_EXPORT_DEPTH}); export_forward "
         f"{served['export_seconds']['export_forward']:.1f} s, export_explain "
         f"{served['export_seconds']['export_explain']:.1f} s; evaluate "
         f"{eval_s:.1f} s [{CARD}]")
@@ -2980,7 +3103,7 @@ VIT_TRAIN_WINDOW = 10
 # embedding, the head): ViT-B/16, 12 encoders; ViT-C B, 11
 VIT_TRAIN_K3, VITC_K3 = 38, 35
 VIT_STEP_LOSS_BOUND = 1e-5
-VIT_EXPORT_DEPTH = 2  # (c)'s export round trip runs at a cut depth (export time)
+VIT_EXPORT_DEPTH = 1  # the ViT export round trips run at a cut depth (export time)
 
 
 def recipe_step(net, config, amp, device=None):
@@ -3724,14 +3847,10 @@ def loc_text(students, kd_student):
     in all (PERF.md section 7)."""
     cases = {"pooled": (students["pooled"], False), "unpool": (students["unpool"], True),
              "unpool KD": (kd_student, True)}
-    old_root, out = settings.EXPERIMENT_ROOT, {}
-    try:
-        for label, (student, unpool) in cases.items():
-            with tempfile.TemporaryDirectory() as tmp:
-                settings.EXPERIMENT_ROOT = tmp
-                out[label] = loc_text_head(label, unpool, student, Path(tmp))
-    finally:
-        settings.EXPERIMENT_ROOT = old_root
+    out = {}
+    for label, (student, unpool) in cases.items():
+        with experiment_root() as root:
+            out[label] = loc_text_head(label, unpool, student, root)
     return out
 
 
@@ -3810,8 +3929,8 @@ def loc_text_head(label, unpool, student, root):
 def fp32_rows(what, per_shape, stream_rate, worst, seed):
     """The fp32 routes at every shape of one call of a path: each kernel
     against its plain version (phase 3's fp32 bound), then timed per call of
-    the path (``time_shapes``) beside its bound at 67 TFLOP/s fp32 and on
-    the 3xTF32 route's tensor cores (``tf32x3_ms``), its plain version and
+    the path (``time_shapes``) beside its bound on the 3xTF32 route's tensor
+    cores and at 67 TFLOP/s outside them (``fp32_cores_ms``), its plain version and
     torch.matmul, with the card's busy time for the same calls
     (torch.profiler) and the host's time per launch, (call - card) / calls.
     ``what`` names the path; ``per_shape`` {(kernel, M, K, N, relu[,
@@ -3836,8 +3955,8 @@ def fp32_rows(what, per_shape, stream_rate, worst, seed):
         host_us = 1e3 * (r["ms"] - (busy or 0)) / r["launches"]
         say(f"{what} fp32 {name} per {what} ({r['launches']} calls): {r['ms']:.4f} ms (the card "
             f"busy {busy or 0:.4f} ms of it; the host {host_us:.1f} us per call); bound "
-            f"{1e3 * r['bound_s']:.4f} ms at the data-sheet rates (67 TFLOP/s fp32, 3350 GB/s), "
-            f"{tf32x3_ms(r):.4f} ms in 3xTF32 at 495 TFLOP/s; plain {r['plain_ms']:.4f} ms, "
+            f"{1e3 * r['bound_s']:.4f} ms at the data-sheet rates (3xTF32 at 495 TFLOP/s, 3350 "
+            f"GB/s), {fp32_cores_ms(r):.4f} ms at 67 TFLOP/s fp32; plain {r['plain_ms']:.4f} ms, "
             f"torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
     del calls
     return rows
@@ -3847,7 +3966,7 @@ def fp32_keys(prefix, rows):
     """The kernels line's keys of ``fp32_rows``' rows, under ``prefix``."""
     return {name: {f"{prefix}_launches": r["launches"], f"{prefix}_ms": r["ms"],
                    f"{prefix}_bound_ms": 1e3 * r["bound_s"],
-                   f"{prefix}_bound_3xtf32_ms": tf32x3_ms(r),
+                   f"{prefix}_bound_fp32_cores_ms": fp32_cores_ms(r),
                    f"{prefix}_plain_ms": r["plain_ms"], f"{prefix}_library_ms": r["library_ms"],
                    f"{prefix}_busy_ms": r["busy_ms"]}
             for name, r in rows.items()}
@@ -4376,6 +4495,12 @@ def phase_bench(stream_rate, worst, exp_root):
         bench_parity_probe(features)
         model = ["--model_type", "bcos_clip", "--model", pooled]
         results["ret"] = bench_run(record, "ret", argv("ret", "ret", *model), k3_pooled)
+        # phase 20's harness run: the plain CLIP ViT-B/32 at random init (no K3)
+        results["ret vit"] = bench_run(record, "ret standard_clip ViT-B-32", argv(
+            "ret", "ret_vit", "--model_type", "standard_clip", "--model", "ViT-B-32",
+            "--pretrained", "none"), 0)
+        say(f"bench standard_clip ViT-B-32 (phase 20's harness run): "
+            f"{record.runs[-1].seconds:.1f} s")
         results["sel"] = bench_run(record, "sel", argv("sel", "sel", *model), k3_pooled)
         embed_dim = build.bundle.image_model.model.attnpool.c_proj.weight.shape[-1]
         head = captioner.save_captioner(captioner.GreedyCaptioner(embed_dim, 49408),
@@ -4400,7 +4525,7 @@ def phase_bench(stream_rate, worst, exp_root):
             "--pretrained", str(aligner_path), "--load_clfs", clf), k3_pooled)
         files = [str(Path(tmp) / f"{t}.json") for t in
                  ("cls pooled", "cls attn-unpool", "cls cc3m", "cls standard_clip", "lp",
-                  "lp_cached", "ret", "sel", "cap", "t2c")]
+                  "lp_cached", "ret", "ret_vit", "sel", "cap", "t2c")]
         bench_cli.main(["build", *files, "--output", f"{tmp}/benchmark.csv"])
         import csv
 
@@ -4420,8 +4545,8 @@ def phase_bench(stream_rate, worst, exp_root):
         launches = sum(per_shape.values())
         say(f"bench bcos_matmul_fwd per attn-unpool fp32 encode at batch {BENCH_BATCH} "
             f"({launches} launches, {row['flops'] / 1e9:.1f} GFLOP): {row['ms']:.4f} ms; bound "
-            f"{1e3 * row['bound_s']:.4f} ms at the data-sheet rates (67 TFLOP/s fp32, 3350 "
-            f"GB/s), {tf32x3_ms(row):.4f} ms in 3xTF32 at 495 TFLOP/s, "
+            f"{1e3 * row['bound_s']:.4f} ms at the data-sheet rates (3xTF32 at 495 TFLOP/s, 3350 "
+            f"GB/s), {fp32_cores_ms(row):.4f} ms at 67 TFLOP/s fp32, "
             f"{1e3 * row['measured_bound_s']:.4f} ms at the measured "
             f"{stream_rate / 1e9:.1f} GB/s; plain {row['plain_ms']:.4f} ms, torch.matmul "
             f"{row['library_ms']:.4f} ms; tma_operands padded {k12.tma_operands.padded} "
@@ -4430,7 +4555,7 @@ def phase_bench(stream_rate, worst, exp_root):
                                           if r.images) + f" [{CARD}]")
         del nets, record
     return {"bench_launches": launches, "bench_ms": row["ms"],
-            "bench_bound_ms": 1e3 * row["bound_s"], "bench_bound_3xtf32_ms": tf32x3_ms(row),
+            "bench_bound_ms": 1e3 * row["bound_s"], "bench_bound_fp32_cores_ms": fp32_cores_ms(row),
             "bench_plain_ms": row["plain_ms"],
             "bench_library_ms": row["library_ms"], "bench_dtype": "float32"}
 
@@ -4647,7 +4772,7 @@ def zoo_throughput(name, net, x):
 
 def zoo_export(name, x2):
     """export_explain of the entry's net at a cut depth (ResNet-50 one block
-    per stage, DenseNet-121 two layers per block, a ConvNeXt its first two
+    per stage, DenseNet-121 SERVE_DENSENET_BLOCKS, a ConvNeXt its first two
     stages of one block each: the stem, a block, the
     downsampling, a block, the head, prepared as phase 18's nets; random
     init from SEED) in bf16, loaded from bytes: at batch ZOO_EXPORT_BATCH its
@@ -4659,7 +4784,8 @@ def zoo_export(name, x2):
                                 generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
     elif name == "densenet121":
-        net = BcosDenseNet(block_config=(2, 2, 2, 2), with_logit_layer=True, device="cuda",
+        net = BcosDenseNet(block_config=SERVE_DENSENET_BLOCKS, with_logit_layer=True,
+                           device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
     else:  # a ConvNeXt
@@ -5262,10 +5388,16 @@ def options_clip_normalisation(calibrated, x2):
         raise AssertionError("the clip_kd net on the GPU disagrees with the CPU")
 
 
-def phase_train_options(net, x2):
+EXPLAIN_LOG_IMAGES = 8  # Trainer._log_explanations' n_images
+
+
+def phase_train_options(net, x2, stream_rate, worst):
     """Phase 19: the training options no grid config sets (ROADMAP A5 6b,
     6c, 6d, 6f) on the recipe's bcosified ResNet-50 at full width, from the
-    weights of phase 4's calibrated ``net``."""
+    weights of phase 4's calibrated ``net``; then K1, K2 and K3 in fp32 at
+    every shape of one explanation logger call (EXPLAIN_LOG_IMAGES images
+    of 224^2 through fast_resnet: 36 / 37 / 1 launches; ``fp32_rows``).
+    Returns the kernels line's keys of that call."""
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -5284,6 +5416,311 @@ def phase_train_options(net, x2):
         f"K3 {accumulated['k3_per_update']} per optimizer step; learnable-b steps "
         + ", ".join(f"{k} {v['ms']:.2f} ms ({v['img_s']:.1f} img/s)"
                     for k, v in learnable.items()) + f" [{CARD}]")
+    per_shape = collections.Counter(main_path_launches(net.model, EXPLAIN_LOG_IMAGES, SIZE))
+    return fp32_keys("explanation_logger_fp32", fp32_rows(
+        "explanation logger call", per_shape, stream_rate, worst, SEED + 66))
+
+
+# --------------------------------------------------------------------------
+# 20: the CLIP ViT towers
+# --------------------------------------------------------------------------
+CLIP_VIT_NAME = "vit_b_16_clip_b2_noBias_randomResizedCrop_sigLip_ImageNet_bcosification"
+CLIP_VIT_EXPERIMENTS = {"pooled": ("ImageNet", "clip_bcosification", CLIP_VIT_NAME),
+                        "unpool": ("ImageNet", "clip_bcosification",
+                                   CLIP_VIT_NAME + "_attnUnpool")}
+CLIP_VIT_LINEARS = 36  # the B-cos out_proj, c_fc and c_proj of the 12 blocks
+CLIP_VIT_EXPORT_DEPTH = 2  # the export round trip runs at a cut depth (export time)
+CLIP_VIT_KD_STEPS = 5
+
+
+def clip_vit_launches(net, batch, explain):
+    """[(kernel, M, K, N, relu, eps_outside)] of one encode (K3 at each B-cos
+    linear, the linear norm) or one text explanation (and K2 at each, the
+    bare cotangent) of a CLIP ViT student: M = batch x (patches + 1)."""
+    m = net.model
+    rows = batch * ((m.input_resolution // m.patch_size) ** 2 + 1)
+    out = []
+    for blk in m.blocks():
+        for lin in (blk.attn_out_proj, blk.mlp_c_fc, blk.mlp_c_proj):
+            k, n = lin.weight.shape
+            out.append(("bcos_matmul_fwd", rows, k, n, False, True))
+            if explain:
+                out.append(("bcos_conv1x1_bwd_explain", rows, k, n, False, True))
+    return out
+
+
+def check_clip_vit_kernels(net, worst):
+    """K3 and K2 against their plain versions at every distinct shape of one
+    encode at batch 128 (M = 25 216) and of one KD step at batch 64 (M =
+    12 608, not a multiple of 128), both dtypes, phase 3's bounds, as the
+    tower calls them: the linear norm (eps_outside), K2 with the bare
+    cotangent."""
+    shapes = sorted({key[1:4] for batch in (BATCH, KD_BATCH)
+                     for key in clip_vit_launches(net, batch, False)})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
+        for m, k, n in shapes:
+            x, wt, _, _, ct = operands(m, k, n, dtype, gen)
+            results = [
+                ("bcos_matmul_fwd", k3.bcos_matmul_fwd(x, wt, **kw),
+                 k3.bcos_matmul_fwd_plain(ref(x), ref(wt), **kw)),
+                ("bcos_conv1x1_bwd_explain",
+                 k12.conv1x1_bwd_explain(x, wt, ct, None, None, relu=False, **kw),
+                 k12.conv1x1_bwd_explain_plain(ref(x), ref(wt), ref(ct), None, None,
+                                               relu=False, **kw)),
+            ]
+            torch.cuda.synchronize()
+            for name, got, want in results:
+                _check(worst, name, " eps_outside", f"clip vit M={m} K={k} N={n}", dtype, got,
+                       want)
+            del x, wt, ct, results
+    return len(shapes)
+
+
+def clip_vit_parity(net, x2, head):
+    """fp32, 2 images, GPU against CPU: the features of the module forward,
+    W of the text explanation from the fast pass (explain/fast_clip_vit.py)
+    and from the module path (autograd through text_score_head), and the two
+    paths against each other on the GPU; each within ten times the CPU's own
+    spread of that quantity under 1e-7 relative input noise, the patchify
+    conv on PyTorch's own CUDA conv (cuDNN's fp32 convs are held to phase
+    4's 1e-3, as phase 10 holds them). Returns the text direction."""
+    from bcosification_tpu_torch.explain import fast_clip_vit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = x2.device
+    t = _text_direction(net.model.proj.shape[1], SEED + 72, dev)
+
+    def passes(model, x, device):
+        with torch.no_grad():
+            feats = model(x)
+        scores, w = fast_clip_vit.fast_text_dlw(model, x, t.to(device), device=device)
+        xx = x.clone().requires_grad_(True)
+        sm = fast_clip.text_score_head(model(xx, explain=True), t.to(device))
+        (wm,) = torch.autograd.grad(sm.sum(), xx)
+        return feats, scores, w, wm
+
+    _, _, w_cudnn, _ = passes(net, x2, dev)
+    torch.backends.cudnn.enabled = False
+    try:
+        fg, sg, wg, wmg = passes(net, x2, dev)
+    finally:
+        torch.backends.cudnn.enabled = True
+    cpu = copy.deepcopy(net).to("cpu")
+    t0 = time.perf_counter()
+    fc, sc, wc, wmc = passes(cpu, x2.cpu(), "cpu")
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 73))
+    fn, _, wn, wmn = passes(cpu, x2.cpu() * (1 + 1e-7 * noise), "cpu")
+    cpu_s = time.perf_counter() - t0
+    spreads = {"features": rel(fn, fc), "W fast": rel(wn, wc), "W module": rel(wmn, wmc)}
+    checks = {
+        "features gpu vs cpu": (rel(fg, fc), 10 * spreads["features"]),
+        "W fast pass gpu vs cpu": (rel(wg, wc), 10 * spreads["W fast"]),
+        "W module path gpu vs cpu": (rel(wmg, wmc), 10 * spreads["W module"]),
+        "W module path vs fast pass (gpu)": (rel(wmg, wg), 10 * spreads["W fast"]),
+        "W fast pass gpu (cudnn conv) vs cpu": (rel(w_cudnn, wc), 1e-3),
+    }
+    rms = float(fc.double().pow(2).mean().sqrt())
+    say(f"clip vit {head} parity: feature RMS {rms:.4g}, |W| max {float(wc.abs().max()):.3e}, "
+        f"scores {sc.tolist()}; the CPU's spreads under 1e-7 relative input noise: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in spreads.items())
+        + f"; the CPU passes took {cpu_s:.1f} s")
+    for key, (val, bound) in checks.items():
+        say(f"clip vit {head} parity {key}: {val:.3e} (bound {bound:.3e})")
+    if not rms > 1e-3 or not float(wc.abs().max()) > 0:
+        raise AssertionError(f"CLIP ViT {head}: vacuous features or W")
+    if any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError(f"CLIP ViT {head} parity failed")
+    if not all(torch.isfinite(v).all() for v in (fg, sg, wg)) or wg.shape != x2.shape:
+        raise AssertionError(f"CLIP ViT {head} outputs are not finite or mis-shaped")
+    return t
+
+
+def linear_input_dtypes(net, fn):
+    """{dtype: calls} of the inputs that reach the tower's B-cos linears in
+    fn() (the module path)."""
+    seen = collections.Counter()
+    hooks = [lin.register_forward_pre_hook(lambda mod, args: seen.update([str(args[0].dtype)[6:]]))
+             for blk in net.model.blocks()
+             for lin in (blk.attn_out_proj, blk.mlp_c_fc, blk.mlp_c_proj)]
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return dict(seen)
+
+
+def clip_vit_throughput(net, x, t, head):
+    """Encode and text fwd+explain (the fast pass) images/s at batch 128,
+    bf16 images, each with its launch counts (K3 36 per encode; K3 36 and
+    K2 36 per explanation; no K1), host issue time, peak memory, the card's
+    busy time and top kernels."""
+    from bcosification_tpu_torch.explain import fast_clip_vit
+
+    def encode():
+        with torch.no_grad():
+            return net(x)
+
+    def text_explain():
+        return fast_clip_vit.fast_text_dlw(net, x, t, device=x.device)
+
+    out = {}
+    for what, fn, explain_ in (("encode", encode, False), ("text fwd+explain", text_explain,
+                                                           True)):
+        result, counts = counted(fn)
+        check_counts(f"clip vit {head} {what}", counts,
+                     kernel_counts(clip_vit_launches(net, 1, explain_)))
+        outs = result if isinstance(result, tuple) else (result,)
+        if not all(torch.isfinite(v).all() for v in outs):
+            raise AssertionError(f"CLIP ViT {head} {what}: outputs are not finite")
+        del result, outs
+        ms, calls, host, peak_gb = windowed(fn)
+        busy, top = device_profile(fn, 3)
+        say(f"clip vit {head} throughput {what}: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per "
+            f"batch of {BATCH}, one window of {calls} calls; the host issues one call in "
+            f"{host:.2f} ms; peak memory of one call {peak_gb:.2f} GB; launches {counts}) "
+            f"[{CARD}]")
+        say(f"clip vit {head} {what}: card busy {busy or 0:.2f} ms per call (torch.profiler); "
+            "top kernels: " + "; ".join(f"{name[:60]} {kms:.2f} ms" for name, kms in top))
+        out[what] = {"img_s": BATCH / ms * 1e3, "ms": ms, "host_ms": host, "peak_gb": peak_gb,
+                     "busy_ms": busy}
+    return out
+
+
+def clip_vit_serving(x2, t):
+    """export_text_explain of the unpooled student at CLIP_VIT_EXPORT_DEPTH
+    blocks (full width, random init from SEED), loaded from bytes: at batch
+    128, bf16, its scores and W equal to the eager pass's (1e-6 relative),
+    the launches identical. Returns the export seconds."""
+    from bcosification_tpu_torch.bcosify.clip_import import build_bcosified_clip_vit_visual
+    from bcosification_tpu_torch.clip.model import clip_vit_config
+    from bcosification_tpu_torch.explain import fast_clip_vit
+
+    exp = Experiment(*CLIP_VIT_EXPERIMENTS["unpool"])
+    cfg = {**clip_vit_config("ViT-B/16"), "vision_layers": CLIP_VIT_EXPORT_DEPTH}
+    net = build_bcosified_clip_vit_visual(exp.model_config, None, cfg, seed=SEED)
+    t0 = time.perf_counter()
+    program = serving.load_serialized(serving.export_text_explain(
+        net, embed_dim=t.shape[0], input_size=SIZE, dtype=torch.bfloat16))
+    export_s = time.perf_counter() - t0
+    x, t16 = _batch128(x2, SEED + 74), t.to(torch.bfloat16)
+    (s, w), counts = counted(lambda: program.call(x, t16))
+    (es, ew), counts_e = counted(lambda: fast_clip_vit.fast_text_dlw(net, x, t16))
+    checks = {"scores loaded vs eager (rel)": (rel(s.float(), es.float()), 1e-6),
+              "W loaded vs eager (rel)": (rel(w.float(), ew.float()), 1e-6)}
+    say(f"clip vit serving (depth {CLIP_VIT_EXPORT_DEPTH}, attn-unpool): export_text_explain "
+        f"and load {export_s:.1f} s; launches {counts} (eager {counts_e}); " + ", ".join(
+            f"{key} {val:.3e} (bound {bound:.0e})" for key, (val, bound) in checks.items()))
+    if counts != counts_e or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("the loaded CLIP ViT program disagrees with the eager pass")
+    return export_s
+
+
+def clip_vit_kd(net, x2):
+    """Trainer.fit of the attn-unpool ViT-B/16 KD Experiment (-> fit_kd; the
+    ViT-B/16 teacher of clip/load.py at random init) for CLIP_VIT_KD_STEPS
+    steps on one repeated batch of 64, bf16 amp: finite losses, K3 36 per
+    step (and per validation batch), the teacher unchanged, the student
+    moved; then the step's ms and img/s over a window (``kd_window``)."""
+    exp = Experiment(*CLIP_VIT_EXPERIMENTS["unpool"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    images = torch.rand((KD_BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    images[:2] = x2[:, :, :, :3]
+    batch = {"image": images}
+    per_step = kernel_counts(clip_vit_launches(net, 1, False))
+    before = param_hash(net)
+    with without_zeroshot(), recorded_kd() as rec:
+        t0 = time.perf_counter()
+        trainer = Trainer(exp, {"amp": True})
+        state, counts = counted(lambda: trainer.fit(net, RepeatedBatch(batch, CLIP_VIT_KD_STEPS),
+                                                    max_epochs=1))
+        fit_s = time.perf_counter() - t0
+    teacher = rec.teachers[0]
+    losses = [float(v) for v in rec.losses]
+    fresh = importlib.import_module("bcosification_tpu_torch.clip.load").load("ViT-B/16")[0]
+    frozen = param_hash(teacher) == param_hash(fresh)
+    moved = param_hash(state.model) != before
+    say(f"clip vit kd Trainer.fit (-> fit_kd) of {CLIP_VIT_KD_STEPS} steps at batch {KD_BATCH}, "
+        f"bf16 amp: {fit_s:.1f} s; launches {counts}; losses {losses}; the teacher equal to a "
+        f"fresh load: {frozen}; the student moved: {moved}")
+    check_counts("clip vit kd Trainer.fit", counts,
+                 scaled_counts(per_step, CLIP_VIT_KD_STEPS + 1))  # + one val batch
+    if (len(losses) != CLIP_VIT_KD_STEPS or not all(math.isfinite(v) for v in losses)
+            or not frozen or not moved or state.step != CLIP_VIT_KD_STEPS):
+        raise AssertionError(f"clip vit kd: losses {losses}, teacher frozen {frozen}, student "
+                             f"moved {moved}, steps {state.step}")
+    del fresh, state
+    return kd_window("clip vit unpool", net, teacher, batch, counts=per_step)
+
+
+def phase_clip_vit(x2, stream_rate, worst):
+    """Phase 20: the B-cosified CLIP ViT-B/16 students of the clip_bcosification
+    recipe (pooled and attn-unpool; width 768, 12 blocks, 12 heads, patch 16,
+    197 tokens, embed_dim 512; random init from SEED, no calibration: the
+    pre-norm LayerNorms keep every block's input at unit scale). Returns the
+    CLIP ViT keys of K2's and K3's rows of the kernels line."""
+    nets = {head: Experiment(*experiment).get_model()
+            for head, experiment in CLIP_VIT_EXPERIMENTS.items()}
+    for head, net in nets.items():
+        n = kernel_counts(clip_vit_launches(net, 1, True))
+        if n["bcos_matmul_fwd"] != CLIP_VIT_LINEARS or n["bcos_conv1x1_bwd_explain"] != (
+                CLIP_VIT_LINEARS):
+            raise AssertionError(f"clip vit {head}: {n}, expected {CLIP_VIT_LINEARS} B-cos "
+                                 "linears")
+    n_shapes = check_clip_vit_kernels(nets["pooled"], worst)
+    say(f"clip vit: K3 and K2 checked at the {n_shapes} distinct shapes of one encode at batch "
+        f"{BATCH} and one KD step at batch {KD_BATCH}, both dtypes")
+    ts = {head: clip_vit_parity(net, x2, head) for head, net in nets.items()}
+    # the per-token head's rates (text localisation's and the KD config's
+    # tower); the pooled head differs only in its last ln_post and proj
+    rates = clip_vit_throughput(nets["unpool"], _batch128(x2, SEED + 76), ts["unpool"],
+                                "unpool")
+    export_s = clip_vit_serving(x2, ts["unpool"])
+    kd = clip_vit_kd(nets["unpool"], x2)
+    unpool = nets["unpool"]
+    # the q/k/v projection's bias (zeroed, not removed) promotes the residual
+    # stream to f32 after the first block's attention, as in the JAX package:
+    # the kernels are timed in the dtype that reaches them on the path
+    dtypes = linear_input_dtypes(unpool, lambda: unpool(_batch128(x2, SEED + 76)))
+    dtype = torch.float32 if set(dtypes) == {"float32"} else torch.bfloat16
+    say(f"clip vit: the dtypes that reach the B-cos linears of a bf16 encode: {dtypes}; the "
+        f"kernels are timed in {str(dtype)[6:]}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 77)
+    rows = {what: time_shapes(collections.Counter(clip_vit_launches(unpool, batch, explain_)),
+                              stream_rate, gen, tag=f"clip vit {what} ", dtype=dtype)
+            for what, batch, explain_ in (("encode", BATCH, False), ("explain", BATCH, True),
+                                          ("kd", KD_BATCH, False))}
+    say(f"clip vit summary: attn-unpool encode {rates['encode']['img_s']:.1f} img/s, text "
+        f"fwd+explain {rates['text fwd+explain']['img_s']:.1f}; KD step {kd['img_s']:.1f} img/s "
+        f"({kd['ms']:.2f} ms); export at depth {CLIP_VIT_EXPORT_DEPTH} {export_s:.1f} s [{CARD}]")
+    keys = {}
+    for what, explain_ in (("encode", False), ("explain", True), ("kd", False)):
+        counts = kernel_counts(clip_vit_launches(unpool, 1, explain_))
+        per = "KD step (batch 64)" if what == "kd" else what
+        for name, r in rows[what].items():
+            side = (f"3xTF32 at 495 TFLOP/s; {fp32_cores_ms(r):.4f} ms at 67 TFLOP/s fp32"
+                    if dtype == torch.float32 else "bf16")
+            say(f"clip vit {name} per ViT-B/16 {per} ({counts[name]} launches): {r['ms']:.4f} "
+                f"ms; bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate, "
+                f"{1e3 * r['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} "
+                f"GB/s ({side}); plain {r['plain_ms']:.4f} ms, torch.matmul "
+                f"{r['library_ms']:.4f} ms [{CARD}]")
+            keys.setdefault(name, {}).update({
+                f"clip_vit_{what}_launches": counts[name], f"clip_vit_{what}_ms": r["ms"],
+                f"clip_vit_{what}_dtype": str(dtype)[6:],
+                f"clip_vit_{what}_bound_ms": 1e3 * r["bound_s"],
+                f"clip_vit_{what}_plain_ms": r["plain_ms"],
+                f"clip_vit_{what}_library_ms": r["library_ms"]})
+            if dtype == torch.float32:
+                keys[name][f"clip_vit_{what}_bound_fp32_cores_ms"] = fp32_cores_ms(r)
+    keys["bcos_matmul_fwd"].update({"clip_vit_kd_step_ms": kd["ms"],
+                                    "clip_vit_kd_step_img_s": kd["img_s"]})
+    return keys
 
 
 def text_localisation_call(student):
@@ -5339,9 +5776,9 @@ def fp32_routes() -> int:
     row = time_shapes(per_shape, rate, gen, tag="bench fp32 ", dtype=torch.float32)
     row = row["bcos_matmul_fwd"]
     say(f"fp32 routes: bcos_matmul_fwd per attn-unpool fp32 encode ({sum(per_shape.values())} "
-        f"launches): {row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms (67 TFLOP/s), "
-        f"{tf32x3_ms(row):.4f} ms (3xTF32); plain {row['plain_ms']:.4f} ms, torch.matmul "
-        f"{row['library_ms']:.4f} ms [{CARD}]")
+        f"launches): {row['ms']:.4f} ms; bound {1e3 * row['bound_s']:.4f} ms (3xTF32), "
+        f"{fp32_cores_ms(row):.4f} ms (67 TFLOP/s fp32); plain {row['plain_ms']:.4f} ms, "
+        f"torch.matmul {row['library_ms']:.4f} ms [{CARD}]")
     return 0
 
 
@@ -5355,7 +5792,8 @@ def main() -> int:
         say(CARD)
         return fp32_routes()
     say(f"device: {CARD} ({torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda})")
+        f"CUDA {torch.version.cuda}; {torch.get_num_threads()} CPU threads, "
+        f"{os.cpu_count()} CPUs)")
     seconds = {}
     t0 = time.perf_counter()
     phase_build()
@@ -5464,8 +5902,18 @@ def main() -> int:
                              "operands")
     say("TMA operand padding on the VGG and ConvNeXt paths: 0 calls")
     t0 = time.perf_counter()
-    phase_train_options(net, x2)
+    options = phase_train_options(net, x2, probe["k4_gbs"] * 1e9, worst)
     seconds["19 training options"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} training-option calls padded their "
+                             "operands")
+    t0 = time.perf_counter()
+    with experiment_root():
+        clip_vit = phase_clip_vit(x2, probe["k4_gbs"] * 1e9, worst)
+    seconds["20 clip vit"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} CLIP ViT calls padded their operands")
+    say("TMA operand padding on the training options' and the CLIP ViT paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -5481,7 +5929,10 @@ def main() -> int:
         row.update(analyses.get(row["name"], {}))
         row.update(zoo.get(row["name"], {}))
         row.update(zoo18.get(row["name"], {}))
+        row.update(options.get(row["name"], {}))
+        row.update(clip_vit.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
+    check_bounds(kernels)
 
     for line in _build.build_log.splitlines():  # per kernel: registers, spills, C7518
         if any(key in line for key in ("Compiling entry", "registers", "spill", "warning")):

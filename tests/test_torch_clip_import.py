@@ -374,6 +374,10 @@ def test_load_state_dict_file_without_a_file(clean_env, monkeypatch):
 
 
 def test_load_builds_the_towers_and_refuses_vit(sd, clean_env, monkeypatch):
+    """clip.load of RN50 from a local checkpoint, and of the published
+    ViT-B/32 and ViT-L/14 unpretrained: every tower builds, the ViTs with
+    the JAX package's published config. (The ViT towers were once refused;
+    the test keeps its name so that its id stays the same.)"""
     from bcosification_tpu_torch.clip.load import load
     from bcosification_tpu_torch.clip.model import TextTransformer
 
@@ -384,9 +388,18 @@ def test_load_builds_the_towers_and_refuses_vit(sd, clean_env, monkeypatch):
     assert scale == pytest.approx(1 / 0.07, rel=1e-5)
     with torch.no_grad():
         assert visual(torch.from_numpy(_images(channels=3))).shape == (2, 32)
-    for name in ("ViT-B/32", "ViT-L/14"):
-        with pytest.raises(NotImplementedError, match="ViT slice"):
-            load(name, pretrained=False, device="cpu")
+    from bcosification_tpu.clip import model as jclip
+    from bcosification_tpu_torch.clip.model import CLIPVisionTransformer
+
+    for name in ("ViT-B/32", "ViT-L/14"):  # the published towers at random init
+        visual, text, scale, cfg = load(name, pretrained=False, device="cpu")
+        assert cfg == jclip.clip_vit_config(name) and scale == pytest.approx(1 / 0.07)
+        assert isinstance(visual, CLIPVisionTransformer) and isinstance(text, TextTransformer)
+        assert len(visual.blocks()) == cfg["vision_layers"] and visual.patch_size == cfg[
+            "vision_patch_size"]
+        assert tuple(visual.proj.shape) == (cfg["vision_width"], cfg["embed_dim"])
+        assert tuple(text.text_projection.shape) == (cfg["transformer_width"], cfg["embed_dim"])
+        del visual, text
 
 
 @pytest.mark.parametrize("clip_kd", [False, True])

@@ -30,7 +30,7 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "experiments.ImageNet.bcosification.model", "train", "evaluate",
              "models.densenet", "explain.fast_densenet", "modules.bcosattnpool",
              "clip", "clip.model", "clip.tokenizer", "clip.load", "bcosify.clip_import",
-             "explain.fast_clip", "data.imagenet", "training.zeroshot",
+             "explain.fast_clip", "explain.fast_clip_vit", "data.imagenet", "training.zeroshot",
              "experiments.ImageNet.clip_bcosification.experiment_parameters",
              "experiments.ImageNet.clip_bcosification.model", "training.kd", "data.cc3m",
              "experiments.CC3M.clip_bcosification.experiment_parameters",

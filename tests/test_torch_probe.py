@@ -11,7 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_cuda_emulation import compile_emulated
+from torch_cuda_emulation import compile_emulated
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import stream as k4
 

@@ -1,8 +1,11 @@
-"""The port's CUDA sources, run on the CPU through a stand-in for the CUDA
-runtime (tests/cuda_emu/): each kernel against its plain version on ragged
-shapes, both dtypes. This checks the kernels' tiling, index and masking
-logic without a GPU; the real compiler and hardware are checked by
-chip_smoke.py and the `cuda` tests on a GPU machine.
+"""What the emulation tests of the port's CUDA sources share
+(``tests/test_torch_cuda_emulation_k1.py``, ``_k2.py``, ``_k3.py``, one file
+per kernel, so that the test runner's workers take them apart): the
+sources run on the CPU through a stand-in for the CUDA runtime
+(tests/cuda_emu/), each kernel against its plain version on ragged shapes,
+both dtypes. This checks the kernels' tiling, index and masking logic
+without a GPU; the real compiler and hardware are checked by chip_smoke.py
+and the `cuda` tests on a GPU machine.
 
 The launches are rewritten into calls of the stand-in's launcher, the
 headers of tests/cuda_emu/ take the place of the real ones of the same name
@@ -65,13 +68,15 @@ def compile_emulated(sources, work: Path, defines=()) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    cdll = compile_emulated(sorted(_build.CSRC.glob("bcos_*.cu")),
-                            tmp_path_factory.mktemp("cuda_emu"))
-    cdll.bcos_conv1x1_fwd.argtypes = k12._FWD_ARGS
-    cdll.bcos_conv1x1_bwd_explain.argtypes = k12._BWD_ARGS
-    cdll.bcos_matmul_fwd.argtypes = k3._ARGS
+def emulated_library(tmp_path_factory, source: str) -> ctypes.CDLL:
+    """The kernel source ``csrc/<source>`` compiled for the stand-in, its
+    entry point typed as the wrapper types it."""
+    cdll = compile_emulated([_build.CSRC / source], tmp_path_factory.mktemp("cuda_emu"))
+    for name, args in (("bcos_conv1x1_fwd", k12._FWD_ARGS),
+                       ("bcos_conv1x1_bwd_explain", k12._BWD_ARGS),
+                       ("bcos_matmul_fwd", k3._ARGS)):
+        if hasattr(cdll, name):
+            getattr(cdll, name).argtypes = args
     return cdll
 
 
@@ -156,94 +161,6 @@ def _k3(emulated, x, wt, eps_outside):
     return y
 
 
-@pytest.mark.parametrize("m,k,n,dtype", CASES)
-def test_k1_forward(emulated, dtype, m, k, n):
-    x, wt, mult, add, _ = _operands(m, k, n, dtype, 0)
-    for relu, a in ((1, add), (0, None)):
-        out = _k1(emulated, x, wt, mult, a, relu)
-        _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, a, relu=bool(relu)), dtype)
-
-
-def _check_k2(emulated, dtype, m, k, n, tol=None):
-    x, wt, mult, add, ct = _operands(m, k, n, dtype, 1)
-    a = k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True)
-    for relu, mu, eps_outside in ((1, mult, 0), (0, None, 1)):
-        dx = _k2(emulated, x, wt, ct, a, mu, relu, eps_outside)
-        want = k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mu, relu=bool(relu),
-                                             eps_outside=bool(eps_outside))
-        _assert_close(dx, want, dtype, tol)
-
-
-@pytest.mark.parametrize("m,k,n,dtype", CASES)
-def test_k2_explain_backward(emulated, dtype, m, k, n):
-    _check_k2(emulated, dtype, m, k, n)
-
-
-# The bf16 K2's paths, each through a real shape: Cout > 1024 (g through
-# the scratch, two launches), Cout <= 1024 with 64-row blocks (16 slabs of
-# g resident), 256 < Cout <= 512 at an M with 128-row blocks, and partial
-# TMA boxes in Cin and Cout (small Cout: 64-row blocks, two per SM). The
-# kernel sums u in another order than the plain version, which can move a
-# g across a bf16 rounding boundary (one ulp, 2^-8 relative); over ~1000
-# output channels such flips reach ~1e-3 of max |dx| (7.5e-4 at
-# fused-64-rows, in 10 of 4480 elements), while a tiling or swizzle fault
-# is of the order of max |dx| itself.
-@pytest.mark.parametrize("m,k,n", [(37, 24, 1032), (70, 64, 1000), (33797, 8, 264),
-                                   (130, 72, 136)],
-                         ids=["split", "fused-64-rows", "fused-128-rows", "partial-boxes"])
-def test_k2_bf16_paths(emulated, m, k, n):
-    _check_k2(emulated, torch.bfloat16, m, k, n, tol=4e-3)
-
-
-# K2 at a DenseNet conv1's width, Cout = 128 (one wgmma tile) and Cin 224
-# (several TMA boxes): as K3's explanation backward (no mult, no mask, the
-# conv's eps) and with the folded norm2 + act2 of the hand-scheduled pass
-# (mult and mask), in both dtypes. bf16 is held to test_k2_bf16_paths'
-# bound: a g that the kernel's summation order moves across a bf16
-# rounding boundary (4.8e-4 of max |dx| here)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_k2_at_the_densenet_width(emulated, dtype):
-    tol = 4e-3 if dtype == torch.bfloat16 else None
-    x, wt, mult, add, ct = _operands(200, 224, 128, dtype, 2)
-    dx = _k2(emulated, x, wt, ct, None, None, 0, 0)
-    _assert_close(dx, k12.conv1x1_bwd_explain_plain(x, wt, ct, None, None, relu=False), dtype,
-                  tol)
-    a = k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True)
-    dx = _k2(emulated, x, wt, ct, a, mult, 1, 0)
-    _assert_close(dx, k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mult, relu=True), dtype, tol)
-
-
-# bf16 K1 stages z and stores it by TMA where Cout is a multiple of 8 (the
-# shapes of CASES store from the registers): ragged M, partial boxes in Cin
-# and Cout, several tiles per block
-def test_k1_bf16_tma_store(emulated):
-    test_k1_forward(emulated, torch.bfloat16, 130, 72, 264)
-
-
-@pytest.mark.parametrize("m,k,n,dtype", CASES)
-def test_k3_bcos_matmul(emulated, dtype, m, k, n):
-    x, wt, _, _, _ = _operands(m, k, n, dtype, 2)
-    for eps_outside in (0, 1):
-        y = _k3(emulated, x, wt, eps_outside)
-        _assert_close(y, k3.bcos_matmul_fwd_plain(x, wt, eps=1e-6,
-                                                  eps_outside=bool(eps_outside)), dtype)
-
-
-# bf16 K3 on the engine, each with both eps_outside values: N a multiple of
-# 4 with a ragged last 128-column chunk (y staged in f32 and stored by TMA,
-# clipped at N; rows of wt beyond N read as zeros), N % 4 != 0 (y from the
-# registers), and an M that gives each of the stand-in's two blocks 8
-# tiles (the one staging buffer refilled while the last store may still
-# read it) with one partial K box; rows beyond M in a 128-row block; and the
-# train step's layer1 conv1 (N = 64: half of one 128-column chunk, two of its
-# four f32 boxes stored; K = 64: one K step)
-@pytest.mark.parametrize("m,k,n", [(70, 512, 1000), (37, 72, 130), (1000, 16, 132),
-                                   (300, 64, 64)],
-                         ids=["ragged-chunk", "register-store", "many-tiles", "train-n64-k64"])
-def test_k3_bf16_engine(emulated, m, k, n):
-    test_k3_bcos_matmul(emulated, torch.bfloat16, m, k, n)
-
-
 # The fp32 route of K1, K2 and K3 (3xTF32 wgmma, csrc/bcos_tf32.cuh) at ragged
 # shapes: M = 49 (layer4 of one 224^2 image) and 3136 + 13 (layer1 + a
 # ragged row block), N = 1000 (y by TMA) and N % 4 != 0 (y from the
@@ -260,35 +177,11 @@ FP32_ROUTE_SHAPES = [(49, 30, 1000), (3149, 64, 130), (49, 2046, 61), (49, 100, 
 FP32_ROUTE_IDS = ["m49-k30-n1000", "m3149-k64-n130", "m49-k2046-n61", "m49-k100-n1030"]
 
 
-@pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
-def test_k3_fp32_route(emulated, m, k, n):
-    test_k3_bcos_matmul(emulated, torch.float32, m, k, n)
-
-
-@pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
-def test_k2_fp32_route(emulated, m, k, n):
-    _check_k2(emulated, torch.float32, m, k, n)
-
-
-@pytest.mark.parametrize("m,k,n", FP32_ROUTE_SHAPES, ids=FP32_ROUTE_IDS)
-def test_k1_fp32_route(emulated, m, k, n):
-    x, wt, mult, add, _ = _operands(m, k, n, torch.float32, 3)
-    for relu, a in ((1, add), (0, None), (1, None), (0, add)):
-        out = _k1(emulated, x, wt, mult, a, relu)
-        _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, a, relu=bool(relu)),
-                      torch.float32)
-
-
-# K1 in fp32 on operands the TMA cannot take as they are: Cin = 22 (not a
-# multiple of 4) on an x 4 bytes off the 16-byte grid. The wrapper's
-# tma_operands zero-pads x and wt to Cin = 24 in aligned storage, counted
-# once, and the result equals the plain version on the unpadded operands.
-def test_k1_fp32_cin_off_the_tma_grid(emulated):
-    m, k, n = 37, 22, 10
-    x, wt, mult, add, _ = _operands(m, k, n, torch.float32, 4)
-    x = torch.empty(m * k + 1)[1:].view(m, k).copy_(x)
-    assert x.data_ptr() % 16
-    before = k12.tma_operands.padded
-    out = _k1(emulated, x, wt, mult, add, 1)
-    assert k12.tma_operands.padded == before + 1
-    _assert_close(out, k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True), torch.float32)
+def _check_k2(emulated, dtype, m, k, n, tol=None):
+    x, wt, mult, add, ct = _operands(m, k, n, dtype, 1)
+    a = k12.conv1x1_fwd_plain(x, wt, mult, add, relu=True)
+    for relu, mu, eps_outside in ((1, mult, 0), (0, None, 1)):
+        dx = _k2(emulated, x, wt, ct, a, mu, relu, eps_outside)
+        want = k12.conv1x1_bwd_explain_plain(x, wt, ct, a, mu, relu=bool(relu),
+                                             eps_outside=bool(eps_outside))
+        _assert_close(dx, want, dtype, tol)
