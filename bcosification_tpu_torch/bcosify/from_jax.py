@@ -7,9 +7,11 @@ JAX scopes, so a leaf at params/model/layer1_0/conv1/weight is the state
 dict entry ``model.layer1_0.conv1.weight``. Conv weights are HWIO in JAX
 and OIHW here (a grouped conv's [kh, kw, Cin / groups, Cout] too); every
 other leaf (the norms' weights, the position norm's among them, the
-ViTs' (in, out) linear weights, the CLIP ViT tower's raw ``proj`` (width,
-out), ``class_embedding`` and ``positional_embedding``, and the
-learnable-b layers' scalar ``b``) copies as it is. ``to_jax_variables(model)``
+ViTs' (in, out) linear weights, a switch-MoE feed-forward's
+``ff.moe2.router`` [d, E] and ``ff.moe2.experts`` [E, d, F], the CLIP ViT
+tower's raw ``proj`` (width, out), ``class_embedding`` and
+``positional_embedding``, and the learnable-b layers' scalar ``b``) copies
+as it is. ``to_jax_variables(model)``
 is the inverse: parameters go to "params", buffers (the BN running_var and
 num_batches_tracked) to "batch_stats".
 """

@@ -106,14 +106,16 @@ class CLIPLayerNorm(nn.Module):
 
 
 class PlainConv2d(_ConvBase):
-    """nn.Conv2d on NHWC activations, OIHW weight."""
+    """nn.Conv2d on NHWC activations, OIHW weight; quantized by
+    BCOS_INT8 on a served forward (``ops.bcos.int8_route``)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=1, *, stride=1,
                  padding=0, **kwargs):
         super().__init__(in_channels, features, kernel_size, stride, padding, **kwargs)
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
-        return ops.conv2d(x, self.weight, self.stride, self.padding, self.dilation, self.groups)
+        return ops.conv2d(x, self.weight, self.stride, self.padding, self.dilation, self.groups,
+                          allow_int8=not explain and not train)
 
 
 class EvalBatchNorm(nn.Module):

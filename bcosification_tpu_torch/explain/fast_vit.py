@@ -23,10 +23,18 @@ dx = (g |u + b| / n) @ w^T. The rest of the backward:
   columns of to_qkv (the q and k columns get no cotangent);
 - the residuals add their cotangents; the token mean spreads its cotangent
   evenly over the tokens (with ``gap_reorder`` the head runs on every token
-  first); the positional embedding is a constant; the patches go back to
-  the image by the inverse of the patchify, then through the Normalize
-  (BcosifyNetwork's; a bare SimpleViT has none). The wrapper's logit layer
-  divides the cotangent by its temperature; the SimpleViT's has none.
+  first); the positional embedding (where the net adds it) is a constant;
+  the patches go back to the image by the inverse of the patchify, then
+  through the Normalize (BcosifyNetwork's; a bare SimpleViT has none). The
+  wrapper's logit layer divides the cotangent by its temperature; the
+  SimpleViT's has none.
+
+A switch-MoE feed-forward (``ff.moe2``, ``modules/moe.py``) runs the
+module's routing (its gates detached) and K3 per expert on the expert's
+[C, d] buffer; its transpose sends each token's cotangent times its gate to
+the slots that hold it, runs K2 per expert with the bare cotangent (mult 1,
+no mask) and adds the slots' cotangents back to their tokens. An empty or
+a dropped slot gets no cotangent, the router none.
 
 The ViT-C conv stem goes back segment by segment: the activation's
 detached gate (GELU) or nothing (Identity); the group norm with its
@@ -35,8 +43,9 @@ c = g * weight / std; the 3x3 B-cos conv with its scale detached,
 ``conv_transpose2d`` of g * |u| / n, as ``fast_densenet`` does for its 3x3s.
 
 Scope (``supports``): a SimpleViT, bare or in a BcosifyNetwork, with B-cos
-linears (BcosifyLinear or BcosLinear, b=2, max_out 1) but a plain bias-free
-to_qkv, the detachable LayerNorm and GELU (or Identity), and a conv stem,
+linears (BcosifyLinear or BcosLinear, b=2, max_out 1) or b=2 switch-MoE
+projections, but a plain bias-free to_qkv, the detachable LayerNorm and
+GELU (or Identity), and a conv stem,
 if any, of bias-free b=2 B-cos 3x3 convs with the group norm: every config
 of ImageNet/vit_bcosification that builds and the ``bcos_*`` configs of
 ImageNet/vit_final. The standard baselines (plain linears, the plain
@@ -69,6 +78,8 @@ from bcosification_tpu_torch.modules import (
 from bcosification_tpu_torch.modules.bcos_layers import fixed_b2
 from bcosification_tpu_torch.modules.norms import DetachableGroupNorm2d
 from bcosification_tpu_torch.ops import bcos as ops
+from bcosification_tpu_torch.ops.cuda.bcos_conv1x1 import conv1x1_bwd_explain
+from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul_fwd
 
 __all__ = ["supports", "fast_dynamic_linear_weights"]
 
@@ -88,8 +99,10 @@ def supports(net) -> bool:
                 and type(norm) is DetachableGroupNorm2d and _detached_act(act)):
             return False
     for enc in m.encoders():
-        linears = (enc.attn.to_out, enc.ff.linear1, enc.ff.linear2)
+        moe = getattr(enc.ff, "moe2", None)
+        linears = (enc.attn.to_out, enc.ff.linear1) + ((enc.ff.linear2,) if moe is None else ())
         if not (all(_bcos_linear(lin) for lin in linears)
+                and (moe is None or fixed_b2(moe))
                 and all(type(n) is DetachableLayerNorm and n.detachable
                         for n in (enc.attn.norm, enc.ff.norm))
                 and _detached_act(enc.ff.act)):
@@ -166,7 +179,8 @@ class _Encoder:
         self.linear1 = _Linear(ff.linear1, n2)
         h1 = self.linear1.forward()
         self.gate = ff.act.gate(h1) if isinstance(ff.act, DetachableGELU) else None
-        self.linear2 = _Linear(ff.linear2, h1 if self.gate is None else self.gate * h1)
+        a = h1 if self.gate is None else self.gate * h1
+        self.linear2 = _MoE(ff.moe2, a) if hasattr(ff, "moe2") else _Linear(ff.linear2, a)
         self.out = self.linear2.forward() + x
 
     def backward(self, ct):
@@ -183,6 +197,38 @@ class _Encoder:
         return ct_x1 + _norm_bwd(ct_n1, attn.norm, self.std1, self.dtype)
 
 
+class _MoE:
+    """A switch MoE's explanation-mode forward and transpose (the
+    ``_Linear`` interface): the module's routing, gates detached; K3 forward
+    and K2 backward per expert on its slots."""
+
+    def __init__(self, moe, a):
+        self.moe, self.lead = moe, a.shape[:-1]
+        xt = a.reshape(-1, a.shape[-1])
+        self.routing = moe.route(xt, explain=True)
+        self.xe = moe.expert_inputs(xt, self.routing)
+        w = moe.experts.to(a.dtype)  # cast, then normalised, as the module does
+        self.wt = [(ops.normed_linear_weight(w_e) if moe.normalize_weights else w_e)
+                   .t().contiguous() for w_e in w]
+
+    def forward(self) -> torch.Tensor:
+        ye = torch.cat([
+            bcos_matmul_fwd(x_e, wt, eps=ops.LINEAR_NORM_EPS, eps_outside=True).to(x_e.dtype)
+            for x_e, wt in zip(self.moe.per_expert(self.xe, self.routing), self.wt)])
+        return self.moe.combine(ye, self.routing).view(*self.lead, -1)
+
+    def backward(self, ct: torch.Tensor) -> torch.Tensor:
+        ct_slots = self.moe.combine_t(ct.reshape(-1, ct.shape[-1]).to(self.xe.dtype),
+                                      self.routing)
+        per_expert = self.moe.per_expert
+        dx = torch.cat([
+            conv1x1_bwd_explain(x_e, wt, ct_e.contiguous(), None, None, relu=False,
+                                eps=ops.LINEAR_NORM_EPS, eps_outside=True)
+            for x_e, wt, ct_e in zip(per_expert(self.xe, self.routing), self.wt,
+                                     per_expert(ct_slots, self.routing))])
+        return self.moe.expert_inputs_t(dx, self.routing).view(*self.lead, -1)
+
+
 def _fast(net, x, idx):
     m, wrapper = parts(net)
 
@@ -197,7 +243,9 @@ def _fast(net, x, idx):
     patch = _Linear(m.to_patch_embedding_linear, _patchify(x, p1, p2))
     t = patch.forward()
     nb, h, w, d = t.shape
-    t = t.reshape(nb, h * w, d) + pos_emb_sincos_2d(h, w, d, dtype=t.dtype, device=t.device)
+    t = t.reshape(nb, h * w, d)
+    if m.pos_embedding:
+        t = t + pos_emb_sincos_2d(h, w, d, dtype=t.dtype, device=t.device)
     encoders = []
     for enc in m.encoders():
         encoders.append(_Encoder(enc, t))

@@ -17,19 +17,22 @@ W(x).
 
 Sub-module names mirror the JAX scopes (conv_stem_{3i, 3i+1, 3i+2},
 to_patch_embedding_linear, encoder_{i}.attn.{norm,to_qkv,to_out},
-encoder_{i}.ff.{norm,linear1,act,linear2}, linear_head_norm,
+encoder_{i}.ff.{norm,linear1,act,linear2 or moe2}, linear_head_norm,
 linear_head_linear, logit_layer), so the JAX variables map onto the state
 dict one to one (``bcosify/from_jax.py``). The attention runs on
 ``torch.matmul`` and softmax in the input dtype, as the JAX package's runs
 in XLA; every bias-free b=2 B-cos linear runs on K3
 (``ops.bcos.bcos_linear``).
 
-Not ported yet: the switch-MoE feed-forward (``moe_experts``, with the MoE
-slice), which raises NotImplementedError. The positional embedding is
-always added.
+``moe_experts > 0`` makes every feed-forward a switch MoE
+(``MoEFeedForward``: its ``linear2`` becomes ``ff.moe2``, a
+``modules.moe.BcosMoE`` of that many experts, top ``moe_top_k`` routing at
+``moe_capacity_factor``). ``pos_embedding=False`` leaves out the positional
+embedding.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -43,10 +46,12 @@ from bcosification_tpu_torch.modules import (
     LogitLayer,
     PlainLinear,
 )
+from bcosification_tpu_torch.modules.moe import BcosMoE
 
 __all__ = [
     "pos_emb_sincos_2d",
     "FeedForward",
+    "MoEFeedForward",
     "Attention",
     "Encoder",
     "SimpleViT",
@@ -59,10 +64,7 @@ __all__ = [
     "vitc_b_patch1_14",
     "vitc_l_patch1_14",
     "VIT_CONFIGS",
-    "MOE_SLICE",
 ]
-
-MOE_SLICE = "the MoE slice (ROADMAP A7: modules/moe.py)"
 
 
 SINCOS_TEMPERATURE = 10_000.0
@@ -104,6 +106,40 @@ class FeedForward(nn.Module):
         return self.linear2(x, **f)
 
 
+class MoEFeedForward(nn.Module):
+    """The switch-MoE feed-forward: norm -> linear1 -> act -> ``moe2``, a
+    BcosMoE of ``num_experts`` bias-free experts in place of linear2 (the
+    expansion stays shared). The experts take b from the injected linear
+    factory (a ``functools.partial`` with ``b``; 2 otherwise), as the JAX
+    module reads it, and a factory with ``use_bias=True`` raises
+    ValueError: the experts have no bias. The MoE is the block's last layer,
+    so a dropped token's zero row goes straight into the residual add."""
+
+    def __init__(self, dim: int, hidden_dim: int, num_experts: int, *,
+                 linear_layer: Callable, norm_layer: Callable, act_layer: Callable,
+                 capacity_factor: float = 1.25, top_k: int = 1, device=None, generator=None):
+        super().__init__()
+        b = 2.0
+        if isinstance(linear_layer, functools.partial):
+            b = linear_layer.keywords.get("b", b)
+            if linear_layer.keywords.get("use_bias", False):
+                raise ValueError("moe_experts > 0 with use_bias=True linears: BcosMoE experts "
+                                 "are bias-free; disable the bias or the MoE")
+        kw = dict(device=device, generator=generator)
+        self.norm = norm_layer(dim, device=device)
+        self.linear1 = linear_layer(dim, hidden_dim, **kw)
+        self.act = act_layer()
+        self.moe2 = BcosMoE(num_experts, hidden_dim, dim, b=b, capacity_factor=capacity_factor,
+                            top_k=top_k, **kw)
+
+    def forward(self, x, *, train: bool = False, explain: bool = False):
+        f = dict(train=train, explain=explain)
+        x = self.norm(x, **f)
+        x = self.linear1(x, **f)
+        x = self.act(x, **f)
+        return self.moe2(x, **f)
+
+
 class Attention(nn.Module):
     """norm -> to_qkv (a plain bias-free linear) -> softmax attention per
     head, q and k detached under ``explain`` -> to_out (the injected linear
@@ -141,16 +177,22 @@ class Attention(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Pre-norm attention and feed-forward, each added to its input."""
+    """Pre-norm attention and feed-forward, each added to its input; with
+    ``moe_experts > 0`` the feed-forward is a ``MoEFeedForward``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int, *,
                  linear_layer: Callable, norm_layer: Callable, act_layer: Callable,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
                  device=None, generator=None):
         super().__init__()
         kw = dict(linear_layer=linear_layer, norm_layer=norm_layer, device=device,
                   generator=generator)
         self.attn = Attention(dim, heads, dim_head, **kw)
-        self.ff = FeedForward(dim, mlp_dim, act_layer=act_layer, **kw)
+        if moe_experts > 0:
+            self.ff = MoEFeedForward(dim, mlp_dim, moe_experts, act_layer=act_layer,
+                                     capacity_factor=moe_capacity_factor, top_k=moe_top_k, **kw)
+        else:
+            self.ff = FeedForward(dim, mlp_dim, act_layer=act_layer, **kw)
 
     def forward(self, x, *, train: bool = False, explain: bool = False):
         f = dict(train=train, explain=explain)
@@ -184,7 +226,10 @@ class SimpleViT(nn.Module):
     ``conv_stem``: the stem's widths, with ``conv2d_layer`` and
     ``norm2d_layer`` its factories; the patch embedding then reads
     ``conv_stem[-1]`` channels. ``with_logit_layer``: a logit layer after
-    the head, of bias ``logit_bias`` (default -log(num_classes - 1))."""
+    the head, of bias ``logit_bias`` (default -log(num_classes - 1)).
+    ``pos_embedding``: add the sin-cos positional embedding to the patch
+    tokens. ``moe_experts``, ``moe_capacity_factor``, ``moe_top_k``: the
+    switch-MoE feed-forwards (``MoEFeedForward``), off at 0 experts."""
 
     def __init__(self, image_size: Union[int, Tuple[int, int]] = 224,
                  patch_size: Union[int, Tuple[int, int]] = 16, num_classes: int = 1000,
@@ -195,17 +240,16 @@ class SimpleViT(nn.Module):
                  conv2d_layer: Optional[Callable] = None,
                  conv_stem: Optional[Sequence[int]] = None, channels: int = CHANNELS,
                  gap_reorder: bool = False, with_logit_layer: bool = False,
-                 logit_bias: Optional[float] = None, moe_experts: int = 0, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 logit_bias: Optional[float] = None, pos_embedding: bool = True,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(f"the switch-MoE feed-forward (moe_experts > 0) is not "
-                                      f"ported yet; it comes with {MOE_SLICE}")
         self.image_size, self.patch_size = _pair(image_size), _pair(patch_size)
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
         self.heads, self.mlp_dim = heads, mlp_dim
         self.conv_stem, self.channels = tuple(conv_stem or ()), channels
         self.gap_reorder, self.with_logit_layer = gap_reorder, with_logit_layer
+        self.pos_embedding = pos_embedding
         kw = dict(device=device, generator=generator)
         in_ch = channels
         for i, out_ch in enumerate(self.conv_stem):
@@ -219,7 +263,8 @@ class SimpleViT(nn.Module):
         for i in range(depth):
             setattr(self, f"encoder_{i}", Encoder(
                 dim, heads, dim // heads, mlp_dim, linear_layer=linear_layer,
-                norm_layer=norm_layer, act_layer=act_layer, **kw))
+                norm_layer=norm_layer, act_layer=act_layer, moe_experts=moe_experts,
+                moe_capacity_factor=moe_capacity_factor, moe_top_k=moe_top_k, **kw))
         self.linear_head_norm = norm_layer(dim, device=device)
         self.linear_head_linear = linear_layer(dim, num_classes, **kw)
         if with_logit_layer:
@@ -240,7 +285,9 @@ class SimpleViT(nn.Module):
             img = layer(img, **f)
         x = self.to_patch_embedding_linear(_patchify(img, *self.patch_size), **f)
         b, h, w, d = x.shape
-        x = x.reshape(b, h * w, d) + pos_emb_sincos_2d(h, w, d, dtype=x.dtype, device=x.device)
+        x = x.reshape(b, h * w, d)
+        if self.pos_embedding:
+            x = x + pos_emb_sincos_2d(h, w, d, dtype=x.dtype, device=x.device)
         for encoder in self.encoders():
             x = encoder(x, **f)
 

@@ -33,6 +33,12 @@ baselines' ViT-C stem). ``BcosConv2dWithScale`` is the v1 B-cos conv whose
 output is divided by a static scale. BcosifyLinear and PlainLinear take
 ``weight_only``: the weight alone, no bias and no dynamic scale (the pooled
 CLIP attention head applies its projections so).
+
+Under ``BCOS_INT8=1`` (``ops.bcos.int8_route``) the conv layers pass
+``allow_int8 = not explain and not train``, as the JAX modules do: a
+served forward quantizes its wide convs, a train step or an explanation
+never does. An eligible 1x1 with a folded epilogue then leaves K1: the int8
+product, and the epilogue after it in PyTorch.
 """
 from __future__ import annotations
 
@@ -97,13 +103,13 @@ def _fused_1x1_ok(mod: _ConvBase, b, bias) -> bool:
     )
 
 
-def _epilogue_result(mod, x, w, bias, b, explain, x_sumsq, epilogue):
+def _epilogue_result(mod, x, w, bias, b, explain, x_sumsq, epilogue, train=False):
     """Conv with a folded (mult, add, relu[, residual]) epilogue. With a
     residual the ReLU is post-add, so it is applied after the skip-add."""
     mult, add, relu, *rest = epilogue
     residual = rest[0] if rest else None
     out = _epilogue_no_residual(mod, x, w, bias, b, explain, x_sumsq,
-                                (mult, add, relu if residual is None else False))
+                                (mult, add, relu if residual is None else False), train)
     if residual is not None:
         out = out + residual
         if relu:
@@ -111,16 +117,20 @@ def _epilogue_result(mod, x, w, bias, b, explain, x_sumsq, epilogue):
     return out
 
 
-def _epilogue_no_residual(mod, x, w, bias, b, explain, x_sumsq, epilogue):
+def _epilogue_no_residual(mod, x, w, bias, b, explain, x_sumsq, epilogue, train=False):
     mult, add, relu = epilogue
     # K1's backward (K2) has the plain ReLU mask built in: under guided
     # backprop or DeepLIFT the conv runs unfused and its ReLU through
     # ops.guided, as the JAX package keeps such convs off its Pallas kernel.
     # K1 reads one mult per output channel: a norm with one statistic for
     # the whole tensor (AllNormUncentered2d) gives a (1,) mult, which the
-    # unfused route broadcasts
+    # unfused route broadcasts. A conv that BCOS_INT8 quantizes leaves K1
+    # too: the int8 product, then the epilogue below (the JAX jnp path's).
+    # ``train`` gates it as JAX's bcos_conv1x1_bn_act(train=) does for a
+    # layer called with both; models/resnet.py folds only in eval mode
     if (_fused_1x1_ok(mod, b, bias) and mult.numel() == w.shape[0]
-            and not (guided.guided_mode() or guided.deeplift_mode())):
+            and not (guided.guided_mode() or guided.deeplift_mode())
+            and not ops.int8_route(x, w, mod.groups, not explain and not train)):
         # [Cin, Cout] view of the OIHW weight (its transpose is contiguous)
         w2 = w.view(w.shape[0], w.shape[1]).t()
         return bcos_conv1x1_bn_act(x, w2, mult, add, relu=relu, explain=explain,
@@ -159,12 +169,12 @@ class BcosConv2d(_ConvBase):
         b = self.effective_b(b_override)
         if epilogue is not None:
             return _epilogue_result(self, x, self.effective_weight(), self.bias, b,
-                                    explain, x_sumsq, epilogue)
+                                    explain, x_sumsq, epilogue, train)
         return ops.bcos_conv2d(
             x, self.weight, b=b, stride=self.stride, padding=self.padding,
             dilation=self.dilation, groups=self.groups, max_out=self.max_out,
             normalize_weights=self.normalize_weights, bias=self.bias, explain=explain,
-            x_sumsq=x_sumsq,
+            x_sumsq=x_sumsq, allow_int8=not explain and not train,
         )
 
 
@@ -186,7 +196,8 @@ class NormedConv2d(_ConvBase):
         return ops.normed_conv2d(
             x, self.weight, stride=self.stride, padding=self.padding, dilation=self.dilation,
             groups=self.groups, scale=self.scale if self.use_weight_norm else None,
-            bias=self.bias, use_weight_norm=self.use_weight_norm)
+            bias=self.bias, use_weight_norm=self.use_weight_norm,
+            allow_int8=not explain and not train)
 
 
 class PlainConv2d(NormedConv2d):
@@ -216,7 +227,7 @@ class BcosConv2dWithScale(_ConvBase):
         out = ops.bcos_conv2d(
             x, self.weight, b=self.b, stride=self.stride, padding=self.padding,
             dilation=self.dilation, groups=self.groups, max_out=self.max_out,
-            bias=self.bias, explain=explain)
+            bias=self.bias, explain=explain, allow_int8=not explain and not train)
         return out / self.scale
 
 

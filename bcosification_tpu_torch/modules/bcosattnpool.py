@@ -51,6 +51,8 @@ def _mha(q, k, v, num_heads: int) -> torch.Tensor:
 class AttentionPool2d(nn.Module):
     """Standard CLIP attention pool: [B, H, W, C] -> [B, output_dim]."""
 
+    param_unit_axes = {"positional_embedding": -1}  # [HW + 1, C]: the JAX layout
+
     def __init__(self, embed_dim: int, num_heads: int, output_dim: Optional[int] = None,
                  spacial_dim: int = 7, *, device=None,
                  generator: Optional[torch.Generator] = None):

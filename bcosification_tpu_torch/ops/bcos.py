@@ -19,13 +19,29 @@ conv is a B-cos matmul and goes to the hand-written kernel
 (``ops/cuda/bcos_matmul.py``), and so does the bias-free b=2 linear, with
 the linear norm sqrt(||x||^2) + 1e-12 (``eps_outside``): the JAX package
 computes that one in XLA, the port on the same kernel as the 1x1 convs.
+
+Dynamic-int8 serving (``BCOS_INT8=1``, off by default): a conv whose call
+site allows it (``allow_int8``: the modules pass ``not explain and not
+train``; ``bcos_conv2d`` defaults to ``not explain``) runs on int8
+operands when x is bf16 and its input and output channels per group are
+both at least ``BCOS_INT8_MIN_CH`` (default 128): a per-sample activation
+scale (the max |x| over H, W and C over 127, at least 1e-12, or the fixed
+``BCOS_INT8_SCALE``), a per-output-channel scale of the bf16 weight, round
+half to even, clip to +-127, an int32 product (``ops/int8.py``:
+``torch._int_mm``), then (y * (sx * sw)) in f32 cast to bf16. The round has
+no gradient, so a backward through such a conv raises. The flag is read
+when the conv runs: an exported program keeps the route it was traced
+with. A 1x1 conv the gate takes does not go to K3.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from bcosification_tpu_torch.ops import int8
 
 __all__ = [
     "CONV_NORM_EPS",
@@ -43,6 +59,9 @@ __all__ = [
     "bcos_linear",
     "normed_conv2d",
     "normed_linear",
+    "int8_serving_enabled",
+    "int8_route",
+    "conv_int8_dynamic",
 ]
 
 # Exact values matter for parity with the reference: conv patch norms add
@@ -73,9 +92,69 @@ def nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def int8_serving_enabled() -> bool:
+    """The opt-in dynamic-int8 serving flag, ``BCOS_INT8=1`` (default off)."""
+    return os.getenv("BCOS_INT8", "0") == "1"
+
+
+def int8_route(x: torch.Tensor, w: torch.Tensor, groups: int, allow_int8: bool) -> bool:
+    """Whether a conv of x with the OIHW weight w runs on int8: its call
+    site allows it, BCOS_INT8=1, x is bf16, and its per-group input and
+    output channels are both at least BCOS_INT8_MIN_CH (default 128; 0
+    quantizes every such conv)."""
+    return bool(
+        allow_int8 and int8_serving_enabled() and x.dtype == torch.bfloat16
+        and min(w.shape[1], w.shape[0] // max(groups, 1))
+        >= int(os.getenv("BCOS_INT8_MIN_CH", "128")))
+
+
+class _Int8Conv(torch.autograd.Function):
+    """``conv_int8_dynamic``'s value; differentiating it raises (the
+    quantizer's round has no gradient, so a train step or an autograd
+    explanation through it would be silently wrong)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        # every division by a tensor on x's device: PyTorch's CUDA divide by a
+        # Python number multiplies by its reciprocal, which is not the IEEE
+        # quotient the JAX package takes; the max of |x| is exact in x's dtype
+        d127 = torch.full((), 127.0, device=x.device)
+        fixed = os.getenv("BCOS_INT8_SCALE")
+        if fixed is not None:  # one fixed activation scale (a measurement knob)
+            sx = torch.full((x.shape[0], 1, 1, 1), float(fixed), device=x.device)
+        else:  # per sample, so an image's result does not depend on its batch
+            amax = x.abs().amax(dim=(1, 2, 3), keepdim=True).float()
+            sx = torch.clamp_min(amax / d127, 1e-12)
+        sw = torch.clamp_min(w.float().abs().amax(dim=(1, 2, 3)) / d127, 1e-12)
+        xq = (x / sx).round_().clamp_(-127, 127).to(torch.int8)  # x / sx in f32
+        wq = (w.float() / sw.view(-1, 1, 1, 1)).round_().clamp_(-127, 127).to(torch.int8)
+        y = int8.int8_product(xq, wq, stride, padding, dilation, groups)
+        return (y * (sx * sw)).to(x.dtype)  # float(y) * scale in f32, one cast
+
+    @staticmethod
+    def backward(ctx, ct):
+        raise RuntimeError(
+            "BCOS_INT8 quantized conv was differentiated. The dynamic-int8 serving path "
+            "(BCOS_INT8=1) has zero gradients through its round() quantizer: training or "
+            "autograd explanations under this flag would be silently broken. Unset BCOS_INT8 "
+            "for training; it is a serving-only flag.")
+
+
+def conv_int8_dynamic(x, w, stride: IntOrPair = 1, padding: IntOrPair = 0,
+                      dilation: IntOrPair = 1, groups: int = 1) -> torch.Tensor:
+    """The dynamically quantized conv of the bf16 NHWC x with the OIHW w
+    (cast to x's dtype first, as the JAX package quantizes it), bf16 out.
+    torch.export traces the forward only: an exported program has no
+    backward to guard."""
+    return _Int8Conv.apply(x, w.to(x.dtype), stride, padding, dilation, groups)
+
+
 def conv2d(x, w, stride: IntOrPair = 1, padding: IntOrPair = 0,
-           dilation: IntOrPair = 1, groups: int = 1) -> torch.Tensor:
-    """Plain conv of an NHWC input with an OIHW weight (cast to x's dtype)."""
+           dilation: IntOrPair = 1, groups: int = 1, allow_int8: bool = False) -> torch.Tensor:
+    """Plain conv of an NHWC input with an OIHW weight (cast to x's dtype);
+    on int8 where ``int8_route`` takes it."""
+    if int8_route(x, w, groups, allow_int8):
+        return conv_int8_dynamic(x, w, stride, padding, dilation, groups)
     y = F.conv2d(nchw(x), w.to(x.dtype), stride=_pair(stride), padding=_pair(padding),
                  dilation=_pair(dilation), groups=groups)
     return nhwc(y)
@@ -190,20 +269,25 @@ def bcos_conv2d(
     bias: Optional[torch.Tensor] = None,
     explain: bool = False,
     x_sumsq: Optional[torch.Tensor] = None,
+    allow_int8: Optional[bool] = None,
 ) -> torch.Tensor:
     """B-cos 2D convolution of an NHWC input with an OIHW weight.
 
     ``normalize_weights=True`` is ``BcosConv2d`` (unit-norm weights);
     ``False`` is ``BcosifyConv2d`` (raw weights, optional ``bias`` added to
     the linear output before the dynamic scale). A 1x1, stride-1, bias-free
-    b=2 conv runs as the B-cos matmul kernel.
+    b=2 conv runs as the B-cos matmul kernel, unless the int8 route takes
+    it. ``allow_int8`` (default ``not explain``): whether BCOS_INT8 may
+    quantize this conv.
     """
     if max_out < 1:
         raise ValueError(f"max_out must be >= 1, got {max_out}")
     out_channels = w.shape[0] // max_out
     wn = normed_conv_weight(w, scale) if normalize_weights else w
+    allow_int8 = (not explain) if allow_int8 is None else allow_int8
 
-    if _is_bcos_matmul(w, b, stride, padding, groups, max_out, bias):
+    if (_is_bcos_matmul(w, b, stride, padding, groups, max_out, bias)
+            and not int8_route(x, w, groups, allow_int8)):
         from bcosification_tpu_torch.ops.cuda.bcos_matmul import bcos_matmul
 
         n, h, w_, c = x.shape
@@ -211,7 +295,7 @@ def bcos_conv2d(
                         CONV_NORM_EPS, False, explain)
         return y.view(n, h, w_, -1).to(x.dtype)
 
-    out = conv2d(x, wn, stride, padding, dilation, groups)
+    out = conv2d(x, wn, stride, padding, dilation, groups, allow_int8)
     if bias is not None:
         out = out + bias.to(out.dtype)
     if max_out > 1:
@@ -253,7 +337,7 @@ def bcos_linear(
 
         lead = x.shape[:-1]
         y = bcos_matmul(x.reshape(-1, x.shape[-1]), wn, LINEAR_NORM_EPS, True, explain)
-        return y.view(*lead, -1).to(x.dtype)
+        return y.view(*lead, y.shape[-1]).to(x.dtype)
     out = x @ wn.to(x.dtype)
     if bias is not None:
         out = out + bias
@@ -269,12 +353,12 @@ def bcos_linear(
 def normed_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: IntOrPair = 1,
                   padding: IntOrPair = 0, dilation: IntOrPair = 1, groups: int = 1,
                   scale: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
-                  use_weight_norm: bool = True) -> torch.Tensor:
+                  use_weight_norm: bool = True, allow_int8: bool = False) -> torch.Tensor:
     """Plain conv of an NHWC input with unit-norm weights (``NormedConv2d``),
     optionally times a per-output-channel ``scale``; ``use_weight_norm=False``
     takes the raw weight. The bias is cast to the output's dtype."""
     wn = normed_conv_weight(w, scale) if use_weight_norm else w
-    out = conv2d(x, wn, stride, padding, dilation, groups)
+    out = conv2d(x, wn, stride, padding, dilation, groups, allow_int8)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

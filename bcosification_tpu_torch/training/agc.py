@@ -8,7 +8,7 @@ linears), where the JAX package's HWIO / (in, out) layouts put it last. The
 port's own linears keep the JAX (in, out) weight (``modules/bcos_layers.py``)
 and declare it with ``weight_unit_axis = -1``, and a module's other raw
 parameters in that layout (the CLIP ViT's ``proj`` and positional
-embedding) with ``param_unit_axes``; clipping a module's gradients reads
+embeddings, the MoE's router and experts) with ``param_unit_axes``; clipping a module's gradients reads
 both. Parameters with at most one axis longer than 1 (vectors,
 scalars) use their full norm.
 """

@@ -83,8 +83,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward-only and fwd+explain images/s at batch 128, bf16, over windows
    of about 1.7 s, with their launch counts (K3 62 / K2 0 / K1 0 and K3 62
    / K2 62 / K1 0), host issue time and peak memory; the forward and the
-   explanation programs of the DenseNet-121 cut to two dense layers in each
-   of the first three blocks and one in the last (full width;
+   explanation programs of the DenseNet-121 cut to two dense layers in the
+   first block and one in each of the others (full width;
    SERVE_DENSENET_BLOCKS) exported, loaded from bytes and
    held to the eager calls (fault C3), their loaded rates those of the cut
    net; Trainer.fit of the Experiment at batch 64, bf16 amp, on one
@@ -207,8 +207,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    explanation mode, Occlusion 16/8, RISE of 500 masks, LIME of 200
    samples) with its seconds and launches (Ours: K1 36, K2 37, K3 1; the
    gradient explainers fault C1's route: K3 34, no K1 or K2; under
-   DeepLIFT no K1); fp32 Ours and GB on that grid, GPU against CPU (W 1e-3,
-   the scores 1e-3); ``localisation.main`` on phase 9's trained resnet_50
+   DeepLIFT no K1); fp32 Ours and GB on that grid's first target
+   (LOC_PARITY_TARGETS of its 9), GPU against CPU (W 1e-3, its score
+   1e-3); ``localisation.main`` on phase 9's trained resnet_50
    and ``localisation_sweep`` on Ours and IxG (their files written; the
    metric may be empty); ``text_localisation.main --random_img_path`` on a
    synthetic JPEG for phase 11's CLIP-RN50 students, pooled and
@@ -271,8 +272,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    autograd), with their launch counts (K3 and K2 at every stride-1 1x1
    B-cos conv and bias-free B-cos linear, no K1); each kernel's time at
    every shape one fwd+explain gave it, beside its bound, plain version and
-   torch.matmul; the export_explain round trip at a cut depth (one block
-   per stage, the DenseNet-121 SERVE_DENSENET_BLOCKS; the ViT-L's fast_vit
+   torch.matmul; the export_explain round trip at a cut depth (the first
+   two stages at full width: one bottleneck each, the DenseNet-121 two
+   dense layers and one; the ViT-L's fast_vit
    program is phase 14's) against the eager pass; then load_model of the
    ResNet-50 and the DenseNet-121 from npz
    files of the JAX export format written to a temporary BCOS_WEIGHTS_DIR,
@@ -351,7 +353,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    that dtype at every shape of one encode, one explanation and one KD
    step beside their bounds, plain versions and torch.matmul. Phase 16 also runs ``cli eval
    --model_type standard_clip --model ViT-B-32`` (zero-shot, the plain ViT
-   tower at random init: no K3) on its tree.
+   tower at random init: no K3) on its tree;
+21. (a) the switch-MoE ViT-B/16 (ROADMAP A7: ``simple_vit_b_patch16_224``
+   with 8 experts in every feed-forward, capacity factor 1.25, BcosLinear,
+   6 channels, random init from SEED) at top-1 and top-2 on the same
+   weights: K3 and K2 against their plain versions at the experts' shapes
+   (C = 3920 and 7840 slots, K 3072, N 768) in both dtypes; per top-k, fp32
+   on 2 images: the fast pass on the CPU records its routing, the fast
+   pass and the module path on the GPU run under it (the decisions that
+   differ, and their largest probability margin, against ten times the
+   CPU's spread of the router's probabilities under 1e-7 relative input
+   noise; W within ten CPU spreads, pre-logits 1e-4, argmax identical),
+   and x . W equals the selected logit without the positional embedding
+   (1e-4); forward-only and fast-pass fwd+explain images/s at batch 128,
+   bf16, with launches (K3 122 per forward: 8 per MoE; K2 122 per
+   explanation), card busy time and top kernels; K3 and K2 timed at every
+   shape of one fwd+explain; the top-2 net at depth 1 exported (forward and
+   explanation), loaded and held to the eager calls; its recipe train step
+   at batch 64 (K3 122). (b)
+   BCOS_INT8=1 serving (ROADMAP A8) of phase 4's ResNet-50 at batch 128,
+   bf16, the flag set for this part only: launches (K1 at layer1's 7 1x1s,
+   no K3: the classifier is quantized) and one int8 product per quantized
+   conv (43); forward-only images/s and card busy time, bf16 and int8; the card's int32 products (torch._int_mm) of one image equal to
+   the CPU's plain float64 conv at every quantized shape; the pre-logits
+   against bf16 (rel L2 within INT8_PRELOGIT_BOUND) and the top-1
+   agreement; a backward through a quantized conv raises; export_forward
+   under the flag of the net cut to its first two stages, one bottleneck
+   each, loaded with the flag unset,
+   equal to the eager int8 forward; the int8 route at each quantized 1x1
+   (quantize, torch._int_mm, dequantize) beside torch._int_mm alone, its
+   bound at 1979 TOP/s and the bf16 K1 or K3 it replaces; K1 timed at
+   layer1's shapes.
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
@@ -364,10 +396,10 @@ the host's launch of one call overlaps the card's work on the one before:
 a kernel's time is the median of 10 runs of 10 launches, a whole-model rate
 is the images of one window of about 1.7 s over its time. No operand of a
 ResNet-50, DenseNet-121, CLIP-RN50, ViT-B/16, ViT-C, analysis, harness,
-zoo, VGG, ConvNeXt or CLIP ViT path, bf16 or fp32, needs the TMA padding
-(``tma_operands.padded`` stays 0 after phase 3: the CLIP ViT's M = 197 B
-is no multiple of 128, but only K, the rows' length, must lie on the
-grid).
+zoo, VGG, ConvNeXt, CLIP ViT, MoE ViT or int8 path, bf16 or fp32, needs
+the TMA padding (``tma_operands.padded`` stays 0 after phase 3: the CLIP
+ViT's M = 197 B and an expert's slots are no multiple of 128, but only K,
+the rows' length, must lie on the grid).
 The last three lines are the card, one JSON object with the kernels'
 numbers, and {"ok": true, "device": {...}}.
 Without a GPU, or without the repository next to it, the script exits
@@ -432,6 +464,7 @@ from bcosification_tpu_torch.models import convnext, pretrained, resnet
 from bcosification_tpu_torch.models.bcosify_net import BcosifyNetwork
 from bcosification_tpu_torch.models.densenet import DENSENET_CONFIGS, BcosDenseNet
 from bcosification_tpu_torch.models.resnet import Bottleneck
+from bcosification_tpu_torch.models import vit as vit_models
 from bcosification_tpu_torch.models.vit import VIT_CONFIGS
 from bcosification_tpu_torch.modules import (
     BatchNormUncentered2d,
@@ -440,6 +473,9 @@ from bcosification_tpu_torch.modules import (
     NoBias,
     ReLU,
 )
+from bcosification_tpu_torch.modules.moe import BcosMoE, record_intermediates
+from bcosification_tpu_torch.ops import bcos as bcos_ops
+from bcosification_tpu_torch.ops import int8 as int8_ops
 from bcosification_tpu_torch.ops.bcos import LINEAR_NORM_EPS
 from bcosification_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
 from bcosification_tpu_torch.ops.cuda import bcos_conv1x1 as k12
@@ -1921,10 +1957,11 @@ def densenet_throughput(net, x2):
     return out
 
 
-# the exported DenseNet-121's dense layers per block: the shallowest that
-# keeps every 1x1's input channels a multiple of 8 (bf16 TMA rows; with one
-# layer per block a transition's 36 channels would be padded)
-SERVE_DENSENET_BLOCKS = (2, 2, 2, 1)
+# the exported DenseNet-121's dense layers per block: the fewest that keep
+# every 1x1's input channels a multiple of 8 (bf16 TMA rows: 64, 96, 128,
+# 64, 96, 48, 80, 40, 72; with one layer per block a transition's 36
+# channels would be padded)
+SERVE_DENSENET_BLOCKS = (2, 1, 1, 1)
 
 
 def densenet_serving(x2):
@@ -2822,28 +2859,37 @@ def vit_backbone(net):
 
 
 def vit_logit_bias(net):
-    """The bias of the logit layer (the wrapper's or the SimpleViT's)."""
-    return net.logit_bias if isinstance(net, BcosifyNetwork) else net.logit_layer.logit_bias
+    """The bias of the logit layer (the wrapper's or the SimpleViT's; 0
+    without one)."""
+    if isinstance(net, BcosifyNetwork):
+        return net.logit_bias
+    return net.logit_layer.logit_bias if net.with_logit_layer else 0.0
 
 
 def vit_launches(net, batch, size, explain):
     """[(kernel, M, K, N, relu, eps_outside)] of every launch of one forward
     (also one train step) or one fwd+explain of a B-cos SimpleViT: K3 (and
     K2) with the linear norm at each bias-free B-cos linear, in forward
-    order (a standard ViT's plain linears launch none); the tokens after the
-    conv stem (3x3, padding 1) of a ViT-C."""
+    order (a standard ViT's plain linears launch none), and at each expert
+    of a switch MoE (its slots: the capacity at these tokens); the tokens
+    after the conv stem (3x3, padding 1) of a ViT-C."""
     m = vit_backbone(net)
     for conv in m.stem()[::3]:
         size = (size + 2 * conv.padding[0] - 3) // conv.stride[0] + 1
     rows = batch * (size // m.patch_size[0]) * (size // m.patch_size[1])
-    linears = [(m.to_patch_embedding_linear, rows)]
+    shapes = [(m.to_patch_embedding_linear, rows)]
     for enc in m.encoders():
-        linears += [(enc.attn.to_out, rows), (enc.ff.linear1, rows), (enc.ff.linear2, rows)]
-    linears.append((m.linear_head_linear, rows if m.gap_reorder else batch))
+        shapes += [(enc.attn.to_out, rows), (enc.ff.linear1, rows)]
+        moe = getattr(enc.ff, "moe2", None)
+        if moe is None:
+            shapes.append((enc.ff.linear2, rows))
+        elif moe.b == 2:
+            shapes += [((moe.in_features, moe.features), moe.capacity(rows))] * moe.num_experts
+    shapes.append((m.linear_head_linear, rows if m.gap_reorder else batch))
     out = []
-    for lin, r in linears:
-        if isinstance(lin, BcosLinear) and lin.bias is None:
-            k, n = lin.weight.shape
+    for lin, r in shapes:
+        if isinstance(lin, tuple) or (isinstance(lin, BcosLinear) and lin.bias is None):
+            k, n = lin if isinstance(lin, tuple) else lin.weight.shape
             out.append(("bcos_matmul_fwd", r, k, n, False, True))
             if explain:
                 out.append(("bcos_conv1x1_bwd_explain", r, k, n, False, True))
@@ -2854,15 +2900,15 @@ def vit_counts(net, explain):
     return kernel_counts(vit_launches(net, 1, SIZE, explain))
 
 
-def check_vit_kernels(worst):
-    """K3 and K2 against their plain versions at VIT_CHECK_SHAPES, both
-    dtypes, phase 3's bounds, as the ViT calls them: the linear norm
+def check_vit_kernels(worst, shapes=VIT_CHECK_SHAPES):
+    """K3 and K2 against their plain versions at ``shapes`` (label, M, K, N),
+    both dtypes, phase 3's bounds, as the ViT calls them: the linear norm
     (eps_outside), K2 with the bare cotangent (no mult, no mask)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     kw = dict(eps=LINEAR_NORM_EPS, eps_outside=True)
     for dtype in (torch.float32, torch.bfloat16):
         ref = (lambda t: t.float()) if dtype == torch.bfloat16 else (lambda t: t)
-        for label, m, k, n in VIT_CHECK_SHAPES:
+        for label, m, k, n in shapes:
             x, wt, _, _, ct = operands(m, k, n, dtype, gen)
             results = [
                 ("bcos_matmul_fwd", " eps_outside", k3.bcos_matmul_fwd(x, wt, **kw),
@@ -2928,17 +2974,28 @@ def vit_throughput(net, x, tag="vit"):
     """Forward-only, fast-pass (where ``fast_vit`` supports the net) and
     module-path fwd+explain images/s at batch 128, bf16, each with its launch
     counts, host issue time, peak memory, card busy time and top kernels."""
-    def forward():
-        with torch.no_grad():
-            return net(x)
-
-    calls = [("forward-only", forward, False),
+    calls = [("forward-only", vit_forward(net, x), False),
              ("fwd+explain (fast pass)",
               lambda: fast_vit.fast_dynamic_linear_weights(net, x), True),
              ("fwd+explain (module path)",
               lambda: dynamic_linear_weights(lambda t: net(t, explain=True), x), True)]
     if not fast_vit.supports(net):
         del calls[1]
+    return vit_rates(net, calls, tag)
+
+
+def vit_forward(net, x):
+    def forward():
+        with torch.no_grad():
+            return net(x)
+    return forward
+
+
+def vit_rates(net, calls, tag):
+    """{what: rates} of each (what, call, explain) of ``calls`` on ``net``
+    at batch 128: its launch counts checked, its outputs finite, its
+    images/s over one window, host issue time, peak memory, card busy time
+    and top kernels."""
     out = {}
     for what, fn, explain_ in calls:
         fn()
@@ -3459,6 +3516,7 @@ LOC_EXPLAINERS = [  # (label, explainer, its options, launches per grid)
     ("LIME", "Lime", {}, scaled_counts(EVAL_BATCH_COUNTS, -(-200 // 64))),
 ]
 LOC_SCORE_BOUND = 1e-3  # the grid's scores, fp32 GPU against CPU
+LOC_PARITY_TARGETS = 1  # of the grid's 9: the fp32 CPU pass is ~5 s per target (C7)
 VIT_STRIDE_CONFIG, VIT_STRIDE_GRIDS = "50_3x3_noconfthresh-stride=112", 2
 
 
@@ -3639,14 +3697,16 @@ def loc_explainers(model, grid, tgts):
 
 
 def loc_parity(net, grid, tgts, analyser):
-    """fp32, one grid: Ours (K1/K2 on the GPU, the plain versions on the CPU)
-    and GB on the GPU against a CPU copy: W within phase 4's 1e-3 (rounding
-    noise alone moves ResNet-50's fp32 W by about 1e-4), the grid's
-    localisation scores within LOC_SCORE_BOUND."""
+    """fp32, one grid, its first LOC_PARITY_TARGETS targets: Ours (K1/K2 on
+    the GPU, the plain versions on the CPU) and GB on the GPU against a CPU
+    copy: W within phase 4's 1e-3 (rounding noise alone moves ResNet-50's
+    fp32 W by about 1e-4), those targets' localisation scores within
+    LOC_SCORE_BOUND."""
     from bcosification_tpu_torch.interpretability.explanation_methods import get_explainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tgts = tgts[:LOC_PARITY_TARGETS]
     cpu = copy.deepcopy(net).to("cpu")
     for name in ("Ours", "GB"):
         got = get_explainer(net, name).attribute_selection(grid, tgts)
@@ -4613,6 +4673,10 @@ ZOO_VGG_CONVNEXT_CHECK_SHAPES = [
     ("zoo vgg16 classifier_2", 6272, 4096, 1000, False),
 ]
 ZOO_EXPORT_BATCH = 8
+# the zoo nets' export round trips at a cut depth (C7: export time): the
+# ResNet-50 and the DenseNet-121 cut to their first two stages, at full width
+ZOO_EXPORT_RESNET_LAYERS = (1, 1)
+ZOO_EXPORT_DENSENET_BLOCKS = (2, 1)  # every 1x1's Cin a multiple of 8: 64, 96, 128, 64, 96
 
 
 def check_zoo_kernels(worst, shapes=ZOO_CHECK_SHAPES):
@@ -4771,8 +4835,9 @@ def zoo_throughput(name, net, x):
 
 
 def zoo_export(name, x2):
-    """export_explain of the entry's net at a cut depth (ResNet-50 one block
-    per stage, DenseNet-121 SERVE_DENSENET_BLOCKS, a ConvNeXt its first two
+    """export_explain of the entry's net at a cut depth (ResNet-50 and
+    DenseNet-121 their first two stages, ZOO_EXPORT_RESNET_LAYERS and
+    ZOO_EXPORT_DENSENET_BLOCKS, a ConvNeXt its first two
     stages of one block each: the stem, a block, the
     downsampling, a block, the head, prepared as phase 18's nets; random
     init from SEED) in bf16, loaded from bytes: at batch ZOO_EXPORT_BATCH its
@@ -4780,11 +4845,11 @@ def zoo_export(name, x2):
     the launches identical. Returns the export seconds."""
     fast = ZOO_PASSES[name]
     if name == "resnet50":
-        net = resnet.BcosResNet("bottleneck", (1, 1, 1, 1), device="cuda",
+        net = resnet.BcosResNet("bottleneck", ZOO_EXPORT_RESNET_LAYERS, device="cuda",
                                 generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
     elif name == "densenet121":
-        net = BcosDenseNet(block_config=SERVE_DENSENET_BLOCKS, with_logit_layer=True,
+        net = BcosDenseNet(block_config=ZOO_EXPORT_DENSENET_BLOCKS, with_logit_layer=True,
                            device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(SEED))
         net = net.eval().requires_grad_(False)
@@ -5723,6 +5788,403 @@ def phase_clip_vit(x2, stream_rate, worst):
     return keys
 
 
+# --------------------------------------------------------------------------
+# 21: the switch-MoE ViT (ROADMAP A7) and dynamic-int8 serving (A8)
+# --------------------------------------------------------------------------
+MOE_EXPERTS, MOE_CAPACITY, MOE_TOP_KS = 8, 1.25, (1, 2)
+MOE_EXPORT_DEPTH = 1  # the MoE ViT's export round trip at a cut depth (export time)
+# the int8 export round trip: ResNet-50 cut to its first two stages, one
+# bottleneck each (layer1 on K1, layer2 and the classifier quantized)
+INT8_EXPORT_LAYERS = ("bottleneck", (1, 1))
+# int8 against bf16 pre-logits (rel L2): the quantization's own error, not
+# parity; the JAX package measured ~7 % with every conv quantized
+INT8_PRELOGIT_BOUND = 0.25
+INT8_TOPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
+
+
+def moe_vit(depth=12):
+    """ViT-B/16 (BcosLinear, the default SimpleViT layers, 6 channels) with
+    MOE_EXPERTS experts in every feed-forward, on the card, random init from
+    SEED."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    return vit_models.simple_vit_b_patch16_224(
+        depth=depth, moe_experts=MOE_EXPERTS, moe_capacity_factor=MOE_CAPACITY, device="cuda",
+        generator=gen)
+
+
+def set_top_k(net, k):
+    """Route every BcosMoE of ``net`` to its top ``k`` (the same weights)."""
+    for mod in net.modules():
+        if isinstance(mod, BcosMoE):
+            mod.top_k = k
+
+
+@contextlib.contextmanager
+def imposed_routing(net, choices, stats):
+    """Every BcosMoE of ``net`` takes the experts ``choices`` {module name:
+    top_idx [N, k]} gives it (its gates from its own probabilities at those
+    experts), as ``shared_gates`` imposes one device's ReLU gates on the
+    other. Per call, ``stats`` gets (the decisions that differ from its own,
+    the largest probability by which an imposed choice trails its own)."""
+    moes = [(name, mod) for name, mod in net.named_modules() if isinstance(mod, BcosMoE)]
+
+    def impose(name, mod):
+        def choose(probs):
+            _, own = BcosMoE.choose(mod, probs)
+            idx = choices[name].to(probs.device)
+            gates = probs.gather(1, idx)
+            if mod.top_k > 1 and mod.renormalize_gates:
+                gates = gates / gates.sum(-1, keepdim=True)
+            margin = (probs.gather(1, own) - probs.gather(1, idx)).max()
+            stats.append((int((own != idx).sum()), float(margin.detach())))
+            return gates, idx
+        return choose
+
+    for name, mod in moes:
+        mod.choose = impose(name, mod)
+    try:
+        yield
+    finally:
+        for _, mod in moes:
+            del mod.choose
+
+
+def moe_parity(net, x2, k):
+    """fp32, 2 images, top-k routing: the fast pass on the CPU records its
+    choices; the fast pass and the module path on the GPU, and the CPU under
+    1e-7 relative input noise, run under them. W within ten times the CPU's
+    spread under that noise, the pre-logits within 1e-4, the argmax
+    identical; the decisions the GPU would have made otherwise, and their
+    largest probability margin, within ten times the CPU's spread of the
+    router's probabilities under the noise. Then x . W = the selected logit
+    without the positional embedding (every other constant, the
+    LayerNorms' biases, is 0 at init)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_top_k(net, k)
+    cpu = copy.deepcopy(net).to("cpu")
+    key = "top_idx" if k > 1 else "expert_idx"
+    t0 = time.perf_counter()
+    with record_intermediates(cpu) as rec:
+        lc, sc, wc = fast_vit.fast_dynamic_linear_weights(cpu, x2.cpu(), device="cpu")
+    choices = {name: r[key][0] if k > 1 else r[key][0][:, None] for name, r in rec.items()}
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 81))
+    cpu_stats = []
+    with record_intermediates(cpu) as rec_n, imposed_routing(cpu, choices, cpu_stats):
+        ln, _, wn = fast_vit.fast_dynamic_linear_weights(cpu, x2.cpu() * (1 + 1e-7 * noise),
+                                                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    p_spread = max(float((rec_n[name]["router_probs"][0] - r["router_probs"][0]).abs().max())
+                   for name, r in rec.items())
+    stats = []
+    with imposed_routing(net, choices, stats):
+        lg, sg, wg = fast_vit.fast_dynamic_linear_weights(net, x2)
+        lm, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), x2)
+    spread = rel(wn, wc)
+    flips = sum(n for n, _ in stats)
+    margin = max((m for n, m in stats if n), default=0.0)
+
+    def pre_rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    net.pos_embedding = False
+    try:
+        lp, sp, wp = fast_vit.fast_dynamic_linear_weights(net, x2)
+    finally:
+        net.pos_embedding = True
+    complete = float(((x2 * wp).sum((1, 2, 3)) - lp.gather(1, sp[:, None])[:, 0]).abs().max()
+                     / lp.abs().max())
+    checks = {
+        "W fast pass gpu vs cpu": (rel(wg, wc), 10 * spread),
+        "W module path gpu vs cpu": (rel(wm, wc), 10 * spread),
+        "W module path vs fast pass (gpu)": (rel(wm, wg), 10 * spread),
+        "pre-logit fast pass gpu vs cpu (max rel)": (pre_rel(lg, lc), 1e-4),
+        "pre-logit module path vs fast pass (gpu, max rel)": (pre_rel(lm, lg), 1e-4),
+        "routing margin of the differing decisions": (margin, 10 * p_spread),
+        "x . W - logit without the positional embedding (max rel)": (complete, 1e-4),
+    }
+    say(f"moe top-{k} parity: {flips} of {sum(c.numel() for c in choices.values())} top-{k} "
+        f"decisions on the GPU differ from the CPU's (imposed); the router's probabilities "
+        f"move {p_spread:.3e} on the cpu under 1e-7 relative input noise (decisions that "
+        f"differ there: {sum(n for n, _ in cpu_stats)}); W on the cpu under that noise: "
+        f"{spread:.3e}; the two CPU passes took {cpu_s:.1f} s")
+    for name, (val, bound) in checks.items():
+        say(f"moe top-{k} parity {name}: {val:.3e} (bound {bound:.3e})")
+    same_sel = bool((sg.cpu() == sc).all() and (sm == sg).all())
+    if not same_sel or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError(f"MoE ViT top-{k} parity failed")
+    if not all(torch.isfinite(t).all() for t in (lg, wg)) or wg.shape != x2.shape:
+        raise AssertionError(f"MoE ViT top-{k} outputs are not finite or mis-shaped")
+
+
+def phase_moe(x2, stream_rate, worst):
+    """Phase 21 (a): the switch-MoE ViT-B/16 (MOE_EXPERTS experts per
+    feed-forward, capacity factor MOE_CAPACITY) at top-1 and top-2. Returns
+    the MoE keys of K2's and K3's rows of the kernels line."""
+    net = moe_vit()
+    capacities = {}
+    for k in MOE_TOP_KS:
+        set_top_k(net, k)
+        capacities[k] = net.encoder_0.ff.moe2.capacity(VIT_ROWS)
+    moe = net.encoder_0.ff.moe2
+    check_vit_kernels(worst, [(f"moe expert top-{k}", c, moe.in_features, moe.features)
+                              for k, c in capacities.items()])
+    x = _batch128(x2, SEED + 83)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 84)
+    keys, rates = {}, {}
+    for k in MOE_TOP_KS:
+        moe_parity(net, x2, k)
+        rates[k] = vit_rates(net, [
+            ("forward-only", vit_forward(net, x), False),
+            ("fwd+explain (fast pass)", lambda: fast_vit.fast_dynamic_linear_weights(net, x),
+             True)], f"moe top-{k}")
+        counts = vit_counts(net, True)
+        rows = time_shapes(collections.Counter(vit_launches(net, BATCH, SIZE, True)),
+                           stream_rate, gen, tag=f"moe top-{k} ")
+        for name, r in rows.items():
+            what = "explanation" if name == "bcos_conv1x1_bwd_explain" else "forward"
+            say(f"moe {name} per MoE ViT-B/16 top-{k} {what} ({counts[name]} launches, "
+                f"{MOE_EXPERTS} per MoE of {capacities[k]} slots): {r['ms']:.4f} ms; bound "
+                f"{1e3 * r['bound_s']:.4f} ms at the data-sheet rate "
+                f"({'FLOPs' if r['flop_s'] >= r['byte_s'] else 'bytes'}), "
+                f"{1e3 * r['measured_bound_s']:.4f} ms at the measured "
+                f"{stream_rate / 1e9:.1f} GB/s; plain {r['plain_ms']:.4f} ms, torch.matmul "
+                f"{r['library_ms']:.4f} ms [{CARD}]")
+            keys.setdefault(name, {}).update({
+                f"moe_top{k}_launches": counts[name], f"moe_top{k}_ms": r["ms"],
+                f"moe_top{k}_bound_ms": 1e3 * r["bound_s"],
+                f"moe_top{k}_plain_ms": r["plain_ms"], f"moe_top{k}_library_ms": r["library_ms"]})
+    del x
+    shallow = moe_vit(MOE_EXPORT_DEPTH)
+    set_top_k(shallow, 2)
+    served = vit_serving(shallow, _batch128(x2, SEED + 85),
+                         tag=f"moe top-2 depth {MOE_EXPORT_DEPTH}")
+    del shallow
+    batch = _images(VIT_TRAIN_BATCH, SEED + 86)
+    train = vit_train_window("moe top-2 vit-b/16", net, Experiment(
+        *VIT_EXPERIMENTS["default"]).config, batch, len(vit_launches(net, 1, SIZE, False)))
+    del batch, net
+    say(f"moe summary: " + "; ".join(
+        f"top-{k} forward-only {r['forward-only']['img_s']:.1f} img/s, fwd+explain (fast pass) "
+        f"{r['fwd+explain (fast pass)']['img_s']:.1f}" for k, r in rates.items())
+        + f"; top-2 train step {train['img_s']:.1f} img/s (batch {VIT_TRAIN_BATCH}); export at "
+        f"depth {MOE_EXPORT_DEPTH}: export_forward "
+        f"{served['export_seconds']['export_forward']:.1f} s, export_explain "
+        f"{served['export_seconds']['export_explain']:.1f} s [{CARD}]")
+    return keys
+
+
+@contextlib.contextmanager
+def int8_serving():
+    """BCOS_INT8=1 at the default BCOS_INT8_MIN_CH for the block; the
+    environment as it was after it, so no later phase runs quantized."""
+    saved = {key: os.environ.get(key) for key in ("BCOS_INT8", "BCOS_INT8_MIN_CH")}
+    os.environ["BCOS_INT8"] = "1"
+    os.environ.pop("BCOS_INT8_MIN_CH", None)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def int8_convs(model):
+    """The convs of ``model`` that BCOS_INT8 quantizes at the default
+    BCOS_INT8_MIN_CH (128): both channel counts per group at least 128."""
+    return [mod for mod in model.modules() if isinstance(mod, BcosConv2d)
+            and min(mod.weight.shape[1], mod.weight.shape[0] // mod.groups) >= 128]
+
+
+def int8_route_times(model, stream_rate):
+    """At every quantized 1x1 of one ResNet-50 forward at batch 128: the int8
+    route (``conv_int8_dynamic``: quantize, ``torch._int_mm``, dequantize),
+    its ``_int_mm`` alone beside its bound at 1979 TOP/s int8, and the bf16
+    kernel it replaces (K1, K3 at the classifier). Returns the sums."""
+    convs, (m, k, n) = conv1x1_shapes(model, BATCH, SIZE)
+    shapes = collections.Counter((cm, ck, cn, relu, stride) for cm, ck, cn, relu, stride in convs
+                                 if min(ck, cn) >= 128)
+    shapes[(m, k, n, None, 1)] += 1  # the classifier, on K3 in bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 87)
+    tot = dict(int8=0.0, int_mm=0.0, int_mm_bound=0.0, replaced=0.0)
+    for (cm, ck, cn, relu, stride), count in sorted(shapes.items()):
+        side = int(round(math.sqrt(cm / BATCH)))
+        x4 = torch.randn(BATCH, side * stride, side * stride, ck, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+        w = torch.randn(cn, ck, 1, 1, device="cuda", generator=gen) / math.sqrt(ck)
+        x2d = x4[:, ::stride, ::stride].reshape(cm, ck).contiguous()
+        wt = w.view(cn, ck).to(torch.bfloat16)
+        mult, add = torch.rand(cn, device="cuda") + 0.5, torch.randn(cn, device="cuda")
+        xq = torch.randint(-127, 128, (cm, ck), device="cuda", generator=gen, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (ck, cn), device="cuda", generator=gen, dtype=torch.int8)
+        t_int8 = stream_bandwidth.event_ms(lambda: bcos_ops.conv_int8_dynamic(x4, w, stride), 5)
+        t_mm = stream_bandwidth.event_ms(lambda: int8_ops.int_mm(xq, wq), 5)
+        replaced = (lambda: k3.bcos_matmul_fwd(x2d, wt, eps=1e-6, eps_outside=False)) \
+            if relu is None else (lambda: k12.conv1x1_fwd(x2d, wt, mult, add, relu=relu))
+        t_rep = stream_bandwidth.event_ms(replaced, 5)
+        bound = max(2 * cm * ck * cn / INT8_TOPS, (cm * ck + ck * cn + 4 * cm * cn) / PEAK_BYTES)
+        say(f"int8 route M={cm:6d} K={ck:4d} N={cn:4d} stride {stride} x{count:2d}: "
+            f"conv_int8_dynamic {t_int8:.4f} ms, _int_mm alone {t_mm:.4f} ms (bound "
+            f"{1e3 * bound:.4f} ms), the bf16 {'K3' if relu is None else 'K1'} it replaces "
+            f"{t_rep:.4f} ms [{CARD}]")
+        tot["int8"] += count * t_int8
+        tot["int_mm"] += count * t_mm
+        tot["int_mm_bound"] += count * 1e3 * bound
+        tot["replaced"] += count * t_rep
+        del x4, w, x2d, wt, xq, wq
+    say(f"int8 route per ResNet-50 forward ({sum(shapes.values())} quantized 1x1s): "
+        f"{tot['int8']:.4f} ms, of it _int_mm {tot['int_mm']:.4f} ms (bound "
+        f"{tot['int_mm_bound']:.4f} ms at 1979 TOP/s); the bf16 K1 and K3 launches it replaces "
+        f"{tot['replaced']:.4f} ms [{CARD}]")
+    return tot
+
+
+def phase_int8(net, x2, stream_rate):
+    """Phase 21 (b): BCOS_INT8=1 serving on phase 4's calibrated ResNet-50
+    at full depth, bf16, batch 128. Returns the int8 keys of K1's row of
+    the kernels line."""
+    x = _batch128(x2, SEED + 88)
+    quantized = int8_convs(net.model)
+    layer1 = [mod for name, mod in net.model.named_modules()
+              if name.startswith("layer1_") and isinstance(mod, BcosConv2d)
+              and mod.kernel_size == (1, 1)]
+
+    def forward():
+        with torch.no_grad():
+            return net(x)
+
+    records, product = [], int8_ops.int8_product
+
+    def recording(xq, wq, *args):
+        y = product(xq, wq, *args)
+        records.append((xq, wq, args, y))
+        return y
+
+    with int8_serving():
+        forward()
+        int8_ops.int8_product = recording
+        try:
+            _, counts = counted(forward)
+        finally:
+            int8_ops.int8_product = product
+    products = len(records)
+    records.clear()
+    say(f"int8 forward launches {counts}; {products} int8 products (torch._int_mm), "
+        f"{len(quantized)} convs with at least 128 channels per group on both sides; "
+        f"layer1's {len(layer1)} 1x1s stay on K1")
+    fc_k3 = int(not any(mod is net.model.fc for mod in quantized))  # 0: the int8 route takes it
+    check_counts("int8 forward", counts, {**dict.fromkeys(MODEL_KERNELS, 0),
+                                          "bcos_conv1x1_fwd": len(layer1),
+                                          "bcos_matmul_fwd": fc_k3, "stream_add": 0})
+    if products != len(quantized):
+        raise AssertionError(f"int8 forward: {products} products, {len(quantized)} convs")
+    rates = {"bf16": [], "int8": []}
+    for mode in ("bf16", "int8"):
+        with int8_serving() if mode == "int8" else contextlib.nullcontext():
+            ms, calls, host, peak_gb = windowed(forward)
+            busy, top = device_profile(forward, 3)
+        rates[mode].append(BATCH / ms * 1e3)
+        say(f"int8 serving {mode} forward-only: {BATCH / ms * 1e3:.1f} img/s ({ms:.2f} ms per "
+            f"batch of {BATCH}, one window of {calls} calls; host {host:.2f} ms; peak memory "
+            f"{peak_gb:.2f} GB; card busy {busy or 0:.2f} ms per call) [{CARD}]")
+        say(f"int8 serving {mode} top kernels: "
+            + "; ".join(f"{name[:60]} {t:.2f} ms" for name, t in top))
+    # the card's int32 products against the CPU's plain route, one image
+    int8_ops.int8_product = recording
+    try:
+        with int8_serving(), torch.no_grad():
+            net(x[:1])
+    finally:
+        int8_ops.int8_product = product
+    t0 = time.perf_counter()
+    equal = [torch.equal(int8_ops.int8_product_plain(xq.cpu(), wq.cpu(), *args), y.cpu())
+             for xq, wq, args, y in records]
+    shapes = {(tuple(xq.shape), tuple(wq.shape), args) for xq, wq, args, _ in records}
+    say(f"int8 products of one image on the card (torch._int_mm) against the CPU's plain "
+        f"float64 conv: {sum(equal)} of {len(records)} equal ({len(shapes)} distinct shapes; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if len(records) != len(quantized) or not all(equal):
+        raise AssertionError("the card's int8 products differ from the plain version")
+    del records
+    net.with_logit_layer = False
+    try:
+        pre_bf16 = forward().double()
+        with int8_serving():
+            pre_int8 = forward().double()
+    finally:
+        net.with_logit_layer = True
+    err = rel(pre_int8, pre_bf16)
+    agree = float((pre_int8.argmax(1) == pre_bf16.argmax(1)).double().mean())
+    say(f"int8 serving pre-logits against bf16: rel L2 {err:.4f} (bound "
+        f"{INT8_PRELOGIT_BOUND}); top-1 agreement {agree:.4f} over {BATCH} images")
+    if not err <= INT8_PRELOGIT_BOUND or not torch.isfinite(pre_int8).all():
+        raise AssertionError("int8 serving pre-logits are off")
+    xg = x[:1].clone().requires_grad_()
+    with int8_serving():
+        try:
+            net(xg).float().sum().backward()
+        except RuntimeError as err_:
+            if "BCOS_INT8" not in str(err_):
+                raise
+            say("int8 serving: a backward through a quantized conv raises, naming BCOS_INT8")
+        else:
+            raise AssertionError("a backward through a quantized conv did not raise")
+    # the export round trip, BCOS_INT8 baked in at trace time
+    shallow = build_bcosified_resnet(FLAGSHIP, seed=SEED, layers=INT8_EXPORT_LAYERS)
+    calibrate(shallow, x2[:1])
+    with int8_serving():
+        t0 = time.perf_counter()
+        program = serving.load_serialized(serving.export_forward(
+            shallow, input_size=SIZE, dtype=torch.bfloat16))
+        export_s = time.perf_counter() - t0
+        with torch.no_grad():
+            want = shallow(x)
+    got, counts_l = counted(lambda: program.call(x))
+    with torch.no_grad():
+        plain = shallow(x)
+    n_int_mm = program.program.graph_module.code.count("aten._int_mm")
+    err_l = rel(got.double() - shallow.logit_bias, want.double() - shallow.logit_bias)
+    say(f"int8 export_forward at layers {INT8_EXPORT_LAYERS[1]}: export and load {export_s:.1f} "
+        f"s; {n_int_mm} _int_mm in the program; loaded (BCOS_INT8 unset) against the eager int8 "
+        f"forward {err_l:.3e} (bound 1e-6), against the eager bf16 one "
+        f"{rel(got.double(), plain.double()):.3e}; launches {counts_l}")
+    if (n_int_mm < len(int8_convs(shallow.model)) or not err_l <= 1e-6
+            or torch.equal(got, plain) or not torch.equal(got.argmax(1), want.argmax(1))):
+        raise AssertionError("the int8 export round trip failed")
+    del shallow, program
+    route = int8_route_times(net.model, stream_rate)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 89)
+    per = collections.Counter(("bcos_conv1x1_fwd", cm, ck, cn, relu)
+                              for cm, ck, cn, relu, _ in conv1x1_shapes(net.model, BATCH, SIZE)[0]
+                              if min(ck, cn) < 128)
+    r = time_shapes(per, stream_rate, gen, tag="int8 layer1 ")["bcos_conv1x1_fwd"]
+    say(f"bcos_conv1x1_fwd per int8 ResNet-50 forward ({len(layer1)} launches: layer1): "
+        f"{r['ms']:.4f} ms; bound {1e3 * r['bound_s']:.4f} ms at the data-sheet rate, "
+        f"{1e3 * r['measured_bound_s']:.4f} ms at the measured {stream_rate / 1e9:.1f} GB/s; "
+        f"plain {r['plain_ms']:.4f} ms, torch.matmul {r['library_ms']:.4f} ms [{CARD}]")
+    say(f"int8 summary: forward-only bf16 {', '.join(f'{v:.1f}' for v in rates['bf16'])} img/s, "
+        f"int8 {', '.join(f'{v:.1f}' for v in rates['int8'])}; pre-logits rel {err:.4f}, top-1 "
+        f"agreement {agree:.4f}; export {export_s:.1f} s [{CARD}]")
+    return {"bcos_conv1x1_fwd": {
+        "int8_fwd_launches": len(layer1), "int8_fwd_ms": r["ms"],
+        "int8_fwd_bound_ms": 1e3 * r["bound_s"], "int8_fwd_plain_ms": r["plain_ms"],
+        "int8_fwd_library_ms": r["library_ms"], "int8_route_ms": route["int8"],
+        "int8_int_mm_ms": route["int_mm"], "int8_int_mm_bound_ms": route["int_mm_bound"],
+        "int8_replaced_bf16_ms": route["replaced"]}}
+
+
+def phase_moe_int8(net, x2, stream_rate, worst):
+    """Phase 21: (a) the switch-MoE ViT-B/16, (b) dynamic-int8 serving of
+    the ResNet-50. Returns their keys of the kernels line."""
+    keys = phase_moe(x2, stream_rate, worst)
+    for name, row in phase_int8(net, x2, stream_rate).items():
+        keys.setdefault(name, {}).update(row)
+    return keys
+
+
 def text_localisation_call(student):
     """One fp32 text localisation (``compute_attributions`` of the
     attn-unpool ``student`` on one seeded 224^2 image and text direction,
@@ -5914,6 +6376,13 @@ def main() -> int:
     if k12.tma_operands.padded:
         raise AssertionError(f"{k12.tma_operands.padded} CLIP ViT calls padded their operands")
     say("TMA operand padding on the training options' and the CLIP ViT paths: 0 calls")
+    t0 = time.perf_counter()
+    moe_int8 = phase_moe_int8(net, x2, probe["k4_gbs"] * 1e9, worst)
+    seconds["21 moe and int8"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} MoE ViT and int8 calls padded their "
+                             "operands")
+    say("TMA operand padding on the MoE ViT and int8 serving paths: 0 calls")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -5931,6 +6400,7 @@ def main() -> int:
         row.update(zoo18.get(row["name"], {}))
         row.update(options.get(row["name"], {}))
         row.update(clip_vit.get(row["name"], {}))
+        row.update(moe_int8.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
     check_bounds(kernels)
 

@@ -1401,3 +1401,77 @@ def test_k1_gate_takes_a_per_channel_mult_only(gpu, norm):
     with torch.no_grad():
         want = cpu(x.cpu())
     assert _rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_slot_tables_and_experts_match_cpu(gpu, top_k):
+    """The switch MoE (modules/moe.py) on the card against the CPU, fp32,
+    300 tokens under capacity pressure: the same choices, slots and kept
+    assignments; the output and the input gradient of explain mode within
+    1e-5; K3 once per expert per forward; a fully dropped token's row
+    exactly zero."""
+    from bcosification_tpu_torch.modules.moe import BcosMoE
+
+    g = torch.Generator().manual_seed(top_k)
+    cpu = BcosMoE(4, 64, 32, top_k=top_k, capacity_factor=0.9, generator=g)
+    with torch.no_grad():
+        cpu.router.mul_(25.0)  # well separated choices
+    moe = copy.deepcopy(cpu).to(gpu)
+    x = torch.randn(3, 100, 64, generator=g)
+    r_cpu = cpu.route(x.reshape(-1, 64), explain=True)
+    reset_launch_counts()
+    r_gpu = moe.route(x.reshape(-1, 64).to(gpu), explain=True)
+    for name in ("top_idx", "pos_in_expert", "keep", "dest", "slot_assign"):
+        assert torch.equal(getattr(r_gpu, name).cpu(), getattr(r_cpu, name)), name
+    assert r_gpu.capacity == r_cpu.capacity
+    xg = x.to(gpu).requires_grad_()
+    xc = x.clone().requires_grad_()
+    reset_launch_counts()
+    yg = moe(xg, explain=True)
+    assert launch_counts()["bcos_matmul_fwd"] == 4
+    yc = cpu(xc, explain=True)
+    assert _rel(yg, yc) <= 1e-5
+    ct = torch.randn(yc.shape, generator=g)
+    (gg,) = torch.autograd.grad(yg, xg, ct.to(gpu))
+    (gc,) = torch.autograd.grad(yc, xc, ct)
+    assert _rel(gg, gc) <= 1e-5
+    dropped = ~r_cpu.keep.reshape(top_k, -1).any(0)
+    assert (~r_cpu.keep).any() and not yg.reshape(-1, 32)[dropped.to(gpu)].abs().sum()
+
+
+# (M, K, N) off torch._int_mm's CUDA rules (M > 16; K and N multiples of 8)
+INT_MM_SHAPES = [(5, 24, 16), (16, 64, 128), (40, 13, 16), (40, 24, 7), (1, 1, 1),
+                 (3136, 1152, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", INT_MM_SHAPES)
+def test_int_mm_route_pads_exactly_on_the_card(gpu, m, k, n):
+    """ops/int8.int_mm zero-pads what cuBLASLt's int8 GEMM refuses: the
+    int32 product equals the CPU's int64 one exactly; int8_product's conv
+    routes (1x1, strided, 3x3 grouped and dilated) equal the plain float64
+    conv, on the card."""
+    from bcosification_tpu_torch.ops import int8 as i8
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    assert torch.equal(i8.int_mm(a.to(gpu), b.to(gpu)).cpu(), (a.long() @ b.long()).int())
+    xq = torch.randint(-127, 128, (2, 9, 9, 16), generator=gen, dtype=torch.int8).to(gpu)
+    for wshape, args in (((24, 16, 1, 1), (2, 0, 1, 1)), ((32, 8, 3, 3), (1, 2, 2, 2)),
+                         ((16, 16, 3, 3), (2, 1, 1, 1))):
+        wq = torch.randint(-127, 128, wshape, generator=gen, dtype=torch.int8).to(gpu)
+        assert torch.equal(i8.int8_product(xq, wq, *args), i8.int8_product_plain(xq, wq, *args))
+
+
+def test_int8_conv_gpu_matches_cpu(gpu):
+    """conv_int8_dynamic on the card equals the CPU's bit for bit: the same
+    scales, rounded operands and int32 products, one cast."""
+    from bcosification_tpu_torch.ops import bcos as ops
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 14, 14, 128, generator=gen).to(torch.bfloat16)
+    w = torch.randn(256, 128, 3, 3, generator=gen) * 0.05
+    for args in ((1, 1, 1, 1), (2, 1, 1, 2)):
+        wa = w[:, :128 // args[3]]
+        got = ops.conv_int8_dynamic(x.to(gpu), wa.to(gpu), *args)
+        assert torch.equal(got.cpu(), ops.conv_int8_dynamic(x, wa, *args))

@@ -424,16 +424,19 @@ def test_amp_kd_loss_within_jax_amp_distance(towers):
 def test_agc_unit_axis_of_in_out_linears_matches_jax():
     """AGC on the port's (in, out) linears (the attention pool's q/k/v and
     the B-cos c_proj) clips each OUTPUT unit, the last axis, as the JAX
-    package does on its (in, out) leaves; a conv's OIHW weight keeps the
+    package does on its (in, out) leaves, and so does the plain attention
+    pool's [HW + 1, C] positional embedding; a conv's OIHW weight keeps the
     first axis."""
     from bcosification_tpu.training import agc as jagc
     from bcosification_tpu_torch.modules import BcosConv2d
+    from bcosification_tpu_torch.modules.bcosattnpool import AttentionPool2d
     from bcosification_tpu_torch.modules.bcos_layers import BcosifyLinear, PlainLinear
     from bcosification_tpu_torch.training import agc
 
     net = torch.nn.ModuleDict({"q": PlainLinear(16, 8, use_bias=True),
                                "c_proj": BcosifyLinear(16, 12, b=2.0, use_bias=False),
-                               "conv": BcosConv2d(6, 8, 3)})
+                               "conv": BcosConv2d(6, 8, 3),
+                               "pool": AttentionPool2d(16, 2, 8, spacial_dim=2)})
     rng = np.random.default_rng(3)
     params, grads = {}, {}
     for name, p in net.named_parameters():
@@ -450,7 +453,7 @@ def test_agc_unit_axis_of_in_out_linears_matches_jax():
         got = got.transpose(2, 3, 1, 0) if got.ndim == 4 else got
         np.testing.assert_allclose(got, np.asarray(want[name]), rtol=1e-6, atol=1e-9,
                                    err_msg=name)
-        if name.endswith("weight"):
+        if name.endswith(("weight", "positional_embedding")):
             assert not np.array_equal(got, grads[name]), name  # it clipped
 
 

@@ -23,8 +23,8 @@ bcosify/from_jax.py, JAX at the highest matmul precision.
   reference's key layout) through both imports, strict; the model factory
   reading it from $BCOS_HUB_PATH;
 - the grid equal to the JAX package's ``CONFIGS``; the ViT-C KeyError and
-  the MoE refusal, the ViT-C stem, the BcosLinear default and the Trainer
-  taking a ViT config; ``evaluate`` against JAX ``evaluate.evaluate``.
+  the MoE feed-forward that ``moe_experts`` builds, the ViT-C stem, the
+  BcosLinear default and the Trainer taking a ViT config; ``evaluate`` against JAX ``evaluate.evaluate``.
 """
 import contextlib
 import copy
@@ -538,10 +538,10 @@ def test_the_grid_equals_jax():
 
 def test_refusals_name_their_slices():
     """The ViT-C configs of vit_bcosification fail as in the JAX package (no
-    VIT_CONFIGS entry); the MoE names the slice that brings it. What the
-    vit_final slice brought no longer raises: the ViT-C entries build with
-    their stem, SimpleViT() defaults to BcosLinear, and the Trainer takes a
-    ViT config."""
+    VIT_CONFIGS entry). What later slices brought no longer raises: the
+    ViT-C entries build with their stem, ``moe_experts`` builds the switch
+    MoE's ``ff.moe2`` in every encoder, SimpleViT() defaults to BcosLinear,
+    and the Trainer takes a ViT config."""
     from bcosification_tpu_torch.experiments.utils.experiment_utils import Experiment
     from bcosification_tpu_torch.modules import (
         BcosConv2d,
@@ -561,8 +561,9 @@ def test_refusals_name_their_slices():
                                                                   "DetachableGroupNorm2d"]
     with torch.no_grad():
         assert vitc(torch.from_numpy(images(1, 13))).shape == (1, NUM_CLASSES)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tvit.SimpleViT(linear_layer=BcosifyLinear, moe_experts=2, **SMALL)
+    moe_vit = tvit.SimpleViT(linear_layer=BcosifyLinear, moe_experts=2, **SMALL)
+    assert all(type(enc.ff) is tvit.MoEFeedForward and enc.ff.moe2.num_experts == 2
+               and not hasattr(enc.ff, "linear2") for enc in moe_vit.encoders())
     assert type(tvit.SimpleViT(**SMALL).to_patch_embedding_linear) is BcosLinear
     exp = Experiment("ImageNet", "vit_bcosification", BASE)
     assert _check_ported(exp.config) is None
