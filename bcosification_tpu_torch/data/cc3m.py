@@ -10,8 +10,12 @@ applies the transform and yields batches (partial batches dropped).
 ``validation/{00000..00001}.tar``; every shard of a pattern must exist.
 
 Not ported yet: the C++ decode path (``native_decode=True`` raises; "auto"
-takes PIL, as the JAX package does when its library is not built) and the
-per-process split of the train shards (``split_shards_by_process`` raises).
+takes PIL, as the JAX package does when its library is not built).
+
+``split_shards_by_process`` (a process group, ``parallel/dp.py``): each rank
+streams the train shards ``[rank::world]`` (asserting that there are at
+least as many shards as ranks) as a repeating stream, whose epochs the
+trainer closes at one common step count; validation stays whole.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ import numpy as np
 from bcosification_tpu_torch import settings
 from bcosification_tpu_torch.data.datamodules import (
     NATIVE_LOADER_SLICE,
-    SPLIT_BY_PROCESS_SLICE,
     ClassificationDataModule,
 )
 
@@ -195,26 +198,34 @@ class CC3MDataModule(ClassificationDataModule):
     TRAIN_SHARDS = "training/{00000..00331}.tar"
     VAL_SHARDS = "validation/{00000..00001}.tar"
 
-    def __init__(self, config):
-        if config.get("split_shards_by_process", False):
-            raise NotImplementedError(
-                "data.split_shards_by_process is not ported yet; it comes in "
-                f"{SPLIT_BY_PROCESS_SLICE}")
-        super().__init__(config)
-
     def setup(self, stage: Optional[str] = None):
         root = self.config.get("data_root") or settings.CC3M_PATH
         assert root, "Set CC3M_PATH"
         from bcosification_tpu_torch.clip.tokenizer import tokenize
 
-        def shards(pattern):
-            return expand_shard_pattern(os.path.join(root, pattern))
+        split = bool(self.config.get("split_shards_by_process", False))
+
+        def shards(pattern, split=False):
+            out = expand_shard_pattern(os.path.join(root, pattern))
+            if split:
+                # each rank streams only its own train shards (wds
+                # split_by_worker); validation stays whole on every rank
+                from bcosification_tpu_torch.parallel import dp
+
+                rank, world = dp.rank(), dp.world_size()
+                assert len(out) >= world, f"{len(out)} shards cannot cover {world} processes"
+                out = out[rank::world]
+            return out
 
         if stage in (None, "fit", "train"):
             self.train_dataset = WdsPipeline(
-                shards(self.TRAIN_SHARDS), self.batch_size, mode="pair",
+                shards(self.TRAIN_SHARDS, split), self.batch_size, mode="pair",
                 transform=self.config["train_transform"], tokenizer=tokenize,
-                shuffle_buffer=self.config.get("shuffle_buffer", 1000))
+                shuffle_buffer=self.config.get("shuffle_buffer", 1000),
+                # the ranks' shards hold unequal sample counts: the stream
+                # repeats and the trainer closes every rank's epoch at one
+                # common step count
+                repeat=split)
         self.eval_dataset = WdsPipeline(
             shards(self.VAL_SHARDS), self.batch_size, mode="pair",
             transform=self.config["test_transform"], tokenizer=tokenize)

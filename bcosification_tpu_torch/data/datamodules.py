@@ -12,8 +12,14 @@ and "label"; the trainer moves them to the card.
 JPEGImages, Annotations): multilabel targets from the XML annotations and,
 with ``also_annotation``, the boxes rescaled to ``bbox_size``. CC3M's module
 is in ``data/cc3m.py``. Not ported yet: the C++ loader (``native_loader=True``
-raises: it needs libjpeg, which the H100 machine lacks) and the per-process
-split of a multi-process run (``split_by_process`` raises).
+raises: it needs libjpeg, which the H100 machine lacks).
+
+``split_by_process`` (a process group, ``parallel/dp.py``): each rank's
+train sampler draws only its 1/W of the train set, rank-strided (the
+repeated-augmentation sampler with ``repetitions=1``, every sample once per
+epoch, unless ``ra_repetitions`` is set), and the loader drops the last
+partial batch, so every rank runs the same number of steps of the same
+batch size; validation stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -48,7 +54,6 @@ __all__ = [
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".webp", ".jfif")
 NATIVE_LOADER_SLICE = ("port slice 6e (the native JPEG loader, ROADMAP A5), which waits: "
                        "the H100 machine has neither libjpeg's headers nor its library")
-SPLIT_BY_PROCESS_SLICE = "port slice 8 (distribution)"
 
 
 class ImageFolder:
@@ -113,9 +118,6 @@ class ClassificationDataModule:
             raise NotImplementedError(
                 f"data.native_loader: the C++ loader is not ported yet; it comes in "
                 f"{NATIVE_LOADER_SLICE}")
-        if config.get("split_by_process", False):
-            raise NotImplementedError(
-                f"data.split_by_process is not ported yet; it comes in {SPLIT_BY_PROCESS_SLICE}")
         self.config = config
         self.batch_size = config["batch_size"]
         self.num_workers = config.get("num_workers", 8)
@@ -194,12 +196,20 @@ class ClassificationDataModule:
 
     def get_train_sampler(self, seed: int = 0):
         """RASampler with the config's ``ra_repetitions``, else None (the
-        loader shuffles)."""
+        loader shuffles). ``split_by_process`` under a group of W ranks: the
+        sampler over W replicas at this rank, with ``repetitions=1`` and
+        every sample selected unless ``ra_repetitions`` is set (which keeps
+        the reference's truncation to a multiple of 256)."""
+        rank, world = 0, 1
+        if self.config.get("split_by_process", False):
+            from bcosification_tpu_torch.parallel import dp
+
+            rank, world = dp.rank(), dp.world_size()
         ra_reps = self.config.get("ra_repetitions", None)
-        if ra_reps is None:
+        if ra_reps is None and world == 1:
             return None
-        return RASampler(self.train_dataset, num_replicas=1, rank=0, shuffle=True, seed=seed,
-                         repetitions=ra_reps, select_all=False)
+        return RASampler(self.train_dataset, num_replicas=world, rank=rank, shuffle=True,
+                         seed=seed, repetitions=ra_reps or 1, select_all=ra_reps is None)
 
 
 class ImageNetDataModule(ClassificationDataModule):

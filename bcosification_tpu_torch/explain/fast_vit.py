@@ -49,7 +49,9 @@ GELU (or Identity), and a conv stem,
 if any, of bias-free b=2 B-cos 3x3 convs with the group norm: every config
 of ImageNet/vit_bcosification that builds and the ``bcos_*`` configs of
 ImageNet/vit_final. The standard baselines (plain linears, the plain
-LayerNorm and GELU) have no hand-written pass.
+LayerNorm and GELU: the ``standard_*`` zoo entries and the ``vitc_*`` and
+``simple_vit_*`` configs of ImageNet/vit_final) take their own pass,
+``explain/fast_vit_standard.py``.
 """
 from __future__ import annotations
 

@@ -7,14 +7,24 @@ Targets are class indices [N] or dense [N, C]; dense targets of another
 shape than the logits are one-hot encoded by the BCE losses. The softmax
 cross-entropy of the standard ViT baselines takes either: dense targets
 are class probabilities (mixup's). ``SigLipLoss`` is the CLIP
-recipe's sigmoid pairwise loss, in one process; its ring exchange across
-processes comes with port slice 8 (distribution).
+recipe's sigmoid pairwise loss.
 
-The reference's other contrastive losses, in their one-process forms:
-``info_nce`` / ``InfoNCELoss``, open_clip's ``ClipLoss``, ``CoCaLoss`` and
-``DistillClipLoss``. Their gathers across processes (``gather_features``,
-``neighbour_exchange``, ``neighbour_exchange_bidir``, a ``world_size`` > 1)
-raise: they come with ROADMAP A9.
+The reference's other contrastive losses: ``info_nce`` / ``InfoNCELoss``,
+open_clip's ``ClipLoss``, ``CoCaLoss`` and ``DistillClipLoss``.
+
+Across the ranks of a process group (``parallel/dp.py``; JAX's
+``axis_name``): ``gather_features`` gathers the features of every rank
+with their gradients (the backward is the reduce-scatter of JAX's
+``all_gather`` VJP), ``neighbour_exchange`` and ``neighbour_exchange_bidir``
+hop a tensor to a neighbour on the ring of ranks (the backward sends the
+gradient back, as JAX's ``ppermute`` transpose does). ``ClipLoss`` (and
+``CoCaLoss``, ``DistillClipLoss``) with ``world_size`` > 1 scores against
+the gathered features, with ``local_loss`` the local rows only, labelled
+from ``local_batch * rank``; ``SigLipLoss`` with ``world_size`` > 1 adds,
+to its local loss, the negatives of the texts that travel around the ring:
+world - 1 hops, both ways at once by default (``bidir``), ``cos_scaling``
+in every hop. Each rank's loss is its own; the mean over the ranks is the
+global one. ``world_size`` must be the group's size.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from bcosification_tpu_torch.parallel import dp
 
 __all__ = [
     "binary_cross_entropy_with_logits",
@@ -41,7 +53,14 @@ __all__ = [
     "DistillClipLoss",
 ]
 
-_SLICE_A9 = "ROADMAP A9 (port slice 8, distribution)"
+
+def _group_of(what: str, world_size: Optional[int] = None) -> None:
+    """Raise unless this process is in a process group (of ``world_size``
+    ranks, when given)."""
+    if not dp.is_initialized() or world_size not in (None, dp.world_size()):
+        size = "" if world_size is None else f" of {world_size} ranks"
+        raise RuntimeError(f"{what} needs a process group{size} "
+                           "(parallel.dp.init_process_group)")
 
 
 def _one_hot_if_needed(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -161,14 +180,17 @@ class UniformOffLabelsBCEWithLogitsLoss:
 @dataclasses.dataclass(frozen=True)
 class SigLipLoss:
     """Sigmoid pairwise CLIP loss (SigLIP, arXiv 2303.15343), the criterion of
-    the CLIP-KD recipe, in one process: -sum(log sigmoid(labels * logits)) /
-    batch with labels +1 on the diagonal and -1 elsewhere.
+    the CLIP-KD recipe: -sum(log sigmoid(labels * logits)) / batch with
+    labels +1 on the diagonal and -1 elsewhere.
 
     ``cos_scaling`` > 0 takes attn-unpool image features [HW, N, D]: the
     spatial logits are weighted by |logit|^(cos_scaling - 1) (detached in
-    explanation mode) and averaged over the locations. ``world_size`` > 1,
-    the ring exchange of the text features between processes, raises: it
-    comes with port slice 8 (distribution)."""
+    explanation mode) and averaged over the locations. ``world_size`` > 1:
+    the text features travel around the ring of the process group's ranks
+    (world - 1 hops, both ways at once when ``bidir``, the odd remainder
+    one way) and each hop adds the negatives of the local images against
+    the arrived texts, ``cos_scaling`` included (the JAX package's
+    documented deviation from the reference, whose hops drop it)."""
 
     bidir: bool = True
     world_size: int = 1
@@ -193,18 +215,40 @@ class SigLipLoss:
             logits = logits + logit_bias
         return logits
 
-    def __call__(self, image_features, text_features, logit_scale, logit_bias,
-                 cos_scaling: int = 0, explain: bool = False):
-        if self.world_size > 1:
-            raise NotImplementedError(
-                "SigLipLoss: the ring exchange across processes is not ported yet; it comes "
-                "in port slice 8 (distribution)")
+    def _loss(self, image_features, text_features, logit_scale, logit_bias,
+              negative_only: bool, cos_scaling: int, explain: bool):
         logits = self.get_logits(image_features, text_features, logit_scale, logit_bias,
                                  cos_scaling, explain)
         batch = image_features.shape[1] if cos_scaling > 0 else image_features.shape[0]
         labels = self.get_ground_truth(image_features.dtype, image_features.device, batch,
-                                       negative_only=False)
+                                       negative_only)
         return -F.logsigmoid(labels * logits).sum() / batch
+
+    def __call__(self, image_features, text_features, logit_scale, logit_bias,
+                 cos_scaling: int = 0, explain: bool = False):
+        def negatives(texts):
+            return self._loss(image_features, texts, logit_scale, logit_bias, True,
+                              cos_scaling, explain)
+
+        loss = self._loss(image_features, text_features, logit_scale, logit_bias, False,
+                          cos_scaling, explain)
+        if self.world_size > 1:
+            _group_of("SigLipLoss's ring", self.world_size)
+            if self.bidir:
+                to_right = to_left = text_features
+                num_bidir, remainder = divmod(self.world_size - 1, 2)
+                for _ in range(num_bidir):
+                    from_right, from_left = neighbour_exchange_bidir(to_left, to_right)
+                    loss = loss + negatives(from_right) + negatives(from_left)
+                    to_left, to_right = from_right, from_left
+                if remainder:
+                    loss = loss + negatives(neighbour_exchange(to_right, "right"))
+            else:
+                to_right = text_features
+                for _ in range(self.world_size - 1):
+                    to_right = neighbour_exchange(to_right, "right")
+                    loss = loss + negatives(to_right)
+        return loss
 
     def __to_config__(self):
         return {"name": type(self).__name__, "bidir": self.bidir}
@@ -249,45 +293,62 @@ class InfoNCELoss:
                         reduction=self.reduction, negative_mode=self.negative_mode)
 
 
-def gather_features(image_features, text_features, *args, **kwargs):
-    """The gather of contrastive features across processes: not ported."""
-    raise NotImplementedError(f"gather_features needs a process group; it comes in {_SLICE_A9}")
+def gather_features(image_features, text_features, dim: int = 0):
+    """The features of every rank of the process group, concatenated along
+    ``dim`` in rank order, with their gradients: the backward sums the ranks'
+    cotangents of each block onto its owner (JAX ``all_gather``'s VJP)."""
+    _group_of("gather_features")
+    return dp.all_gather(image_features, dim), dp.all_gather(text_features, dim)
 
 
-def neighbour_exchange(tensor, *args, **kwargs):
-    """One hop around the ring of processes: not ported."""
-    raise NotImplementedError(f"neighbour_exchange needs a process group; it comes in "
-                              f"{_SLICE_A9}")
+def neighbour_exchange(tensor, direction: str = "right"):
+    """One hop around the ring of ranks: "right" sends ``tensor`` to rank + 1,
+    so each rank receives its left neighbour's ("left": the other way).
+    Differentiable: the gradient goes back the opposite way."""
+    _group_of("neighbour_exchange")
+    return dp.ring_exchange(tensor, direction)
 
 
-def neighbour_exchange_bidir(tensor_to_left, tensor_to_right, *args, **kwargs):
-    """The bidirectional ring hop: not ported."""
-    raise NotImplementedError(f"neighbour_exchange_bidir needs a process group; it comes in "
-                              f"{_SLICE_A9}")
+def neighbour_exchange_bidir(tensor_to_left, tensor_to_right):
+    """Both hops at once: returns (tensor_from_right, tensor_from_left), the
+    neighbours' ``tensor_to_left`` and ``tensor_to_right``."""
+    _group_of("neighbour_exchange_bidir")
+    return dp.ring_exchange_bidir(tensor_to_left, tensor_to_right)
 
 
 @dataclasses.dataclass(frozen=True)
 class ClipLoss:
-    """open_clip's contrastive loss in one process: the mean of the image-
-    and text-side cross-entropies of ``logit_scale`` times the feature
-    products, the matching pairs on the diagonal. ``world_size`` > 1 (the
-    gathered features of every process) raises."""
+    """open_clip's contrastive loss: the mean of the image- and text-side
+    cross-entropies of ``logit_scale`` times the feature products, the
+    matching pairs on the diagonal. ``world_size`` > 1: against the features
+    gathered from every rank of the process group, all against all, or with
+    ``local_loss`` the local rows against all, labelled from
+    ``local_batch * rank``."""
 
     local_loss: bool = False
     world_size: int = 1
 
     def get_logits(self, image_features, text_features, logit_scale):
         if self.world_size > 1:
-            gather_features(image_features, text_features)
+            _group_of(f"{type(self).__name__}(world_size={self.world_size})", self.world_size)
+            all_image, all_text = gather_features(image_features, text_features)
+            if self.local_loss:
+                return (logit_scale * image_features @ all_text.t(),
+                        logit_scale * text_features @ all_image.t())
+            logits_per_image = logit_scale * all_image @ all_text.t()
+            return logits_per_image, logits_per_image.t()
         return (logit_scale * image_features @ text_features.t(),
                 logit_scale * text_features @ image_features.t())
 
-    def get_ground_truth(self, num_logits: int, device) -> torch.Tensor:
-        return torch.arange(num_logits, device=device)
+    def get_ground_truth(self, num_logits: int, device, local_batch: int = 0) -> torch.Tensor:
+        labels = torch.arange(num_logits, device=device)
+        if self.world_size > 1 and self.local_loss:
+            labels = labels + local_batch * dp.rank()
+        return labels
 
     def __call__(self, image_features, text_features, logit_scale):
         lpi, lpt = self.get_logits(image_features, text_features, logit_scale)
-        labels = self.get_ground_truth(lpi.shape[0], lpi.device)
+        labels = self.get_ground_truth(lpi.shape[0], lpi.device, image_features.shape[0])
         return (cross_entropy(lpi, labels) + cross_entropy(lpt, labels)) / 2
 
 
@@ -323,7 +384,7 @@ class DistillClipLoss(ClipLoss):
                  dist_text_features, dist_logit_scale):
         lpi, lpt = self.get_logits(image_features, text_features, logit_scale)
         dlpi, dlpt = self.get_logits(dist_image_features, dist_text_features, dist_logit_scale)
-        labels = self.get_ground_truth(lpi.shape[0], lpi.device)
+        labels = self.get_ground_truth(lpi.shape[0], lpi.device, image_features.shape[0])
         contrastive = (cross_entropy(lpi, labels) + cross_entropy(lpt, labels)) / 2
         distill = (self.dist_loss(dlpi, lpi) + self.dist_loss(dlpt, lpt)) / 2
         return contrastive, distill

@@ -13,6 +13,15 @@ with one variance over the whole tensor (running_var of shape (1,)).
   (``max(E[x^2] - E[x]^2, 0)``, not torch's unbiased estimate), and
   ``running_var = 0.9 running_var + 0.1 var`` with ``var`` detached, updated
   in place. With ``explain`` the std is detached as well.
+- Under a process group (``parallel/dp.py``) every
+  batch-statistics norm (these and the centered ``BatchNorm2d`` /
+  ``AllNorm2d``) takes the moments of the global batch, as the JAX data
+  mesh computes them: the f32 sums and sums of squares (the centered ones:
+  of the deviations from the global mean) are summed over the ranks by a
+  differentiable all-reduce and divided by W times the rank's count (every
+  rank holds as many rows), so the running statistics are the same on
+  every rank. LayerNorm and the group and position norms are per
+  sample and need none.
 
 ``DetachableLayerNorm`` normalises the last axis and detaches its variance
 under ``explain``; ``DetachablePositionNorm2d``, the from-scratch CNN zoo's
@@ -37,6 +46,8 @@ import functools
 
 import torch
 from torch import nn
+
+from bcosification_tpu_torch.parallel import dp
 
 __all__ = [
     "AllNorm2d",
@@ -87,6 +98,18 @@ class _AffineNorm(nn.Module):
                                  torch.zeros((), dtype=torch.int32, device=device))
 
 
+def _global_sums(s1: torch.Tensor, s2, n: int):
+    """(sum of s1, sum of s2 or None) over the ranks of the process group in
+    one differentiable all-reduce (``parallel/dp.py``), and the global count
+    n * W: every rank holds as many rows (the data paths see to it), and a
+    Python count keeps the division the one-process path's."""
+    parts = [s1.reshape(-1)] + ([] if s2 is None else [s2.reshape(-1)])
+    out = dp.all_reduce_sum(torch.cat(parts))
+    k = s1.numel()
+    t2 = None if s2 is None else out[k:].view_as(s2)
+    return out[:k].view_as(s1), t2, n * dp.world_size()
+
+
 class _RunningVarNorm(_AffineNorm):
     """Uncentered batch-statistics norm: divides by a std, never subtracts a
     mean. ``per_channel``: one variance per channel over (N, H, W)
@@ -105,8 +128,11 @@ class _RunningVarNorm(_AffineNorm):
         xs = x.float()
         dims = (0, 1, 2) if self.per_channel else (0, 1, 2, 3)
         n = x.numel() // (x.shape[-1] if self.per_channel else 1)
-        mean = xs.sum(dim=dims) / n
-        var = torch.clamp((xs * xs).sum(dim=dims) / n - mean * mean, min=0.0)
+        s1, s2 = xs.sum(dim=dims), (xs * xs).sum(dim=dims)
+        if dp.is_initialized():  # the global batch's moments: sums and count over the ranks
+            s1, s2, n = _global_sums(s1, s2, n)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
         var = var.reshape(self.running_var.shape)
         with torch.no_grad():
             self.running_var.copy_((1 - MOMENTUM) * self.running_var
@@ -173,9 +199,14 @@ class _RunningMeanVarNorm(_AffineNorm):
         if train:
             xf = x.float()
             dims = (0, 1, 2) if self.per_channel else (0, 1, 2, 3)
-            mean = xf.mean(dim=dims)
-            var = (xf - mean).square().mean(dim=dims)
             n = x.numel() // (x.shape[-1] if self.per_channel else 1)
+            if dp.is_initialized():  # the global batch's mean, then its variance
+                s1, _, n = _global_sums(xf.sum(dim=dims), None, n)
+                mean = s1 / n
+                var = dp.all_reduce_sum((xf - mean).square().sum(dim=dims)) / n
+            else:
+                mean = xf.mean(dim=dims)
+                var = (xf - mean).square().mean(dim=dims)
             with torch.no_grad():
                 shape = self.running_var.shape
                 self.running_mean.copy_((1 - MOMENTUM) * self.running_mean

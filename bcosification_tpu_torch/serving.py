@@ -30,13 +30,15 @@ from bcosification_tpu_torch.explain import (
     fast_resnet,
     fast_vgg,
     fast_vit,
+    fast_vit_standard,
 )
 
 __all__ = ["export_forward", "export_explain", "export_text_explain", "load_serialized"]
 
 # the hand-scheduled explanation passes, which torch.export traces (a
 # program cannot hold the generic pass's autograd.grad)
-_FAST_PASSES = (fast_resnet, fast_densenet, fast_vgg, fast_convnext, fast_vit)
+_FAST_PASSES = (fast_resnet, fast_densenet, fast_vgg, fast_convnext, fast_vit,
+                fast_vit_standard)
 
 
 class _Explain(nn.Module):
@@ -88,13 +90,16 @@ def export_explain(net, *, input_size: int = 224, channels: int = 6,
     predicted class, from the hand-scheduled pass of the model's family
     (``explain/fast_resnet.py``, ``explain/fast_densenet.py``,
     ``explain/fast_vgg.py``, ``explain/fast_convnext.py``,
-    ``explain/fast_vit.py``). Raises for a model that no pass supports."""
+    ``explain/fast_vit.py``; the standard ViT baselines, whose W is their
+    plain input gradient, ``explain/fast_vit_standard.py``). Raises for a
+    model that no pass supports."""
     for fast in _FAST_PASSES:
         if fast.supports(net):
             return _export(_Explain(net, fast), input_size, channels, dtype, device)
     raise ValueError("export_explain: the model is not supported by any hand-scheduled "
                      "explanation pass (see the supports() of explain.fast_resnet, "
-                     "fast_densenet, fast_vgg, fast_convnext and fast_vit)")
+                     "fast_densenet, fast_vgg, fast_convnext, fast_vit and "
+                     "fast_vit_standard)")
 
 
 def export_text_explain(net, *, embed_dim: int, input_size: int = 224, channels: int = 6,

@@ -7,9 +7,11 @@
         [--profile_dir P] [--debug]
 
 It runs on the GPU. ``--amp`` trains in bf16 (f32 parameters and optimizer
-state); ``--distributed`` and ``--jit`` are accepted and have no effect on
-one card. The flags of features that are not ported yet raise, naming the
-slice that brings them (``training/trainer.py::UNPORTED_FLAGS``).
+state); ``--distributed`` and ``--jit`` are accepted and have no effect: a
+data-parallel run starts its process group in ``run_distributed``
+(``torchrun --nproc_per_node=N -m bcosification_tpu_torch.run_distributed
+...``). The flags of features that are not ported yet raise, naming the
+item that brings them (``training/trainer.py::UNPORTED_FLAGS``).
 Checkpoints and metrics go to ``--base_directory`` or
 ``$BCOS_EXPERIMENT_ROOT`` (default ``./experiments``).
 """
@@ -30,7 +32,7 @@ def get_parser():
     parser.add_argument("--base_network", required=True, help="e.g. bcosification")
     parser.add_argument("--experiment_name", required=True, help="e.g. resnet_50")
     parser.add_argument("--distributed", action="store_true",
-                        help="accepted for CLI parity; one card needs no process group")
+                        help="accepted for CLI parity; run_distributed starts the group")
     parser.add_argument("--amp", action="store_true", help="bf16 mixed precision")
     parser.add_argument("--jit", action="store_true", help="accepted for CLI parity")
     parser.add_argument("--cache_dataset", choices=["onthefly", "shm", None], default=None)
@@ -52,11 +54,12 @@ def get_parser():
     parser.add_argument("--fast_dev_run", action="store_true")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--track_grad_norm", action="store_true")
-    parser.add_argument("--fsdp", action="store_true", help="not ported yet (slice 8)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="not ported yet (ROADMAP A9c)")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="tensor-parallel degree; not ported yet (slice 8)")
+                        help="tensor-parallel degree; not ported yet (ROADMAP A9c)")
     parser.add_argument("--pipeline_parallel", type=int, default=1,
-                        help="pipeline stages; not ported yet (slice 8)")
+                        help="pipeline stages; not ported yet (ROADMAP A9c)")
     parser.add_argument("--log_every_n_steps", type=int, default=50,
                         help="per-step logging cadence")
     parser.add_argument("--profile_dir", default=None,

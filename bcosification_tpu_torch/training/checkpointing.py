@@ -7,6 +7,12 @@ epoch's metrics. Pruning keeps the last checkpoint plus the top-k by the
 monitored metric and the top-k by its EMA twin. The index is written
 atomically, and pruned before any directory is removed: a crash between the
 two leaves a stray directory, never an index entry without its files.
+
+Under a process group (``parallel/dp.py``) only rank 0 creates the
+directory and saves; every rank restores from the shared ``save_dir``. The
+state dict is the unwrapped model's (the port averages gradients itself,
+no ``DistributedDataParallel`` wrapper adds a ``module.`` prefix), so a
+checkpoint written by W ranks loads in one process.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from bcosification_tpu_torch.parallel import dp
 
 __all__ = ["CheckpointManager", "is_clip_kd", "monitor_for"]
 
@@ -40,7 +48,8 @@ class CheckpointManager:
                  top_k: int = 3):
         self.save_dir = Path(save_dir)
         self.ckpt_dir = self.save_dir / "checkpoints"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        if dp.is_main_process():
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.monitor, self.mode, self.top_k = monitor, mode, top_k
         self._index_path = self.ckpt_dir / "index.json"
 
@@ -61,7 +70,9 @@ class CheckpointManager:
     def save(self, state: Dict[str, Any], epoch: int,
              metrics: Optional[Dict[str, float]] = None) -> None:
         """Write ``state`` (a state dict) as epoch ``epoch``, record its
-        metrics, and prune."""
+        metrics, and prune; on rank 0 only."""
+        if not dp.is_main_process():
+            return
         path = self.ckpt_dir / f"epoch_{epoch}"
         path.mkdir(exist_ok=True)
         tmp = path / f"{_FILE}.{os.getpid()}.tmp"

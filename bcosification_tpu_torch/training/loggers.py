@@ -14,6 +14,10 @@ The port's own copy of the record keeping of ``bcosification_tpu``'s
 - ``setup_loggers(args, save_dir)`` builds the ones the train command's
   flags ask for (``tensorboard_logger`` under ``<save_dir>/tb``,
   ``wandb_logger``).
+
+Under a process group (``parallel/dp.py``) only rank 0 writes: the
+``MetricsLogger`` of another rank keeps its history in memory and writes
+no file, and the Trainer builds no event logger there.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from bcosification_tpu_torch.parallel import dp
 
 __all__ = ["MetricsLogger", "TensorBoardLogger", "WandbLogger", "read_events",
            "setup_loggers"]
@@ -317,7 +323,9 @@ class MetricsLogger:
         self._adopted = False
 
     def log_hparams(self, config: Dict[str, Any]) -> None:
-        (self.save_dir / "hparams.json").write_text(json.dumps(config, default=repr, indent=1))
+        if dp.is_main_process():
+            (self.save_dir / "hparams.json").write_text(
+                json.dumps(config, default=repr, indent=1))
 
     def _adopt(self):
         self._adopted = True
@@ -336,13 +344,15 @@ class MetricsLogger:
         """Record ``metrics`` of ``epoch``; the event-stream loggers get
         every row at ``logger_step`` (default the epoch; clamped to 0), which
         must share the per-step events' step domain."""
-        if not self._adopted:
+        if not self._adopted and dp.is_main_process():
             self._adopt()
         for k, v in metrics.items():
             hist = self.history.setdefault(k, [])
             while hist and hist[-1][0] >= epoch:
                 hist.pop()
             hist.append((epoch, float(v)))
+        if not dp.is_main_process():
+            return
         mdir = self.save_dir / "metrics"
         mdir.mkdir(exist_ok=True)
         with gzip.open(mdir / "metrics.json.gz", "wt") as f:

@@ -25,6 +25,19 @@ closed form of the reference's forced-gradient hook, ``make_linear_b_schedule``)
 ``amp``: the input goes to bf16, so activations are bf16 and every op casts
 its weights to bf16; parameters, gradients and the optimizer state stay f32,
 and the logits go to f32 before the loss.
+
+Data parallelism (``parallel/dp.py``): under a process group of W ranks
+each rank steps on its own rows of the global batch (the same number
+on every rank), its norms take the global batch's moments, and the
+gradients are averaged over the ranks by an explicit all-reduce after the
+backward (one flat buffer per dtype), before the gradient norm, AGC or the
+clip, the b optimizer's raw gradients and the accumulation: so each
+micro-batch's gradient is the global batch's, as the JAX data mesh computes
+it. Under accumulation with no per-micro-batch clip (no AGC, no clip value)
+the micro-steps do not all-reduce: the accumulated mean is averaged once,
+at the micro-step that completes the update (the mean is linear), and
+``grad_norm`` is then the rank's own. The loss and accuracy the step
+returns are means over the ranks.
 """
 from __future__ import annotations
 
@@ -38,11 +51,13 @@ import torch
 from torch import nn
 
 from bcosification_tpu_torch.optim.optimizer_factory import is_b_param, set_lr
+from bcosification_tpu_torch.parallel import dp
 from bcosification_tpu_torch.training import agc as agc_lib
 from bcosification_tpu_torch.training import ema as ema_lib
 
 __all__ = ["TrainState", "create_train_state", "make_train_step", "make_eval_step",
-           "apply_update", "set_b_params", "make_linear_b_schedule"]
+           "apply_update", "set_b_params", "make_linear_b_schedule", "mean_over_ranks_",
+           "sync_each_micro_step"]
 
 AGC_CLIP_FACTOR = 0.01
 
@@ -138,14 +153,24 @@ def _named_grads(model: nn.Module, b: bool) -> Dict[str, torch.Tensor]:
             if p.grad is not None and is_b_param(n) == b}
 
 
+def sync_each_micro_step(accumulate: int, clipped: bool) -> bool:
+    """Whether a data-parallel step averages its gradients over the ranks
+    at every micro-step (always, unless it accumulates with no
+    per-micro-batch clip: then ``apply_update`` averages the mean once)."""
+    return accumulate == 1 or clipped
+
+
 def apply_update(state: TrainState, lr_schedule=None, accumulate: int = 1,
-                 b_grads: Optional[Dict[str, torch.Tensor]] = None) -> bool:
+                 b_grads: Optional[Dict[str, torch.Tensor]] = None,
+                 sync: bool = False) -> bool:
     """The optimizer side of a train step, after the backward pass and the
     clipping: the gradients in ``.grad`` go to the main optimizer and
     ``b_grads`` (the raw ones) to ``state.b_optimizer``, both through the
     running mean over ``accumulate`` micro-batches; the learning rate is
     ``lr_schedule(state.step)`` of the micro-step that completes the
-    update. Returns True when the optimizers stepped."""
+    update. ``sync``: average the gradients the optimizers step on over the
+    ranks first (the deferred all-reduce of an accumulated update). Returns
+    True when the optimizers stepped."""
     model = state.model
     grads = {("main", n): p.grad for n, p in model.named_parameters() if p.grad is not None}
     if b_grads is not None:
@@ -160,6 +185,8 @@ def apply_update(state: TrainState, lr_schedule=None, accumulate: int = 1,
             state.mini_step = n + 1
             return False
         grads, state.accumulated, state.mini_step = acc, {}, 0
+    if sync:
+        dp.average_gradients(grads.values())
     params = dict(model.named_parameters())
     for (group, name), g in grads.items():
         if group == "main":
@@ -206,6 +233,8 @@ def make_train_step(
         out = model(image, train=True).float()
         loss = criterion(out, batch["label"])
         loss.backward()
+        if sync_now:
+            dp.average_gradients(p.grad for p in model.parameters())
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         b_grads = None
@@ -217,7 +246,7 @@ def make_train_step(
             torch.nn.utils.clip_grads_with_norm_(
                 [p for p in model.parameters() if p.grad is not None], gradient_clip_val,
                 grad_norm)
-        apply_update(state, lr_schedule, accumulate, b_grads)
+        apply_update(state, lr_schedule, accumulate, b_grads, sync=not sync_now)
         state.step += 1
         if b_schedule is not None:
             set_b_params(model, b_schedule(state.step))
@@ -229,9 +258,22 @@ def make_train_step(
             "acc1": (out.detach().argmax(-1) == label).float().mean(),
             "grad_norm": grad_norm,
         }
+        mean_over_ranks_(metrics, "loss", "acc1")
         return state, metrics
 
+    sync_now = sync_each_micro_step(accumulate, use_agc or bool(gradient_clip_val))
     return train_step
+
+
+def mean_over_ranks_(metrics: Dict[str, torch.Tensor], *keys: str) -> None:
+    """Replace ``metrics[k]`` of each key by its mean over the ranks (one
+    all-reduce; nothing without a group)."""
+    if dp.is_initialized():
+        w = dp.world_size()
+        vals = [metrics[k].detach().clone() for k in keys]
+        dp.reduce_sum_(*vals)
+        for k, v in zip(keys, vals):
+            metrics[k] = v / w
 
 
 def make_eval_step(test_criterion: Optional[Callable] = None, use_ema: bool = False):

@@ -49,6 +49,24 @@ The options of the JAX trainer that no grid config sets:
   ``fit(explanation_logging=True)`` (the explanations of 8 validation
   images every ``explanation_logging_every_n_epochs`` epochs, an npz and a
   PNG grid under ``explanations/``).
+
+Data parallelism (``parallel/dp.py``; the JAX trainer's data mesh): under
+a process group of W ranks, one per card (``run_distributed``), every rank
+runs the same loop on its rows of each global batch: on the default path
+every rank draws the identical global batch and takes its block
+(``dp.shard_batch``); with ``data.split_by_process`` (``fit``) or
+``data.split_shards_by_process`` (``fit_kd``) the loader already yields the
+rank's own slice, the configured batch size is per rank, and the EMA decay
+and the linear-b schedule see W times the batch. Rank 0's weights are
+broadcast at the start; the steps average the gradients
+(``training/steps.py``); the b optimizer's lr is multiplied by W, as in
+JAX; validation counts the global batch; ``fit_kd`` takes its loss mode
+from ``siglip_loss_mode`` ("global" or "ring", ``training/kd.py``) and
+closes each epoch of a repeating split stream at ``steps_per_epoch``. Only
+rank 0 writes: checkpoints, metrics, hparams, event logs, profiler traces,
+explanation logs and the zero-shot evaluation; every rank resumes from the
+shared ``save_dir``. Model parallelism (``trainer.fsdp``,
+``model_parallel``, ``pipeline_parallel``) is ROADMAP A9c and raises.
 """
 from __future__ import annotations
 
@@ -61,6 +79,7 @@ import numpy as np
 import torch
 
 from bcosification_tpu_torch.device import resolve_device
+from bcosification_tpu_torch.parallel import dp
 from bcosification_tpu_torch.training import steps as steps_lib
 from bcosification_tpu_torch.training.checkpointing import CheckpointManager, monitor_for
 from bcosification_tpu_torch.training.ema import adjusted_ema_decay
@@ -68,45 +87,52 @@ from bcosification_tpu_torch.training.loggers import MetricsLogger, setup_logger
 
 __all__ = ["Trainer", "run_training"]
 
-_SLICE_8 = "port slice 8 (distribution)"
+_SLICE_A9C = "ROADMAP A9c (model parallelism)"
 # flags of the train command whose features are not ported: (flag, the
-# argparse dest, its value when off, the slice that brings it)
+# argparse dest, its value when off, the item that brings it)
 UNPORTED_FLAGS = (
-    ("--fsdp", "fsdp", False, _SLICE_8),
-    ("--model_parallel", "model_parallel", 1, _SLICE_8),
-    ("--pipeline_parallel", "pipeline_parallel", 1, _SLICE_8),
+    ("--fsdp", "fsdp", False, _SLICE_A9C),
+    ("--model_parallel", "model_parallel", 1, _SLICE_A9C),
+    ("--pipeline_parallel", "pipeline_parallel", 1, _SLICE_A9C),
 )
 
 
 def _check_ported(config: Dict[str, Any]) -> None:
-    """Raise NotImplementedError, naming the later slice, for the options of
-    the JAX trainer that the port does not have yet."""
+    """Raise NotImplementedError, naming ROADMAP A9c, for the model-parallel
+    options of the JAX trainer, which the port does not have yet; and
+    ValueError, as the JAX trainer does, for ``data.split_by_process`` with
+    ``data.p_gridified`` (SplitAndGrid's batches have a data-dependent
+    size, so the ranks' slices would not make one global batch)."""
     tcfg = config.get("trainer", {}) or {}
     data = config.get("data", {}) or {}
     unported = [
         (int(tcfg.get("pipeline_parallel", 1) or 1) > 1, "trainer.pipeline_parallel"),
         (int(tcfg.get("model_parallel", 1) or 1) > 1, "trainer.model_parallel"),
         (tcfg.get("fsdp", False), "trainer.fsdp"),
-        (data.get("split_by_process", False), "data.split_by_process"),
-        (data.get("split_shards_by_process", False), "data.split_shards_by_process"),
     ]
     for asked, what in unported:
         if asked:
             raise NotImplementedError(f"Trainer: {what} is not ported yet; it comes in "
-                                      f"{_SLICE_8}")
+                                      f"{_SLICE_A9C}")
+    if data.get("split_by_process", False) and data.get("p_gridified", 0.0):
+        raise ValueError(
+            "data.split_by_process is incompatible with data.p_gridified (SplitAndGrid "
+            "yields variable-size batches that cannot be stitched from per-process local "
+            "slices); unset one of them")
 
 
 def _accumulation(config: Dict[str, Any]) -> int:
     return int((config.get("trainer", {}) or {}).get("accumulate_grad_batches", 1) or 1)
 
 
-def _make_optimizers(config: Dict[str, Any], steps_per_epoch: int):
+def _make_optimizers(config: Dict[str, Any], steps_per_epoch: int, dp_world: int = 1):
     """(optimizer factory, b optimizer factory or None, schedule or
     constant lr indexed by micro-step) of the config (JAX
     ``trainer.py::_make_optimizers``). Under accumulation k the schedule is
     built over ``steps_per_epoch // k`` optimizer steps and read at
     ``step // k``. ``manual_optim``: the b optimizer, the config's
-    ``b_optimizer`` or the main one as SGD, over the b parameters only."""
+    ``b_optimizer`` or the main one as SGD, over the b parameters only, its
+    lr multiplied by the data-parallel world size ``dp_world``."""
     opt_factory, sched_factory = config["optimizer"], config.get("lr_scheduler")
     accum = _accumulation(config)
     schedule = (sched_factory.create(opt_factory.lr, max(steps_per_epoch // accum, 1))
@@ -116,6 +142,9 @@ def _make_optimizers(config: Dict[str, Any], steps_per_epoch: int):
     if bargs.get("manual_optim", False):
         b_factory = config.get("b_optimizer", opt_factory.with_name("sgd")).with_args(
             bcosify=True, b_opt=True)
+        if dp_world != 1:
+            args = {k: v for k, v in b_factory.args.items() if k != "lr"}
+            b_factory = type(b_factory)(b_factory.name, b_factory.lr * dp_world, **args)
     if accum > 1 and callable(schedule):
         def micro_schedule(step, _schedule=schedule):
             return _schedule(step // accum)
@@ -123,15 +152,17 @@ def _make_optimizers(config: Dict[str, Any], steps_per_epoch: int):
     return opt_factory, b_factory, schedule
 
 
-def _b_schedule(config: Dict[str, Any], batch_size: int, total_steps: int):
+def _b_schedule(config: Dict[str, Any], batch_size: int, total_steps: int,
+                world_size: int = 1):
     """The b schedule of bcosify_args (JAX ``Trainer.fit``): ``linear_b``
-    without ``b_loss`` is ``make_linear_b_schedule`` over the batch,
-    ``b_interpolation`` 1 + clip(step / total_steps, 0, 1) in f32."""
+    without ``b_loss`` is ``make_linear_b_schedule`` over the global batch
+    ``world_size * batch_size``, ``b_interpolation`` 1 + clip(step /
+    total_steps, 0, 1) in f32."""
     bargs = (config.get("model", {}) or {}).get("bcosify_args", {}) or {}
     if bargs.get("linear_b", False) and not bargs.get("b_loss", False):
         return steps_lib.make_linear_b_schedule(
             b_at_start=bargs.get("b_at_start", 1), b_at_end=bargs.get("b_at_end", 2),
-            b_lr=bargs.get("b_lr", 0.0001), world_size=1, batch_size=batch_size)
+            b_lr=bargs.get("b_lr", 0.0001), world_size=world_size, batch_size=batch_size)
     if bargs.get("b_interpolation", False):
         def b_schedule(step):
             frac = np.clip(np.float32(step) / np.float32(total_steps), np.float32(0.0),
@@ -200,10 +231,14 @@ class Trainer:
         self.args = args or {}
         self.device = resolve_device(device)
         self.save_dir = Path(experiment.save_dir)
-        self.save_dir.mkdir(parents=True, exist_ok=True)
+        # under a process group only rank 0 writes (checkpointing and
+        # loggers check it too); every rank reads the shared save_dir
+        self._io_process = dp.is_main_process()
+        if self._io_process:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         monitor, mode = monitor_for(self.config)
         self.ckpt = CheckpointManager(str(self.save_dir), monitor=monitor, mode=mode)
-        self.loggers = setup_loggers(self.args, self.save_dir)
+        self.loggers = setup_loggers(self.args, self.save_dir) if self._io_process else []
         for lg in self.loggers:
             lg.log_hparams(self.config)
         self.metrics = MetricsLogger(self.save_dir, self.loggers)
@@ -214,7 +249,9 @@ class Trainer:
 
     def _profile_window(self, window) -> Optional[_ProfileWindow]:
         profile_dir = self.args.get("profile_dir")
-        return _ProfileWindow(profile_dir, window, self.device) if profile_dir else None
+        if not (profile_dir and self._io_process):
+            return None
+        return _ProfileWindow(profile_dir, window, self.device)
 
     def _log_step(self, metrics: Dict[str, float], step: int) -> None:
         for lg in self.loggers:
@@ -223,6 +260,16 @@ class Trainer:
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
+
+    def _start(self, state: steps_lib.TrainState, resume: bool) -> int:
+        """Rank 0's weights on every rank, then (with ``resume``) the last
+        checkpoint, which every rank reads once rank 0 has reached this
+        point (its earlier writes done); the epoch to start at."""
+        dp.barrier()
+        dp.replicate(state.model)
+        if state.ema is not None:
+            dp.replicate(state.ema)
+        return self._resume(state) if resume else 0
 
     def _resume(self, state: steps_lib.TrainState) -> int:
         """Load the last checkpoint into ``state``; the epoch to start at."""
@@ -247,14 +294,20 @@ class Trainer:
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader(seed=config.get("seed", 0) or 0)
         steps_per_epoch = max(len(train_loader), 1)
+        # the split path: the loader's batch is this rank's slice, and the
+        # formulas below see the global batch of W of them
+        split_local = bool((config.get("data", {}) or {}).get("split_by_process", False))
+        put_train = dp.shard_batch_local if split_local else dp.shard_batch
+        batch_world = dp.world_size() if split_local else 1
 
         accum = _accumulation(config)
-        opt_factory, b_factory, schedule = _make_optimizers(config, steps_per_epoch)
+        opt_factory, b_factory, schedule = _make_optimizers(config, steps_per_epoch,
+                                                            dp_world=dp.world_size())
         ema_config = config.get("ema", None)
         ema_decay, ema_steps = None, 32
         if ema_config is not None:
             ema_steps = ema_config.get("steps", 32)
-            ema_decay = adjusted_ema_decay(ema_config["decay"], world_size=1,
+            ema_decay = adjusted_ema_decay(ema_config["decay"], world_size=batch_world,
                                            batch_size=datamodule.batch_size,
                                            max_epochs=max_epochs, ema_steps=ema_steps,
                                            accumulate_grad_batches=accum)
@@ -264,7 +317,7 @@ class Trainer:
             # the EMA follows optimizer steps: every ema_steps of them
             ema_steps=ema_steps * accum,
             b_schedule=_b_schedule(config, datamodule.batch_size,
-                                   max_epochs * steps_per_epoch),
+                                   max_epochs * steps_per_epoch, world_size=batch_world),
             accumulate=accum, amp=bool(self.args.get("amp", False)),
         )
         eval_step = steps_lib.make_eval_step(config.get("test_criterion"))
@@ -274,7 +327,7 @@ class Trainer:
             model, opt_factory.create, with_ema=ema_config is not None, device=self.device,
             make_b_optimizer=None if b_factory is None else b_factory.create)
 
-        start_epoch = self._resume(state) if resume else 0
+        start_epoch = self._start(state, resume)
         if start_epoch == 0 and not fast_dev_run:
             # the conversion-quality metric: the model as converted, before training
             init_metrics = self.validate(eval_step, state, datamodule)
@@ -293,7 +346,7 @@ class Trainer:
                 n_steps = len(losses)
                 if profile is not None:
                     profile.before(n_steps)
-                state, metrics = train_step(state, self._to_device(batch))
+                state, metrics = train_step(state, self._to_device(put_train(batch)))
                 if profile is not None:
                     profile.after(n_steps)
                 losses.append(metrics["loss"])
@@ -333,7 +386,8 @@ class Trainer:
                   f"({epoch_metrics['epoch_time_s']:.1f}s)")
             if self.args.get("debug"):
                 print(f"  params hash: {param_hash(state.model)}")
-            if explanation_logging and epoch % explanation_logging_every_n_epochs == 0:
+            if (explanation_logging and self._io_process
+                    and epoch % explanation_logging_every_n_epochs == 0):
                 self._log_explanations(state, datamodule, epoch)
             if fast_dev_run:
                 break
@@ -361,24 +415,36 @@ class Trainer:
             steps_per_epoch = max(len(train_loader), 1)
         except TypeError:  # a tar-shard stream has no length
             steps_per_epoch = config.get("steps_per_epoch", 5000)
+        split_local = bool((config.get("data", {}) or {}).get("split_shards_by_process", False))
+        put_train = dp.shard_batch_local if split_local else dp.shard_batch
+        # a repeating stream (the split shards) has no end: every rank closes
+        # the epoch at the same step count, as the collective steps need
+        step_cap = steps_per_epoch if getattr(train_loader, "repeat", False) else None
 
         clip_name = MODEL_CONFIG_CLIP_NAMES.get(mcfg.get("name", "resnet50clip"), "RN50")
         teacher, text_model, _, _ = clip_load(clip_name, device=self.device)
         kd_cos_power = int(mcfg.get("cos_power", 1)) if mcfg.get("attn_unpool") else 0
-        opt_factory, _, schedule = _make_optimizers(config, steps_per_epoch)
+        opt_factory, _, schedule = _make_optimizers(config, steps_per_epoch,
+                                                    dp_world=dp.world_size())
         train_step = kd_lib.make_kd_train_step(
             teacher, schedule,
             logit_scale=float(mcfg.get("logit_scale_value", 10)),
             logit_bias=float(mcfg.get("logit_bias_value", -10)), cos_power=kd_cos_power,
             use_agc=config.get("use_agc", True), accumulate=_accumulation(config),
-            amp=bool(self.args.get("amp", False)))
+            amp=bool(self.args.get("amp", False)),
+            loss_mode=config.get("siglip_loss_mode", "global"))
         state = steps_lib.create_train_state(model, opt_factory.create, device=self.device)
-        start_epoch = self._resume(state) if resume else 0
+        start_epoch = self._start(state, resume)
 
         @torch.no_grad()
         def val_loss(images):
-            t_feat, s_out = kd_lib.kd_forward_features(state.model, teacher, images)
-            return kd_lib.kd_loss(s_out, t_feat, 10.0, -10.0, kd_cos_power)
+            # the global batch's loss: this rank's rows gathered, or the
+            # whole batch on every rank when W does not divide it
+            rows = dp.rows(len(images))
+            local = images if rows is None else images[rows]
+            t_feat, s_out = kd_lib.kd_forward_features(state.model, teacher, local)
+            return kd_lib.kd_loss(s_out, t_feat, 10.0, -10.0, kd_cos_power,
+                                  "local" if rows is None else "global")
 
         max_val_batches = config.get("max_val_batches", 200)
         profile = self._profile_window((0, 0) if fast_dev_run else (3, 8))
@@ -391,7 +457,8 @@ class Trainer:
                 n_steps = len(losses)
                 if profile is not None:
                     profile.before(n_steps)
-                state, metrics = train_step(state, self._to_device({"image": batch["image"]}))
+                state, metrics = train_step(
+                    state, self._to_device(put_train({"image": batch["image"]})))
                 if profile is not None:
                     profile.after(n_steps)
                 losses.append(metrics["loss"])
@@ -400,7 +467,7 @@ class Trainer:
                         len(losses) % self._log_every_n_steps == 0):
                     self._log_step({"train_loss_step": float(metrics["loss"])},
                                    step=int(state.step))
-                if fast_dev_run:
+                if fast_dev_run or (step_cap is not None and len(losses) >= step_cap):
                     break
             if profile is not None:
                 profile.close()
@@ -416,7 +483,9 @@ class Trainer:
                 "val_loss": float(np.mean(val_losses)) if val_losses else nan,
                 "epoch_time_s": time.time() - t0,
             }
-            epoch_metrics.update(self._maybe_zeroshot(state.model, text_model, kd_cos_power))
+            if self._io_process:  # no collective inside: the other ranks go on
+                epoch_metrics.update(self._maybe_zeroshot(state.model, text_model,
+                                                          kd_cos_power))
             self.metrics.log(epoch, epoch_metrics, logger_step=int(state.step))
             self.ckpt.save(state.state_dict(), epoch, epoch_metrics)
             print(f"epoch {epoch}: kd loss {epoch_metrics['train_loss']:.4f} val "
@@ -480,11 +549,26 @@ class Trainer:
         return results
 
     def validate(self, eval_step, state, datamodule) -> Dict[str, float]:
-        totals: Dict[str, Any] = {}
+        """Top-1/5 accuracy (and the test loss) over the validation set. Under
+        a process group each rank evaluates its rows of every batch and the
+        sums are added over the ranks; a batch whose length W does not
+        divide runs whole on every rank and is counted once."""
+        split: Dict[str, Any] = {}
+        whole: Dict[str, Any] = {}
         for batch in datamodule.val_dataloader():
-            for k, v in eval_step(state, self._to_device(batch)).items():
+            rows = dp.rows(len(batch["label"]))
+            totals = whole if rows is None else split
+            local = batch if rows is None else {k: v[rows] for k, v in batch.items()}
+            for k, v in eval_step(state, self._to_device(local)).items():
                 totals[k] = totals.get(k, 0.0) + v
-        totals = {k: float(v) for k, v in totals.items()}
+        if split and dp.is_initialized():
+            keys = sorted(split)
+            sums = [torch.as_tensor(split[k], dtype=torch.float64, device=self.device)
+                    for k in keys]
+            dp.reduce_sum_(*sums)
+            split = dict(zip(keys, sums))
+        totals = {k: float(split.get(k, 0.0)) + float(whole.get(k, 0.0))
+                  for k in set(split) | set(whole)}
         count = max(totals.pop("count", 1.0), 1.0)
         out = {"val_acc1": totals.get("correct1", 0.0) / count,
                "val_acc5": totals.get("correct5", 0.0) / count}

@@ -234,15 +234,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``cli.main([...])``, batch 64, fp32 images, so every encode runs K3's
    fp32 route) on phase 12's KD-trained CLIP-RN50 experiments (pooled,
    attn-unpool and the CC3M one) over seeded wds trees of 256^2 JPEGs:
-   zero-shot classification (1024 images, the 1000 ImageNet classes x 80
-   templates; the classifier built once with --save_clf, its tokenizer and
+   zero-shot classification (512 images, the 1000 ImageNet classes x the
+   first 8 templates; the classifier built once with --save_clf, its tokenizer and
    text-tower seconds apart, and loaded with --load_clfs by the other runs)
    for bcos_clip pooled and attn-unpool, bcos_clip_cc3m and standard_clip
    RN50 (the vanilla tower, no K3); the linear probe
-   on a separable 10-class colour set (2048 train, --val_proportion 0.2 and
-   so the 7 + 4 x 3 weight-decay sweep, 1024 test; lp_acc1 >= 0.9), then
-   again with --skip_load from the cached features; retrieval (512 images, 5
-   captions each); caption selection (256 instances of 4 captions);
+   on a separable 10-class colour set (512 train, --val_proportion 0.2 and
+   so the 7 + 4 x 3 weight-decay sweep, 256 test; lp_acc1 >= 0.9), then
+   again with --skip_load from the cached features; retrieval (256 images, 5
+   captions each); caption selection (128 instances of 4 captions);
    captioning with bcos_captioner (a saved random head); text2concept_clip
    after fit_aligner and save_aligner; ``build`` over the ten JSONs. Per run:
    the JSON's keys (JAX's) and finite values, K3's launches per encode (36
@@ -272,9 +272,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    autograd), with their launch counts (K3 and K2 at every stride-1 1x1
    B-cos conv and bias-free B-cos linear, no K1); each kernel's time at
    every shape one fwd+explain gave it, beside its bound, plain version and
-   torch.matmul; the export_explain round trip at a cut depth (the first
-   two stages at full width: one bottleneck each, the DenseNet-121 two
-   dense layers and one; the ViT-L's fast_vit
+   torch.matmul; the export_explain round trip at a cut depth at full
+   width (the ResNet-50's first stage of one bottleneck, the
+   DenseNet-121's first two, of two dense layers and one; the ViT-L's fast_vit
    program is phase 14's) against the eager pass; then load_model of the
    ResNet-50 and the DenseNet-121 from npz
    files of the JAX export format written to a temporary BCOS_WEIGHTS_DIR,
@@ -384,6 +384,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (quantize, torch._int_mm, dequantize) beside torch._int_mm alone, its
    bound at 1979 TOP/s and the bf16 K1 or K3 it replaces; K1 timed at
    layer1's shapes.
+22. data parallelism (ROADMAP A9a, ``parallel/dp.py``) and the standard
+   ViT's explanation export (ROADMAP C6): (a) a one-rank NCCL group on
+   cuda:0, started as the launcher starts it
+   (``run_distributed.initialize_distributed`` with the env contract):
+   ``Trainer.fit`` of phase 8's resnet_50 recipe (bf16 amp, batch 64,
+   DP_STEPS steps, cuDNN deterministic) under the group against the same
+   fit without one (the parameters and the EMA within one f32 ulp, or ten
+   times the distance of two fits without a group where those differ: a
+   one-rank sum is the identity), the fit's launches (K3 34 per step, K1 36 and K3
+   1 per validation), the grouped and then the plain step's images/s,
+   and the card time of the step's all-reduces (torch.profiler); (b) the
+   SigLIP KD step of the attn-unpool CLIP-RN50 student in "ring" and
+   "global" mode under the group against the step without one (the
+   student's parameters after DP_KD_STEPS steps, the same rule; the losses
+   within 1e-6); (c) the
+   ``standard_simple_vit_b_patch16_224`` zoo entry at depth 1 (full width
+   768, random init from SEED), fp32 and bf16: ``serving.export_explain``
+   (``explain/fast_vit_standard.py``) loaded from bytes at batch 128, its W
+   against autograd's input gradient on the card (fp32 1e-5, bf16 1e-2
+   relative), the eager pass on the card against the CPU at 2 images fp32
+   within ten times the CPU's own spread under 1e-7 relative input noise,
+   no kernel launched (the net has no B-cos layer), and the loaded
+   fwd+explain's images/s.
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
@@ -457,6 +480,7 @@ from bcosification_tpu_torch.explain import (
     fast_resnet,
     fast_vgg,
     fast_vit,
+    fast_vit_standard,
 )
 from bcosification_tpu_torch.explain.core import dynamic_linear_weights, explain
 from bcosification_tpu_torch.explain.fast_resnet import fast_dynamic_linear_weights
@@ -4202,10 +4226,15 @@ def phase_analyses(net, students, stream_rate, worst, exp_root):
 # --------------------------------------------------------------------------
 BENCH_BATCH = 64  # the CLI's default --batch_size
 BENCH_JPEG = 256  # side of the synthetic JPEGs
-BENCH_CLS = 1024  # zero-shot test images over the 1000 ImageNet classes
-BENCH_LP_CLASSES, BENCH_LP_TRAIN, BENCH_LP_TEST, BENCH_LP_VAL = 10, 2048, 1024, 0.2
-BENCH_RET, BENCH_RET_CAPS = 512, 5  # retrieval images, captions per image
-BENCH_SEL, BENCH_SEL_CAPS = 256, 4  # caption-selection instances, captions per instance
+# the trees were cut to make room for phase 22 (C7): half the zero-shot
+# images, the first 8 of the 80 templates (phase 11 builds the full 80 000
+# prompt classifier), a quarter of the probe set, half the retrieval and
+# selection sets
+BENCH_CLS = 512  # zero-shot test images over the 1000 ImageNet classes
+BENCH_TEMPLATES = 8  # of imagenet_templates, in the cls tree's templates file
+BENCH_LP_CLASSES, BENCH_LP_TRAIN, BENCH_LP_TEST, BENCH_LP_VAL = 10, 512, 256, 0.2
+BENCH_RET, BENCH_RET_CAPS = 256, 5  # retrieval images, captions per image
+BENCH_SEL, BENCH_SEL_CAPS = 128, 4  # caption-selection instances, captions per instance
 BENCH_PARITY_IMAGES = 8
 BENCH_LP_WD = 1e-4  # the fixed weight decay of the probe head's GPU-vs-CPU parity
 BENCH_LP_MIN_ACC1 = 0.9
@@ -4260,7 +4289,7 @@ def write_bench_trees(root):
     """The four seeded clip-benchmark wds trees under ``root``
     (<name>/<split>/0.tar + classnames.txt + the templates): zero-shot
     classification (BENCH_CLS test JPEGs, the 1000 ImageNet classes and the
-    80 OpenAI templates), the separable linear-probe set (BENCH_LP_CLASSES
+    first BENCH_TEMPLATES OpenAI templates), the separable linear-probe set (BENCH_LP_CLASSES
     classes, each a distinct colour field plus noise), retrieval
     (BENCH_RET images, BENCH_RET_CAPS captions each) and caption selection
     (BENCH_SEL instances of one image and BENCH_SEL_CAPS captions, the
@@ -4292,7 +4321,7 @@ def write_bench_trees(root):
         (roots[key]).mkdir(parents=True, exist_ok=True)
         (roots[key] / "classnames.txt").write_text("\n".join(names) + "\n")
         (roots[key] / "zeroshot_classification_templates.txt").write_text(
-            "\n".join(imagenet_templates) + "\n")
+            "\n".join(imagenet_templates[:BENCH_TEMPLATES]) + "\n")
     labels = rng.integers(0, len(imagenet_classes), BENCH_CLS)
     _write_shard(roots["cls"] / "test" / "0.tar", [
         {"jpg": j, "cls": str(int(c)).encode()} for j, c in zip(jpegs["cls"], labels)])
@@ -4533,8 +4562,8 @@ def phase_bench(stream_rate, worst, exp_root):
             results[tag] = bench_run(record, tag, argv("cls", tag, *extra), k3_per)
         build = record.runs[0]
         say(f"bench zero-shot classifier: {len(imagenet_classes)} classes x "
-            f"{len(imagenet_templates)} templates = "
-            f"{len(imagenet_classes) * len(imagenet_templates)} prompts in "
+            f"{BENCH_TEMPLATES} templates = "
+            f"{len(imagenet_classes) * BENCH_TEMPLATES} prompts in "
             f"{build.classifier_s:.2f} s: tokenizer {build.tokenize_s:.2f} s (host), fp32 text "
             f"tower {build.text_s:.2f} s (synchronised) [{CARD}]")
         cls_set = build_dataset(BENCH_DATASETS["cls"], root=str(roots["cls"]),
@@ -4674,8 +4703,9 @@ ZOO_VGG_CONVNEXT_CHECK_SHAPES = [
 ]
 ZOO_EXPORT_BATCH = 8
 # the zoo nets' export round trips at a cut depth (C7: export time): the
-# ResNet-50 and the DenseNet-121 cut to their first two stages, at full width
-ZOO_EXPORT_RESNET_LAYERS = (1, 1)
+# ResNet-50 cut to its first stage, the DenseNet-121 to its first two, at
+# full width (the ResNet-50 lost its second stage when phase 22 came: C7)
+ZOO_EXPORT_RESNET_LAYERS = (1,)
 ZOO_EXPORT_DENSENET_BLOCKS = (2, 1)  # every 1x1's Cin a multiple of 8: 64, 96, 128, 64, 96
 
 
@@ -4835,8 +4865,8 @@ def zoo_throughput(name, net, x):
 
 
 def zoo_export(name, x2):
-    """export_explain of the entry's net at a cut depth (ResNet-50 and
-    DenseNet-121 their first two stages, ZOO_EXPORT_RESNET_LAYERS and
+    """export_explain of the entry's net at a cut depth (ResNet-50 its first
+    stage, ZOO_EXPORT_RESNET_LAYERS, DenseNet-121 its first two,
     ZOO_EXPORT_DENSENET_BLOCKS, a ConvNeXt its first two
     stages of one block each: the stem, a block, the
     downsampling, a block, the head, prepared as phase 18's nets; random
@@ -6185,6 +6215,242 @@ def phase_moe_int8(net, x2, stream_rate, worst):
     return keys
 
 
+# --------------------------------------------------------------------------
+# 22: data parallelism on one card, and the standard ViT's export (C6)
+# --------------------------------------------------------------------------
+DP_STEPS = 4  # train steps of each fit, with and without the group
+DP_KD_STEPS = 2  # KD steps of each loss mode, with and without the group
+DP_WINDOW = 6  # steps per timed window, grouped and plain in turns
+C6_ARCH = "standard_simple_vit_b_patch16_224"
+C6_BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # W, loaded against autograd
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-rank NCCL group on cuda:0, joined through the launcher's env
+    contract; left, and the env restored, on exit."""
+    import socket
+
+    from bcosification_tpu_torch.parallel import dp
+    from bcosification_tpu_torch.run_distributed import initialize_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "1",
+           "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize_distributed(argv=[])
+        if not (dp.is_initialized() and dp.world_size() == 1):
+            raise AssertionError("the one-rank group did not start")
+        yield dp
+    finally:
+        dp.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def state_distance(got, want):
+    """Max |got - want| over the floating tensors of two state dicts, over
+    the largest |want| there: 0 when bit for bit."""
+    diff = top = 0.0
+    for name, t in want.items():
+        if t.is_floating_point():
+            diff = max(diff, float((got[name].double() - t.double()).abs().max()))
+            top = max(top, float(t.double().abs().max()))
+    return diff / top
+
+
+ONE_ULP = 2.0 ** -23  # one f32 ulp, relative
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms while active, so that two runs of one
+    program can be held to each other bit for bit."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def grouped_bound(plain, again):
+    """The bound on a grouped run's distance from the plain run: one f32 ulp,
+    or ten times the distance of two plain runs where they differ."""
+    return max(ONE_ULP, 10 * state_distance(again, plain))
+
+
+def dp_fit(net, batch, tmp, tag):
+    """(model state, EMA state, launch counts, seconds) of Trainer.fit of
+    phase 8's recipe for DP_STEPS steps on one repeated batch, bf16 amp."""
+    criterion = UniformOffLabelsBCEWithLogitsLoss()
+    exp = train_experiment(Path(tmp) / tag, criterion)
+    t0 = time.perf_counter()
+    state, counts = counted(lambda: Trainer(exp, {"amp": True}).fit(
+        net, RepeatedBatch(batch, DP_STEPS)))
+    return state.model.state_dict(), state.ema.state_dict(), counts, time.perf_counter() - t0
+
+
+def dp_train(net):
+    """Phase 22 (a): the fit with and without the group, their step rates in
+    turns and the all-reduces' card time. Returns the launches of the line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    image = torch.rand((TRAIN_BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    batch = {"image": torch.cat([image, 1.0 - image], dim=-1),
+             "label": torch.randint(0, net.num_classes, (TRAIN_BATCH,), device="cuda",
+                                    generator=gen)}
+    evals = 3  # the initial, the epoch's and the EMA validation
+    want = {"bcos_conv1x1_fwd": 36 * evals, "bcos_conv1x1_bwd_explain": 0,
+            "bcos_matmul_fwd": 34 * DP_STEPS + evals, "stream_add": 0}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_convs():
+        plain = dp_fit(net, batch, tmp, "plain")
+        again = dp_fit(net, batch, tmp, "again")
+        with one_rank_group():
+            grouped = dp_fit(net, batch, tmp, "dp")
+    check_counts("dp Trainer.fit under the group", grouped[2], want)
+    check_counts("dp Trainer.fit without a group", plain[2], want)
+    bound = grouped_bound(plain[0], again[0])
+    d_model, d_ema = state_distance(grouped[0], plain[0]), state_distance(grouped[1], plain[1])
+    say(f"dp fit: {DP_STEPS} steps at batch {TRAIN_BATCH}, bf16 amp, cuDNN deterministic, "
+        f"under a one-rank NCCL group in {grouped[3]:.1f} s, without in {again[3]:.1f} s; "
+        f"launches {grouped[2]}; parameters differ by {d_model:.3e}, the EMA by {d_ema:.3e} "
+        f"of their largest (two fits without a group: {state_distance(again[0], plain[0]):.3e};"
+        f" bound {bound:.3e})")
+    if not (d_model <= bound and d_ema <= bound):
+        raise AssertionError("the fit under the group differs from the fit without one")
+
+    step = steps_lib.make_train_step(UniformOffLabelsBCEWithLogitsLoss(), 1e-4, use_agc=True,
+                                     ema_decay=0.99, ema_steps=32, amp=True)
+    opt = OptimizerFactory("Adam", 1e-4, bcosify=True, b_opt=False)
+    rates = {"plain": [], "dp": []}
+    for turn in ("dp", "plain"):
+        state = steps_lib.create_train_state(net, opt.create, with_ema=True)
+        ctx = one_rank_group() if turn == "dp" else contextlib.nullcontext()
+        with ctx:
+            step(state, batch)
+            _, per_step = counted(lambda: step(state, batch))
+            check_counts(f"dp {turn} train step", per_step, TRAIN_STEP_COUNTS)
+            ms = window_ms(lambda: step(state, batch), DP_WINDOW)
+            rates[turn].append(TRAIN_BATCH / ms * 1e3)
+            if turn == "dp" and "busy" not in rates:
+                busy, top = device_profile(lambda: step(state, batch), 3, top=400)
+                rates["busy"] = busy
+                rates["nccl"] = [(n, t) for n, t in top if "nccl" in n.lower()]
+        del state
+    nccl_ms = sum(t for _, t in rates["nccl"])
+    say(f"dp train step: under the group {rates['dp'][0]:.1f} img/s, without "
+        f"{rates['plain'][0]:.1f} img/s (in turns, one window of {DP_WINDOW} steps each); K3 "
+        f"launches per step "
+        f"{TRAIN_STEP_COUNTS['bcos_matmul_fwd']} [{CARD}]")
+    say(f"dp train step: the all-reduces take {nccl_ms:.4f} ms of the card per step, of "
+        f"{rates['busy'] or 0:.2f} ms busy (torch.profiler over 3 steps; NCCL kernels: "
+        + ("; ".join(f"{n[:70]} {t:.4f} ms" for n, t in rates["nccl"]) or "none in the trace")
+        + f") [{CARD}]")
+    return {"bcos_matmul_fwd": {"dp_launches": TRAIN_STEP_COUNTS["bcos_matmul_fwd"],
+                                "dp_fit_launches": grouped[2]["bcos_matmul_fwd"]},
+            "bcos_conv1x1_fwd": {"dp_fit_launches": grouped[2]["bcos_conv1x1_fwd"]}}
+
+
+def dp_kd(x2):
+    """Phase 22 (b): DP_KD_STEPS KD steps of the attn-unpool CLIP-RN50
+    student in each loss mode under the group against the steps without
+    one."""
+    net = Experiment(*CLIP_EXPERIMENTS["unpool"]).get_model()
+    calibrate(net, x2[:1])
+    teacher = build_clip_teacher_visual(None, clip_rn50_config(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    batch = {"image": torch.rand((KD_BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)}
+    opt = OptimizerFactory("Adam", 1e-4, bcosify=True, b_opt=False)
+
+    def steps(mode):
+        state = steps_lib.create_train_state(net, opt.create)
+        step = kd_lib.make_kd_train_step(teacher, 1e-4, cos_power=2, amp=True, loss_mode=mode)
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(DP_KD_STEPS)]
+        return losses, state.model.state_dict()
+
+    with deterministic_convs():
+        plain = steps("global")  # without a group both modes are the one-process loss
+        bound = grouped_bound(plain[1], steps("ring")[1])
+        for mode in ("ring", "global"):
+            with one_rank_group():
+                (losses, model), counts = counted(lambda: steps(mode))
+            check_counts(f"dp kd {mode}", counts, scaled_counts(kd_counts(True), DP_KD_STEPS))
+            d = state_distance(model, plain[1])
+            say(f"dp kd {mode}: {DP_KD_STEPS} steps of the attn-unpool student under the "
+                f"group, losses {losses} (without: {plain[0]}); parameters differ by {d:.3e} "
+                f"of their largest (bound {bound:.3e})")
+            if not (d <= bound and all(abs(a - b) <= 1e-6 * abs(b)
+                                       for a, b in zip(losses, plain[0]))):
+                raise AssertionError(f"the KD step in {mode} mode under the group differs")
+
+
+def c6_export():
+    """Phase 22 (c): the standard ViT-B/16 at depth 1 served through
+    export_explain in fp32 and bf16 (see the module docstring)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = pretrained.load_model(C6_ARCH, pretrained=False, device="cuda", seed=SEED, depth=1)
+    if not fast_vit_standard.supports(net) or fast_vit.supports(net):
+        raise AssertionError("the standard ViT is not the standard pass's alone")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    x = torch.randn((BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
+    rates = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        t0 = time.perf_counter()
+        blob = serving.export_explain(net, input_size=SIZE, channels=3, dtype=dtype)
+        export_s = time.perf_counter() - t0
+        program = serving.load_serialized(blob)
+        xd = x.to(dtype)
+        (logits, sel, w), counts = counted(lambda: program.call(xd))
+        check_counts(f"c6 {tag} loaded fwd+explain", counts, NO_KERNEL_COUNTS)
+        lm, sm, wm = dynamic_linear_weights(lambda t: net(t, explain=True), xd)
+        err = rel(w.float(), wm.float())
+        same = bool(torch.equal(sel, sm))
+        ms, calls, host, _ = windowed(lambda: program.call(xd))
+        rates[tag] = BATCH / ms * 1e3
+        say(f"c6 {C6_ARCH} depth 1, {tag}: export_explain {export_s:.1f} s ({len(blob) / 1e6:.1f} "
+            f"MB); loaded W against autograd on the card {err:.3e} (bound "
+            f"{C6_BOUNDS[dtype]:.0e}), argmax identical {same}; loaded fwd+explain "
+            f"{rates[tag]:.1f} img/s ({ms:.2f} ms per batch of {BATCH}, one window of {calls} "
+            f"calls; host {host:.2f} ms) [{CARD}]")
+        if not (same and err <= C6_BOUNDS[dtype] and bool(torch.isfinite(w).all())
+                and w.shape == xd.shape):
+            raise AssertionError(f"the exported standard ViT ({tag}) disagrees with autograd")
+        del program, blob, logits, w, lm, wm
+    x2 = x[:2]
+    lg, sg, wg = fast_vit_standard.fast_dynamic_linear_weights(net, x2)
+    cpu = copy.deepcopy(net).to("cpu")
+    lc, sc, wc = fast_vit_standard.fast_dynamic_linear_weights(cpu, x2.cpu(), device="cpu")
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED + 63))
+    _, _, wn = fast_vit_standard.fast_dynamic_linear_weights(cpu, x2.cpu() * (1 + 1e-7 * noise),
+                                                             device="cpu")
+    spread = rel(wn, wc)
+    say(f"c6 fp32 2 images: W gpu vs cpu {rel(wg, wc):.3e} (bound 10 x the CPU's spread "
+        f"{spread:.3e}); argmax identical {bool(torch.equal(sg.cpu(), sc))}")
+    if not (rel(wg, wc) <= 10 * spread and torch.equal(sg.cpu(), sc)):
+        raise AssertionError("the standard ViT's W on the GPU disagrees with the CPU")
+    return rates
+
+
+def phase_dp(net, x2):
+    """Phase 22 (see the module docstring). Returns the keys of the kernels
+    line (K1's and K3's launches on the grouped fit)."""
+    keys = dp_train(net)
+    dp_kd(x2)
+    rates = c6_export()
+    say("dp summary: C6 loaded fwd+explain " + ", ".join(
+        f"{k} {v:.1f} img/s" for k, v in rates.items()) + f" [{CARD}]")
+    return keys
+
+
 def text_localisation_call(student):
     """One fp32 text localisation (``compute_attributions`` of the
     attn-unpool ``student`` on one seeded 224^2 image and text direction,
@@ -6383,6 +6649,12 @@ def main() -> int:
         raise AssertionError(f"{k12.tma_operands.padded} MoE ViT and int8 calls padded their "
                              "operands")
     say("TMA operand padding on the MoE ViT and int8 serving paths: 0 calls")
+    t0 = time.perf_counter()
+    dp_keys = phase_dp(net, x2)
+    seconds["22 dp and c6"] = time.perf_counter() - t0
+    if k12.tma_operands.padded:
+        raise AssertionError(f"{k12.tma_operands.padded} data-parallel calls padded their "
+                             "operands")
     k3_row = next(k for k in kernels if k["name"] == "bcos_matmul_fwd")
     k3_row.update({"train_launches": train["launches"], "train_ms": train["ms"],
                    "train_plain_ms": train["plain_ms"],
@@ -6401,6 +6673,7 @@ def main() -> int:
         row.update(options.get(row["name"], {}))
         row.update(clip_vit.get(row["name"], {}))
         row.update(moe_int8.get(row["name"], {}))
+        row.update(dp_keys.get(row["name"], {}))
         row["max_abs_err"] = worst.get(row["name"], row["max_abs_err"])
     check_bounds(kernels)
 

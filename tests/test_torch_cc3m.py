@@ -221,9 +221,17 @@ def test_native_decode_raises_naming_its_slice(shards):
     assert cc3m.WdsPipeline(shards, 4, native_decode="auto").native_decode == "auto"
 
 
-def test_split_shards_by_process_raises(tmp_path, shards):
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        _datamodule(tmp_path, split_shards_by_process=True)
+def test_split_shards_by_process_raises(tmp_path, shards, monkeypatch):
+    """split_shards_by_process raises when the train shards cannot cover
+    the processes (332 shards, 333 ranks), as the JAX module asserts; the
+    rank's shards and the equality with JAX's split are held by
+    tests/test_torch_dp.py."""
+    from bcosification_tpu_torch.parallel import dp
+
+    monkeypatch.setattr(dp, "world_size", lambda: 333)
+    monkeypatch.setattr(dp, "rank", lambda: 0)
+    with pytest.raises(AssertionError, match="cannot cover 333 processes"):
+        _datamodule(_cc3m_tree(tmp_path, shards), split_shards_by_process=True).setup("fit")
 
 
 # --------------------------------------------------------------------------

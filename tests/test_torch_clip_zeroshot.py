@@ -6,7 +6,8 @@ the CPU:
 - zero-shot: ``zeroshot_classifier`` over a small text tower (1e-5),
   ``zeroshot_predict_logits`` 2-D and 3-D with cos_power 2 (1e-5),
   ``zeroshot_evaluate`` (equal accuracies), the saved classifier;
-- ``SigLipLoss`` in one process: value and gradient (1e-6); the ring raises;
+- ``SigLipLoss`` in one process: value and gradient (1e-6); the ring raises
+  without a process group;
 - the ImageNet/clip_bcosification grid: the JAX names and sanitized
   configs, every ResNet config built through ``Experiment`` on the CPU at
   full width, the ViT configs raising; checkpoints ranked by val_loss.
@@ -192,10 +193,13 @@ def test_siglip_loss_matches_jax(cos_scaling, explain):
 
 
 def test_siglip_ring_raises_naming_its_slice():
+    """The ring needs a process group of world_size ranks: without one it
+    raises, naming the group it needs (the ring itself is held against JAX's
+    on gloo groups by tests/test_torch_dist_losses.py)."""
     from bcosification_tpu_torch.losses import SigLipLoss
 
     x = torch.ones(2, 4)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         SigLipLoss(world_size=2)(x, x, 10.0, -10.0)
 
 

@@ -173,8 +173,7 @@ def test_categories_and_registry_match():
     assert ported == jax_own
 
 
-@pytest.mark.parametrize("key,slice_name", [("native_loader", "6e"),
-                                            ("split_by_process", "slice 8")])
+@pytest.mark.parametrize("key,slice_name", [("native_loader", "6e")])
 def test_unported_data_options_raise(key, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         tdm.ImageNetDataModule(_config(tpresets, **{key: True}))

@@ -1475,3 +1475,49 @@ def test_int8_conv_gpu_matches_cpu(gpu):
         wa = w[:, :128 // args[3]]
         got = ops.conv_int8_dynamic(x.to(gpu), wa.to(gpu), *args)
         assert torch.equal(got.cpu(), ops.conv_int8_dynamic(x, wa, *args))
+
+
+def test_one_rank_nccl_dp_step_equals_the_plain_step(gpu):
+    """Two train steps of the small flagship (AGC, EMA, Adam; amp) under a
+    one-rank NCCL group (``parallel/dp.py``: the BN moments, the gradients
+    and the metrics all-reduced over the group) equal the same steps
+    without a group bit for bit: a one-rank sum is the identity."""
+    import socket
+
+    from chip_smoke import FLAGSHIP, calibrate, train_experiment
+    from bcosification_tpu_torch.bcosify.engine import build_bcosified_resnet
+    from bcosification_tpu_torch.losses import UniformOffLabelsBCEWithLogitsLoss
+    from bcosification_tpu_torch.parallel import dp
+    from bcosification_tpu_torch.training import steps as steps_lib
+
+    net = build_bcosified_resnet({**FLAGSHIP, "name": "resnet50"}, num_classes=10, inplanes=8,
+                                 layers=("bottleneck", (1, 1)))
+    g = torch.Generator(device=gpu).manual_seed(7)
+    x = torch.rand(8, 32, 32, 3, device=gpu, generator=g)
+    batch = {"image": torch.cat([x, 1.0 - x], dim=-1),
+             "label": torch.randint(0, 10, (8,), device=gpu, generator=g)}
+    calibrate(net, batch["image"][:1])
+    recipe = train_experiment(".", UniformOffLabelsBCEWithLogitsLoss()).config
+    schedule = recipe["lr_scheduler"].create(1e-4, steps_per_epoch=10)
+
+    def two_steps():
+        state = steps_lib.create_train_state(net, recipe["optimizer"].create, with_ema=True)
+        step = steps_lib.make_train_step(recipe["criterion"], schedule, use_agc=True,
+                                         ema_decay=0.9, ema_steps=1, amp=True)
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+        return losses, state.model.state_dict(), state.ema.state_dict()
+
+    plain = two_steps()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dp.init_process_group(gpu, rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        assert dp.is_initialized() and dp.world_size() == 1
+        grouped = two_steps()
+    finally:
+        dp.destroy_process_group()
+    assert grouped[0] == plain[0]
+    for got, want in zip(grouped[1:], plain[1:]):
+        for name, t in want.items():
+            assert torch.equal(got[name], t), name

@@ -208,12 +208,16 @@ def test_checkpoint_selection_and_pruning(tmp_path):
 
 
 UNPORTED = {
-    # KD is ported; its per-process split of the CC3M train shards is not
-    "kd": ({"clip_kd": True, "data": {"split_shards_by_process": True}}, "slice 8"),
-    "pipeline_parallel": ({"trainer": {"pipeline_parallel": 2}}, "slice 8"),
-    "model_parallel": ({"trainer": {"model_parallel": 2}}, "slice 8"),
-    "fsdp": ({"trainer": {"fsdp": True}}, "slice 8"),
-    "split_by_process": ({"data": {"split_by_process": True}}, "slice 8"),
+    # model parallelism (ROADMAP A9c) is refused, the KD path's too; the
+    # per-process splits are ported, and split_by_process refuses
+    # p_gridified as the JAX trainer does
+    "kd": ({"clip_kd": True, "data": {"split_shards_by_process": True},
+            "trainer": {"model_parallel": 2}}, NotImplementedError, "A9c"),
+    "pipeline_parallel": ({"trainer": {"pipeline_parallel": 2}}, NotImplementedError, "A9c"),
+    "model_parallel": ({"trainer": {"model_parallel": 2}}, NotImplementedError, "A9c"),
+    "fsdp": ({"trainer": {"fsdp": True}}, NotImplementedError, "A9c"),
+    "split_by_process": ({"data": {"split_by_process": True, "p_gridified": 0.5}},
+                         ValueError, "p_gridified"),
 }
 # options that raised until the training options were ported
 PORTED = {
@@ -228,10 +232,10 @@ PORTED = {
 def test_unported_options_raise(tmp_path, case):
     from bcosification_tpu_torch.training.trainer import Trainer
 
-    extra, where = UNPORTED[case]
+    extra, error, where = UNPORTED[case]
     exp = _experiment(tmp_path)
     exp.config.update(extra)
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(error, match=where):
         Trainer(exp, device="cpu").fit(TinyNet(), SynthDataModule(), max_epochs=1)
 
 

@@ -262,10 +262,11 @@ def test_fast_vit_on_the_vitc_stem_equals_the_module_path(pairs):
 def test_export_explain_serves_the_bcos_vits_and_refuses_the_baselines(pairs):
     """export_explain serves the B-cos ViT and the B-cos ViT-C of vit_final
     (each loaded program equal to the eager pass and to the module path's W,
-    1e-6); the standard baselines, which no hand-written pass covers,
-    raise ValueError."""
+    1e-6), and the standard baselines, which fast_vit refuses, through
+    fast_vit_standard: the loaded program's W equal to the JAX package's
+    generic W on the same weights (1e-5) and the same selected class."""
     from bcosification_tpu_torch import serving
-    from bcosification_tpu_torch.explain import fast_vit
+    from bcosification_tpu_torch.explain import fast_vit, fast_vit_standard
     from bcosification_tpu_torch.explain.core import dynamic_linear_weights
 
     for name in ("bcos_simple_vit_ti_patch16_224", "bcos_vitc_ti_patch1_14"):
@@ -282,10 +283,16 @@ def test_export_explain_serves_the_bcos_vits_and_refuses_the_baselines(pairs):
         assert _rel(w.numpy(), mw.numpy()) <= 1e-6, name
         assert _rel(logits.double() - bias_of(tnet), el.double() - bias_of(tnet)) <= 1e-6
     for other in ("vitc_ti_patch1_14", "simple_vit_ti_patch16_224"):
-        assert not fast_vit.supports(pairs[other][2])
-        with pytest.raises(ValueError, match="not supported"):
-            serving.export_explain(pairs[other][2], input_size=SIZE, channels=3,
-                                   device="cpu")
+        net, variables, tnet = pairs[other]
+        assert not fast_vit.supports(tnet) and fast_vit_standard.supports(tnet)
+        program = serving.load_serialized(serving.export_explain(tnet, input_size=SIZE,
+                                                                 channels=3, device="cpu"))
+        x = images(other, 3, 5)
+        logits, sel, w = program.call(torch.from_numpy(x))
+        jl, js, jw = _jax_explain(net, variables, x)
+        np.testing.assert_array_equal(sel.numpy(), np.asarray(js))
+        assert _rel(w.numpy(), np.asarray(jw)) <= 1e-5, other
+        assert _rel(logits.double().numpy(), np.asarray(jl, np.float64)) <= 1e-5, other
 
 
 def _module_cases():

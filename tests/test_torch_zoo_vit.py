@@ -8,8 +8,10 @@ the JAX package's registry on the CPU, in fp32, on the same weights:
   call, JAX variables drawn with numpy from a seed and carried across by
   bcosify/from_jax.py: logits and the generic W (autograd) within 1e-5;
   the hand-scheduled pass (``explain/fast_vit.py``) on the B-cos entries
-  equal to the generic W (1e-5) and served by ``export_explain``; the
-  standard baselines refused by it (ROADMAP C6);
+  equal to the generic W (1e-5) and served by ``export_explain``; on the
+  standard baselines the hand-scheduled pass of ``explain/fast_vit_standard.py``,
+  whose W equals the JAX package's generic W (1e-5) and whose exported
+  program equals the eager pass;
 - every ViT entry at full width by shapes only: the port's meta build
   against the JAX package's ``abstract_init`` tree;
 - the release URLs of every registered name equal to the JAX package's.
@@ -25,7 +27,7 @@ import jax.numpy as jnp
 
 from bcosification_tpu.models import pretrained as jpretrained
 from bcosification_tpu_torch.bcosify.from_jax import load_jax_variables
-from bcosification_tpu_torch.explain import fast_vit
+from bcosification_tpu_torch.explain import fast_vit, fast_vit_standard
 from bcosification_tpu_torch.models import pretrained
 from bcosification_tpu_torch.utils.init_mode import abstract_init
 from test_torch_training import _rel
@@ -88,26 +90,30 @@ def test_entry_matches_jax(pairs, name):
 @pytest.mark.parametrize("name", NAMES)
 def test_fast_pass_and_export(pairs, name):
     """The B-cos entries: fast_vit admits the zoo's build, its W equals the
-    generic one (1e-5) and the exported program the eager pass; the
-    standard baselines: no hand-scheduled pass, export_explain raises."""
+    generic one (1e-5) and the exported program the eager pass. The
+    standard baselines: fast_vit_standard admits them (fast_vit does not),
+    their W equals the JAX package's generic W on the same weights (1e-5),
+    and the exported program the eager pass."""
     from bcosification_tpu_torch import serving
     from bcosification_tpu_torch.explain.core import dynamic_linear_weights
 
-    _, _, tnet = pairs[name]
+    net, variables, tnet = pairs[name]
     x = torch.from_numpy(_images(name, 2, 4))
     size = x.shape[1]
-    if name.startswith("standard_"):
-        assert not fast_vit.supports(tnet)
-        with pytest.raises(ValueError, match="not supported"):
-            serving.export_explain(tnet, input_size=size, channels=3, device="cpu")
-        return
-    assert fast_vit.supports(tnet)
+    standard = name.startswith("standard_")
+    fast = fast_vit_standard if standard else fast_vit
+    assert fast.supports(tnet) and not (fast_vit if standard else fast_vit_standard).supports(tnet)
     ml, ms, mw = dynamic_linear_weights(lambda t: tnet(t, explain=True), x, device="cpu")
-    fl, fs, fw = fast_vit.fast_dynamic_linear_weights(tnet, x, device="cpu")
+    fl, fs, fw = fast.fast_dynamic_linear_weights(tnet, x, device="cpu")
     np.testing.assert_array_equal(fs.numpy(), ms.numpy())
     assert _rel(fw.numpy(), mw.numpy()) <= 1e-5
-    program = serving.load_serialized(serving.export_explain(tnet, input_size=size,
-                                                             device="cpu"))
+    if standard:
+        jl, js, jw = _jax_explain(net, variables, x.numpy())
+        np.testing.assert_array_equal(fs.numpy(), np.asarray(js))
+        assert _rel(fw.numpy(), np.asarray(jw)) <= 1e-5
+        assert _rel(fl.double().numpy(), np.asarray(jl, np.float64)) <= 1e-5
+    program = serving.load_serialized(serving.export_explain(
+        tnet, input_size=size, channels=3 if standard else 6, device="cpu"))
     pl, ps, pw = program.call(x)
     assert torch.equal(ps, fs) and _rel(pw.numpy(), fw.numpy()) <= 1e-6
 
