@@ -34,14 +34,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    [401408, 256] bf16, then the probe's entry point
    (probes/stream_bandwidth.measure): K4's and PyTorch's a + b + c time and
    rate beside the 3.35 TB/s data-sheet rate;
-7. serving: the calibrated net exported (serving.export_forward and
-   .export_explain), saved to bytes and loaded back; at batch 128, bf16 the
+7. serving: the ResNet-50 cut to one bottleneck per stage (full width,
+   gamma-calibrated; SERVE_RESNET_LAYERS: phase 23 (e) exports the full
+   depth) exported (serving.export_forward and .export_explain), saved to
+   bytes and loaded back; at batch 128, bf16 the
    loaded programs against the eager calls (argmax identical, logits and W
    within 1e-6 relative: the same ops and kernels on the same inputs), their
    launch counts, forward-only, forward + explanation and a mixed loop in
    which 1 batch in 10 is explained, beside the harmonic model of the two
-   and the eager calls timed the same way; then explain() on one image
-   (RGBA finite, in [0, 1]);
+   and the eager cut net timed the same way; then explain() of the full net
+   on one image (RGBA finite, in [0, 1]);
 8. train: the supervised recipe (scripts/bench_train.py: Adam 1e-4 with the
    90-epoch cosine, AGC, UniformOffLabels BCE, EMA, bf16 AMP) on the
    calibrated net at batch 64, 224x224: Trainer.fit for one epoch of 20
@@ -234,9 +236,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``cli.main([...])``, batch 64, fp32 images, so every encode runs K3's
    fp32 route) on phase 12's KD-trained CLIP-RN50 experiments (pooled,
    attn-unpool and the CC3M one) over seeded wds trees of 256^2 JPEGs:
-   zero-shot classification (512 images, the 1000 ImageNet classes x the
-   first 8 templates; the classifier built once with --save_clf, its tokenizer and
-   text-tower seconds apart, and loaded with --load_clfs by the other runs)
+   zero-shot classification (512 images, the 1000 ImageNet classes; the
+   classifier of the harness's own text tower, the RN50 tower at random
+   init from SEED, that phase 23's precompute_zeroshot_weights wrote over
+   the 80 templates, loaded with --load_clfs by every run)
    for bcos_clip pooled and attn-unpool, bcos_clip_cc3m and standard_clip
    RN50 (the vanilla tower, no K3); the linear probe
    on a separable 10-class colour set (512 train, --val_proportion 0.2 and
@@ -407,6 +410,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    within ten times the CPU's own spread under 1e-7 relative input noise,
    no kernel launched (the net has no B-cos layer), and the loaded
    fwd+explain's images/s.
+23. the wrapper API and the script CLIs (ROADMAP A9b), run after phase 9,
+   whose experiment and JPEG tree they read: (a) ``common.BcosModel`` over
+   phase 4's calibrated ResNet-50 on bf16 input: ``__call__`` (batch 128),
+   ``explain`` (one image), ``attribute`` (batch 128) and
+   ``attribute_selection`` (WRAPPER_TARGETS), each call's launches and ms,
+   its W against fast_dynamic_linear_weights for the same image and class
+   (explain 1e-6: the same pass; the module path's autograd 1e-2, phase 3's
+   bf16 bound), ``explanation_mode()`` switching the forward and back, and
+   ``attribute`` of 2 fp32 images on the card against the CPU within ten
+   CPU spreads under 1e-7 relative input noise; (b)
+   ``examples/explain_minimal.main`` at 224^2 on the card (the PNG, the
+   calibrated magnitude in (0.5, 50)) against the same run on the CPU (the
+   class equal, the RGBA within 1e-3, phase 4's W bound); (c)
+   ``scripts/strip_checkpoints --reload last`` of phase 9's resnet_50
+   experiment (``--ema`` without EMA weights raises): a fresh model loaded
+   from the npz gives the checkpoint's logits bit for bit; (d)
+   ``scripts/import_torch_checkpoint`` of a seeded torchvision-layout
+   ResNet-50: the npz through load_jax_variables equals the in-memory
+   conversion; (e) ``scripts/export_serving --explain`` of phase 9's
+   experiment, loaded: at batch 128 (fp32, the program's input) its logits,
+   class and W against the loaded model's fast pass (1e-6, phase 7's
+   bounds), K1 36 / K2 37 / K3 1 per call, the export seconds, the MB and
+   the loaded fwd+explain images/s; (f)
+   ``scripts/precompute_zeroshot_weights --clip-weights`` of a seeded
+   OpenAI-layout RN50 (its text tower phase 16's harness tower):
+   [1024, 1000] unit columns, the first and the last (ZEROSHOT_CPU_CLASSES)
+   recomputed on the CPU from the same file (1e-4), the file phase 16's
+   classifier; ``scripts/validate_release_weights.evaluate_imagenet`` of a
+   seeded release-format resnet50.pth over phase 9's val JPEGs
+   (SCRIPTS_EVAL_LIMIT) on the card and on the CPU (the pre-logits it
+   computes within phase 17's 1e-4, the argmax and top-1/top-5 equal), and
+   its ``main`` without the reference tree (exit code 1, as the JAX
+   script's rules give).
 
 ``python3 chip_smoke.py --fp32-routes`` builds the kernels and prints only
 the fp32 routes' rows of phases 15 and 16 (random-init nets, seeded
@@ -1115,14 +1151,27 @@ def blend_rate(p, r_fwd, r_explain):
     return 1.0 / ((1.0 - p) / r_fwd + p / r_explain)
 
 
+# the exported ResNet-50's bottlenecks per stage (full width): phase 23 (e)
+# exports the full depth, in fp32, through the export_serving command
+SERVE_RESNET_LAYERS = ("bottleneck", (1, 1, 1, 1))
+
+
 def phase_serving(net, x2):
-    """Exported forward and forward + explanation programs of the calibrated
-    net, loaded from bytes, against the eager calls at batch 128, bf16."""
+    """Exported forward and forward + explanation programs of the ResNet-50
+    cut to SERVE_RESNET_LAYERS (full width, random init from SEED,
+    gamma-calibrated), loaded from bytes, against the eager calls at batch
+    128, bf16; then explain() of the full calibrated ``net``."""
+    full = net
+    net = build_bcosified_resnet(FLAGSHIP, seed=SEED, layers=SERVE_RESNET_LAYERS)
+    calibrate(net, x2[:1])
+    explain_counts = kernel_counts(main_path_launches(net.model, 1, SIZE))
+    forward_counts = {**explain_counts, "bcos_conv1x1_bwd_explain": 0}
     t0 = time.perf_counter()
     blob_fwd = serving.export_forward(net, input_size=SIZE, dtype=torch.bfloat16)
     blob_explain = serving.export_explain(net, input_size=SIZE, dtype=torch.bfloat16)
     fwd, expl = serving.load_serialized(blob_fwd), serving.load_serialized(blob_explain)
-    say(f"serving: exported and loaded both programs in {time.perf_counter() - t0:.1f} s "
+    say(f"serving (layers {SERVE_RESNET_LAYERS[1]}): exported and loaded both programs in "
+        f"{time.perf_counter() - t0:.1f} s "
         f"({len(blob_fwd) / 1e6:.1f} MB and {len(blob_explain) / 1e6:.1f} MB)")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     x = torch.rand((BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
@@ -1133,11 +1182,11 @@ def phase_serving(net, x2):
     reset_launch_counts()
     logits, sel, w = expl.call(x)
     torch.cuda.synchronize()
-    check_counts("loaded fwd+explain", launch_counts(), EXPLAIN_COUNTS)
+    check_counts("loaded fwd+explain", launch_counts(), explain_counts)
     reset_launch_counts()
     logits_f = fwd.call(x)
     torch.cuda.synchronize()
-    check_counts("loaded forward", launch_counts(), FORWARD_COUNTS)
+    check_counts("loaded forward", launch_counts(), forward_counts)
     le, se, we = fast_dynamic_linear_weights(net, x)
     with torch.no_grad():
         lf = net(x)
@@ -1171,23 +1220,24 @@ def phase_serving(net, x2):
     r_fwd, r_explain = BATCH / ms_fwd * 1e3, BATCH / ms_explain * 1e3
     r_mixed = BATCH * SERVE_EVERY / ms_period * 1e3
     modeled = blend_rate(1.0 / SERVE_EVERY, r_fwd, r_explain)
-    say(f"serving loaded forward-only: {r_fwd:.1f} img/s ({ms_fwd:.2f} ms per batch of "
+    cut = f"serving (layers {SERVE_RESNET_LAYERS[1]})"
+    say(f"{cut} loaded forward-only: {r_fwd:.1f} img/s ({ms_fwd:.2f} ms per batch of "
         f"{BATCH}; one window of {WINDOW_FWD} calls; the host issues one call in "
         f"{host_fwd:.2f} ms) [{CARD}]")
-    say(f"serving loaded fwd+explain: {r_explain:.1f} img/s ({ms_explain:.2f} ms; one "
+    say(f"{cut} loaded fwd+explain: {r_explain:.1f} img/s ({ms_explain:.2f} ms; one "
         f"window of {WINDOW_EXPLAIN} calls; host {host_explain:.2f} ms) [{CARD}]")
-    say(f"serving mixed loop, 1 batch in {SERVE_EVERY} explained: {r_mixed:.1f} img/s "
+    say(f"{cut} mixed loop, 1 batch in {SERVE_EVERY} explained: {r_mixed:.1f} img/s "
         f"(one window of {WINDOW_PERIODS} periods, {ms_period:.2f} ms per period); harmonic "
         f"model {modeled:.1f} img/s; measured / model - 1 = {r_mixed / modeled - 1:+.4f} "
         f"[{CARD}]")
     with torch.no_grad():
         ms_fwd_eager = window_ms(lambda: net(x), WINDOW_FWD)
     ms_explain_eager = window_ms(lambda: fast_dynamic_linear_weights(net, x), WINDOW_EXPLAIN)
-    say(f"serving eager, timed the same way: forward-only {BATCH / ms_fwd_eager * 1e3:.1f} "
+    say(f"{cut} eager, timed the same way: forward-only {BATCH / ms_fwd_eager * 1e3:.1f} "
         f"img/s ({ms_fwd_eager:.2f} ms), fwd+explain {BATCH / ms_explain_eager * 1e3:.1f} "
         f"img/s ({ms_explain_eager:.2f} ms) [{CARD}]")
 
-    one = explain(net, x[:1])
+    one = explain(full, x[:1])
     rgba = one["explanation"]
     if (tuple(rgba.shape) != (SIZE, SIZE, 4) or not torch.isfinite(rgba).all()
             or float(rgba.min()) < 0 or float(rgba.max()) > 1):
@@ -4523,10 +4573,12 @@ def check_bench_kernels(nets, worst):
     return len(shapes)
 
 
-def phase_bench(stream_rate, worst, exp_root):
+def phase_bench(stream_rate, worst, exp_root, classifier):
     """Phase 16: the clip_benchmark CLI of the port on the card (see the
-    module docstring). Returns the harness keys of K3's row of the kernels
-    line."""
+    module docstring); every zero-shot run loads ``classifier``, the file
+    that phase 23's precompute_zeroshot_weights wrote from this harness's
+    text tower (the RN50 tower at random init from SEED). Returns the
+    harness keys of K3's row of the kernels line."""
     from bcosification_tpu_torch.clip_benchmark import cli as bench_cli
     from bcosification_tpu_torch.clip_benchmark.datasets.builder import build_dataset
     from bcosification_tpu_torch.clip_benchmark.models import load_clip
@@ -4540,7 +4592,7 @@ def phase_bench(stream_rate, worst, exp_root):
         say(f"bench: wrote the seeded wds trees ({BENCH_CLS} + {BENCH_LP_TRAIN + BENCH_LP_TEST} + "
             f"{BENCH_RET} + {BENCH_SEL} JPEGs of {BENCH_JPEG}^2) in "
             f"{time.perf_counter() - t0:.1f} s")
-        clf, features = f"{tmp}/clf.npy", f"{tmp}/features"
+        clf, features = str(classifier), f"{tmp}/features"
 
         def argv(key, tag, *extra):
             return ["--dataset", BENCH_DATASETS[key], "--dataset_root", f"{tmp}/{{dataset}}",
@@ -4549,7 +4601,7 @@ def phase_bench(stream_rate, worst, exp_root):
 
         k3_pooled, k3_unpool = (clip_counts(u, False)["bcos_matmul_fwd"] for u in (False, True))
         cls_runs = [("cls pooled", ["--model_type", "bcos_clip", "--model", pooled,
-                                    "--save_clf", clf], k3_pooled),
+                                    "--load_clfs", clf], k3_pooled),
                     ("cls attn-unpool", ["--model_type", "bcos_clip", "--model", unpool,
                                          "--load_clfs", clf], k3_unpool),
                     ("cls cc3m", ["--model_type", "bcos_clip_cc3m", "--model",
@@ -4561,11 +4613,9 @@ def phase_bench(stream_rate, worst, exp_root):
         for tag, extra, k3_per in cls_runs:
             results[tag] = bench_run(record, tag, argv("cls", tag, *extra), k3_per)
         build = record.runs[0]
-        say(f"bench zero-shot classifier: {len(imagenet_classes)} classes x "
-            f"{BENCH_TEMPLATES} templates = "
-            f"{len(imagenet_classes) * BENCH_TEMPLATES} prompts in "
-            f"{build.classifier_s:.2f} s: tokenizer {build.tokenize_s:.2f} s (host), fp32 text "
-            f"tower {build.text_s:.2f} s (synchronised) [{CARD}]")
+        say(f"bench zero-shot classifier: {Path(clf).name} of phase 23 "
+            f"(precompute_zeroshot_weights: {len(imagenet_classes)} classes x "
+            f"{len(imagenet_templates)} templates of this tower), loaded by every cls run")
         cls_set = build_dataset(BENCH_DATASETS["cls"], root=str(roots["cls"]),
                                 transform=build.transform)
         bench_parity_logits(build.bundle, np.load(clf),
@@ -6451,6 +6501,434 @@ def phase_dp(net, x2):
     return keys
 
 
+# --------------------------------------------------------------------------
+# 23: the wrapper API and the script CLIs (ROADMAP A9b)
+# --------------------------------------------------------------------------
+WRAPPER_TARGETS = (0, 1, 2, 3, 4)  # attribute_selection's classes
+WRAPPER_BF16_BOUND = 1e-2  # phase 3's bf16 bound: the module path's W against the fast pass's
+SCRIPTS_EVAL_LIMIT = 32  # validate_release_weights.evaluate_imagenet's images, card and CPU
+
+
+def wrapper_calls(net, x2):
+    """(a) BcosModel over the calibrated ResNet-50: each call's launches, ms
+    and W against the fast pass; a 2-image fp32 attribute against the CPU."""
+    from bcosification_tpu_torch.common import BcosModel
+
+    model = BcosModel(net)
+    x = _batch128(x2, SEED + 23)
+    logits, counts = counted(lambda: model(x))
+    check_counts("BcosModel __call__", counts, FORWARD_COUNTS)
+    with torch.no_grad():
+        if not torch.equal(logits, net(x)):
+            raise AssertionError("BcosModel.__call__ differs from the module's forward")
+    rows = {"__call__": (counts, window_ms(lambda: model(x), 10), None)}
+    out, counts = counted(lambda: model.explain(x[:1]))
+    check_counts("BcosModel.explain", counts, EXPLAIN_COUNTS)
+    cls = out["explained_class_idx"]
+    _, _, w = fast_dynamic_linear_weights(net, x[:1], cls)
+    rows["explain (1 image)"] = (counts, window_ms(lambda: model.explain(x[:1]), 10),
+                                 rel(out["dynamic_linear_weights"].float(), w.float()))
+    att, counts = counted(lambda: model.attribute(x, cls))
+    _, _, w = fast_dynamic_linear_weights(net, x, cls)
+    rows[f"attribute (batch {BATCH})"] = (counts, window_ms(lambda: model.attribute(x, cls), 5),
+                                          rel(att.float(), (x * w).float()))
+    targets = torch.tensor(WRAPPER_TARGETS, device="cuda")
+    sel, counts = counted(lambda: model.attribute_selection(x[:1], WRAPPER_TARGETS))
+    x5 = x[:1].repeat(len(WRAPPER_TARGETS), 1, 1, 1)
+    _, _, w = fast_dynamic_linear_weights(net, x5, targets)
+    rows[f"attribute_selection ({len(WRAPPER_TARGETS)} targets)"] = (
+        counts, window_ms(lambda: model.attribute_selection(x[:1], WRAPPER_TARGETS), 10),
+        rel(sel.float(), (x5 * w).float()))
+    if sel.shape != (len(WRAPPER_TARGETS), SIZE, SIZE, 6):
+        raise AssertionError(f"attribute_selection gave {tuple(sel.shape)}")
+    for what, (counts, ms, err) in rows.items():
+        bound = 1e-6 if what.startswith("explain") else WRAPPER_BF16_BOUND
+        against = ("the logits equal the module's forward" if err is None else
+                   f"W against fast_dynamic_linear_weights {err:.3e} (bound {bound:.0e})")
+        say(f"wrapper BcosModel.{what}, bf16: {ms:.2f} ms per call; launches {counts}; "
+            f"{against} [{CARD}]")
+        if err is not None and not err <= bound:
+            raise AssertionError(f"BcosModel.{what}: W {err} from the fast pass")
+    with model.explanation_mode():
+        explained, counts = counted(lambda: model(x[:2]))
+    say(f"wrapper explanation_mode() forward: launches {counts}")
+    with torch.no_grad():
+        if model._explain_default or not torch.equal(explained, net(x[:2], explain=True)):
+            raise AssertionError("explanation_mode did not switch the forward and back")
+    # fp32, 2 images: attribute (the module path's autograd) on the card against the CPU
+    cpu = BcosModel(copy.deepcopy(net).to("cpu"))
+    got = model.attribute(x2, cls)
+    t0 = time.perf_counter()
+    want = cpu.attribute(x2.cpu(), cls)
+    cpu_s = time.perf_counter() - t0
+    noise = torch.randn(x2.shape, generator=torch.Generator().manual_seed(SEED))
+    spread = rel(cpu.attribute(x2.cpu() * (1 + 1e-7 * noise), cls), want)
+    err = rel(got, want)
+    say(f"wrapper attribute fp32, 2 images, gpu vs cpu: {err:.3e} (bound ten cpu spreads "
+        f"{10 * spread:.3e}; the cpu took {cpu_s:.1f} s)")
+    if not err <= 10 * spread:
+        raise AssertionError("BcosModel.attribute on the GPU disagrees with the CPU")
+
+
+def example_run(tmp):
+    """(b) examples/explain_minimal.main at 224^2 on the card, then on the
+    CPU with the same seeded weights."""
+    from bcosification_tpu_torch.examples import explain_minimal
+
+    t0 = time.perf_counter()
+    gpu, counts = counted(lambda: explain_minimal.main(f"{tmp}/gpu.png"))
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = explain_minimal.main(f"{tmp}/cpu.png", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = rel(gpu["explanation"], cpu["explanation"])
+    png = Path(f"{tmp}/gpu.png").stat().st_size
+    say(f"explain_minimal on the card in {gpu_s:.1f} s (launches {counts}): magnitude "
+        f"{gpu['magnitude']:.4g} (cpu {cpu['magnitude']:.4g}), class {gpu['prediction']} (cpu "
+        f"{cpu['prediction']}), RGBA gpu vs cpu {err:.3e} (bound 1e-3), PNG {png} bytes; the "
+        f"cpu run took {cpu_s:.1f} s [{CARD}]")
+    if not (0.5 < gpu["magnitude"] < 50 and png > 1000 and gpu["prediction"] == cpu["prediction"]
+            and err <= 1e-3 and gpu["explanation"].shape == (SIZE, SIZE, 4)):
+        raise AssertionError("explain_minimal on the card disagrees with the CPU")
+
+
+def strip_run(x2, tmp):
+    """(c) strip_checkpoints of phase 9's resnet_50 experiment (--reload
+    last): the npz in a fresh model gives the checkpoint's logits bit for bit."""
+    from bcosification_tpu_torch.bcosify.from_jax import load_jax_npz
+    from bcosification_tpu_torch.scripts import strip_checkpoints
+
+    exp = Experiment(*ENTRY_EXPERIMENT)
+    state, _ = exp._ckpt_manager().restore("last", map_location="cpu")
+    ema = state.get("ema") is not None
+    argv = ["--experiment_name", ENTRY_EXPERIMENT[2], "--reload", "last", "--output_dir", tmp]
+    if not ema:  # strict_ema: --ema on a checkpoint without EMA raises
+        try:
+            strip_checkpoints.main(argv + ["--ema"])
+        except ValueError as e:
+            say(f"strip_checkpoints --ema without EMA weights raises: {e}")
+        else:
+            raise AssertionError("strip_checkpoints --ema without EMA weights did not raise")
+    t0 = time.perf_counter()
+    path = strip_checkpoints.main(argv + (["--ema"] if ema else []))
+    strip_s = time.perf_counter() - t0
+    trained = exp.load_trained_model("last", ema=ema, verbose=False)
+    fresh = build_bcosified_resnet(exp.model_config, seed=SEED + 1)
+    load_jax_npz(fresh, path)
+    x = _batch128(x2, SEED + 24)[:EVAL_BATCH]
+    with torch.no_grad():
+        same = torch.equal(fresh(x), trained(x))
+    say(f"strip_checkpoints --reload last{' --ema' if ema else ''}: {path.name} "
+        f"({path.stat().st_size / 1e6:.1f} MB) in {strip_s:.1f} s; a fresh model from it gives "
+        f"the checkpoint's logits bit for bit: {same}")
+    if not same:
+        raise AssertionError("the stripped weights do not reproduce the checkpoint")
+
+
+def torchvision_resnet50(seed):
+    """A torchvision-layout ResNet-50 state dict drawn with numpy from ``seed``
+    (OIHW convs He-scaled, BN weight/bias/running_mean/running_var, fc)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        w = rng.standard_normal((cout, cin, k, k), np.float32) / np.sqrt(cin * k * k)
+        sd[key] = torch.from_numpy(w.astype(np.float32))
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = torch.from_numpy((rng.random(c) + 0.5).astype(np.float32))
+        sd[f"{key}.bias"] = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+        sd[f"{key}.running_mean"] = torch.from_numpy(
+            (0.1 * rng.standard_normal(c)).astype(np.float32))
+        sd[f"{key}.running_var"] = torch.from_numpy((rng.random(c) + 0.5).astype(np.float32))
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for stage, n_blocks in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** stage
+        for j in range(n_blocks):
+            p = f"layer{stage + 1}.{j}"
+            conv(f"{p}.conv1.weight", planes, cin, 1)
+            conv(f"{p}.conv2.weight", planes, planes, 3)
+            conv(f"{p}.conv3.weight", planes * 4, planes, 1)
+            for k, c in ((1, planes), (2, planes), (3, planes * 4)):
+                bn(f"{p}.bn{k}", c)
+            if j == 0:
+                conv(f"{p}.downsample.0.weight", planes * 4, cin, 1)
+                bn(f"{p}.downsample.1", planes * 4)
+            cin = planes * 4
+    sd["fc.weight"] = torch.from_numpy(
+        (rng.standard_normal((1000, cin)) / np.sqrt(cin)).astype(np.float32))
+    sd["fc.bias"] = torch.from_numpy((0.1 * rng.standard_normal(1000)).astype(np.float32))
+    return sd
+
+
+def import_run(tmp):
+    """(d) import_torch_checkpoint of a seeded torchvision-layout ResNet-50:
+    the npz through load_jax_variables equals the in-memory conversion."""
+    from bcosification_tpu_torch.bcosify.from_jax import load_jax_variables
+    from bcosification_tpu_torch.models.pretrained import _variables_from_npz
+    from bcosification_tpu_torch.scripts import import_torch_checkpoint
+
+    sd = torchvision_resnet50(SEED + 3)
+    torch.save(sd, f"{tmp}/resnet50_torchvision.pth")
+    t0 = time.perf_counter()
+    path = import_torch_checkpoint.main(["--checkpoint", f"{tmp}/resnet50_torchvision.pth",
+                                         "--experiment_name", ENTRY_EXPERIMENT[2],
+                                         "--output_dir", tmp])
+    import_s = time.perf_counter() - t0
+    exp = Experiment(*ENTRY_EXPERIMENT)
+    loaded = build_bcosified_resnet(exp.model_config, seed=SEED + 1)
+    load_jax_variables(loaded, _variables_from_npz(path))
+    memory = import_torch_checkpoint.convert(sd, *ENTRY_EXPERIMENT)
+    want = memory.state_dict()
+    same = all(torch.equal(t, want[k]) for k, t in loaded.state_dict().items())
+    say(f"import_torch_checkpoint of a seeded torchvision ResNet-50: {path.name} "
+        f"({path.stat().st_size / 1e6:.1f} MB) in {import_s:.1f} s; loaded through "
+        f"load_jax_variables it equals the in-memory conversion: {same}")
+    if not same:
+        raise AssertionError("the imported npz differs from the in-memory conversion")
+
+
+def export_run(x2, exp_root, tmp):
+    """(e) export_serving --explain of phase 9's experiment, loaded: at batch
+    128 (fp32, the program's input dtype) its logits, class and W against
+    the loaded model's fast pass, its launches and its rate."""
+    from bcosification_tpu_torch.scripts import export_serving
+
+    old_env = os.environ.get("BCOS_EXPERIMENT_ROOT")
+    out = f"{tmp}/resnet_50_explain.pt2"
+    t0 = time.perf_counter()
+    try:
+        export_serving.main(["--experiment_name", ENTRY_EXPERIMENT[2], "--base_directory",
+                             str(exp_root), "--reload", "last", "--explain", "--out", out])
+    finally:
+        if old_env is None:
+            os.environ.pop("BCOS_EXPERIMENT_ROOT", None)
+        else:
+            os.environ["BCOS_EXPERIMENT_ROOT"] = old_env
+    export_s = time.perf_counter() - t0
+    blob = Path(out).read_bytes()
+    program = serving.load_serialized(blob)
+    model = Experiment(*ENTRY_EXPERIMENT).load_trained_model("last", verbose=False)
+    x = _batch128(x2, SEED + 25).float()
+    (logits, sel, w), counts = counted(lambda: program.call(x))
+    check_counts("export_serving --explain loaded", counts, EXPLAIN_COUNTS)
+    le, se, we = fast_dynamic_linear_weights(model, x)
+    bias = model.logit_bias
+    checks = {"W loaded vs eager (rel)": (rel(w, we), 1e-6),
+              "pre-logit loaded vs eager (rel)": (rel(logits.double() - bias,
+                                                      le.double() - bias), 1e-6)}
+    for key, (val, bound) in checks.items():
+        say(f"export_serving --explain {key}: {val:.3e} (bound {bound:.0e})")
+    if not torch.equal(sel, se) or any(not val <= bound for val, bound in checks.values()):
+        raise AssertionError("the exported program disagrees with the loaded model")
+    ms, calls, host, _ = windowed(lambda: program.call(x))
+    say(f"export_serving --explain of {ENTRY_EXPERIMENT[2]}: exported in {export_s:.1f} s "
+        f"({len(blob) / 1e6:.1f} MB, fp32 input); launches per call {counts}; loaded fwd+explain "
+        f"{BATCH / ms * 1e3:.1f} img/s fp32 ({ms:.2f} ms; one window of {calls} calls; host "
+        f"{host:.2f} ms) [{CARD}]")
+
+
+def openai_text(text):
+    """The port's text tower's weights under OpenAI's keys and shapes (the
+    inverse of ``clip_import.clip_text_to_variables``)."""
+    names = {"attn_in_proj.weight": "attn.in_proj_weight", "attn_in_proj.bias": "attn.in_proj_bias"}
+    modules = {"attn_out_proj": "attn.out_proj", "mlp_c_fc": "mlp.c_fc", "mlp_c_proj": "mlp.c_proj"}
+    out = {}
+    for key, t in text.state_dict().items():
+        a = t.detach().cpu().numpy()
+        if key == "token_embedding":
+            key = "token_embedding.weight"
+        elif key.startswith("resblocks_"):
+            block, rest = key.split(".", 1)
+            module, leaf = rest.rsplit(".", 1)
+            rest = names.get(rest, f"{modules.get(module, module)}.{leaf}")
+            key = f"transformer.resblocks.{block[len('resblocks_'):]}.{rest}"
+            if a.ndim == 2:  # (in, out) -> torch's (out, in)
+                a = a.T
+        out[key] = np.ascontiguousarray(a)
+    return out
+
+
+def openai_rn50(seed):
+    """An OpenAI-layout CLIP-RN50 checkpoint ({key: float32 array}, torch
+    shapes) at the published sizes (clip_rn50_config): the image tower drawn
+    with numpy from ``seed``, the text tower the port's at random init from
+    SEED (the tower that ``clip.load`` gives phase 16's harness without a
+    checkpoint)."""
+    cfg = clip_rn50_config()
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(key, *shape, scale=0.5):
+        sd[key] = (rng.standard_normal(shape, np.float32) * scale).astype(np.float32)
+
+    def bn(prefix, c):
+        put(f"{prefix}.weight", c)
+        put(f"{prefix}.bias", c)
+        put(f"{prefix}.running_mean", c, scale=0.3)
+        sd[f"{prefix}.running_var"] = (rng.random(c) + 0.5).astype(np.float32)
+        sd[f"{prefix}.num_batches_tracked"] = np.array(0, np.int64)
+
+    w = cfg["vision_width"]
+    for k, (cin, cout) in enumerate([(3, w // 2), (w // 2, w // 2), (w // 2, w)], start=1):
+        put(f"visual.conv{k}.weight", cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        bn(f"visual.bn{k}", cout)
+    inplanes = w
+    for stage, n_blocks in enumerate(cfg["vision_layers"]):
+        planes = w * 2 ** stage
+        for j in range(n_blocks):
+            p = f"visual.layer{stage + 1}.{j}"
+            put(f"{p}.conv1.weight", planes, inplanes, 1, 1, scale=inplanes ** -0.5)
+            put(f"{p}.conv2.weight", planes, planes, 3, 3, scale=(9 * planes) ** -0.5)
+            put(f"{p}.conv3.weight", planes * 4, planes, 1, 1, scale=planes ** -0.5)
+            for k, c in ((1, planes), (2, planes), (3, planes * 4)):
+                bn(f"{p}.bn{k}", c)
+            if j == 0:
+                put(f"{p}.downsample.0.weight", planes * 4, inplanes, 1, 1,
+                    scale=inplanes ** -0.5)
+                bn(f"{p}.downsample.1", planes * 4)
+            inplanes = planes * 4
+    e = w * 32
+    put("visual.attnpool.positional_embedding", (cfg["image_resolution"] // 32) ** 2 + 1, e)
+    for name, out in (("q_proj", e), ("k_proj", e), ("v_proj", e), ("c_proj", cfg["embed_dim"])):
+        put(f"visual.attnpool.{name}.weight", out, e, scale=e ** -0.5)
+        put(f"visual.attnpool.{name}.bias", out, scale=0.1)
+    sd.update(openai_text(build_clip_text(None, cfg, seed=SEED, device="cpu")))
+    sd["logit_scale"] = np.array(np.log(1 / 0.07), np.float32)
+    return sd
+
+
+ZEROSHOT_FILE = "imagenet_rn50_zeroshot.npy"  # phase 23 writes it, phase 16 loads it
+ZEROSHOT_CPU_CLASSES = (0, 999)  # the columns recomputed on the CPU (phase 11's 1e-4)
+
+
+def zeroshot_run(tmp, out):
+    """(f) precompute_zeroshot_weights with a seeded OpenAI-layout RN50 as
+    --clip-weights, written to ``out``: [1024, 1000] unit columns, and the
+    ZEROSHOT_CPU_CLASSES columns recomputed by zeroshot_classifier on the
+    CPU from the same file (phase 11's fp32 bound, 1e-4); the file's text
+    tower is phase 16's harness tower. Returns ``out``."""
+    from bcosification_tpu_torch.scripts import precompute_zeroshot_weights
+
+    np.savez(f"{tmp}/RN50.npz", **openai_rn50(SEED + 4))
+    old = os.environ.get("CLIP_WEIGHTS_PATH")
+    t0 = time.perf_counter()
+    try:
+        precompute_zeroshot_weights.main(["--out", str(out), "--clip-weights",
+                                          f"{tmp}/RN50.npz"])
+    finally:
+        if old is None:
+            os.environ.pop("CLIP_WEIGHTS_PATH", None)
+        else:
+            os.environ["CLIP_WEIGHTS_PATH"] = old
+    cli_s = time.perf_counter() - t0
+    w = zeroshot.load_zeroshot_weights(str(out))
+    sd = {k: v for k, v in np.load(f"{tmp}/RN50.npz").items()}
+    text = build_clip_text(sd, device="cpu")
+    harness = build_clip_text(None, clip_rn50_config(), seed=SEED, device="cpu").state_dict()
+    if not all(torch.equal(t, harness[k]) for k, t in text.state_dict().items()):
+        raise AssertionError("the checkpoint's text tower is not the harness's seeded tower")
+    t0 = time.perf_counter()
+    want = zeroshot.zeroshot_classifier(text, [imagenet_classes[i] for i in ZEROSHOT_CPU_CLASSES],
+                                        imagenet_templates)
+    cpu_s = time.perf_counter() - t0
+    err = rel(w[:, list(ZEROSHOT_CPU_CLASSES)], want)
+    norms = w.norm(dim=0)
+    say(f"precompute_zeroshot_weights --clip-weights (seeded RN50): {tuple(w.shape)} in "
+        f"{cli_s:.1f} s ({len(imagenet_classes)} classes x {len(imagenet_templates)} templates, "
+        f"fp32 text tower); column norms {float(norms.min()):.6f}-{float(norms.max()):.6f}; "
+        f"classes {ZEROSHOT_CPU_CLASSES} against the cpu from the same file {err:.3e} (bound "
+        f"1e-4; the cpu took {cpu_s:.1f} s) [{CARD}]")
+    if (tuple(w.shape) != (1024, 1000) or not err <= 1e-4
+            or float((norms - 1).abs().max()) > 1e-5):
+        raise AssertionError("precompute_zeroshot_weights disagrees with the CPU")
+    return out
+
+
+def validate_run(tmp):
+    """(f) validate_release_weights: evaluate_imagenet of a seeded
+    release-format resnet50.pth over phase 9's val tree on the card and on
+    the CPU: every batch's pre-logits (read off the converted net) within
+    phase 17's bound (1e-4 max relative), the argmax and top-1/top-5 equal
+    (a random-init net scores 0 on the tree's classes: the logits are the
+    check); and main's exit code without the reference tree (1: the parity
+    leg fails, as the JAX script's rules give)."""
+    from bcosification_tpu_torch.scripts import validate_release_weights as validate
+
+    weights = Path(tmp) / "weights"
+    weights.mkdir()
+    zoo = pretrained.load_model("resnet50", pretrained=False, seed=SEED)
+    torch.save(release_import.release_state_dict(zoo, "resnet50"), weights / "resnet50.pth")
+    del zoo
+    imagenet = Path(settings.IMAGENET_PATH)
+    convert, outputs, seconds, results = release_import.convert_release_checkpoint, {}, {}, {}
+
+    def recording(*args, device=None, **kwargs):  # records the logits evaluate_imagenet sees
+        net, info = convert(*args, device=device, **kwargs)
+        logits = outputs.setdefault(device or "cuda", [])
+        net.register_forward_hook(lambda m, i, o: logits.append(o.detach().double().cpu()))
+        outputs[f"{device or 'cuda'} bias"] = float(net.logit_layer.logit_bias)
+        return net, info
+
+    release_import.convert_release_checkpoint = recording
+    try:
+        for device in (None, "cpu"):
+            t0 = time.perf_counter()
+            results[device or "cuda"] = validate.evaluate_imagenet(
+                "resnet50", weights, imagenet, SCRIPTS_EVAL_LIMIT, limit=SCRIPTS_EVAL_LIMIT,
+                device=device)
+            seconds[device or "cuda"] = time.perf_counter() - t0
+    finally:
+        release_import.convert_release_checkpoint = convert
+    gpu, cpu = results["cuda"], results["cpu"]
+    lg, lc = torch.cat(outputs["cuda"]), torch.cat(outputs["cpu"])
+    pg, pc = lg - outputs["cuda bias"], lc - outputs["cpu bias"]
+    err = float((pg - pc).abs().max() / pc.abs().max())
+    same_argmax = torch.equal(lg.argmax(1), lc.argmax(1))
+    say(f"validate_release_weights evaluate_imagenet (seeded release-format resnet50, "
+        f"{gpu['n']} val JPEGs): card {gpu} in {seconds['cuda']:.1f} s, cpu {cpu} in "
+        f"{seconds['cpu']:.1f} s; pre-logits card vs cpu {err:.3e} (max rel, bound 1e-4), "
+        f"argmax identical {same_argmax}")
+    if (gpu != cpu or gpu["n"] != SCRIPTS_EVAL_LIMIT or lg.shape != (SCRIPTS_EVAL_LIMIT, 1000)
+            or not err <= 1e-4 or not same_argmax):
+        raise AssertionError("evaluate_imagenet on the card disagrees with the CPU")
+    old = os.environ.pop("BCOS_REFERENCE_ROOT", None)
+    try:
+        rc = validate.main(["--weights_dir", str(weights)])
+    finally:
+        if old is not None:
+            os.environ["BCOS_REFERENCE_ROOT"] = old
+    say(f"validate_release_weights main without the reference tree: exit code {rc} "
+        f"(the JAX script's rules: 1, the parity leg fails)")
+    if rc != 1:
+        raise AssertionError(f"validate_release_weights main exited {rc}, expected 1")
+
+
+def phase_scripts(net, x2, exp_root):
+    """Phase 23: the wrapper API and the script CLIs (see the module
+    docstring); prints the seconds of its parts. Returns the zero-shot
+    classifier file that phase 16 loads."""
+    seconds, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = [("a wrapper", lambda: wrapper_calls(net, x2)),
+                 ("b explain_minimal", lambda: example_run(tmp)),
+                 ("c strip", lambda: strip_run(x2, tmp)),
+                 ("d import", lambda: import_run(tmp)),
+                 ("e export", lambda: export_run(x2, exp_root, tmp)),
+                 ("f zero-shot", lambda: zeroshot_run(tmp, Path(exp_root) / ZEROSHOT_FILE)),
+                 ("f validate", lambda: validate_run(tmp))]
+        for tag, part in parts:
+            t0 = time.perf_counter()
+            out[tag] = part()
+            seconds[tag] = time.perf_counter() - t0
+    say("phase 23 seconds per part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return out["f zero-shot"]
+
+
 def text_localisation_call(student):
     """One fp32 text localisation (``compute_attributions`` of the
     attn-unpool ``student`` on one seeded 224^2 image and text direction,
@@ -6568,6 +7046,10 @@ def main() -> int:
     with synthetic_imagenet() as exp_root:
         phase_entry(net, x2, train["step_img_s"], exp_root)
         seconds["9 entry points"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # reads phase 9's experiment and JPEG tree; phase 16 loads its classifier
+        zeroshot_file = phase_scripts(net, x2, exp_root)
+        seconds["23 wrapper and scripts"] = time.perf_counter() - t0
         if k12.tma_operands.padded:
             raise AssertionError(f"{k12.tma_operands.padded} ResNet-50 calls padded their operands")
         say("TMA operand padding on the ResNet-50 paths: 0 calls")
@@ -6610,7 +7092,7 @@ def main() -> int:
             raise AssertionError(f"{k12.tma_operands.padded} analysis calls padded their "
                                  "operands")
         t0 = time.perf_counter()
-        bench = phase_bench(probe["k4_gbs"] * 1e9, worst, exp_root)
+        bench = phase_bench(probe["k4_gbs"] * 1e9, worst, exp_root, zeroshot_file)
         seconds["16 clip benchmark"] = time.perf_counter() - t0
     if k12.tma_operands.padded:
         raise AssertionError(f"{k12.tma_operands.padded} clip benchmark calls padded their "

@@ -74,9 +74,14 @@ def clip_pair(attn_unpool, seed=7, use_bias=False):
     return net, jax.tree_util.tree_map(jnp.asarray, variables), tnet, x
 
 
+@pytest.fixture(scope="module")
+def pooled_pair():
+    return clip_pair(False)
+
+
 @pytest.fixture(scope="module", params=[False, True], ids=["pooled", "unpool"])
 def pair(request):
-    return clip_pair(request.param)
+    return request.getfixturevalue("pooled_pair") if not request.param else clip_pair(True)
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +151,8 @@ def test_linear_modules_match_jax(layer, weight_only):
 @pytest.mark.parametrize("explain", [False, True], ids=["eval", "explain"])
 def test_tower_forward_matches_jax(pair, explain):
     net, variables, tnet, x = pair
-    want = np.asarray(net.apply(variables, jnp.asarray(x), train=False, explain=explain))
+    want = np.asarray(jax.jit(lambda v, t: net.apply(v, t, train=False, explain=explain))(
+        variables, jnp.asarray(x)))
     with torch.no_grad():
         got = tnet(torch.from_numpy(x), explain=explain).numpy()
     assert got.shape == want.shape
@@ -177,7 +183,8 @@ def test_fast_text_dlw_with_biases_matches_jax(text_dir):
 
     net, variables, tnet, x = clip_pair(True, use_bias=True)
     assert tnet.model.attnpool.c_proj.bias is not None
-    js, jw = jfast.fast_text_dlw(net, variables, jnp.asarray(x), jnp.asarray(text_dir))
+    js, jw = jax.jit(lambda v, inp: jfast.fast_text_dlw(net, v, inp, jnp.asarray(text_dir)))(
+        variables, jnp.asarray(x))
     s, w = fast_clip.fast_text_dlw(tnet, torch.from_numpy(x), torch.from_numpy(text_dir),
                                    device="cpu")
     np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5, atol=1e-6)
@@ -249,16 +256,16 @@ def test_kernel_routes(pair, monkeypatch):
                      "k3": [True] * unpool}
 
 
-def test_generic_explain_matches_jax():
+def test_generic_explain_matches_jax(pooled_pair):
     """``dynamic_linear_weights`` / ``make_explain_fn`` take the pooled tower
     ([B, D] features; the core explains [B, classes] outputs) through
     autograd, as the JAX explain core does."""
     from bcosification_tpu.explain.core import dynamic_linear_weights as jdlw
     from bcosification_tpu_torch.explain.core import dynamic_linear_weights, make_explain_fn
 
-    net, variables, tnet, x = clip_pair(False)
-    jl, js, jw = jdlw(lambda inp: net.apply(variables, inp, train=False, explain=True),
-                      jnp.asarray(x))
+    net, variables, tnet, x = pooled_pair
+    jl, js, jw = jax.jit(lambda v, t: jdlw(
+        lambda inp: net.apply(v, inp, train=False, explain=True), t))(variables, jnp.asarray(x))
     out, sel, w = dynamic_linear_weights(lambda t: tnet(t, explain=True), torch.from_numpy(x),
                                          device="cpu")
     np.testing.assert_array_equal(sel.numpy(), np.asarray(js))

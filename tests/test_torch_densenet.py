@@ -46,17 +46,18 @@ def pair():
 def _jax_autodiff(net, variables, x, idx=None):
     from bcosification_tpu.explain.core import dynamic_linear_weights
 
-    def f(inp):
-        return net.apply(variables, inp, train=False, explain=True)
+    def run(v, inp, i):  # one jit: eager flax is slow
+        return dynamic_linear_weights(
+            lambda t: net.apply(v, t, train=False, explain=True), inp, i)
 
-    return dynamic_linear_weights(f, jnp.asarray(x), idx)
+    return jax.jit(run)(variables, jnp.asarray(x), idx)
 
 
 @pytest.mark.parametrize("explain", [False, True], ids=["eval", "explain"])
 def test_module_forward_matches_jax(pair, explain):
     net, variables, tnet, x = pair
-    want = np.asarray(net.apply(variables, jnp.asarray(x), train=False, explain=explain),
-                      np.float64)
+    want = np.asarray(jax.jit(lambda v, t: net.apply(v, t, train=False, explain=explain))(
+        variables, jnp.asarray(x)), np.float64)
     with torch.no_grad():
         got = tnet(torch.from_numpy(x), explain=explain).numpy().astype(np.float64)
     bias = logit_bias()
@@ -184,7 +185,7 @@ def test_train_step_matches_jax(pair):
         return criterion(out.astype(jnp.float32), batch["label"])
 
     jgrads = {".".join(p): a for p, a in _leaves(
-        jax.tree_util.tree_map(np.asarray, jax.grad(loss_fn)(variables["params"])))}
+        jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss_fn))(variables["params"])))}
     jstep = jsteps.make_train_step(net, criterion, tx, use_agc=True, ema_decay=0.9,
                                    ema_steps=1, donate=False)
     jstate, jm = jstep(jsteps.create_train_state(variables, tx, with_ema=True), batch)
@@ -257,7 +258,7 @@ def test_densenet_b1_conversion_exact():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
     jnet, jvars = jax_densenet(B1_CONFIG, tsd, arch_cfg=MINI, input_size=32, num_classes=5)
-    jout = np.asarray(jnet.apply(jvars, jnp.asarray(x6))) + np.log(5 - 1)
+    jout = np.asarray(jax.jit(jnet.apply)(jvars, jnp.asarray(x6))) + np.log(5 - 1)
     np.testing.assert_allclose(got, jout, rtol=1e-5, atol=1e-6)
 
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX (nor flax or optax)
-nor the JAX package (nor its top-level ``clip_benchmark``), and its entry
-points refuse to fall back to the CPU when no GPU is present."""
+nor the JAX package (nor its top-level ``clip_benchmark``, ``scripts`` or
+``examples``) nor a helper of the tests, and its entry points refuse to
+fall back to the CPU when no GPU is present."""
 import os
 import subprocess
 import sys
@@ -62,12 +63,20 @@ for name in ("losses", "optim.optimizer_factory", "optim.lr_scheduler_factory",
              "clip_benchmark.model_collection", "models.pretrained", "modules.containers",
              "modules.stochastic_depth", "utils", "utils.init_mode",
              "bcosify.release_import", "models.vgg", "models.convnext", "explain.fast_vgg",
-             "explain.fast_convnext", "explain._shared"):
+             "explain.fast_convnext", "explain._shared", "common", "scripts",
+             "scripts.import_torch_checkpoint", "scripts.strip_checkpoints",
+             "scripts.export_serving", "scripts.precompute_zeroshot_weights",
+             "scripts.validate_release_weights", "scripts.reference_tree", "examples",
+             "examples.explain_minimal"):
     assert "bcosification_tpu_torch." + name in names, name
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "bcosification_tpu",
                                     "clip_benchmark"))
+# nor a helper of the tests (reference_loader, torch_port_helpers, ...)
+from pathlib import Path
+helpers = {p.stem for p in Path("tests").glob("*.py")} | {"scripts", "examples"}
+bad += sorted(k for k in sys.modules if k.split(".")[0] in helpers)
 print("FOREIGN", bad)
 assert not bad, bad
 """
@@ -251,3 +260,29 @@ def test_vgg_and_convnext_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError, match="GPU"):
         fast_convnext.fast_dynamic_linear_weights(net, x)
     assert fast_convnext.fast_dynamic_linear_weights(net, x, device="cpu")[2].shape == x.shape
+
+
+def test_scripts_and_example_raise_without_gpu(tmp_path, monkeypatch):
+    """The port's CLIs and its example run on the card unless asked for the
+    CPU: without a GPU they raise before anything is written."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is usable")
+    from bcosification_tpu_torch import settings
+    from bcosification_tpu_torch.examples import explain_minimal
+    from bcosification_tpu_torch.scripts import (
+        export_serving,
+        strip_checkpoints,
+        validate_release_weights,
+    )
+
+    monkeypatch.setattr(settings, "EXPERIMENT_ROOT", str(tmp_path))
+    out = tmp_path / "out"
+    runs = [lambda: explain_minimal.main(str(out)),
+            lambda: export_serving.main(["--experiment_name", "resnet_18", "--out", str(out)]),
+            lambda: strip_checkpoints.main(["--experiment_name", "resnet_18", "--output_dir",
+                                            str(out)]),
+            lambda: validate_release_weights.evaluate_clip_zeroshot(out, out)]
+    for run in runs:
+        with pytest.raises(RuntimeError, match="GPU"):
+            run()
+    assert not any(tmp_path.iterdir())

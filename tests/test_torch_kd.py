@@ -136,9 +136,18 @@ def teachers():
     return teacher_pair()
 
 
+@pytest.fixture(scope="module")
+def pooled_student():
+    """The pooled student pair, built once for the module (``towers`` and the
+    fits read it; nothing mutates it)."""
+    return student_pair(False)
+
+
 @pytest.fixture(scope="module", params=[False, True], ids=["pooled", "unpool"])
 def towers(request, teachers):
-    return (request.param, *teachers, *student_pair(request.param))
+    students = request.getfixturevalue("pooled_student") if not request.param else (
+        student_pair(True))
+    return (request.param, *teachers, *students)
 
 
 def _jax_loss_fn(jt, tvars, js, x, cos_power):
@@ -167,8 +176,12 @@ def test_kd_forward_features_matches_jax(towers):
 
     unpool, jt, tvars, teacher, js, svars, student = towers
     x = images()
-    want_t, want_s, want_bs = jkd.kd_forward_features(js, jt, svars, tvars, jnp.asarray(x),
-                                                      train=True)
+
+    def forward(train):  # eager flax takes minutes on this net: one jit per mode
+        return jax.jit(lambda sv, tv, xx: jkd.kd_forward_features(js, jt, sv, tv, xx,
+                                                                  train=train))
+
+    want_t, want_s, want_bs = forward(True)(svars, tvars, jnp.asarray(x))
     s = copy.deepcopy(student)
     with torch.no_grad():
         got_t, got_s = kd.kd_forward_features(s, teacher, torch.from_numpy(x), train=True)
@@ -184,7 +197,7 @@ def test_kd_forward_features_matches_jax(towers):
     before = _flat(to_jax_variables(student)["batch_stats"])
     with torch.no_grad():
         _, got_eval = kd.kd_forward_features(student, teacher, torch.from_numpy(x))
-    _, want_eval, none = jkd.kd_forward_features(js, jt, svars, tvars, jnp.asarray(x))
+    _, want_eval, none = forward(False)(svars, tvars, jnp.asarray(x))
     assert none is None and _rel(got_eval.numpy(), want_eval) <= 1e-5
     after = _flat(to_jax_variables(student)["batch_stats"])
     assert all(np.array_equal(after[k], v) for k, v in before.items())
@@ -219,8 +232,8 @@ def test_kd_loss_and_gradients_match_jax(towers):
     unpool, jt, tvars, teacher, js, svars, student = towers
     cos_power = 2 if unpool else 0
     x = images()
-    (want_loss, _), want = jax.value_and_grad(
-        _jax_loss_fn(jt, tvars, js, jnp.asarray(x), cos_power), has_aux=True)(
+    (want_loss, _), want = jax.jit(jax.value_and_grad(
+        _jax_loss_fn(jt, tvars, js, jnp.asarray(x), cos_power), has_aux=True))(
             svars["params"], svars["batch_stats"])
     want = {k[len("params/"):] if k.startswith("params/") else k: v
             for k, v in _flat(want).items()}
@@ -343,8 +356,34 @@ def _port_step(student, teacher, x, cos_power, use_agc):
             _flat(to_jax_variables(state.model)["batch_stats"]))
 
 
+@pytest.fixture(scope="module")
+def jax_steps():
+    """(head, use_agc) -> (JAX state, metrics) of one recipe step, for the
+    module: the train-step test and the amp test's fp32 loss share it."""
+    return {}
+
+
+def _jax_step(jax_steps, towers, use_agc):
+    """One step of the JAX recipe (Adam 1e-4 with the cosine) on the towers'
+    weights and ``images()``: (state, metrics), computed once per head and
+    AGC setting (``jax_steps``)."""
+    from bcosification_tpu.training import kd as jkd
+    from bcosification_tpu.training import steps as jsteps
+
+    unpool, jt, tvars, _, js, svars, _ = towers
+    key = (unpool, use_agc)
+    if key not in jax_steps:
+        jopt, jsched = _recipe(port=False)
+        tx = jopt.create(jsched, svars["params"])
+        jstep = jkd.make_kd_train_step(js, jt, tvars, tx, cos_power=2 if unpool else 0,
+                                       use_agc=use_agc, donate=False)
+        jax_steps[key] = jstep(jsteps.create_train_state(svars, tx),
+                               {"image": jnp.asarray(images())})
+    return jax_steps[key]
+
+
 @pytest.mark.parametrize("use_agc", [True, False], ids=["agc", "no_agc"])
-def test_kd_train_step_matches_jax(towers, use_agc):
+def test_kd_train_step_matches_jax(towers, jax_steps, use_agc):
     """One step of the recipe (Adam 1e-4 with the cosine; AGC on and off)
     against the JAX step: the loss (1e-5); Adam's first moment, which is
     the (clipped) gradient times 0.1, leaf by leaf within ten times the
@@ -355,17 +394,10 @@ def test_kd_train_step_matches_jax(towers, use_agc):
     JAX's step within 2e-3 lr (fp32 rounds a parameter near 0.5 to 6e-4 lr);
     an element below that, whose gradient is rounding noise, takes a step
     of at most lr (plus the rounding) either way."""
-    from bcosification_tpu.training import kd as jkd
-    from bcosification_tpu.training import steps as jsteps
-
     unpool, jt, tvars, teacher, js, svars, student = towers
     cos_power = 2 if unpool else 0
     x = images()
-    jopt, jsched = _recipe(port=False)
-    tx = jopt.create(jsched, svars["params"])
-    jstep = jkd.make_kd_train_step(js, jt, tvars, tx, cos_power=cos_power, use_agc=use_agc,
-                                   donate=False)
-    jstate, jmetrics = jstep(jsteps.create_train_state(svars, tx), {"image": jnp.asarray(x)})
+    jstate, jmetrics = _jax_step(jax_steps, towers, use_agc)
     loss, params, mu, got_bs = _port_step(student, teacher, x, cos_power, use_agc)
     noise = np.random.default_rng(1).standard_normal(x.shape).astype(np.float32)
     _, _, mu_moved, _ = _port_step(student, teacher, (x * (1 + 1e-7 * noise)).astype(np.float32),
@@ -390,7 +422,7 @@ def test_kd_train_step_matches_jax(towers, use_agc):
         assert _rel(got_bs[name], w) <= 1e-5, name
 
 
-def test_amp_kd_loss_within_jax_amp_distance(towers):
+def test_amp_kd_loss_within_jax_amp_distance(towers, jax_steps):
     """The bf16 amp step's loss (both towers in bf16 over f32 parameters)
     against the JAX amp step's: within twice the JAX amp loss's distance
     from the JAX fp32 loss (and 1e-3 relative, bf16's rounding at the
@@ -404,12 +436,12 @@ def test_amp_kd_loss_within_jax_amp_distance(towers):
     x = images()
     jopt, _ = _recipe(port=False)
     tx = jopt.create(1e-4, svars["params"])
-    losses = {}
-    for amp in (False, True):
-        jstep = jkd.make_kd_train_step(js, jt, tvars, tx, cos_power=cos_power, donate=False,
-                                       amp=amp)
-        _, m = jstep(jsteps.create_train_state(svars, tx), {"image": jnp.asarray(x)})
-        losses[amp] = float(m["loss"])
+    # the fp32 loss is the recipe step's (the loss comes before the update)
+    losses = {False: float(_jax_step(jax_steps, towers, False)[1]["loss"])}
+    jstep = jkd.make_kd_train_step(js, jt, tvars, tx, cos_power=cos_power, donate=False,
+                                   amp=True)
+    _, m = jstep(jsteps.create_train_state(svars, tx), {"image": jnp.asarray(x)})
+    losses[True] = float(m["loss"])
     opt, _ = _recipe()
     state = steps.create_train_state(student, opt.create, device="cpu")
     _, metrics = kd.make_kd_train_step(teacher, 1e-4, cos_power=cos_power, amp=True)(
@@ -539,7 +571,7 @@ def _history(save_dir):
         return json.load(f)
 
 
-def test_fit_kd_matches_jax(teachers, tmp_path, monkeypatch):
+def test_fit_kd_matches_jax(teachers, pooled_student, tmp_path, monkeypatch):
     """Two epochs of fit_kd (Adam 1e-3 with the cosine, AGC) from the same
     student and teacher: per-epoch train_loss and val_loss against the JAX
     fit_kd (1e-4 relative, as the supervised fit is held); metrics.csv;
@@ -549,7 +581,7 @@ def test_fit_kd_matches_jax(teachers, tmp_path, monkeypatch):
     from bcosification_tpu_torch.training.trainer import Trainer
 
     jt, tvars, teacher = teachers
-    js, svars, student = student_pair(False)
+    js, svars, student = pooled_student
     _patch_clip_load(monkeypatch, (jt, tvars), teacher)
     teacher_before = {k: v.clone() for k, v in teacher.state_dict().items()}
     student_before = {k: v.clone() for k, v in student.state_dict().items()}
@@ -594,7 +626,8 @@ def _write_shard(path, n, rng):
                 tf.addfile(info, io.BytesIO(data))
 
 
-def test_run_training_routes_cc3m_kd_to_fit_kd(teachers, tmp_path, monkeypatch):
+def test_run_training_routes_cc3m_kd_to_fit_kd(teachers, pooled_student, tmp_path,
+                                              monkeypatch):
     """``run_training`` of the CC3M KD config (its model factory patched to
     the small student, its transforms to 64x64 crops, batch 4) over a CC3M
     tree whose 332 train shards are links to one: Trainer.fit goes to
@@ -612,7 +645,7 @@ def test_run_training_routes_cc3m_kd_to_fit_kd(teachers, tmp_path, monkeypatch):
     import bcosification_tpu_torch.settings as tsettings
 
     jt, tvars, teacher = teachers
-    _, _, student = student_pair(False)
+    student = copy.deepcopy(pooled_student[2])
     _patch_clip_load(monkeypatch, (jt, tvars), teacher)
     root = tmp_path / "cc3m"
     (root / "training").mkdir(parents=True)

@@ -82,14 +82,14 @@ def randomized(variables, seed):
     biases 0.1 N."""
     rng = np.random.default_rng(seed)
 
-    def leaf(path, a):
-        a = np.asarray(a)
-        if path[-1].key == "weight" and a.ndim >= 2:
-            bound = 1.0 / math.sqrt(int(np.prod(a.shape[:-1])))
-            return rng.uniform(-bound, bound, a.shape).astype(np.float32)
+    def leaf(path, a):  # an array or a shape (jax.eval_shape): only the shape is read
+        shape = tuple(a.shape)
+        if path[-1].key == "weight" and len(shape) >= 2:
+            bound = 1.0 / math.sqrt(int(np.prod(shape[:-1])))
+            return rng.uniform(-bound, bound, shape).astype(np.float32)
         if path[-1].key == "weight":
-            return (1.0 + 0.2 * rng.standard_normal(a.shape)).astype(np.float32)
-        return (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+            return (1.0 + 0.2 * rng.standard_normal(shape)).astype(np.float32)
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, variables)
 
@@ -97,7 +97,10 @@ def randomized(variables, seed):
 def final_pair(name, seed=0):
     """(jax net, jax variables, port net) of config ``name`` at the small
     size, on the same weights drawn from ``seed``; the port on the CPU."""
-    with small_archs(), warnings.catch_warnings():
+    from bcosification_tpu.utils.init_mode import abstract_init
+
+    # every leaf is redrawn: the JAX model's shapes suffice, no init to compile
+    with small_archs(), warnings.catch_warnings(), abstract_init():
         warnings.simplefilter("ignore")
         net, variables = jmodel.get_model(model_config(jparams.CONFIGS, name))
         tnet = tmodel.get_model(model_config(tparams.CONFIGS, name), device="cpu")
@@ -346,18 +349,21 @@ def test_stem_norms_and_linears_match_jax(case):
     params = {k: (np.asarray(v) + 0.3 * rng.standard_normal(np.shape(v))).astype(np.float32)
               for k, v in variables["params"].items()}
     load_jax_variables(tm, {"params": params})
-    out_shape = jm.apply({"params": params}, jnp.asarray(x)).shape
+    out_shape = jax.eval_shape(lambda t: jm.apply({"params": params}, t), jnp.asarray(x)).shape
     ct = rng.standard_normal(out_shape).astype(np.float32)
     vjps = {}
     for explain in (False, True):
-        want, vjp = jax.vjp(lambda p, t: jm.apply({"params": p}, t, explain=explain),
-                            params, jnp.asarray(x))
+        def forward_and_vjp(p, t, c, explain=explain):  # one jit: eager flax is slow
+            y, vjp = jax.vjp(lambda pp, tt: jm.apply({"params": pp}, tt, explain=explain), p, t)
+            return y, vjp(c)
+
+        want, (want_p, want_x) = jax.jit(forward_and_vjp)(params, jnp.asarray(x),
+                                                          jnp.asarray(ct))
         xt = torch.from_numpy(x).requires_grad_(True)
         tm.zero_grad()
         got = tm.requires_grad_(True)(xt, explain=explain)
         got.backward(torch.from_numpy(ct))
         assert _rel(got.detach(), want) < 1e-5, explain
-        want_p, want_x = vjp(jnp.asarray(ct))
         assert _rel(xt.grad, want_x) < 1e-5, explain
         for k, g in want_p.items():
             got_g = getattr(tm, k).grad.numpy()

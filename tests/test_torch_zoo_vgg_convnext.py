@@ -152,7 +152,7 @@ def small_pair(name, seed):
     the uncentered BNs calibrated on a probe image."""
     size = SIZES[name]
     net = jax_net(name, **KW.get(name, {}))
-    variables = initialize(net, jax.random.PRNGKey(0), jnp.zeros((1, size, size, 6)))
+    variables = jax.eval_shape(net.init, jax.random.PRNGKey(0), jnp.zeros((1, size, size, 6)))
     variables_np = positive_running_var(randomized(variables, seed), seed + 100)
     tnet = port_net(name, **KW.get(name, {}))
     load_jax_variables(tnet, variables_np)
@@ -258,8 +258,11 @@ def test_norm_matches_jax(name, mode):
             return jmod.apply(variables, t, train=train, explain=explain, mutable=mutable)
         return jmod.apply(variables, t, train=train, explain=explain), {}
 
-    y, vjp, updated = jax.vjp(f, jnp.asarray(x), has_aux=True)
-    (gx,) = vjp(jnp.asarray(ct))
+    def forward_and_vjp(t, c):  # one jit: eager flax is slow
+        y, vjp, updated = jax.vjp(f, t, has_aux=True)
+        return y, vjp(c), updated
+
+    y, (gx,), updated = jax.jit(forward_and_vjp)(jnp.asarray(x), jnp.asarray(ct))
     yt = tmod(xt, train=train, explain=explain)
     (gt,) = torch.autograd.grad(yt, xt, torch.from_numpy(ct))
     assert _rel(yt.detach().numpy(), y) <= 1e-5
@@ -337,13 +340,20 @@ def test_layer_matches_jax(case, explain):
     rng = np.random.default_rng(len(case))
     x = rng.standard_normal(shape).astype(np.float32)
     jmod = make_jax()
-    variables = randomized(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)), len(case))
+    variables = randomized(jax.eval_shape(jmod.init, jax.random.PRNGKey(0), jnp.asarray(x)),
+                           len(case))
     tmod = make_port()
     load_jax_variables(tmod, variables)
-    y, vjp = jax.vjp(lambda t: jmod.apply(jax.tree_util.tree_map(jnp.asarray, variables), t,
-                                          explain=explain), jnp.asarray(x))
-    ct = rng.standard_normal(y.shape).astype(np.float32)
-    (gx,) = vjp(jnp.asarray(ct))
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+
+    def forward_and_vjp(v, t, c):  # one jit: eager flax is slow
+        y, vjp = jax.vjp(lambda tt: jmod.apply(v, tt, explain=explain), t)
+        return y, vjp(c)
+
+    shape = jax.eval_shape(lambda v, t: jmod.apply(v, t, explain=explain), jvars,
+                           jnp.asarray(x)).shape
+    ct = rng.standard_normal(shape).astype(np.float32)
+    y, (gx,) = jax.jit(forward_and_vjp)(jvars, jnp.asarray(x), jnp.asarray(ct))
     xt = torch.from_numpy(x).requires_grad_(True)
     yt = tmod(xt, explain=explain)
     (gt,) = torch.autograd.grad(yt, xt, torch.from_numpy(ct))
@@ -383,7 +393,7 @@ def test_allnorm_resnet_matches_jax_off_k1():
     kw = dict(block="bottleneck", layers=(1, 1), inplanes=8, num_classes=NUM_CLASSES)
     net = jresnet.BcosResNet(**kw, norm_layer=jnorms.NoBias(jnorms.AllNormUncentered2d),
                              act_layer=JReLU)
-    variables = initialize(net, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 6)))
+    variables = jax.eval_shape(net.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 6)))
     tnet = pretrained._cnn(tresnet.BcosResNet, **kw, norm_layer=NoBias(AllNormUncentered2d),
                            act_layer=ReLU)(device="cpu")
     load_jax_variables(tnet, positive_running_var(randomized(variables, 7), 8))
@@ -540,7 +550,7 @@ def test_no_pool_and_layer_scale_init():
     no_pool."""
     with tiny_cfg():
         net = jvgg.BcosVGG(cfg=TINY, num_classes=NUM_CLASSES, no_pool=True)
-        variables = initialize(net, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 6)))
+        variables = jax.eval_shape(net.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 6)))
         tnet = port_net("vgg_bnu", no_pool=True)
         load_jax_variables(tnet, positive_running_var(randomized(variables, 30), 31))
         calibrate_norms(tnet, torch.from_numpy(images(1, 32, 16)))

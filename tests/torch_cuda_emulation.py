@@ -47,6 +47,11 @@ def compile_emulated(sources, work: Path, defines=()) -> ctypes.CDLL:
         text = re.sub(r"(\w+(?:<[\w:]+>)?)<<<(.*?)>>>\(",
                       lambda m: f"emu_launch({m.group(2)}, {m.group(1)}, ",
                       path.read_text(), flags=re.S)
+        # K2's 128-row blocks need two row blocks per SM: 132 SMs on the H100,
+        # the stand-in's EMU_SMS here
+        if path.name == "bcos_conv1x1_bwd.cu":
+            assert "kRows128MinM = 2 * 132 * 128" in text, "K2's 128-row threshold was reworded"
+        text = text.replace("kRows128MinM = 2 * 132 * 128", f"kRows128MinM = 2 * {EMU_SMS} * 128")
         return re.sub(r"extern __shared__ __align__\(\d+\) unsigned char smem\[\];",
                       "unsigned char* smem = g_dyn_smem;", text)
 
@@ -162,18 +167,22 @@ def _k3(emulated, x, wt, eps_outside):
 
 
 # The fp32 route of K1, K2 and K3 (3xTF32 wgmma, csrc/bcos_tf32.cuh) at ragged
-# shapes: M = 49 (layer4 of one 224^2 image) and 3136 + 13 (layer1 + a
-# ragged row block), N = 1000 (y by TMA) and N % 4 != 0 (y from the
+# shapes: M = 49 (layer4 of one 224^2 image) and 3 * 128 + 13 (whole row
+# blocks and a ragged one, as layer1's 3136 + 13), N = 1000 (y by TMA) and N % 4 != 0 (y from the
 # registers; g's scratch rows padded to 4), K % 4 != 0 (zero-padded by
-# tma_operands) and a deep K (64 stages); K1 with the ReLU on and off, the
+# tma_operands) and a deep K (32 stages); K1 with the ReLU on and off, the
 # add present and None; K3 with both eps_outside values, K2 with the mask
 # and mult and without (``_check_k2``). The stand-in reads
 # tf32 as the tensor cores do, so a single tf32 pass would miss these
 # bounds by ~100x (tests/test_torch_kernels.py holds the scheme itself).
 # On the stand-in's two SMs a launch of one 128 x 128 tile runs split-K:
-# K1, K3 and K2's g at m49-k2046-n61 (2 splits of 32 stages), K2's dx at
-# m49-k100-n1030 (2 splits over Cout = 1030).
-FP32_ROUTE_SHAPES = [(49, 30, 1000), (3149, 64, 130), (49, 2046, 61), (49, 100, 1030)]
+# K1, K3 and K2's g at K = 1022 (2 splits of 16 stages; one accumulator
+# over each split's chain, without the per-stage promotion, misses K1's
+# bound 5x there), K2's dx at Cout = 266 (2 splits of 9 stages). The ids
+# keep the names of the cases these shapes replaced, at which the stand-in
+# took ~4x as long for the same tiles, masks and splits: M = 3149, K = 2046
+# and N = 1030.
+FP32_ROUTE_SHAPES = [(49, 30, 1000), (397, 64, 130), (49, 1022, 61), (49, 100, 266)]
 FP32_ROUTE_IDS = ["m49-k30-n1000", "m3149-k64-n130", "m49-k2046-n61", "m49-k100-n1030"]
 
 
